@@ -1,5 +1,6 @@
 """Public ops over the hand-written kernels: port of
-``repro/kernels/ops.py`` for the PDQ-weights serving path.
+``repro/kernels/ops.py`` for the serving path (PDQ weights, fp or int8 KV
+cache).
 
 Dispatch is by the tensor's device, never by a global switch: a CPU tensor
 takes a kernel's plain version (``kernels/ref.py``), a CUDA tensor launches
@@ -13,8 +14,7 @@ reads them to show that the path went through the kernels.
 
 All ops take arbitrary leading batch dims.  Ragged shapes are masked in
 the kernels, so nothing is padded here.  Tensor parallelism, the guarded
-fp fallback, PDQ telemetry and the int8-KV attend ops wait for later
-slices (ROADMAP.md Queue 1).
+fp fallback and PDQ telemetry wait for later slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ COUNTS = {
     "pdq_prologue": _pro.COUNT,
     "w8a8_matmul": _mm.COUNT,
     "w8a8_swiglu_matmul": _mm.SWIGLU_COUNT,
+    "decode_attend_i8kv": _kv.ATTEND_COUNT,
+    "decode_attend_i8kv_fused": _kv.FUSED_COUNT,
     "cache_scatter": _kv.COUNT,
 }
 
@@ -266,6 +268,29 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None):
     return w8a8_matmul(hq, down_rec["q"], sxo.reshape(*lead, 1), 0,
                        down_rec["scale"], colsum=down_rec["colsum"],
                        fp_range=(lo2, hi2), out_dtype=out_dtype)
+
+
+def decode_attend_i8kv(q, k_q, v_q, k_scale, v_scale, length, *,
+                       wo_prologue: bool = False, pro_dtype=None):
+    """One-token attention over an int8 KV cache in KERNEL layout.
+
+    q: (B, H, Dh) f32; k_q/v_q: (B, Hkv, Sp, Dh) int8; k_scale/v_scale:
+    (B, Hkv, Sp) f32; length: (B,) int32, each row's valid prefix (a ragged
+    Sp and ragged lengths are masked in the kernel).  Returns o (B, H, Dh)
+    f32.
+
+    ``wo_prologue=True`` also runs the wo projection's PDQ prologue over
+    each row's flattened (H * Dh) output, after rounding it to
+    ``pro_dtype`` (default f32), in the same launch, and returns (o, o_q
+    (B, H * Dh) int8, s_x, s1, s2 each (B, 1) f32): feed them to
+    ``pdq_dense_from_prologue`` and the quantized wo costs one launch.
+    """
+    if wo_prologue:
+        COUNTS["decode_attend_i8kv_fused"].entries += 1
+        return _kv.decode_attend_i8kv_fused(q, k_q, v_q, k_scale, v_scale,
+                                            length, pro_dtype)
+    COUNTS["decode_attend_i8kv"].entries += 1
+    return _kv.decode_attend_i8kv(q, k_q, v_q, k_scale, v_scale, length)
 
 
 def cache_scatter_rows(dst, src, src_map, *, batch_axis: int = 0):

@@ -82,6 +82,38 @@ def w8a8_swiglu_ref(x_q, w_q, s_x, z_x, s_w, lo, hi):
     return (y, hsw, *pdq_prologue_ref(hsw))
 
 
+def decode_attend_i8kv_ref(q, k_q, v_q, k_scale, v_scale, length):
+    """One-token attention over an int8 KV cache in kernel layout.
+
+    q (B, H, Dh) f32; k_q/v_q (B, Hkv, Sp, Dh) int8; k_scale/v_scale (B,
+    Hkv, Sp) f32 per (head, position); length (B,) int32, the valid prefix
+    of each row.  Returns o (B, H, Dh) f32, query head h reading kv head
+    h // (H / Hkv).  Positions past the length are masked with -inf before
+    the softmax, so a row of length 0 gives NaN, as the reference does.
+    """
+    B, H, Dh = q.shape
+    Hkv, Sp = k_q.shape[1], k_q.shape[2]
+    k = k_q.float() * k_scale[..., None]
+    v = v_q.float() * v_scale[..., None]
+    qg = q.float().reshape(B, Hkv, H // Hkv, Dh)
+    logits = true_div(torch.einsum("bhgd,bhsd->bhgs", qg, k), Dh ** 0.5)
+    mask = torch.arange(Sp, device=q.device)[None, :] < length[:, None].long()
+    logits = torch.where(mask[:, None, None, :], logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", p, v).reshape(B, H, Dh)
+
+
+def decode_attend_i8kv_fused_ref(q, k_q, v_q, k_scale, v_scale, length,
+                                 pro_dtype=None):
+    """``decode_attend_i8kv_ref`` plus wo's PDQ prologue over each row's
+    flattened (H * Dh) output, after rounding it to ``pro_dtype`` (default
+    float32).  Returns (o (B, H, Dh) f32, o_q (B, H * Dh) int8, s_x, s1, s2
+    each (B, 1) f32)."""
+    o = decode_attend_i8kv_ref(q, k_q, v_q, k_scale, v_scale, length)
+    of = o if pro_dtype is None else o.to(pro_dtype)
+    return (o, *pdq_prologue_ref(of.reshape(o.shape[0], -1)))
+
+
 def cache_scatter_ref(dst, src, src_map):
     """dst[b] = src[src_map[b]] where src_map[b] >= 0; other rows of dst
     keep their bits.  Updates ``dst`` in place and returns it."""

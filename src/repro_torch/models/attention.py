@@ -1,12 +1,18 @@
-"""GQA attention with an fp KV cache (port of the GQA half of
+"""GQA attention with an fp or int8 KV cache (port of the GQA half of
 ``repro/models/attention.py``).
 
-The reference's attention here is plain jnp, not Pallas, so this port is
+The reference's fp attention is plain jnp, not Pallas, so this port is
 plain torch: a masked-softmax transcription of ``chunked_attention`` (same
 chunking, ``NEG`` fill and position masks) and of ``decode_attention``.
 Caches are dicts of tensors updated IN PLACE (the reference threads new
 pytrees): ``{'k', 'v': (B, S, Hkv, Dh), 'pos': (B, S), 'len': (B,)}``.
-The int8 KV cache and its flash-decode kernels come with the next slice.
+
+With ``quant_kv='dynamic'`` the cache is int8 in KERNEL layout, ``{'k',
+'v': (B, Hkv, Sp, Dh) int8, 'k_scale', 'v_scale': (B, Hkv, Sp) f32, 'pos',
+'len'}`` with Sp = S rounded up to a multiple of 128; each new token is
+quantized per (token, head) as it is written, prefill still attends its
+fresh fp k/v, and decode attends the cache through the flash-decode
+kernels (``ops.decode_attend_i8kv``).
 """
 from __future__ import annotations
 
@@ -14,8 +20,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import true_div
+
 from .layers import apply_rope, dense_init, softcap
-from .linops import lin, lin_grouped
+from .linops import is_quantized, is_segment_view, lin, lin_grouped
 
 NEG = -2.0e30
 
@@ -29,7 +38,7 @@ class AttnDims:
     rope_theta: float = 10_000.0
     attn_softcap: float | None = None
     window: int | None = None          # sliding window (local attention)
-    quant_kv: str = "none"             # only 'none' in this slice
+    quant_kv: str = "none"             # 'none' | 'dynamic' (int8 KV cache)
 
 
 def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -113,27 +122,61 @@ def gqa_init(dims: AttnDims, dtype, gen):
 
 
 def init_cache(dims: AttnDims, batch: int, max_len: int, dtype, device) -> dict:
-    if dims.quant_kv != "none":
-        raise NotImplementedError(
-            "the int8 KV cache is ROADMAP.md Queue 1 slice 2 (int8-KV decode)")
+    if dims.quant_kv not in ("none", "dynamic"):
+        raise ValueError(f"quant_kv must be 'none' or 'dynamic', got {dims.quant_kv!r}")
     Hkv, Dh = dims.n_kv_heads, dims.head_dim
     S = min(max_len, dims.window) if dims.window else max_len
-    return {
+    cache = {
         "pos": torch.full((batch, S), -1, dtype=torch.int32, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "k": torch.zeros((batch, S, Hkv, Dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, S, Hkv, Dh), dtype=dtype, device=device),
     }
+    if dims.quant_kv == "none":
+        cache["k"] = torch.zeros((batch, S, Hkv, Dh), dtype=dtype, device=device)
+        cache["v"] = torch.zeros((batch, S, Hkv, Dh), dtype=dtype, device=device)
+        return cache
+    # kernel layout; the padded tail is never written (slots index the
+    # logical S) and always masked (positions >= len)
+    Sp = S + (-S) % 128
+    for name in ("k", "v"):
+        cache[name] = torch.zeros((batch, Hkv, Sp, Dh), dtype=torch.int8, device=device)
+        cache[f"{name}_scale"] = torch.ones((batch, Hkv, Sp), dtype=torch.float32,
+                                            device=device)
+    return cache
+
+
+def _quant_kv_token(k_new, v_new):
+    """Symmetric per-(token, head) int8 quantization of new KV entries
+    (B, S, Hkv, Dh): scale = max(amax, 1e-6) / 127, codes rounded half to
+    even and clipped to +-127.  Returns (kq, ks, vq, vs), scales (B, S,
+    Hkv)."""
+    def q(t):
+        scale = true_div(torch.clamp_min(t.abs().amax(-1), 1e-6), 127.0)
+        tq = torch.round(t / scale[..., None]).clamp(-127, 127).to(torch.int8)
+        return tq, scale
+    kq, ks = q(k_new.float())
+    vq, vs = q(v_new.float())
+    return kq, ks, vq, vs
 
 
 def _cache_write(cache, k_new, v_new, positions):
-    """Write S_new tokens at ring positions (pos % W), in place."""
+    """Write S_new tokens at ring positions (pos % W), in place; an int8
+    cache quantizes them first."""
     B = positions.shape[0]
-    W = cache["pos"].shape[1]
+    W = cache["pos"].shape[1]              # logical length (int8 caches pad S)
     slots = (positions % W).long()
     bidx = torch.arange(B, device=positions.device)[:, None]
-    cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
-    cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
+    if "k_scale" in cache:
+        kq, ks, vq, vs = _quant_kv_token(k_new, v_new)
+        # (B, Hkv, Sp, ...)[bidx, :, slots]: the advanced (B, S_new) dims
+        # come first, as in numpy and jnp, so (B, S_new, Hkv, Dh) lands
+        # without a transpose
+        cache["k"][bidx, :, slots] = kq
+        cache["v"][bidx, :, slots] = vq
+        cache["k_scale"][bidx, :, slots] = ks
+        cache["v_scale"][bidx, :, slots] = vs
+    else:
+        cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
+        cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
     cache["pos"][bidx, slots] = positions.to(torch.int32)
     cache["len"].copy_(torch.maximum(cache["len"], positions[:, -1] + 1))
     return cache
@@ -155,6 +198,19 @@ def _clamp_padded(vals, positions, seq_lens):
         out.append(torch.where(mask, v, v_last))
     pos = torch.where(valid, positions, positions[bidx, last][:, None])
     return out, pos
+
+
+def _cache_kv_float(cache, dtype):
+    """The cache's k/v in the logical (B, S, Hkv, Dh) layout, dequantized
+    to ``dtype`` when the cache is int8."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    S = cache["pos"].shape[1]
+    out = []
+    for name in ("k", "v"):
+        t = cache[name].float() * cache[f"{name}_scale"][..., None]
+        out.append(t.transpose(1, 2)[:, :S].to(dtype))
+    return tuple(out)
 
 
 def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
@@ -183,7 +239,23 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
     if mode != "decode":
         raise ValueError(f"mode {mode!r}: the port serves 'prefill'/'decode'")
     _cache_write(cache, k, v, positions)
-    o = decode_attention(q[:, 0], cache["k"], cache["v"], positions[:, 0],
-                         cache["pos"], window=dims.window,
-                         attn_softcap=dims.attn_softcap)
+    q1 = q[:, 0]
+    if "k_scale" in cache and dims.attn_softcap is None and dims.window is None:
+        kv = (q1.float(), cache["k"], cache["v"], cache["k_scale"],
+              cache["v_scale"], cache["len"])
+        if is_quantized(p["wo"]) and not is_segment_view(p["wo"]):
+            # the attend kernel's output stage also runs wo's prologue, so
+            # the quantized wo is one W8A8 launch
+            o, o_q, s_x, s1, s2 = ops.decode_attend_i8kv(
+                *kv, wo_prologue=True, pro_dtype=x.dtype)
+            y = ops.pdq_dense_from_prologue(
+                o.reshape(B, 1, H * Dh), o_q.reshape(B, 1, H * Dh),
+                s_x.reshape(B, 1, 1), s1.reshape(B, 1, 1), s2.reshape(B, 1, 1),
+                p["wo"], out_dtype=x.dtype)
+            return y, cache
+        o = ops.decode_attend_i8kv(*kv).to(x.dtype)
+    else:
+        kf, vf = _cache_kv_float(cache, x.dtype)
+        o = decode_attention(q1, kf, vf, positions[:, 0], cache["pos"],
+                             window=dims.window, attn_softcap=dims.attn_softcap)
     return lin(o.reshape(B, 1, H * Dh), p["wo"]), cache

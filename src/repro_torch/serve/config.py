@@ -20,7 +20,7 @@ class ServeConfig:
     # ---- model selection (used only when build_engine gets no cfg/params)
     arch: str = "stablelm-1.6b"
     reduced: bool = True            # reduced_config() vs full get_config()
-    int8_kv: bool = False           # int8 KV cache (ROADMAP.md Queue 1 item 2)
+    int8_kv: bool = False           # int8 KV cache (quant_kv='dynamic')
 
     # ---- engine knobs
     slots: int = 4
@@ -57,12 +57,16 @@ def resolve_model(config: ServeConfig):
 
     cfg = (reduced_config(config.arch) if config.reduced
            else get_config(config.arch))
+    if config.int8_kv:
+        cfg = dataclasses.replace(cfg, quant_kv="dynamic")
     return cfg, build_model(cfg, config.device).init(0)
 
 
 def build_engine(config: ServeConfig, *, cfg=None, params=None):
     """Construct the engine ``config`` describes; ``cfg``/``params``
-    override the model selection fields when given (both or neither)."""
+    override the model selection fields when given (both or neither).
+    ``int8_kv`` sets ``quant_kv='dynamic'`` on a given ``cfg`` too (the
+    reference reads it only when it resolves the model itself)."""
     from repro_torch.models import resolve_device
 
     from .engine import ServeEngine, not_ported
@@ -70,12 +74,12 @@ def build_engine(config: ServeConfig, *, cfg=None, params=None):
     resolve_device(config.device)
     if config.mesh is not None:
         raise not_ported("multi-GPU serving", "8")
-    if config.int8_kv:
-        raise not_ported("the int8 KV cache", "2")
     if (cfg is None) != (params is None):
         raise ValueError("pass both cfg and params, or neither")
     if cfg is None:
         cfg, params = resolve_model(config)
+    elif config.int8_kv:
+        cfg = dataclasses.replace(cfg, quant_kv="dynamic")
     eng = ServeEngine(
         cfg, params, slots=config.slots, max_len=config.max_len,
         quantize_weights=config.quantize_weights,

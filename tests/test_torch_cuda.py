@@ -9,7 +9,12 @@ the card:
 Tolerances: int8 codes, scales, int32-exact products and scattered bytes
 are equal (K3's hsw scratch within rtol 1e-6, and its codes may differ by
 one only where hsw does); s1/s2 within 1e-5 of the row's sum of magnitudes (another
-summation order).
+summation order).  The int8-KV attend kernels (K4, K5): o within rtol =
+atol = 2e-4 of plain (the reference's kernel test, tests/test_kernels.py:177),
+on rows of length >= 1 (a row of length 0 is NaN in the plain version, as
+in the reference, and exactly 0 in the kernels); K5's s_x within rtol
+1e-5, its codes equal where o rounds to the same pro_dtype value under
+the same s_x and never more than 1 apart.
 """
 import pytest
 import torch
@@ -101,3 +106,51 @@ def test_cache_scatter_kernel_matches_plain(gen, row, dtype):
     m = torch.tensor([5, -1, 0, 2, -1, -1, 1, 4, 3], dtype=torch.int32, device="cuda")
     assert torch.equal(kv.cache_scatter_cuda(dst.clone(), src, m),
                        kv.cache_scatter_plain(dst.clone(), src, m))
+
+
+def _attend_operands(gen, B, Hkv, G, Dh, Sp, lens):
+    i8 = dict(dtype=torch.int8, device="cuda", generator=gen)
+    f = lambda *s: torch.rand(s, generator=gen, device="cuda")      # noqa: E731
+    return (torch.randn((B, Hkv * G, Dh), generator=gen, device="cuda"),
+            torch.randint(-127, 128, (B, Hkv, Sp, Dh), **i8),
+            torch.randint(-127, 128, (B, Hkv, Sp, Dh), **i8),
+            0.01 + 0.04 * f(B, Hkv, Sp), 0.01 + 0.04 * f(B, Hkv, Sp),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+# Sp not a multiple of the kernel's 128-position tile; lengths 1, tile - 1,
+# tile, tile + 1 and Sp, a row of length 0, and B up to 9
+_ATTEND_CASES = [(1, 64, 130, [1, 127, 128, 129, 130, 0, 64]),
+                 (4, 64, 300, [300, 1, 127, 128, 129, 0, 250, 299, 2]),
+                 (1, 128, 257, [257, 128, 129, 1, 127, 0, 200, 256, 3]),
+                 (4, 128, 130, [129, 130, 1, 0, 127, 128])]
+
+
+@pytest.mark.parametrize("G,Dh,Sp,lens", _ATTEND_CASES)
+def test_decode_attend_kernel_matches_plain(gen, G, Dh, Sp, lens):
+    args = _attend_operands(gen, len(lens), 3, G, Dh, Sp, lens)
+    k, p = kv.decode_attend_i8kv_cuda(*args), kv.decode_attend_i8kv_plain(*args)
+    ok = args[-1] > 0
+    assert bool(torch.isclose(k[ok], p[ok], rtol=2e-4, atol=2e-4).all())
+    assert bool((k[~ok] == 0).all())
+
+
+@pytest.mark.parametrize("pro_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh,Sp,lens", _ATTEND_CASES)
+def test_decode_attend_fused_kernel_matches_plain(gen, G, Dh, Sp, lens, pro_dtype):
+    args = _attend_operands(gen, len(lens), 3, G, Dh, Sp, lens)
+    for _ in range(2):          # the second launch finds the tickets reset
+        k = kv.decode_attend_i8kv_fused_cuda(*args, pro_dtype)
+        p = kv.decode_attend_i8kv_fused_plain(*args, pro_dtype)
+        ok = args[-1] > 0
+        assert bool(torch.isclose(k[0][ok], p[0][ok], rtol=2e-4, atol=2e-4).all())
+        assert bool((k[0][~ok] == 0).all()) and bool((k[1][~ok] == 0).all())
+        assert bool(torch.isclose(k[2][ok], p[2][ok], rtol=1e-5, atol=0).all())
+        B = len(lens)
+        kf, pf = (t.reshape(B, -1).to(pro_dtype) for t in (k[0], p[0]))
+        same = (kf == pf) & (k[2] == p[2]) & ok[:, None]
+        dq = (k[1].int() - p[1].int()).abs()
+        assert int(dq[same].max()) == 0 and int(dq[ok].max()) <= 1
+        mag = pf.float().abs().sum(-1, keepdim=True)
+        _sums_close(k[3][ok], p[3][ok], mag[ok])
+        _sums_close(k[4][ok], p[4][ok], (pf.float() ** 2).sum(-1, keepdim=True)[ok])

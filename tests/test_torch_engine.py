@@ -5,13 +5,17 @@ admissions queue), reduced stablelm-1.6b on the same bridged weights.
 fp weights on both sides; and PDQ: the port with quantize_weights=True
 (every layer quantized) against the JAX engine serving the
 vmap(quantize_param_tree) params with telemetry off (with it on, the
-reference leaks a tracer out of its scan; ROADMAP.md Queue 3).
+reference leaks a tracer out of its scan; ROADMAP.md Queue 3).  Each with
+an fp KV cache and with the int8 one (``int8_kv=True``; the JAX side's
+config gets ``quant_kv='dynamic'``).
 
 Greedy streams are identical (at a difference, JAX's top-2 margin for that
 token must be below the logits tolerance of tests/test_torch_model.py),
 and the scheduler's stats are equal, apart from the JAX-only compile
 counters and the wall-clock straggler flags.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,17 +62,20 @@ def _margin_ok(jcfg, jparams, prompt, generated, i, tol):
     return top2[1] - top2[0] < tol
 
 
+@pytest.mark.parametrize("int8_kv", [False, True])
 @pytest.mark.parametrize("slots", [2, 4])
 @pytest.mark.parametrize("kind", ["fp", "pdq"])
-def test_engine_matches_jax_engine(weights, kind, slots):
+def test_engine_matches_jax_engine(weights, kind, slots, int8_kv):
     jcfg, jp, tp = weights
+    if int8_kv:
+        jcfg = dataclasses.replace(jcfg, quant_kv="dynamic")
     jparams = jp if kind == "fp" else dict(jp, blocks=jax.vmap(j_quantize)(jp["blocks"]))
     jeng = JServeEngine(jcfg, jparams, slots=slots, max_len=64, telemetry=False)
     jreqs = [JRequest(uid=i, prompt=p, max_new=8) for i, p in enumerate(_prompts())]
     jeng.run(jreqs)
 
     teng = build_engine(ServeConfig(slots=slots, max_len=64, device="cpu",
-                                    quantize_weights=kind == "pdq"),
+                                    quantize_weights=kind == "pdq", int8_kv=int8_kv),
                         cfg=t_reduced("stablelm-1.6b"), params=tp)
     treqs = [Request(uid=i, prompt=p, max_new=8) for i, p in enumerate(_prompts())]
     tops.reset_counts()
@@ -84,12 +91,18 @@ def test_engine_matches_jax_engine(weights, kind, slots):
     tstats = {k: v for k, v in teng.stats.items() if k not in SKIP_STATS}
     jstats = {k: v for k, v in jeng.stats.items() if k not in SKIP_STATS}
     assert tstats == jstats
-    # every admission round lands its 4 cache leaves with one scatter each
-    assert tops.counts()["cache_scatter"]["entries"] == 4 * teng.stats["prefill_batches"]
+    # every admission round lands its cache leaves with one scatter each:
+    # k, v, pos, len, and with int8 KV k_scale and v_scale
+    c = {k: v["entries"] for k, v in tops.counts().items()}
+    n_pre, n_dec = teng.stats["prefill_batches"], teng.stats["decode_steps"]
+    assert c["cache_scatter"] == (6 if int8_kv else 4) * n_pre
+    n = teng.cfg.n_layers
+    attend = "decode_attend_i8kv_fused" if kind == "pdq" else "decode_attend_i8kv"
+    assert c[attend] == (n * n_dec if int8_kv else 0)
     if kind == "pdq":
-        n = teng.cfg.n_layers
-        launches = teng.stats["prefill_batches"] + teng.stats["decode_steps"]
-        assert tops.counts()["w8a8_swiglu_matmul"]["entries"] == n * launches
+        assert c["w8a8_swiglu_matmul"] == n * (n_pre + n_dec)
+        # decode runs wo's prologue inside the fused attend with int8 KV
+        assert c["pdq_prologue"] == n * (3 * n_pre + (2 if int8_kv else 3) * n_dec)
 
 
 def test_build_engine_needs_cuda_by_default():
@@ -102,7 +115,7 @@ def test_build_engine_needs_cuda_by_default():
 @pytest.mark.parametrize("field,value", [
     ("paged", True), ("chunked_prefill", True), ("decode_steps", 4),
     ("pdq_fallback", True), ("spill", True), ("mesh", object()),
-    ("int8_kv", True), ("batch_prefill", False)])
+    ("batch_prefill", False)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):

@@ -190,9 +190,16 @@ def test_ops_count_entries_on_cpu_and_never_launch():
                      torch.zeros(64, 128, dtype=torch.int8), 1.0, 0, 1.0)
     tops.cache_scatter_rows(torch.zeros(2, 3), torch.ones(2, 3),
                             np.array([1, -1], np.int32))
+    kv = (torch.randn(2, 4, 16), torch.zeros(2, 2, 128, 16, dtype=torch.int8),
+          torch.zeros(2, 2, 128, 16, dtype=torch.int8), torch.ones(2, 2, 128),
+          torch.ones(2, 2, 128), torch.tensor([3, 1], dtype=torch.int32))
+    tops.decode_attend_i8kv(*kv)
+    tops.decode_attend_i8kv(*kv, wo_prologue=True)
+    tops.decode_attend_i8kv(*kv, wo_prologue=True, pro_dtype=torch.bfloat16)
     c = tops.counts()
     assert {k: v["entries"] for k, v in c.items()} == {
         "pdq_prologue": 1, "w8a8_matmul": 1, "w8a8_swiglu_matmul": 0,
+        "decode_attend_i8kv": 1, "decode_attend_i8kv_fused": 2,
         "cache_scatter": 1}
     assert all(v["launches"] == 0 for v in c.values())
 
@@ -201,6 +208,8 @@ def test_ops_count_entries_on_cpu_and_never_launch():
     lambda x: tpro.pdq_prologue(x),
     lambda x: tkv.cache_scatter(x, x, torch.zeros(4, dtype=torch.int32)),
     lambda x: tmm.w8a8_swiglu_matmul(x, x, x, x, x, x, x, x),
+    lambda x: tkv.decode_attend_i8kv(x, x, x, x, x, x),
+    lambda x: tkv.decode_attend_i8kv_fused(x, x, x, x, x, x),
 ])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor takes the plain version: anything else goes to the

@@ -146,7 +146,8 @@ def test_op_counts_per_decode_step_and_admission(models):
     n = tcfg.n_layers
     c = {k: v["entries"] for k, v in tops.counts().items()}
     assert c == {"pdq_prologue": 3 * n, "w8a8_matmul": 3 * n,
-                 "w8a8_swiglu_matmul": n, "cache_scatter": 0}
+                 "w8a8_swiglu_matmul": n, "decode_attend_i8kv": 0,
+                 "decode_attend_i8kv_fused": 0, "cache_scatter": 0}
     tops.reset_counts()
     tb.cache_scatter(caches, tb.init_caches(4, 16), np.array([1, -1, 0, -1], np.int32))
     assert tops.counts()["cache_scatter"]["entries"] == 4
