@@ -12,7 +12,12 @@ build_engine(ServeConfig(..., device="cuda")):
      w8a8_matmul, K3 w8a8_swiglu_matmul, K5 decode_attend_i8kv_fused,
      K6 cache_scatter; 7 launches per layer and decode step);
   B  int8_kv=True, fp weights              K4 decode_attend_i8kv and K6;
-  C  int8_kv=False, quantize_weights=True  the fp KV cache: K1, K2, K3, K6.
+  C  int8_kv=False, quantize_weights=True  the fp KV cache: K1, K2, K3, K6;
+  D  A with the pool paged: paged=True, spill=True, page_size=64, which adds
+     K7 cache_scatter_pages (every pool movement: prefill landing, decode
+     gather and write-back, COW copy, spill restore); D1 with the default
+     pool (every slot can hold max_len), D2 with a pool small enough that
+     decode growth preempts requests and spills them to host memory.
 
 Phases, each of which must pass (any failure exits non-zero):
 
@@ -22,16 +27,19 @@ Phases, each of which must pass (any failure exits non-zero):
                 the full-width paths give it, hold the result against its
                 plain PyTorch version on the same inputs, and time both
                 (CUDA events, median, L2 flushed before every launch);
-  3. serve    - each path serves 8 requests (prompts of 20-250 tokens, 32
-                new tokens each, 8 slots, max_len 512); the kernels' counts
-                are zeroed just before and read just after each run, every
-                kernel of the path must have launched as often as its op
-                was entered, the per-layer census must hold exactly, and
-                the other paths' kernels must not have run; the runs go in
-                turns A B C C A, so that A's and C's times compare within
-                one call;
+  3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
+                first two behind one 128-token system prompt, 32 new tokens
+                each, 8 slots, max_len 512); the kernels' counts are zeroed
+                just before and read just after each run, every kernel of
+                the path must have launched as often as its op was entered,
+                the census must hold exactly, and the other paths' kernels
+                must not have run; the runs go in turns A B C C A D1 D2, so
+                that A's and C's times compare within one call; D1's and
+                D2's greedy streams must equal A's first run's, D1 must
+                share the system prompt's pages, D2 must preempt, spill and
+                restore;
   4. profile  - torch.profiler over three decode steps of the full pool of
-                A and of C: device time per step, the device's idle share
+                A, C and D1: device time per step, the device's idle share
                 of the serve phase's median step, the top kernels;
   5. parity   - on each path, one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
@@ -73,13 +81,21 @@ SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
 
-# path: (int8_kv, quantize_weights, the kernels it must launch)
+PAGE = 64                 # path D's page size
+D2_POOL_PAGES = 17        # D2's physical pages: 16 usable, 2 slots' worth
+
+# path: (int8_kv, quantize_weights, the kernels it must launch, paging)
+_A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
+              "decode_attend_i8kv_fused", "cache_scatter")
+_PAGED = dict(paged=True, spill=True, page_size=PAGE)
 PATHS = {
-    "A": (True, True, ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
-                       "decode_attend_i8kv_fused", "cache_scatter")),
-    "B": (True, False, ("decode_attend_i8kv", "cache_scatter")),
+    "A": (True, True, _A_KERNELS, {}),
+    "B": (True, False, ("decode_attend_i8kv", "cache_scatter"), {}),
     "C": (False, True, ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
-                        "cache_scatter")),
+                        "cache_scatter"), {}),
+    "D1": (True, True, _A_KERNELS + ("cache_scatter_pages",), _PAGED),
+    "D2": (True, True, _A_KERNELS + ("cache_scatter_pages",),
+           dict(_PAGED, pool_pages=D2_POOL_PAGES)),
 }
 
 
@@ -302,6 +318,9 @@ def phase_kernels(eng):
     # attention over path A's int8 cache, lengths ragged across the tile
     attend_kernels(eng, gen, flush, record)
 
+    # ---- K7 cache_scatter_pages: path D's pool movements at full width
+    page_kernels(eng, gen, flush, record)
+
     # ---- K6 cache_scatter: one admission round's leaves, stacked rows
     pool = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
     sub = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
@@ -404,26 +423,133 @@ def attend_kernels(eng, gen, flush, record):
            b_ms, b_by, None, True)
 
 
+def page_kernels(eng, gen, flush, record):
+    """K7 against its plain version (the reference's composition through
+    page rows) on path D's full-width leaves: the int8 K leaf's decode
+    gather (pool (n, 65, Hkv, 64, Dh) -> logical (n, 8, Hkv, 512, Dh)
+    scratch, frontiers ragged, -1 past them), its write-back (one page per
+    row, two free slots both on the dump page 0), the COW copy (the pool
+    onto itself, disjoint pages) and the f32 scale leaf's gather.  Bit-equal;
+    the library call is ``index_copy_`` on the page axis from page rows
+    already selected and laid out."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ref
+    cfg, dev = eng.cfg, eng.device
+    n, B, Hkv, Dh = cfg.n_layers, eng.slots, cfg.n_kv_heads, cfg.hd
+    n_pp = eng.max_len // PAGE
+    Sp = eng.max_len + (-eng.max_len) % 128
+    n_leaf, N = Sp // PAGE, B * n_pp + 1
+    lens = np.asarray(ATTEND_LENS)
+    pt = np.full((B, n_pp), -1, np.int32)
+    for b, L in enumerate(lens):          # slot b owns up to its frontier page
+        k = min(L // PAGE + 1, n_pp)
+        pt[b, :k] = 1 + b * n_pp + np.arange(k)
+    gmap = np.full((B, n_leaf), -1, np.int32)
+    gmap[:, :n_pp] = np.where(np.arange(n_pp)[None] * PAGE < lens[:, None], pt, -1)
+    gmap = gmap.reshape(B * n_leaf)
+    wpt = pt.copy()
+    wpt[B - 2:] = -1                      # two free slots
+    j = np.clip(lens // PAGE, 0, n_pp - 1)
+    ent = wpt[np.arange(B), j]
+    wmap = np.full((N,), -1, np.int32)
+    wmap[np.where(ent > 0, ent, 0)] = np.arange(B) * n_leaf + j
+    cmap = np.full((N,), -1, np.int32)
+    cmap[N - 8:] = np.arange(1, 9)        # 8 fresh pages take 8 others
+
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=dtype)
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def bits(t):
+        return t.view(torch.uint8)
+
+    leaves = {"k": ((n, B, Hkv, Sp, Dh), (n, N, Hkv, PAGE, Dh), torch.int8),
+              "k_scale": ((n, B, Hkv, Sp), (n, N, Hkv, PAGE), torch.float32)}
+    cases = (("k", "gather", gmap, True), ("k", "write-back", wmap, False),
+             ("k", "copy", cmap, False), ("k_scale", "gather", gmap, False))
+    for name, how, m_np, primary in cases:
+        lshape, pshape, dtype = leaves[name]
+        logical, pool = rand(lshape, dtype), rand(pshape, dtype)
+        m = torch.as_tensor(m_np, device=dev)
+        if how == "gather":
+            dst, src, sa = logical, pool, 3
+        elif how == "write-back":
+            dst, src, sa = pool, logical, 3
+        else:
+            dst, src, sa = pool, None, None
+
+        def run_kernel(d, s=src, m=m, sa=sa):
+            return kv.cache_scatter_pages_cuda(d, d if s is None else s, m, sa, PAGE, 1,
+                                               host_map=m_np if s is None else None)
+
+        def run_plain(d, s=src, m=m, sa=sa):
+            return kv.cache_scatter_pages_plain(d, d if s is None else s, m, sa, PAGE, 1)
+
+        got, want = run_kernel(dst.clone()), run_plain(dst.clone())
+        need(torch.equal(bits(got), bits(want)), f"K7 {name} {how} differs from plain")
+        err = max_abs(got, want)
+        del got, want
+        moved = int((m_np >= 0).sum()) * n
+        row_bytes = kv.page_side(pool, None, None, 1)[2]
+        b_ms, b_by = bound_ms(2 * moved * row_bytes + 4 * m_np.size, 0, INT8_OPS)
+        # the library call: index_copy_ on the page axis, from the page rows
+        # already selected and laid out as the destination's page rows
+        d_rows = torch.nonzero(m >= 0).flatten()
+        s_rows = m[d_rows].long()
+        s_pr = (ref.to_page_rows(src, sa, PAGE, batch_axis=1) if how == "write-back"
+                else pool)
+        sel = s_pr.index_select(1, s_rows)
+        d_pr = (ref.to_page_rows(dst, sa, PAGE, batch_axis=1).contiguous()
+                if how == "gather" else dst.clone())
+        dk, dp = dst.clone(), dst.clone()
+        src_shape = tuple((pool if src is None else src).shape)
+        record("cache_scatter_pages",
+               f"{name} {how}: {tuple(dst.shape)} <- {src_shape} {dtype}, "
+               f"{moved} page rows of {row_bytes} B moved",
+               err, median_ms(lambda: run_kernel(dk), flush=flush),
+               median_ms(lambda: run_plain(dp), flush=flush), b_ms, b_by,
+               median_ms(lambda: d_pr.index_copy_(1, d_rows, sel), flush=flush), primary)
+        del logical, pool, dst, src, dk, dp, d_pr, sel, s_pr
+        torch.cuda.empty_cache()
+
+
 def make_requests(cfg, n=8, seed=0):
+    """``n`` requests of 32 new tokens; prompts of 20-250 tokens, except
+    that requests 0 and 1 are one seeded 128-token system prompt followed
+    by their own prompts cut to 120 tokens (two full 64-token pages shared,
+    both in the 256 bucket, so admitted in one round)."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.default_rng(seed)
     lens = rng.integers(20, 251, size=n)
-    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(L)).astype(np.int32),
-                    max_new=32) for i, L in enumerate(lens)]
+    prompts = [rng.integers(0, cfg.vocab, size=int(L)).astype(np.int32) for L in lens]
+    system = np.random.default_rng(seed + 1).integers(0, cfg.vocab, size=128)
+    for i in range(min(n, 2)):
+        prompts[i] = np.concatenate([system, prompts[i][:120]]).astype(np.int32)
+    return [Request(uid=i, prompt=p, max_new=32) for i, p in enumerate(prompts)]
 
 
-def census(path, n, pre, dec):
+def census(path, n, pre, dec, restores=0):
     """Op entries a serving run of ``path`` makes with ``n`` layers, ``pre``
-    prefill launches and ``dec`` decode steps.  Per layer: prefill runs the
-    prologue 3x, W8A8 3x and SwiGLU once with PDQ weights; a decode step
-    the same, except that on A the fused attend (once) takes the place of
-    wo's prologue (7 launches: tools/check_census.py's decode_int8kv);
-    every round lands each cache leaf once (6 leaves with int8 KV, else 4)."""
-    int8_kv, pdq, _ = PATHS[path]
+    prefill launches, ``dec`` decode steps and ``restores`` spill restores.
+    Per layer: prefill runs the prologue 3x, W8A8 3x and SwiGLU once with
+    PDQ weights; a decode step the same, except that with int8 KV and PDQ
+    the fused attend (once) takes the place of wo's prologue (7 launches:
+    tools/check_census.py's decode_int8kv).  A slot-row pool lands each
+    cache leaf once a round (6 leaves with int8 KV, else 4).  A paged pool
+    moves its 5 paged leaves (k, v, k_scale, v_scale, pos) with K7 and the
+    flat ``len`` with K6: a round lands 5 + 1, a decode step gathers and
+    writes back 10, a restore scatters 5 + 1."""
+    int8_kv, pdq, _, paging = PATHS[path]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
-                cache_scatter=(6 if int8_kv else 4) * pre)
+                cache_scatter=(6 if int8_kv else 4) * pre, cache_scatter_pages=0)
+    if paging:
+        want.update(cache_scatter=pre + restores,
+                    cache_scatter_pages=5 * pre + 10 * dec + 5 * restores)
     if pdq:
         want.update(pdq_prologue=n * (3 * pre + (2 if int8_kv else 3) * dec),
                     w8a8_matmul=3 * n * (pre + dec), w8a8_swiglu_matmul=n * (pre + dec))
@@ -450,12 +576,19 @@ def phase_serve(eng, path):
              f"{path}: {name}: {c['entries']} op entries but {c['launches']} launches")
         need((c["launches"] > 0) == (name in PATHS[path][2]),
              f"{path}: {name} launched {c['launches']} times")
-    want = census(path, eng.cfg.n_layers, eng.stats["prefill_batches"],
-                  eng.stats["decode_steps"])
+    st = eng.stats
+    want = census(path, eng.cfg.n_layers, st["prefill_batches"], st["decode_steps"],
+                  st.get("spill_restores", 0))
     got = {k: c["entries"] for k, c in counts.items()}
     need(got == want, f"{path}: op entries {got}, census {want}")
-    need(eng.stats["completed"] == len(reqs) and eng.stats["failed"] == 0,
-         f"not every request completed: {eng.stats}")
+    need(st["completed"] == len(reqs) and st["failed"] == 0,
+         f"not every request completed: {st}")
+    if PATHS[path][3]:
+        # COW copies would move pages outside the census; none is expected
+        # (only full prompt pages are shared)
+        need(st["cow_copies"] == 0, f"{path}: {st['cow_copies']} COW copies")
+        need(st["spills"] == st["preemptions"] and not eng.failures.count("spill"),
+             f"{path}: a spill failed: {st}, {list(eng.failures.events)}")
     for r in reqs:
         need(r.done and r.error is None and len(r.generated) == r.max_new,
              f"request {r.uid}: {len(r.generated)} tokens, error {r.error}")
@@ -472,28 +605,44 @@ def phase_serve(eng, path):
         f"{decode_tps:.1f} tokens/s over {eng.stats['decode_tokens']} tokens")
     return counts, dict(wall_s=wall, prefill_s=sum(pre), prefill_launches=len(pre),
                         decode_step_median_ms=steps[len(steps) // 2] * 1e3,
-                        decode_tokens_per_s=decode_tps, stats=eng.stats)
+                        decode_tokens_per_s=decode_tps, stats=eng.stats,
+                        streams={r.uid: list(r.generated) for r in reqs})
 
 
 def phase_profile(eng, path, step_ms, steps=3):
     """Where a decode step's time goes: torch.profiler over ``steps``
-    decode steps of the full pool.  Device busy time per step is the sum
-    of the CUDA kernels' time; the idle share compares it with the serve
-    phase's unprofiled median step (``step_ms``), since the profiler
-    itself slows the host.  Reports null device numbers if the profiler
-    records no kernels."""
+    decode steps of the full pool at position 300 (on a paged pool: the
+    gather, the step and the write-back, every slot holding pages up to
+    its frontier).  Device busy time per step is the sum of the CUDA
+    kernels' time; the idle share compares it with the serve phase's
+    unprofiled median step (``step_ms``), since the profiler itself slows
+    the host.  Reports null device numbers if the profiler records no
+    kernels."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = eng.slots
     tok = torch.zeros((B, 1), dtype=torch.int32, device=eng.device)
     pos = torch.full((B, 1), 300, dtype=torch.int32, device=eng.device)
-    eng.bundle.decode_step(eng.params, eng.caches, tok, pos)
+    if eng.paged:
+        po, n_pp = eng._paged_ops, eng.n_pp
+        pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
+        pos_np = np.full((B, 1), 300, np.int32)
+
+        def step():
+            logical = po.gather(eng.caches, pt, pos_np[:, 0])
+            eng.bundle.decode_step(eng.params, logical, tok, pos)
+            po.writeback(eng.caches, logical, pt, pos_np)
+    else:
+        def step():
+            eng.bundle.decode_step(eng.params, eng.caches, tok, pos)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.bundle.decode_step(eng.params, eng.caches, tok, pos)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = []
@@ -512,6 +661,8 @@ def phase_profile(eng, path, step_ms, steps=3):
                device_idle_share=(1 - busy_ms / step_ms) if rows else None,
                top_kernels=top)
     log(f"profile {path}: {json.dumps(out)}")
+    # every device row (kernels and copies), for chiprun_out/chip_smoke.json
+    out["all_device_rows"] = [dict(kernel=k[:120], ms=ms, launches=n) for ms, k, n in rows]
     return out
 
 
@@ -527,7 +678,8 @@ def plain_kernels():
              (mm, "w8a8_swiglu_matmul_cuda", mm.w8a8_swiglu_matmul_plain),
              (kv, "decode_attend_i8kv_cuda", kv.decode_attend_i8kv_plain),
              (kv, "decode_attend_i8kv_fused_cuda", kv.decode_attend_i8kv_fused_plain),
-             (kv, "cache_scatter_cuda", kv.cache_scatter_plain)]
+             (kv, "cache_scatter_cuda", kv.cache_scatter_plain),
+             (kv, "cache_scatter_pages_cuda", kv.cache_scatter_pages_plain)]
     saved = [getattr(m, a) for m, a, _ in swaps]
     try:
         for m, a, f in swaps:
@@ -585,6 +737,25 @@ def phase_parity(eng, path, n_tokens=8):
     return max(diffs)
 
 
+def check_paged_run(path, run, ref_run):
+    """D1/D2 against A's first run: the same greedy streams, request for
+    request (prefill runs at (slots, bucket) whatever the pool, and every
+    decode op is row-independent, so the pool's layout must not move a
+    token); D1 shares the system prompt's pages, D2 preempts, spills every
+    victim to host memory and restores it."""
+    st = run["stats"]
+    for uid, toks in ref_run["streams"].items():
+        need(run["streams"][uid] == toks,
+             f"{path}: request {uid} stream {run['streams'][uid]} differs from A's {toks}")
+    need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
+    if path == "D2":
+        need(st["preemptions"] >= 1 and st["spill_restores"] >= 1,
+             f"D2: pool of {D2_POOL_PAGES} pages did not preempt and restore: {st}")
+    log(f"serve {path}: streams equal A's; prefix hits {st['prefix_hits']} "
+        f"({st['prefix_shared_pages']} pages), preemptions {st['preemptions']}, "
+        f"spills {st['spills']}, restores {st['spill_restores']}")
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -617,32 +788,37 @@ def main(argv=None) -> int:
     params = build_model(cfg, "cuda").init(0)
 
     def engine(path):
-        int8_kv, pdq, _ = PATHS[path]
+        int8_kv, pdq, _, paging = PATHS[path]
         t0 = time.perf_counter()
         eng = build_engine(ServeConfig(arch="stablelm-1.6b", reduced=False, slots=8,
                                        max_len=512, int8_kv=int8_kv,
-                                       quantize_weights=pdq, device="cuda"),
+                                       quantize_weights=pdq, device="cuda", **paging),
                            cfg=cfg, params=params)
         torch.cuda.synchronize()
         log(f"model {path}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
             f"{cfg.dtype}, {'PDQ-int8' if pdq else 'bf16'} weights, "
-            f"{'int8' if int8_kv else 'bf16'} KV cache, built in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{'int8' if int8_kv else 'bf16'} KV cache, "
+            f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
+            f"built in {time.perf_counter() - t0:.1f} s")
         return eng
 
     # A and C serve twice, in turns A (B) C C A, so that their end-to-end
-    # times compare within this call whatever the host's warm-up costs
+    # times compare within this call whatever the host's warm-up costs; then
+    # the paged pool at parity (D1) and under pressure (D2)
     serve, counts, parity = {}, {}, {}
-    for path in ("A", "B", "C", "C", "A"):
+    for path in ("A", "B", "C", "C", "A", "D1", "D2"):
         eng = engine(path)
         if path == "A" and not serve:
             rows, detail = phase_kernels(eng)
         c, run = phase_serve(eng, path)
         if path not in counts:
             counts[path] = c
-            if path != "B":
+            if path in ("A", "C", "D1"):
                 run["profile"] = phase_profile(eng, path, run["decode_step_median_ms"])
-            parity[path] = phase_parity(eng, path)
+            if path in ("A", "B", "C"):
+                parity[path] = phase_parity(eng, path)
+        if path in ("D1", "D2"):
+            check_paged_run(path, run, serve["A"][0])
         serve.setdefault(path, []).append(run)
         del eng
         torch.cuda.empty_cache()
@@ -652,6 +828,7 @@ def main(argv=None) -> int:
             f"{[r['prefill_s'] for r in runs]} s")
 
     replaces = {
+        "cache_scatter_pages": "src/repro/kernels/kv_cache.py:291",
         "pdq_prologue": "src/repro/kernels/pdq_prologue.py:56",
         "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py:72",
         "w8a8_swiglu_matmul": "src/repro/kernels/w8a8_matmul.py:200",
@@ -660,6 +837,7 @@ def main(argv=None) -> int:
         "cache_scatter": "src/repro/kernels/kv_cache.py:246",
     }
     sources = {
+        "cache_scatter_pages": "src/repro_torch/csrc/kv_cache.cu",
         "pdq_prologue": "src/repro_torch/csrc/pdq_prologue.cu",
         "w8a8_matmul": "src/repro_torch/csrc/w8a8_matmul.cu",
         "w8a8_swiglu_matmul": "src/repro_torch/csrc/w8a8_matmul.cu",
@@ -668,12 +846,13 @@ def main(argv=None) -> int:
         "cache_scatter": "src/repro_torch/csrc/kv_cache.cu",
     }
     kernels = []
+    path_of = {"decode_attend_i8kv": "B", "cache_scatter_pages": "D"}
     for name, row in rows.items():
-        path = "B" if name == "decode_attend_i8kv" else "A"
+        path = path_of.get(name, "A")
+        c = counts["D1" if path == "D" else path][name]      # D: D1's run
         kernels.append(dict(name=name, route="cuda", source=sources[name],
                             replaces=replaces[name], path=path,
-                            launches=counts[path][name]["launches"],
-                            entries=counts[path][name]["entries"],
+                            launches=c["launches"], entries=c["entries"],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],

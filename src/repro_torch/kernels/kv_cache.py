@@ -10,28 +10,48 @@ K6, the cache-row scatter: ``dst[b] = src[src_map[b]]`` where ``src_map[b]
 >= 0``; other rows keep their bits.  Unlike the functional TPU kernel, this
 one updates ``dst`` in place (``csrc/kv_cache.cu``), so a pool is landed
 into without a copy.  The plain version is ``ref.cache_scatter_ref``.
+
+K7, the page scatter (``csrc/kv_cache.cu``): K6 over PAGE rows, every
+movement of the paged pool.  It reads and writes each side in its own
+layout - a physical pool leaf, or a logical (n, B, ...) cache leaf whose
+seq axis splits into pages - from the strides ``page_side`` computes, so
+no side is relaid out to page rows first.  The plain version is
+``ref.cache_scatter_pages_ref``, the reference's composition through
+``to_page_rows``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from . import _build, ref
 
 COUNT = _build.OpCount()               # K6
+PAGES_COUNT = _build.OpCount()         # K7
 ATTEND_COUNT = _build.OpCount()        # K4
 FUSED_COUNT = _build.OpCount()         # K5
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIG = {"cache_scatter": [_P, _P, _P, _L, _L, _P]}
+_SIG = {"cache_scatter": [_P, _P, _P, _L, _L, _P],
+        "cache_scatter_pages": [_P, _P, _P] + [_L] * 14 + [_P]}
 _ATTEND_SIG = {"decode_attend_i8kv": [_P] * 7 + [_I] * 5 + [_P],
                "decode_attend_i8kv_fused": [_P] * 12 + [_I] * 6 + [_P]}
-MAX_ROWS = 65535                       # the kernels' grid y extent
+MAX_ROWS = 65535                       # the kernels' grid y (and K7's z) extent
+MAX_ROW_BYTES = 2 ** 31 - 1            # K7 offsets within a page row are 32-bit
 MAX_GROUP, MAX_HEAD_DIM = 8, 128       # the attend kernel's register/smem plan
 _PRO_BF16 = {None: 0, torch.float32: 0, torch.bfloat16: 1}
 _TICKETS: dict = {}                    # per device; the kernel leaves them zero
 
 cache_scatter_plain = ref.cache_scatter_ref
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share any byte."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def cache_scatter_cuda(dst: torch.Tensor, src: torch.Tensor,
@@ -51,12 +71,12 @@ def cache_scatter_cuda(dst: torch.Tensor, src: torch.Tensor,
     if B > MAX_ROWS:
         raise ValueError(f"cache_scatter takes at most {MAX_ROWS} rows, got {B}")
     row_bytes = dst[0].numel() * dst.element_size() if B else 0
-    d0, s0 = dst.data_ptr(), src.data_ptr()
-    if d0 < s0 + src.numel() * src.element_size() and s0 < d0 + B * row_bytes:
+    if overlaps(dst, src):
         raise ValueError("cache_scatter: dst and src must not overlap")
     lib = _build.library("kv_cache", _SIG)
     COUNT.launches += 1
-    _build.check(lib.cache_scatter(src_map.data_ptr(), d0, s0, B, row_bytes,
+    _build.check(lib.cache_scatter(src_map.data_ptr(), dst.data_ptr(),
+                                   src.data_ptr(), B, row_bytes,
                                    _build.stream_ptr(dst.device)),
                  "cache_scatter")
     return dst
@@ -68,6 +88,91 @@ def cache_scatter(dst, src, src_map):
     if dst.device.type == "cpu":
         return cache_scatter_plain(dst, src, src_map)
     return cache_scatter_cuda(dst, src, src_map)
+
+
+cache_scatter_pages_plain = ref.cache_scatter_pages_ref
+
+
+def page_side(x: torch.Tensor, seq_axis, page, batch_axis: int):
+    """K7's view of one side: (stack, rows per stack entry, row bytes) and
+    the byte strides (outer_stride, page_stride, chunk_stride,
+    rows_per_outer, chunk_bytes) that place page row r of the flattened
+    (stack * rows) at (r // rows_per_outer) * outer_stride + (r %
+    rows_per_outer) * page_stride, as runs of chunk_bytes, chunk_stride
+    apart.  ``x`` is contiguous; ``seq_axis`` None means x is page rows
+    already (everything after the batch axis is one row)."""
+    esz = x.element_size()
+    shape = tuple(x.shape)
+    stack = shape[0] if batch_axis == 1 else 1
+    B = shape[batch_axis]
+    outer = math.prod(shape[batch_axis + 1:]) * esz        # one batch row
+    if seq_axis is None:
+        return stack, B, outer, (outer, outer, outer, 1, outer)
+    S = shape[seq_axis]
+    if S % page:
+        raise ValueError(f"page {page} does not divide the seq extent {S} of "
+                         f"{shape}")
+    inner = math.prod(shape[seq_axis + 1:]) * esz          # one position
+    n_chunks = math.prod(shape[batch_axis + 1:seq_axis])   # axes between
+    n_leaf = S // page
+    if n_leaf == 1:                       # a physical pool: contiguous pages
+        return stack, B, outer, (outer, outer, outer, 1, outer)
+    return (stack, B * n_leaf, page * inner * n_chunks,
+            (outer, page * inner, S * inner, n_leaf, page * inner))
+
+
+def targets_meet_sources(host_map) -> bool:
+    """Whether a numpy page map has a page row that is both written and
+    read (the one case where an in-place scatter of a pool onto itself
+    would race)."""
+    m = np.asarray(host_map)
+    return bool(np.intersect1d(np.nonzero(m >= 0)[0], m[m >= 0]).size)
+
+
+def cache_scatter_pages_cuda(dst, src, page_map, seq_axis=None, page=None,
+                             batch_axis: int = 0, host_map=None):
+    """Launch K7: dst page row p of every stack entry takes src page row
+    ``page_map[p]`` of the same entry (-1 keeps), in place.  dst and src
+    are contiguous, of one dtype and page-row size; page_map (dst rows,)
+    int32 on the device.  dst and src may be one tensor (the COW copy)
+    only with ``host_map``, the same map in numpy, proving that no page
+    row is both a target and a source."""
+    _build.require_cuda(dst, src, page_map)
+    if src.dtype != dst.dtype or not (dst.is_contiguous() and src.is_contiguous()):
+        raise ValueError(f"cache_scatter_pages: dst {dst.dtype}, src {src.dtype}; "
+                         f"both must be contiguous and of one dtype")
+    n, rows, row_bytes, ds = page_side(dst, seq_axis, page, batch_axis)
+    n_s, rows_s, row_bytes_s, ss = page_side(src, seq_axis, page, batch_axis)
+    if (n_s != n or row_bytes_s != row_bytes or page_map.shape != (rows,)
+            or page_map.dtype != torch.int32):
+        raise ValueError(
+            f"cache_scatter_pages: dst {tuple(dst.shape)} and src "
+            f"{tuple(src.shape)} give ({n}, {rows}) and ({n_s}, {rows_s}) page "
+            f"rows of {row_bytes} and {row_bytes_s} bytes; map "
+            f"{tuple(page_map.shape)} {page_map.dtype}")
+    if rows > MAX_ROWS or n > MAX_ROWS or row_bytes > MAX_ROW_BYTES:
+        raise ValueError(f"cache_scatter_pages takes at most {MAX_ROWS} rows and "
+                         f"stack entries of < 2 GiB rows; got {n} x {rows} rows "
+                         f"of {row_bytes} bytes")
+    if overlaps(dst, src) and not (src is dst and host_map is not None
+                                   and not targets_meet_sources(host_map)):
+        raise ValueError("cache_scatter_pages: dst and src overlap; only src is "
+                         "dst with a host map whose targets and sources are "
+                         "disjoint is allowed")
+    lib = _build.library("kv_cache", _SIG)
+    PAGES_COUNT.launches += 1
+    _build.check(lib.cache_scatter_pages(
+        page_map.data_ptr(), dst.data_ptr(), src.data_ptr(), n, rows, rows_s,
+        row_bytes, *ds, *ss, _build.stream_ptr(dst.device)), "cache_scatter_pages")
+    return dst
+
+
+def cache_scatter_pages(dst, src, page_map, seq_axis=None, page=None,
+                        batch_axis: int = 0, host_map=None):
+    """K7: the plain version for CPU tensors, the CUDA kernel otherwise."""
+    fn = (cache_scatter_pages_plain if dst.device.type == "cpu"
+          else cache_scatter_pages_cuda)
+    return fn(dst, src, page_map, seq_axis, page, batch_axis, host_map)
 
 
 decode_attend_i8kv_plain = ref.decode_attend_i8kv_ref

@@ -27,6 +27,8 @@ import torch
 from . import kv_cache as _kv
 from . import pdq_prologue as _pro
 from . import w8a8_matmul as _mm
+from .ref import from_page_rows as from_page_rows
+from .ref import to_page_rows as to_page_rows
 from .ref import true_div
 
 LANE = _mm.LANE
@@ -38,6 +40,7 @@ COUNTS = {
     "decode_attend_i8kv": _kv.ATTEND_COUNT,
     "decode_attend_i8kv_fused": _kv.FUSED_COUNT,
     "cache_scatter": _kv.COUNT,
+    "cache_scatter_pages": _kv.PAGES_COUNT,
 }
 
 
@@ -324,4 +327,58 @@ def cache_scatter_rows(dst, src, src_map, *, batch_axis: int = 0):
         raise ValueError(f"batch_axis must be 0 or 1, got {batch_axis}")
     COUNTS["cache_scatter"].entries += 1
     _kv.cache_scatter(dst, src, src_map.to(torch.int32))
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# Paged KV-cache pool: the page scatter (serve/pages.py's device half).  A
+# cache leaf's seq axis splits into pages and the page index folds into the
+# batch axis (``to_page_rows``); every pool movement - prefill landing,
+# decode gather and write-back, COW copy, spill restore - is then a row
+# scatter over page rows, which K7 runs without relaying either side out.
+# ---------------------------------------------------------------------------
+
+
+def cache_scatter_pages(dst, src, page_map, *, batch_axis: int = 0,
+                        seq_axis: int | None = None, page: int | None = None,
+                        host_map=None):
+    """Row scatter over PAGES, IN PLACE: dst page row p takes src page row
+    ``page_map[p]`` (-1 keeps its bits); returns ``dst``.  Any dtype.
+
+    With ``seq_axis`` None both sides are page rows already (a physical
+    pool, or ``to_page_rows`` of a leaf), as in the reference.  With
+    ``seq_axis`` and ``page`` either side may be a logical leaf whose seq
+    axis splits into pages; the kernel addresses it where it lies, and a
+    pool side (seq extent ``page``) is unchanged by the split.
+
+    ``batch_axis=1`` handles stacked per-block leaves (n, B, ...): one map
+    serves every stack entry.  A numpy ``page_map`` (the scheduler's plans)
+    is range-checked on the host, as is ``host_map``, the numpy copy of a
+    device ``page_map``.  ``src is dst`` (the COW copy) needs a host map
+    whose targets and sources are disjoint; any other overlap raises.
+    """
+    if not dst.is_contiguous():
+        raise ValueError("cache_scatter_pages writes dst in place: it must be "
+                         "contiguous")
+    if batch_axis not in (0, 1):
+        raise ValueError(f"batch_axis must be 0 or 1, got {batch_axis}")
+    host = host_map
+    if not torch.is_tensor(page_map):
+        host = page_map
+        page_map = torch.as_tensor(np.asarray(page_map, np.int32), device=dst.device)
+    if host is not None:
+        host = np.asarray(host, np.int32)
+        rows_s = _kv.page_side(src, seq_axis, page, batch_axis)[1]
+        if host.size and (host.min() < -1 or host.max() >= rows_s):
+            raise ValueError(f"page_map values must lie in [-1, {rows_s})")
+    if _kv.overlaps(dst, src):
+        if src is not dst or host is None:
+            raise ValueError("cache_scatter_pages: dst and src overlap; only "
+                             "src is dst with a host map is allowed")
+        if _kv.targets_meet_sources(host):
+            raise ValueError("cache_scatter_pages: a page is both a target and "
+                             "a source of an in-place copy")
+    COUNTS["cache_scatter_pages"].entries += 1
+    _kv.cache_scatter_pages(dst, src, page_map.to(torch.int32), seq_axis, page,
+                            batch_axis, host)
     return dst

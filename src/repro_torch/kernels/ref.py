@@ -120,3 +120,61 @@ def cache_scatter_ref(dst, src, src_map):
     rows = torch.nonzero(src_map >= 0).flatten()
     dst[rows] = src[src_map[rows].long()]
     return dst
+
+
+def to_page_rows(x, seq_axis: int, page: int, *, batch_axis: int = 0):
+    """A cache leaf as PAGE ROWS: the seq axis (S, a multiple of ``page``)
+    splits into (S // page, page) and the page index merges into the batch
+    axis, giving (..., B * S // page, *page_block), each page block laid
+    out like a physical pool page.  A copy unless the leaf is already
+    paged (movedim + reshape of a non-contiguous tensor)."""
+    S = x.shape[seq_axis]
+    if S % page:
+        raise ValueError(f"page {page} does not divide the seq extent {S}")
+    n_pp = S // page
+    x = x.reshape(x.shape[:seq_axis] + (n_pp, page) + x.shape[seq_axis + 1:])
+    lead = batch_axis + 1
+    x = torch.movedim(x, seq_axis, lead)         # page index next to batch
+    B = x.shape[batch_axis]
+    return x.reshape(x.shape[:batch_axis] + (B * n_pp,) + x.shape[lead + 1:])
+
+
+def from_page_rows(x, shape, seq_axis: int, page: int, *, batch_axis: int = 0):
+    """Inverse of ``to_page_rows``: page rows back to the leaf ``shape``."""
+    n_pp = shape[seq_axis] // page
+    B = shape[batch_axis]
+    lead = batch_axis + 1
+    x = x.reshape(x.shape[:batch_axis] + (B, n_pp) + x.shape[lead:])
+    return torch.movedim(x, lead, seq_axis).reshape(shape)
+
+
+def _page_rows(x, seq_axis, page, batch_axis):
+    """One side of a paged scatter as page rows, and those as a 2-D
+    (stack * rows, R) tensor; a side with ``seq_axis`` None is page rows
+    already."""
+    if seq_axis is not None:
+        x = to_page_rows(x, seq_axis, page, batch_axis=batch_axis)
+    return x, x.reshape(-1, x[(0,) * (batch_axis + 1)].numel())
+
+
+def cache_scatter_pages_ref(dst, src, page_map, seq_axis=None, page=None,
+                            batch_axis: int = 0, host_map=None):
+    """Row scatter over PAGES, the reference's composition: each side goes
+    to page rows (``to_page_rows`` when ``seq_axis`` is given, else it is
+    page rows already), dst page row p of stack entry i takes src page row
+    ``page_map[p]`` of the same entry (-1 keeps), and the result goes back
+    into ``dst`` in place.  ``batch_axis`` 1 stacks (n, B, ...) leaves;
+    ``host_map`` is the kernel's aliasing proof and unused here."""
+    dp, d = _page_rows(dst, seq_axis, page, batch_axis)
+    _, s = _page_rows(src, seq_axis, page, batch_axis)
+    n = dst.shape[0] if batch_axis == 1 else 1
+    rows_d, rows_s = d.shape[0] // n, s.shape[0] // n
+    stack = torch.arange(n, device=page_map.device)[:, None]
+    m = torch.where(page_map[None, :] >= 0, page_map[None, :] + rows_s * stack,
+                    -1).reshape(n * rows_d)
+    cache_scatter_ref(d, s, m)
+    if d.untyped_storage().data_ptr() != dst.untyped_storage().data_ptr():
+        # dst's page rows were a copy: write the result back into the leaf
+        dst.copy_(from_page_rows(d.reshape(dp.shape), tuple(dst.shape),
+                                 seq_axis, page, batch_axis=batch_axis))
+    return dst

@@ -3,13 +3,15 @@
 ``build_model(cfg, device)`` returns a bundle of step functions on one
 device.  Unlike the reference's pure functions they update the caches they
 are given IN PLACE and return them: the serving pool is landed into and
-decoded over without copies.
+decoded over without copies.  ``bundle.paged_cache`` builds the device half
+of the paged KV pool.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
@@ -40,6 +42,74 @@ class ModelBundle:
     prefill_many: Callable[..., Any]
     decode_step: Callable[..., Any]
     cache_scatter: Callable[..., Any]
+    paged_cache: Callable[..., Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class _PageMeta:
+    """Per-leaf paging classification (a leaf of the meta tree)."""
+    kind: str            # 'seq' (pageable) | 'flat' (stays per-slot rows)
+    seq_axis: int = -1
+    n_leaf: int = 0      # this leaf's pages per sequence (>= pool n_pp)
+    shape: tuple = ()
+    dtype: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedCacheOps:
+    """Device half of the paged KV-cache pool (serve/pages.py holds the
+    allocator): closures that move data between the physical page pool and
+    the logical (B, ...) cache layout the step functions consume.  Every
+    paged leaf moves with one page scatter (``ops.cache_scatter_pages``,
+    K7), every flat leaf with one row scatter (K6); the maps are built in
+    numpy from the plan's arrays and sent to the device once per op.
+
+    Unlike the reference's functions they update ``pool`` in place.  Leaves
+    whose shape does not grow with ``max_len`` (the flat ``len`` leaf, and
+    int8 K/V leaves whose 128-rounded extent is the same at ``max_len`` and
+    ``2 * max_len``) classify 'flat' and keep per-slot rows in the pool.
+    """
+    page: int
+    n_pp: int            # page-table width: max_len // page
+    meta: Any            # cache-shaped tree of _PageMeta
+    init: Callable[..., Any]       # (n_pages) -> physical pool tree
+    gather: Callable[..., Any]     # (pool, pt, lengths) -> logical caches
+    writeback: Callable[..., Any]  # (pool, logical, pt, positions) -> pool
+    land: Callable[..., Any]       # (pool, sub, src_map, rows, js) -> pool
+    copy: Callable[..., Any]       # (pool, copy_map) -> pool (COW)
+    capture: Callable[..., Any]    # (pool, slot, page_ids) -> host record
+    restore: Callable[..., Any]    # (pool, rec, pmap, src_map) -> pool
+
+
+_SECTIONS = (("head", 0), ("tail", 0), ("blocks", 1))
+
+
+def _tree_map(fn, *trees):
+    """Map over a cache-shaped tree ({'head', 'tail', 'blocks'} of tuples of
+    leaf dicts); ``fn(*leaves, ba=batch axis)``."""
+    return {sec: tuple({k: fn(*(t[sec][i][k] for t in trees), ba=ba)
+                        for k in trees[0][sec][i]}
+                       for i in range(len(trees[0][sec])))
+            for sec, ba in _SECTIONS}
+
+
+def _leaves(tree):
+    """(batch axis, leaf key, leaf) over a cache-shaped tree."""
+    for sec, ba in _SECTIONS:
+        for i, d in enumerate(tree[sec]):
+            yield from ((ba, (sec, i, k), v) for k, v in d.items())
+
+
+def _device_maps(maps: dict, device) -> dict:
+    """Send numpy int32 maps to ``device`` in one host-to-device copy;
+    returns {key: its slice}."""
+    keys = list(maps)
+    flat = torch.as_tensor(np.concatenate([maps[k] for k in keys]), device=device)
+    out, at = {}, 0
+    for k in keys:
+        out[k] = flat[at:at + maps[k].size]
+        at += maps[k].size
+    return out
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
@@ -102,6 +172,192 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 scat(c[name], s[name], src_map, batch_axis=1)
         return caches
 
+    def paged_cache(batch: int, max_len: int, page: int = 64) -> PagedCacheOps:
+        """Build the device ops of a paged cache pool (see PagedCacheOps).
+
+        Pageable leaves are found as the reference finds them: a leaf whose
+        shape differs between ``init_caches(max_len)`` and ``init_caches(2 *
+        max_len)`` grows with the sequence along the differing axis (both
+        shape trees are built on the ``meta`` device, allocating nothing).
+        The physical pool replaces (batch, seq) with one page axis: stacked
+        block leaves become (n_blocks, n_pages, ..., page, ...).
+        """
+        if max_len % page:
+            raise ValueError(f"page size {page} must divide max_len {max_len}")
+        n_pp = max_len // page
+        a = lm_init_caches(cfg, batch, max_len, "meta")
+        b = lm_init_caches(cfg, batch, 2 * max_len, "meta")
+
+        def classify(sa, sb, *, ba):
+            diffs = [i for i, (x, y) in enumerate(zip(sa.shape, sb.shape)) if x != y]
+            if not diffs:
+                return _PageMeta("flat", shape=tuple(sa.shape), dtype=sa.dtype)
+            if len(diffs) != 1:
+                raise ValueError(f"cache leaf {tuple(sa.shape)} grows along "
+                                 f"{len(diffs)} axes")
+            ax = diffs[0]
+            S = sa.shape[ax]
+            if S % page or S // page < n_pp:
+                raise ValueError(f"page size {page} does not divide seq extent "
+                                 f"{S} of cache leaf {tuple(sa.shape)}; pick a "
+                                 f"power-of-two page <= 128 that divides max_len")
+            return _PageMeta("seq", seq_axis=ax, n_leaf=S // page,
+                             shape=tuple(sa.shape), dtype=sa.dtype)
+
+        meta = _tree_map(classify, a, b)
+        # batch-1 pristine init: the gather scratch starts from each leaf's
+        # INIT fill (``pos`` -1, int8 scales 1), so unallocated page regions
+        # read bit-exactly like the never-written region of a slot-row cache
+        base1 = init_caches(1, max_len)
+        scat_pages = kernel_ops.cache_scatter_pages
+
+        def paged(m):
+            return m.kind == "seq"
+
+        # the distinct pages-per-sequence of the paged leaves: one map each
+        n_leaves = sorted({m.n_leaf for _, _, m in _leaves(meta) if paged(m)})
+
+        def init(n_pages: int):
+            def one(m, *, ba):
+                shape = list(m.shape)
+                if paged(m):
+                    shape[ba], shape[m.seq_axis] = n_pages, page
+                # flat pool leaves fill with zeros, scales included, as the
+                # reference's pool does
+                return torch.zeros(tuple(shape), dtype=m.dtype, device=dev)
+            return _tree_map(one, meta)
+
+        def gather(pool, pt, lengths):
+            """Physical pages -> a fresh (B, ...) logical tree the decode
+            step runs on in place.  pt (B, n_pp) page tables and lengths
+            (B,) written tokens per row, numpy.  -1 entries and pages at or
+            beyond the write frontier gather nothing, leaving the scratch at
+            the leaf's INIT fill.  Flat leaves are the pool's own tensors,
+            so the decode step's writes to them land in the pool."""
+            pt = np.asarray(pt, np.int32)
+            B = pt.shape[0]
+            keep = np.arange(n_pp)[None, :] * page < np.asarray(lengths)[:, None]
+            pt = np.where(keep, pt, -1)
+            maps = {}
+            for nl in n_leaves:
+                g = np.full((B, nl), -1, np.int32)
+                g[:, :n_pp] = pt
+                maps[nl] = g.reshape(B * nl)
+            dmaps = _device_maps(maps, dev)
+
+            def one(m, pool_leaf, b1, *, ba):
+                if not paged(m):
+                    return pool_leaf
+                shape = list(m.shape)
+                shape[ba] = B
+                z = b1.expand(shape).contiguous()
+                return scat_pages(z, pool_leaf, dmaps[m.n_leaf], batch_axis=ba,
+                                  seq_axis=m.seq_axis, page=page)
+            return _tree_map(one, meta, pool, base1)
+
+        def writeback(pool, logical, pt, positions):
+            """Scatter each row's decode-written page (the one holding
+            position ``positions[b, 0]``) back into the pool.  Whole pages
+            are written, so a recycled page comes back fully cleaned (init
+            fill past the last written token: the gather laundered it).
+            Free slots (-1 table entries) land on the write-only DUMP page
+            0; repeated targets there are last-write-wins, as in JAX, and
+            page 0 is never read."""
+            pt = np.asarray(pt, np.int32)
+            B = pt.shape[0]
+            j = np.clip(np.asarray(positions)[:, 0] // page, 0, n_pp - 1)
+            ent = pt[np.arange(B), j]
+            tgt = np.where(ent > 0, ent, 0)
+            N = next(pool[sec][i][k].shape[ba] for ba, (sec, i, k), m in _leaves(meta)
+                     if paged(m))
+            maps = {}
+            for nl in n_leaves:
+                w = np.full((N,), -1, np.int32)
+                w[tgt] = np.arange(B) * nl + j
+                maps[nl] = w
+            dmaps = _device_maps(maps, dev)
+
+            def one(m, pool_leaf, lg, *, ba):
+                if paged(m):
+                    scat_pages(pool_leaf, lg, dmaps[m.n_leaf], batch_axis=ba,
+                               seq_axis=m.seq_axis, page=page)
+                elif lg is not pool_leaf:      # flat state IS the new rows
+                    pool_leaf.copy_(lg)
+                return pool_leaf
+            return _tree_map(one, meta, pool, logical)
+
+        def land(pool, sub, src_map, land_rows, land_js):
+            """Land a bucketed prefill batch: flat leaves take whole slot
+            rows through ``src_map`` (K6); paged leaves take pages - pool
+            page p takes page ``land_js[p]`` of scratch row ``land_rows[p]``
+            (-1 keeps; the planner leaves shared prefix pages out)."""
+            rows = np.asarray(land_rows, np.int32)
+            js = np.asarray(land_js, np.int32)
+            maps = {nl: np.where(rows >= 0, rows * nl + js, -1).astype(np.int32)
+                    for nl in n_leaves}
+            maps["slots"] = np.asarray(src_map, np.int32)
+            dmaps = _device_maps(maps, dev)
+
+            def one(m, pool_leaf, s, *, ba):
+                if paged(m):
+                    return scat_pages(pool_leaf, s, dmaps[m.n_leaf], batch_axis=ba,
+                                      seq_axis=m.seq_axis, page=page)
+                return kernel_ops.cache_scatter_rows(pool_leaf, s, dmaps["slots"],
+                                                     batch_axis=ba)
+            return _tree_map(one, meta, pool, sub)
+
+        def copy(pool, copy_map):
+            """Pool-internal page copy (the COW arm): page p takes page
+            ``copy_map[p]`` (-1 keeps); the map's targets are fresh pages,
+            never sources, which the page scatter checks on the host."""
+            cmap = np.asarray(copy_map, np.int32)
+            dmap = _device_maps({"pages": cmap}, dev)["pages"]
+
+            def one(m, pool_leaf, *, ba):
+                if paged(m):
+                    scat_pages(pool_leaf, pool_leaf, dmap, batch_axis=ba, host_map=cmap)
+                return pool_leaf
+            return _tree_map(one, meta, pool)
+
+        def capture(pool, slot: int, page_ids):
+            """Host copy of one request's pages, padded with zero pages to
+            n_pp, plus its flat per-slot rows: the spill record's payload, a
+            tree of CPU tensors (bf16 leaves stay bf16)."""
+            ids = torch.as_tensor(np.asarray(page_ids, np.int64), device=dev)
+            k = int(ids.shape[0])
+
+            def one(m, pool_leaf, *, ba):
+                if not paged(m):
+                    sel = pool_leaf.narrow(ba, slot, 1)
+                    return sel.to("cpu", copy=True)
+                sel = pool_leaf.index_select(ba, ids).cpu()
+                pad = list(sel.shape)
+                pad[ba] = n_pp - k
+                return torch.cat([sel, sel.new_zeros(pad)], dim=ba)
+            return _tree_map(one, meta, pool)
+
+        def restore(pool, rec, pmap, src_map):
+            """Scatter a spill record back: paged leaves from its captured
+            (n_pp-padded) pages through ``pmap`` (pool page -> record page,
+            -1 keeps), flat leaves from its captured rows through
+            ``src_map`` (slot -> record row 0, -1 keeps)."""
+            maps = {"pages": np.asarray(pmap, np.int32),
+                    "slots": np.asarray(src_map, np.int32)}
+            dmaps = _device_maps(maps, dev)
+
+            def one(m, pool_leaf, rv, *, ba):
+                rv = rv.to(dev)
+                if paged(m):
+                    return scat_pages(pool_leaf, rv, dmaps["pages"], batch_axis=ba)
+                return kernel_ops.cache_scatter_rows(pool_leaf, rv, dmaps["slots"],
+                                                     batch_axis=ba)
+            return _tree_map(one, meta, pool, rec)
+
+        return PagedCacheOps(page=page, n_pp=n_pp, meta=meta, init=init,
+                             gather=gather, writeback=writeback, land=land,
+                             copy=copy, capture=capture, restore=restore)
+
     return ModelBundle(cfg=cfg, device=dev, init=init, init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,
-                       decode_step=decode_step, cache_scatter=cache_scatter)
+                       decode_step=decode_step, cache_scatter=cache_scatter,
+                       paged_cache=paged_cache)

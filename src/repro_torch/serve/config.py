@@ -2,8 +2,9 @@
 
 One declarative record of a serving deployment; ``build_engine`` resolves
 it to the single-device ``ServeEngine`` on ``device`` (the card unless the
-caller asks for the CPU).  Options whose engines are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+caller asks for the CPU).  ``ServeConfig.validate`` raises ``ValueError`` on
+the reference's inconsistent combinations; options whose engines are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -37,9 +38,12 @@ class ServeConfig:
     mesh: Any = None                # multi-GPU serving (Queue 1 item 8)
     snapshot_path: str | None = None
 
-    # ---- paged KV pool (Queue 1 item 3)
+    # ---- paged KV pool
     paged: bool = False
-    spill: bool = False
+    page_size: int = 64
+    pool_pages: int | None = None   # physical pages (None: parity + dump page)
+    prefix_sharing: bool = True
+    spill: bool = False             # host spill + warm restore
 
     # ---- telemetry (serve/telemetry.py)
     telemetry: bool = True
@@ -47,6 +51,13 @@ class ServeConfig:
 
     # ---- placement
     device: str = "cuda"
+
+    def validate(self) -> "ServeConfig":
+        if self.mesh is not None and self.spill:
+            raise ValueError("host spill is single-device only")
+        if self.paged and not self.batch_prefill:
+            raise ValueError("the paged pool needs batch_prefill=True")
+        return self
 
 
 def resolve_model(config: ServeConfig):
@@ -71,6 +82,7 @@ def build_engine(config: ServeConfig, *, cfg=None, params=None):
 
     from .engine import ServeEngine, not_ported
 
+    config.validate()
     resolve_device(config.device)
     if config.mesh is not None:
         raise not_ported("multi-GPU serving", "8")
@@ -88,8 +100,9 @@ def build_engine(config: ServeConfig, *, cfg=None, params=None):
         chunked_prefill=config.chunked_prefill,
         decode_steps=config.decode_steps, fault=config.fault,
         pdq_fallback=config.pdq_fallback, paged=config.paged,
-        spill=config.spill, telemetry=config.telemetry, trace=config.trace,
-        device=config.device)
+        page_size=config.page_size, pool_pages=config.pool_pages,
+        prefix_sharing=config.prefix_sharing, spill=config.spill,
+        telemetry=config.telemetry, trace=config.trace, device=config.device)
     if config.snapshot_path:
         eng.snapshot_path = config.snapshot_path
     return eng

@@ -12,6 +12,14 @@ model bundle on one device:
   * ``_sample_rows``: greedy argmax over float32 logits (first index on
     ties, as JAX), or temperature sampling.
 
+With ``paged=True`` the pool is a physical page pool (``bundle.paged_cache``
+ops; the allocator, prefix sharing, preemption and spill bookkeeping are
+the copied core's): prefill lands page-wise through the plan's land maps,
+each decode step gathers the live rows' pages into a fresh logical scratch,
+runs the same ``decode_step`` on it and writes each row's frontier page
+back, and the COW copy, spill capture and restore move pages through the
+page scatter (K7).
+
 With ``quantize_weights=True`` every layer's projections run PDQ int8
 (``models.linops.quantize_param_tree``), which is what the reference's
 engine documents; the reference itself leaves its stacked blocks in fp
@@ -33,6 +41,7 @@ from repro_torch.models.linops import quantize_param_tree
 
 from . import telemetry as tmod
 from .core import DEFAULT_BUCKETS, DecodePlan, PrefillPlan, Request, SchedulerCore
+from .pages import SpillRecord
 
 __all__ = ["DECODE_PAD", "DEFAULT_BUCKETS", "Request", "ServeEngine"]
 
@@ -56,6 +65,9 @@ class ServeEngine(SchedulerCore):
                  fault: FaultInjector | None = None,
                  pdq_fallback: bool = False,
                  paged: bool = False,
+                 page_size: int = 64,
+                 pool_pages: int | None = None,
+                 prefix_sharing: bool = True,
                  spill: bool = False,
                  telemetry: bool = True,
                  trace: bool = False,
@@ -65,9 +77,7 @@ class ServeEngine(SchedulerCore):
                 (not batch_prefill, "the per-request prefill baseline", "9"),
                 (chunked_prefill, "chunked prefill", "6"),
                 (decode_steps != 1, "decode_steps > 1", "4"),
-                (pdq_fallback, "the guarded PDQ fallback", "5"),
-                (paged, "the paged KV pool", "3"),
-                (spill, "host spill", "3")):
+                (pdq_fallback, "the guarded PDQ fallback", "5")):
             if on:
                 raise not_ported(what, item)
         self.cfg = cfg
@@ -83,7 +93,21 @@ class ServeEngine(SchedulerCore):
             slots=slots, n_replicas=1, max_len=max_len, patch_tokens=0,
             buckets=buckets, batch_prefill=True, chunked_prefill=False,
             decode_steps=1, fault=fault, tel=tel)
-        self.caches = self.bundle.init_caches(self.slots, self.max_len)
+        if paged:
+            self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size)
+            n_pp = self._paged_ops.n_pp
+            if pool_pages is None:
+                # headroom parity with the slot-row pool (+1 dump page):
+                # every slot can hold a full sequence at once
+                pool_pages = self.slots * n_pp + 1
+            self._init_paging(page_size=page_size, pool_pages=pool_pages,
+                              n_pp=n_pp, prefix_sharing=prefix_sharing,
+                              spill=spill)
+            # physical page pool: (n_blocks, pool_pages, ..., page, ...) per
+            # paged leaf, (n_blocks, slots) rows for the flat ones
+            self.caches = self._paged_ops.init(self.pool_pages)
+        else:
+            self.caches = self.bundle.init_caches(self.slots, self.max_len)
         # the PDQ health vector [fallbacks, clip_hits, clip_total]: zeros
         # until the telemetry slice ports the device-side counters
         self._pdq_health = np.zeros((3,), np.float32)
@@ -135,19 +159,53 @@ class ServeEngine(SchedulerCore):
         return out
 
     def _land_sub(self, plan, sub) -> None:
-        """Land a finished prefill batch in the pool: whole slot rows, in
-        place (the reference donates the pool for the same effect)."""
-        self.bundle.cache_scatter(self.caches, sub, plan.src_map)
+        """Land a finished prefill batch in the pool, in place (the
+        reference donates the pool for the same effect): page-wise through
+        the plan's land maps (paged), or whole slot rows."""
+        if self.paged:
+            self._paged_ops.land(self.caches, sub, plan.src_map,
+                                 plan.land_rows, plan.land_js)
+        else:
+            self.bundle.cache_scatter(self.caches, sub, plan.src_map)
 
     def _exec_decode(self, plan: DecodePlan):
         dev = self.device
-        logits, self.caches = self.bundle.decode_step(
-            self.params, self.caches,
-            torch.as_tensor(plan.tokens, device=dev),
-            torch.as_tensor(plan.positions, device=dev))
+        tokens = torch.as_tensor(plan.tokens, device=dev)
+        positions = torch.as_tensor(plan.positions, device=dev)
+        if self.paged:
+            po = self._paged_ops
+            logical = po.gather(self.caches, plan.page_tables, plan.positions[:, 0])
+            logits, logical = self.bundle.decode_step(self.params, logical, tokens,
+                                                      positions)
+            po.writeback(self.caches, logical, plan.page_tables, plan.positions)
+        else:
+            logits, self.caches = self.bundle.decode_step(self.params, self.caches,
+                                                          tokens, positions)
         nxt, ok = self._sample(logits, plan.row_uids, plan.row_steps)
         self._observe_pdq(self._pdq_health)
         act = plan.n_steps > 0
         toks = np.where(act, nxt, DECODE_PAD)[:, None]
         ok = np.where(act, ok, True)[:, None]
         return toks, self._poison_ok("decode", plan, ok)
+
+    # ------------------------------------------------------ paged-pool hooks
+    def _exec_page_copy(self, replica: int, pairs) -> None:
+        cmap = np.full((self.pool_pages,), -1, np.int32)   # one replica
+        for src, dst in pairs:
+            cmap[dst] = src
+        self._paged_ops.copy(self.caches, cmap)
+
+    def _exec_spill(self, slot: int, uid: int, page_ids) -> SpillRecord:
+        return SpillRecord(uid=uid, n_pages=len(page_ids),
+                           length=int(self.lengths[slot]),
+                           last_token=int(self.last_tokens[slot]),
+                           data=self._paged_ops.capture(self.caches, slot,
+                                                        page_ids))
+
+    def _exec_restore(self, slot: int, rec: SpillRecord, page_ids) -> None:
+        pmap = np.full((self.pool_pages,), -1, np.int32)
+        for i, p in enumerate(page_ids):
+            pmap[p] = i                       # pool page p <- record page i
+        smap = np.full((self.slots,), -1, np.int32)
+        smap[slot] = 0                        # flat leaves: record row 0
+        self._paged_ops.restore(self.caches, rec.data, pmap, smap)

@@ -14,7 +14,8 @@ atol = 2e-4 of plain (the reference's kernel test, tests/test_kernels.py:177),
 on rows of length >= 1 (a row of length 0 is NaN in the plain version, as
 in the reference, and exactly 0 in the kernels); K5's s_x within rtol
 1e-5, its codes equal where o rounds to the same pro_dtype value under
-the same s_x and never more than 1 apart.
+the same s_x and never more than 1 apart.  The page scatter (K7) is
+bit-equal to its plain version in every direction the paged pool uses it.
 """
 import pytest
 import torch
@@ -106,6 +107,92 @@ def test_cache_scatter_kernel_matches_plain(gen, row, dtype):
     m = torch.tensor([5, -1, 0, 2, -1, -1, 1, 4, 3], dtype=torch.int32, device="cuda")
     assert torch.equal(kv.cache_scatter_cuda(dst.clone(), src, m),
                        kv.cache_scatter_plain(dst.clone(), src, m))
+
+
+# (logical leaf (n, B, ...), dtype, seq_axis, page, pool pages): int8 and
+# bf16 K/V, f32 scales, int32 pos; pages 16 and 64; Sp above max_len
+# (n_leaf > n_pp); runs of 24 and 6 bytes (the byte path)
+_PAGE_LEAVES = [((3, 4, 4, 128, 64), torch.int8, 3, 16, 13),
+                ((2, 3, 4, 256, 64), torch.int8, 3, 64, 7),
+                ((3, 4, 4, 128), torch.float32, 3, 16, 13),
+                ((3, 4, 96), torch.int32, 2, 16, 11),
+                ((2, 3, 64, 4, 16), torch.bfloat16, 2, 16, 9),
+                ((2, 3, 2, 40, 3), torch.int8, 3, 8, 9),
+                ((2, 3, 24, 3), torch.bfloat16, 2, 1, 30)]
+
+
+def _rand_leaf(gen, shape, dtype):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return torch.randint(-100, 100, shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def _page_case(gen, shape, dtype, seq_axis, page, N):
+    logical = _rand_leaf(gen, shape, dtype)
+    pshape = list(shape)
+    pshape[1], pshape[seq_axis] = N, page
+    pool = _rand_leaf(gen, tuple(pshape), dtype)
+    B, n_leaf = shape[1], shape[seq_axis] // page
+    g = torch.randint(0, N, (B * n_leaf,), generator=gen, device="cuda", dtype=torch.int32)
+    g[torch.rand(B * n_leaf, generator=gen, device="cuda") < 0.4] = -1
+    w = torch.full((N,), -1, dtype=torch.int32, device="cuda")
+    w[torch.randperm(N - 1, generator=gen, device="cuda")[:B] + 1] = torch.randint(
+        0, B * n_leaf, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    return logical, pool, g, w
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.uint8) if a.dtype == torch.bfloat16 else a,
+                       b.view(torch.uint8) if b.dtype == torch.bfloat16 else b)
+
+
+@pytest.mark.parametrize("shape,dtype,seq_axis,page,N", _PAGE_LEAVES)
+def test_page_scatter_kernel_matches_plain(gen, shape, dtype, seq_axis, page, N):
+    logical, pool, gmap, wmap = _page_case(gen, shape, dtype, seq_axis, page, N)
+    n_pp = N // 2
+    record = _rand_leaf(gen, (shape[0], n_pp) + tuple(pool.shape[2:]), dtype).cpu()
+    pmap = torch.full((N,), -1, dtype=torch.int32, device="cuda")
+    pmap[1:1 + n_pp] = torch.arange(n_pp, dtype=torch.int32, device="cuda").flip(0)
+    cmap = torch.full((N,), -1, dtype=torch.int32, device="cuda")
+    cmap[N - 2:] = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+    cases = [(logical, pool, gmap, seq_axis),          # decode gather
+             (pool, logical, wmap, seq_axis),          # write-back / land
+             (pool, record.cuda(), pmap, None)]        # restore from a host record
+    for dst, src, m, sa in cases:
+        want = kv.cache_scatter_pages_plain(dst.clone(), src, m, sa, page, 1)
+        got = kv.cache_scatter_pages_cuda(dst.clone(), src, m, sa, page, 1)
+        assert _same_bits(got, want)
+    # the COW copy: the pool onto itself, targets and sources disjoint
+    want = kv.cache_scatter_pages_plain(pool.clone(), pool.clone(), cmap, None, None, 1)
+    got = pool.clone()
+    kv.cache_scatter_pages_cuda(got, got, cmap, None, None, 1, host_map=cmap.cpu().numpy())
+    assert _same_bits(got, want)
+
+
+def test_page_scatter_misaligned_base_takes_the_byte_path(gen):
+    flat = torch.randint(-100, 100, (1 + 2 * 3 * 4 * 64 * 16,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    logical = flat[1:].view(2, 3, 4, 64, 16)            # contiguous, 1 byte off
+    assert logical.data_ptr() % 16
+    pool = torch.randint(-100, 100, (2, 7, 4, 16, 16), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    m = torch.tensor([3, -1, 0, 6, -1, 2, 1, -1, 4, 5, -1, -1], dtype=torch.int32,
+                     device="cuda")
+    want = kv.cache_scatter_pages_plain(logical.clone(), pool, m, 3, 16, 1)
+    got = kv.cache_scatter_pages_cuda(logical, pool, m, 3, 16, 1)
+    assert torch.equal(got, want)
+
+
+def test_page_scatter_refuses_overlap(gen):
+    pool = _rand_leaf(gen, (2, 6, 2, 16, 8), torch.int8)
+    bad = torch.tensor([-1, -1, 1, -1, 2, -1], dtype=torch.int32, device="cuda")
+    good = torch.tensor([-1, -1, -1, -1, 1, 2], dtype=torch.int32, device="cuda")
+    for m, host in ((bad, bad.cpu().numpy()), (good, None)):
+        with pytest.raises(ValueError, match="overlap"):
+            kv.cache_scatter_pages_cuda(pool, pool, m, None, None, 1, host_map=host)
+    with pytest.raises(ValueError, match="overlap"):           # a view is not src is dst
+        kv.cache_scatter_pages_cuda(pool, pool.view(pool.shape), good, None, None, 1,
+                                    host_map=good.cpu().numpy())
 
 
 def _attend_operands(gen, B, Hkv, G, Dh, Sp, lens):

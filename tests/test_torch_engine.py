@@ -113,12 +113,22 @@ def test_build_engine_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("paged", True), ("chunked_prefill", True), ("decode_steps", 4),
-    ("pdq_fallback", True), ("spill", True), ("mesh", object()),
-    ("batch_prefill", False)])
+    ("chunked_prefill", True), ("decode_steps", 4), ("pdq_fallback", True),
+    ("mesh", object()), ("batch_prefill", False)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
+        build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+
+
+@pytest.mark.parametrize("fields,match", [
+    (dict(paged=True, batch_prefill=False), "needs batch_prefill"),
+    (dict(spill=True, mesh=object()), "single-device")])
+def test_inconsistent_configs_raise_value_error(weights, fields, match):
+    """ServeConfig.validate: the reference's checks, before any engine is
+    built."""
+    cfg = ServeConfig(device="cpu", slots=2, max_len=32, **fields)
+    with pytest.raises(ValueError, match=match):
         build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
 
 

@@ -190,6 +190,8 @@ def test_ops_count_entries_on_cpu_and_never_launch():
                      torch.zeros(64, 128, dtype=torch.int8), 1.0, 0, 1.0)
     tops.cache_scatter_rows(torch.zeros(2, 3), torch.ones(2, 3),
                             np.array([1, -1], np.int32))
+    tops.cache_scatter_pages(torch.zeros(2, 4, 3), torch.ones(3, 2, 3),
+                             np.array([0, -1, 2, -1], np.int32), seq_axis=1, page=2)
     kv = (torch.randn(2, 4, 16), torch.zeros(2, 2, 128, 16, dtype=torch.int8),
           torch.zeros(2, 2, 128, 16, dtype=torch.int8), torch.ones(2, 2, 128),
           torch.ones(2, 2, 128), torch.tensor([3, 1], dtype=torch.int32))
@@ -200,13 +202,14 @@ def test_ops_count_entries_on_cpu_and_never_launch():
     assert {k: v["entries"] for k, v in c.items()} == {
         "pdq_prologue": 1, "w8a8_matmul": 1, "w8a8_swiglu_matmul": 0,
         "decode_attend_i8kv": 1, "decode_attend_i8kv_fused": 2,
-        "cache_scatter": 1}
+        "cache_scatter": 1, "cache_scatter_pages": 1}
     assert all(v["launches"] == 0 for v in c.values())
 
 
 @pytest.mark.parametrize("call", [
     lambda x: tpro.pdq_prologue(x),
     lambda x: tkv.cache_scatter(x, x, torch.zeros(4, dtype=torch.int32)),
+    lambda x: tkv.cache_scatter_pages(x, x, torch.zeros(4, dtype=torch.int32)),
     lambda x: tmm.w8a8_swiglu_matmul(x, x, x, x, x, x, x, x),
     lambda x: tkv.decode_attend_i8kv(x, x, x, x, x, x),
     lambda x: tkv.decode_attend_i8kv_fused(x, x, x, x, x, x),
