@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Three serving paths of full-width stablelm-1.6b (24 layers, bf16, random
-weights from a seeded generator), each built with
-build_engine(ServeConfig(..., device="cuda")):
+Serving paths of full-width stablelm-1.6b (24 layers, bf16, random weights
+from a seeded generator), each built with build_engine(ServeConfig(...,
+device="cuda")), and one path of ops-level calls on its weights (E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
@@ -17,7 +17,13 @@ build_engine(ServeConfig(..., device="cuda")):
      K7 cache_scatter_pages (every pool movement: prefill landing, decode
      gather and write-back, COW copy, spill restore); D1 with the default
      pool (every slot can hold max_len), D2 with a pool small enough that
-     decode growth preempts requests and spills them to host memory.
+     decode growth preempts requests and spills them to host memory;
+  E  the ops-level quantization entry points on path A's own PDQ records
+     (layer 0's Q segment of the grouped QKV, wo and w_down) at 8 and 2048
+     rows: ops.pdq_dense_unfused, the pre-fusion projection (K8 act_stats +
+     K2's requant epilogue), ops.act_stats (also with the sampling stride
+     gamma), ops.quantize (K9) and ops.dequantize (K10) of its output on its
+     own grid, and the fused ops.pdq_dense (K1 + K2) beside it.
 
 Phases, each of which must pass (any failure exits non-zero):
 
@@ -45,7 +51,15 @@ Phases, each of which must pass (any failure exits non-zero):
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
                 the path's LOGIT_TOL, and each step's argmax agrees or the
-                plain path's top-2 margin is below it.
+                plain path's top-2 margin is below it;
+  6. unfused  - path E, after the serving runs: counts zeroed before and read
+                after, an exact census (each unfused call one K8 and one K2,
+                no K1), the re-quantized output equal to the projection's own
+                codes and dequantized back bit for bit, the same calls on CPU
+                copies of the inputs (the plain versions) within one int8
+                step, fused against unfused within one step per row (the
+                reference's contract), both timed end to end, and three
+                unfused calls profiled.
 
 It prints the card's name and power limit, one JSON line with every
 kernel's launches (on its path), error and times, and as its last line
@@ -81,6 +95,10 @@ SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
 
+E_ROWS = (8, 2048)        # path E: decode rows (the slots), prefill (8 x 256)
+E_GAMMA = 4               # act_stats' sampling stride on E's (8, 256, K) input
+E_SPIN = 20_000_000       # E's device spin before each timed call, cycles (~10 ms)
+E_PROFILED = 3            # unfused calls in E's profile of each case
 PAGE = 64                 # path D's page size
 D2_POOL_PAGES = 17        # D2's physical pages: 16 usable, 2 slots' worth
 
@@ -113,12 +131,14 @@ def log(msg):
 
 
 # ------------------------------------------------------------------ timing
-def median_ms(fn, reps=30, flush=None):
+def median_ms(fn, reps=30, flush=None, spin=2_000_000):
     """Median time of one call of ``fn`` on the card: CUDA events around
     each call, a 64 MB write before each to evict the 50 MB L2 (the main
-    path reads each layer's weights once per step), then a ~1 ms device
-    spin so that the host has enqueued the call before the device reaches
-    it: the events time the device's work, not the host's launch cost."""
+    path reads each layer's weights once per step), then a device spin of
+    ``spin`` cycles (~1 ms by default) so that the host has enqueued the
+    call before the device reaches it: the events time the device's work,
+    not the host's launch cost.  A call of many small launches needs a
+    longer spin."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -126,7 +146,7 @@ def median_ms(fn, reps=30, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -320,6 +340,9 @@ def phase_kernels(eng):
 
     # ---- K7 cache_scatter_pages: path D's pool movements at full width
     page_kernels(eng, gen, flush, record)
+
+    # ---- K8 act_stats, K9 quantize, K10 dequantize: path E's shapes
+    quant_kernels(eng, gen, flush, record)
 
     # ---- K6 cache_scatter: one admission round's leaves, stacked rows
     pool = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
@@ -516,6 +539,122 @@ def page_kernels(eng, gen, flush, record):
         torch.cuda.empty_cache()
 
 
+def quant_kernels(eng, gen, flush, record):
+    """K8, K9 and K10 against their plain versions at path E's shapes (8
+    and 2048 rows of d_model): K8 on f32 (what the unfused projection
+    gives it) and bf16 and on the sampling stride's rows, within SUM_RTOL
+    and bit-equal over two launches; K9 and K10 per row and per channel,
+    f32 and bf16, and at ragged shapes with x on .5 ties, codes and bits
+    equal.  Library calls, timed on f32 and not used by the port:
+    torch.quantize_per_channel for K9 and torch.dequantize of the same
+    codes for K10; none for K8, as no single PyTorch call returns both
+    sums."""
+    import torch
+    from repro_torch.kernels import act_stats as st
+    from repro_torch.kernels import quantize as qz
+    dev, d = eng.device, eng.cfg.d_model
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x_pre = randn(2048, d)
+    strided = randn(8, 2048 // 8, d).to(torch.bfloat16)[:, ::E_GAMMA]
+    for xm, primary in ((randn(8, d), False), (x_pre, True),
+                        (randn(8, d).to(torch.bfloat16), False),
+                        (x_pre.to(torch.bfloat16), False), (strided, False)):
+        k, p = st.act_stats_cuda(xm), st.act_stats_plain(xm)
+        again = st.act_stats_cuda(xm)
+        need(torch.equal(k[0], again[0]) and torch.equal(k[1], again[1]),
+             "K8: two launches on one input differ")
+        absx = xm.float().abs().sum(-1)
+        need(bool(((k[0] - p[0]).abs() <= SUM_RTOL * absx).all()), "K8 s1 outside tolerance")
+        need(bool(((k[1] - p[1]).abs() <= SUM_RTOL * p[1]).all()), "K8 s2 outside tolerance")
+        rows, K = xm[..., 0].numel(), xm.shape[-1]
+        b_ms, b_by = bound_ms(rows * K * xm.element_size() + 8 * rows, 3 * rows * K, F32_OPS)
+        record("act_stats", f"x {tuple(xm.shape)} {str(xm.dtype)[6:]}"
+               + (f" = x[:, ::{E_GAMMA}] in place" if xm.dim() == 3 else ""),
+               max(max_abs(a, b) for a, b in zip(k, p)),
+               median_ms(lambda: st.act_stats_cuda(xm), flush=flush),
+               median_ms(lambda: st.act_stats_plain(xm), flush=flush), b_ms, b_by, None,
+               primary)
+
+    def affine(M, N, per_channel, ties):
+        """Scales in [0.001, 0.3], powers of two on every other row or
+        channel (x / s then exact), zero points in [-40, 40); x on .5 ties
+        of the grid, or normal with some codes past the int8 range."""
+        n = N if per_channel else M
+        s = 0.001 + 0.299 * torch.rand((n,), generator=gen, device=dev)
+        pow2 = 2.0 ** -torch.randint(1, 9, (n,), generator=gen, device=dev).float()
+        s = torch.where(torch.arange(n, device=dev) % 2 == 0, pow2, s)
+        z = torch.randint(-40, 40, (n,), generator=gen, device=dev, dtype=torch.int32)
+        shape = (1, N) if per_channel else (M, 1)
+        s, z = s.reshape(shape).contiguous(), z.reshape(shape).contiguous()
+        if ties:
+            k = torch.randint(-140, 140, (M, N), generator=gen, device=dev).float()
+            return (k + 0.5) * s, s, z
+        return 60 * randn(M, N) * s, s, z
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def library(fn):
+        return fn(), median_ms(fn, flush=flush)
+
+    # (M, N, per channel, dtype, .5 ties, timed, primary)
+    cases = [(2048, d, False, torch.float32, False, True, True),
+             (2048, d, True, torch.float32, False, True, False),
+             (8, d, False, torch.float32, False, True, False),
+             (2048, d, False, torch.bfloat16, False, True, False),
+             (300, 290, False, torch.float32, True, False, False),
+             (300, 290, True, torch.bfloat16, True, False, False),
+             (2048, 2049, False, torch.bfloat16, True, False, False),
+             (2048, 2049, True, torch.float32, True, False, False)]
+    for M, N, pc, dtype, ties, timed, primary in cases:
+        x, s, z = affine(M, N, pc, ties)
+        x = x.to(dtype)
+        how = f"({M}, {N}) {str(dtype)[6:]} per {'channel' if pc else 'row'}"
+        kq, pq = qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z)
+        need(torch.equal(kq, pq), f"K9 {how}: codes differ from plain")
+        q = torch.randint(-128, 128, (M, N), generator=gen, device=dev, dtype=torch.int8)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            need(torch.equal(bits(qz.dequantize_cuda(q, s, z, out_dtype)),
+                             bits(qz.dequantize_plain(q, s, z, out_dtype))),
+                 f"K10 {how} -> {out_dtype}: bits differ from plain")
+        if not timed:
+            log(f"kernel quantize/dequantize {how}{', .5 ties' if ties else ''}: "
+                f"equal to plain")
+            continue
+        n = N if pc else M
+        axis = 1 if pc else 0
+        sd, zl = s.reshape(n).double(), z.reshape(n).long()
+        lib_q, lib_ms = (None, None)
+        if dtype == torch.float32:
+            lib_q, lib_ms = library(lambda: torch.quantize_per_channel(x, sd, zl, axis,
+                                                                       torch.qint8))
+        lib_note = ("" if lib_q is None else
+                    f"; library codes differ in {int((lib_q.int_repr() != kq).sum())}")
+        b_ms, b_by = bound_ms(M * N * (x.element_size() + 1) + 8 * n, 4 * M * N, F32_OPS)
+        record("quantize", f"x {how} -> int8{lib_note}", max_abs(kq, pq),
+               median_ms(lambda: qz.quantize_cuda(x, s, z), flush=flush),
+               median_ms(lambda: qz.quantize_plain(x, s, z), flush=flush), b_ms, b_by,
+               lib_ms, primary)
+        out_dtype = dtype                  # K10 back to the type K9 was given
+        ky = qz.dequantize_cuda(q, s, z, out_dtype)
+        py = qz.dequantize_plain(q, s, z, out_dtype)
+        lib_y, lib_ms = (None, None)
+        if out_dtype == torch.float32:
+            qt = torch._make_per_channel_quantized_tensor(q, sd, zl, axis)
+            lib_y, lib_ms = library(lambda: torch.dequantize(qt))
+        lib_note = ("" if lib_y is None else
+                    f"; library values differ in {int((lib_y != ky).sum())}")
+        b_ms, b_by = bound_ms(M * N * (1 + ky.element_size()) + 8 * n, 2 * M * N, F32_OPS)
+        record("dequantize", f"q ({M}, {N}) per {'channel' if pc else 'row'} -> "
+               f"{str(out_dtype)[6:]}{lib_note}", max_abs(ky, py),
+               median_ms(lambda: qz.dequantize_cuda(q, s, z, out_dtype), flush=flush),
+               median_ms(lambda: qz.dequantize_plain(q, s, z, out_dtype), flush=flush),
+               b_ms, b_by, lib_ms, primary)
+
+
 def make_requests(cfg, n=8, seed=0):
     """``n`` requests of 32 new tokens; prompts of 20-250 tokens, except
     that requests 0 and 1 are one seeded 128-token system prompt followed
@@ -546,7 +685,8 @@ def census(path, n, pre, dec, restores=0):
     int8_kv, pdq, _, paging = PATHS[path]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
-                cache_scatter=(6 if int8_kv else 4) * pre, cache_scatter_pages=0)
+                cache_scatter=(6 if int8_kv else 4) * pre, cache_scatter_pages=0,
+                act_stats=0, quantize=0, dequantize=0)
     if paging:
         want.update(cache_scatter=pre + restores,
                     cache_scatter_pages=5 * pre + 10 * dec + 5 * restores)
@@ -609,6 +749,21 @@ def phase_serve(eng, path):
                         streams={r.uid: list(r.generated) for r in reqs})
 
 
+def device_rows(prof, per):
+    """(ms, kernel, launches) per ``per`` runs of every device row of a
+    torch.profiler trace, longest first."""
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        rows.append((dev_us / per / 1e3, ev.key, ev.count // per))
+    rows.sort(reverse=True)
+    return rows
+
+
 def phase_profile(eng, path, step_ms, steps=3):
     """Where a decode step's time goes: torch.profiler over ``steps``
     decode steps of the full pool at position 300 (on a paged pool: the
@@ -620,7 +775,6 @@ def phase_profile(eng, path, step_ms, steps=3):
     kernels."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = eng.slots
     tok = torch.zeros((B, 1), dtype=torch.int32, device=eng.device)
@@ -645,14 +799,7 @@ def phase_profile(eng, path, step_ms, steps=3):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us / steps / 1e3, ev.key, ev.count // steps))
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     busy_ms = sum(r[0] for r in rows)
     top = [dict(kernel=k[:70], ms=ms, launches=n) for ms, k, n in rows[:10]]
     out = dict(step_ms=step_ms, step_ms_under_profiler=wall_ms,
@@ -670,10 +817,15 @@ def phase_profile(eng, path, step_ms, steps=3):
 def plain_kernels():
     """Route the kernel wrappers to their plain versions for CUDA tensors
     (this script's reference run only; the package never does this)."""
+    from repro_torch.kernels import act_stats as st
     from repro_torch.kernels import kv_cache as kv
     from repro_torch.kernels import pdq_prologue as pro
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import w8a8_matmul as mm
     swaps = [(pro, "pdq_prologue_cuda", pro.pdq_prologue_plain),
+             (st, "act_stats_cuda", st.act_stats_plain),
+             (qz, "quantize_cuda", qz.quantize_plain),
+             (qz, "dequantize_cuda", qz.dequantize_plain),
              (mm, "w8a8_matmul_cuda", mm.w8a8_matmul_plain),
              (mm, "w8a8_swiglu_matmul_cuda", mm.w8a8_swiglu_matmul_plain),
              (kv, "decode_attend_i8kv_cuda", kv.decode_attend_i8kv_plain),
@@ -735,6 +887,133 @@ def phase_parity(eng, path, n_tokens=8):
         f"per step {diffs} (tolerance {tol}); max |logit| "
         f"{float(max(kl.abs().max() for kl in k_logits)):.4g}")
     return max(diffs)
+
+
+def e_records(eng):
+    """Path E's weight records, from path A's engine: layer 0's Q segment
+    of the grouped QKV (2048 x 2048), wo (2048 x 2048) and w_down (5632 x
+    2048)."""
+    from repro_torch.models import linops
+    p0 = eng.params["blocks"][0]
+    return {"q": linops.segment_record(p0["attn"]["wq"]), "wo": p0["attn"]["wo"],
+            "w_down": p0["ffn"]["w_down"]}
+
+
+def phase_unfused(recs):
+    """Path E: the ops-level quantization entry points on path A's records
+    at E_ROWS rows of seeded bf16 activations.  The drive - per (projection,
+    rows) the unfused projection, act_stats of the same rows (the moments
+    its grid was priced from), quantize and dequantize of its output on
+    that grid, the fused projection, and on the prefill rows act_stats with
+    the sampling stride - runs between zeroing and reading the counts, and
+    each unfused call alone must enter and launch K8 and K2 once and
+    nothing else.  Then, outside the census, the checks, the timings and
+    a profile of three unfused calls per case, and last the CPU runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    dev = recs["wo"]["q"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    cases = [(name, rec, torch.randn((M, rec["q"].shape[0]), generator=gen,
+                                     device=dev).to(torch.bfloat16))
+             for name, rec in recs.items() for M in E_ROWS]
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    runs = []
+    for name, rec, x in cases:
+        before = ops.counts()
+        y, s_out = ops.pdq_dense_unfused(x, rec)
+        after = ops.counts()
+        one = {k: (after[k]["entries"] - before[k]["entries"],
+                   after[k]["launches"] - before[k]["launches"]) for k in after}
+        need(one == {k: (1, 1) if k in ("act_stats", "w8a8_matmul") else (0, 0)
+                     for k in after},
+             f"E {name} ({len(x)} rows): one unfused call made {one}")
+        s1, s2 = ops.act_stats(x.float())
+        _, _, s_out2, z_out = ops.pdq_interval(rec, s1[..., None], s2[..., None])
+        y_q = ops.quantize(y, s_out, z_out)
+        runs.append(dict(name=name, rec=rec, x=x, y=y, s_out=s_out, s_out2=s_out2,
+                         y_back=ops.dequantize(y_q, s_out, z_out),
+                         y_fused=ops.pdq_dense(x, rec, out="fp"),
+                         gamma=(ops.act_stats(x.reshape(8, -1, x.shape[-1]), gamma=E_GAMMA)
+                                if len(x) > 8 else None)))
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    n, n_gamma = len(runs), sum(r["gamma"] is not None for r in runs)
+    want = dict.fromkeys(counts, 0)
+    want.update(act_stats=2 * n + n_gamma, w8a8_matmul=2 * n, pdq_prologue=n,
+                quantize=n, dequantize=n)
+    log(f"unfused E: counts {counts}")
+    for name, c in counts.items():
+        need(c["launches"] == c["entries"] == want[name],
+             f"E: {name}: {c['entries']} entries, {c['launches']} launches, census "
+             f"{want[name]}")
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for r in runs:
+        rec, x, y, s_out = r["rec"], r["x"], r["y"], r["s_out"]
+        (M, K), N = x.shape, y.shape[-1]
+        r["label"] = label = f"E {r['name']} ({M}, {K}) @ ({K}, {N})"
+        need(tuple(y.shape) == (M, N) and bool(torch.isfinite(y).all()),
+             f"{label}: y {tuple(y.shape)} not finite")
+        need(torch.equal(r["s_out2"], s_out),
+             f"{label}: two K8 launches on the same rows priced two grids")
+        need(torch.equal(r["y_back"], y),
+             f"{label}: dequantize(quantize(y)) on y's own grid is not y")
+        # fused against unfused: the reference's contract, one step a row
+        df = (r["y_fused"] - y).abs()
+        need(bool((df <= s_out + 1e-6).all()),
+             f"{label}: fused and unfused differ by {float((df / s_out).max())} steps")
+        # ~30 small launches a call: a ~10 ms spin lets the host enqueue them all
+        t_unfused = median_ms(lambda: ops.pdq_dense_unfused(x, rec), flush=flush,
+                              spin=E_SPIN)
+        t_fused = median_ms(lambda: ops.pdq_dense(x, rec, out="fp"), flush=flush,
+                            spin=E_SPIN)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(E_PROFILED):
+                ops.pdq_dense_unfused(x, rec)
+            torch.cuda.synchronize()
+        prof_rows = device_rows(prof, E_PROFILED)
+        rows.append(dict(projection=r["name"], M=M, K=K, N=N, fused_ms=t_fused,
+                         unfused_ms=t_unfused, unfused_over_fused=t_unfused / t_fused,
+                         fused_minus_unfused_steps=float((df / s_out).max()),
+                         unfused_device_ms=(sum(p[0] for p in prof_rows)
+                                            if prof_rows else None),
+                         unfused_device_kernels=sum(p[2] for p in prof_rows),
+                         unfused_kernels=[dict(kernel=k[:70], ms=ms, launches=c)
+                                          for ms, k, c in prof_rows]))
+    # the same function on CPU copies takes the plain versions (after every
+    # timing, so that no CPU work shares the host with one): s_out is priced
+    # from sums taken in another order (SUM_RTOL), which can move a code at
+    # a tie, so y within one step
+    for r, row in zip(runs, rows):
+        rec, x, y, s_out, label = r["rec"], r["x"], r["y"], r["s_out"], r["label"]
+        M, K = x.shape
+        rec_c = {k: v.cpu() if torch.is_tensor(v) else v for k, v in rec.items()}
+        y_c, s_c = ops.pdq_dense_unfused(x.cpu(), rec_c)
+        need(bool(((s_out.cpu() - s_c).abs() <= SUM_RTOL * s_c).all()),
+             f"{label}: s_out differs from the CPU run beyond {SUM_RTOL}")
+        dy = (y.cpu() - y_c).abs()
+        row["cpu_minus_card_steps"] = cpu_steps = float((dy / s_c).max())
+        need(bool((dy <= s_c * (1 + SUM_RTOL) + 1e-6).all()),
+             f"{label}: y {cpu_steps} steps from the CPU run")
+        if r["gamma"] is not None:
+            g1, g2 = r["gamma"]
+            c1, c2 = ops.act_stats(x.cpu().reshape(8, -1, K), gamma=E_GAMMA)
+            xs = x.cpu().reshape(8, -1, K)[:, ::E_GAMMA].float()
+            need(tuple(g1.shape) == (8, M // 8 // E_GAMMA)
+                 and bool(((g1.cpu() - c1).abs() <= SUM_RTOL * xs.abs().sum(-1)).all())
+                 and bool(((g2.cpu() - c2).abs() <= SUM_RTOL * c2).all()),
+                 f"{label}: act_stats with gamma {E_GAMMA} differs from the CPU run")
+        log(f"unfused {label}: fused {row['fused_ms']:.4f} ms, unfused "
+            f"{row['unfused_ms']:.4f} ms (x{row['unfused_over_fused']:.3f}); |fused - "
+            f"unfused| <= {row['fused_minus_unfused_steps']:.3f} steps, card vs CPU <= "
+            f"{cpu_steps:.3f} steps; profiled unfused call: "
+            f"{row['unfused_device_kernels']} device kernels, "
+            f"{row['unfused_device_ms']} ms busy")
+    return counts, rows
 
 
 def check_paged_run(path, run, ref_run):
@@ -810,6 +1089,7 @@ def main(argv=None) -> int:
         eng = engine(path)
         if path == "A" and not serve:
             rows, detail = phase_kernels(eng)
+            recs = e_records(eng)
         c, run = phase_serve(eng, path)
         if path not in counts:
             counts[path] = c
@@ -826,8 +1106,14 @@ def main(argv=None) -> int:
         log(f"serve {path}: decode step median per run "
             f"{[r['decode_step_median_ms'] for r in runs]} ms, prefill per run "
             f"{[r['prefill_s'] for r in runs]} s")
+    # path E: the unfused projection and the standalone quantization ops
+    counts["E"], unfused = phase_unfused(recs)
+    del recs
 
     replaces = {
+        "act_stats": "src/repro/kernels/act_stats.py:33",
+        "quantize": "src/repro/kernels/quantize.py:31",
+        "dequantize": "src/repro/kernels/quantize.py:51",
         "cache_scatter_pages": "src/repro/kernels/kv_cache.py:291",
         "pdq_prologue": "src/repro/kernels/pdq_prologue.py:56",
         "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py:72",
@@ -837,6 +1123,9 @@ def main(argv=None) -> int:
         "cache_scatter": "src/repro/kernels/kv_cache.py:246",
     }
     sources = {
+        "act_stats": "src/repro_torch/csrc/act_stats.cu",
+        "quantize": "src/repro_torch/csrc/quantize.cu",
+        "dequantize": "src/repro_torch/csrc/quantize.cu",
         "cache_scatter_pages": "src/repro_torch/csrc/kv_cache.cu",
         "pdq_prologue": "src/repro_torch/csrc/pdq_prologue.cu",
         "w8a8_matmul": "src/repro_torch/csrc/w8a8_matmul.cu",
@@ -846,7 +1135,8 @@ def main(argv=None) -> int:
         "cache_scatter": "src/repro_torch/csrc/kv_cache.cu",
     }
     kernels = []
-    path_of = {"decode_attend_i8kv": "B", "cache_scatter_pages": "D"}
+    path_of = {"decode_attend_i8kv": "B", "cache_scatter_pages": "D", "act_stats": "E",
+               "quantize": "E", "dequantize": "E"}
     for name, row in rows.items():
         path = path_of.get(name, "A")
         c = counts["D1" if path == "D" else path][name]      # D: D1's run
@@ -863,7 +1153,7 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
-             parity_max_logit_diff=parity), indent=1))
+             parity_max_logit_diff=parity, unfused=unfused), indent=1))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

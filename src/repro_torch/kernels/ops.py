@@ -1,6 +1,7 @@
 """Public ops over the hand-written kernels: port of
 ``repro/kernels/ops.py`` for the serving path (PDQ weights, fp or int8 KV
-cache).
+cache, paged pool) and the ops-level quantization entry points (the
+unfused PDQ projection, ``act_stats``, ``quantize``, ``dequantize``).
 
 Dispatch is by the tensor's device, never by a global switch: a CPU tensor
 takes a kernel's plain version (``kernels/ref.py``), a CUDA tensor launches
@@ -24,8 +25,10 @@ import math
 import numpy as np
 import torch
 
+from . import act_stats as _as
 from . import kv_cache as _kv
 from . import pdq_prologue as _pro
+from . import quantize as _qz
 from . import w8a8_matmul as _mm
 from .ref import from_page_rows as from_page_rows
 from .ref import to_page_rows as to_page_rows
@@ -41,6 +44,9 @@ COUNTS = {
     "decode_attend_i8kv_fused": _kv.FUSED_COUNT,
     "cache_scatter": _kv.COUNT,
     "cache_scatter_pages": _kv.PAGES_COUNT,
+    "act_stats": _as.COUNT,
+    "quantize": _qz.QUANTIZE_COUNT,
+    "dequantize": _qz.DEQUANTIZE_COUNT,
 }
 
 
@@ -271,6 +277,79 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None):
     return w8a8_matmul(hq, down_rec["q"], sxo.reshape(*lead, 1), 0,
                        down_rec["scale"], colsum=down_rec["colsum"],
                        fp_range=(lo2, hi2), out_dtype=out_dtype)
+
+
+def pdq_dense_unfused(x, wrec):
+    """The pre-fusion PDQ projection, kept as the oracle and baseline of
+    the fused ``pdq_dense``: three passes over x in plain torch and K8 (amax,
+    the round to int8, the moments), the W8A8 matmul with the requant
+    epilogue, and the dequant in plain torch.  ``pdq_dense(out='fp')``
+    matches it to within one int8 step of each row's grid.  Returns (y
+    (..., N) f32, s_out (..., 1) f32)."""
+    x32 = x.float()
+    amax = x32.abs().amax(-1).clamp_min(1e-8)
+    s_x = true_div(amax, 127.0)
+    x_q = torch.round(x32 / s_x[..., None]).clamp(-127, 127).to(torch.int8)
+    s1, s2 = act_stats(x32)
+    _, _, s_out, z_out = pdq_interval(wrec, s1[..., None], s2[..., None])
+    z_out = z_out.to(torch.int32)
+    y_q = w8a8_matmul(x_q, wrec["q"], s_x[..., None], 0, wrec["scale"], s_out, z_out,
+                      colsum=wrec["colsum"])
+    y = (y_q.float() - z_out.float()) * s_out
+    return y, s_out
+
+
+def act_stats(x, gamma: int = 1):
+    """(sum x, sum x^2) over the last axis in f32 (kernel K8), each shaped
+    ``x.shape[:-1]``.  ``gamma`` > 1 subsamples the second-to-last
+    ("position") axis, as the paper's sampling stride; like the reference
+    it applies only when x has more than two dims.  The kernel reads the
+    subsampled rows where they lie."""
+    if x.dim() > 2 and gamma > 1:
+        x = x[..., ::gamma, :]
+    lead, K = x.shape[:-1], x.shape[-1]
+    if x.dim() > 2:
+        x3 = x.reshape(math.prod(x.shape[:-2]), x.shape[-2], K)
+    else:
+        x3 = x.reshape(1, _rows(x), K)
+    if K > 1 and x3.stride(-1) != 1:
+        x3 = x3.contiguous()
+    COUNTS["act_stats"].entries += 1
+    s1, s2 = _as.act_stats(x3)
+    return s1.reshape(lead), s2.reshape(lead)
+
+
+def _affine_operands(scale, zero_point, M, N, per_channel, device):
+    """Scale (f32) and zero point (int32) per row as contiguous (M, 1), or
+    per channel as (1, N): a scalar, (M,)-like or (M, 1) operand, or with
+    ``per_channel`` a scalar, (N,) or (1, N) one."""
+    rows, cols = (1, N) if per_channel else (M, 1)
+    return (_norm_epi(scale, rows, cols, torch.float32, device),
+            _norm_epi(zero_point, rows, cols, torch.int32, device))
+
+
+def quantize(x, scale, zero_point, *, per_channel: bool = False):
+    """Affine int8 quantize (kernel K9): clamp(round(x / scale) + z, -128,
+    127) of x (..., N) f32/bf16.  Scale and zero point are per row
+    (broadcast over the last axis) by default, per channel (the last axis)
+    with ``per_channel=True``."""
+    lead, N = x.shape[:-1], x.shape[-1]
+    M = _rows(x)
+    s, z = _affine_operands(scale, zero_point, M, N, per_channel, x.device)
+    COUNTS["quantize"].entries += 1
+    return _qz.quantize(x.reshape(M, N).contiguous(), s, z).reshape(*lead, N)
+
+
+def dequantize(q, scale, zero_point, *, per_channel: bool = False,
+               out_dtype=torch.float32):
+    """(q - z) * scale of int8 q (..., N) in ``out_dtype`` (kernel K10),
+    scale and zero point as for ``quantize``; bf16 follows the reference's
+    ops contract (``ref.dequantize_ref``)."""
+    lead, N = q.shape[:-1], q.shape[-1]
+    M = _rows(q)
+    s, z = _affine_operands(scale, zero_point, M, N, per_channel, q.device)
+    COUNTS["dequantize"].entries += 1
+    return _qz.dequantize(q.reshape(M, N).contiguous(), s, z, out_dtype).reshape(*lead, N)
 
 
 def decode_attend_i8kv(q, k_q, v_q, k_scale, v_scale, length, *,

@@ -1,0 +1,91 @@
+"""Affine int8 quantize (kernel K9) and dequantize (kernel K10): port of
+``repro/kernels/quantize.py``.
+
+K9 writes int8 codes ``clamp(round(x / s) + z, -128, 127)`` from f32/bf16
+values with a per-row or per-channel scale and zero point; K10 maps codes
+back, ``(q - z) * s`` in f32 or bf16.  Both are in ``csrc/quantize.cu``,
+whose note says what bounds them and which bf16 arithmetic K10 follows.
+The plain versions are ``ref.quantize_ref`` and ``ref.dequantize_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+
+QUANTIZE_COUNT = _build.OpCount()      # K9
+DEQUANTIZE_COUNT = _build.OpCount()    # K10
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIG = {"quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
+        "dequantize": [_P, _P, _P, _P, _I, _L, _I, _I, _P]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+quantize_plain = ref.quantize_ref
+dequantize_plain = ref.dequantize_ref
+
+
+def _layout(a, s, z, what):
+    """Check the operands of a launch: a (M, N) contiguous, s f32 and z
+    int32 both (M, 1) (per row) or (1, N) (per channel), contiguous.
+    Returns (M, N, per_channel)."""
+    if a.dim() != 2 or not a.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous (M, N) tensor, got "
+                         f"{tuple(a.shape)} strides {a.stride()}")
+    M, N = a.shape
+    shape = tuple(s.shape)
+    if shape not in ((M, 1), (1, N)):
+        raise ValueError(f"{what}: scale {shape} is neither ({M}, 1) nor (1, {N})")
+    for t, dtype in ((s, torch.float32), (z, torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: operand {tuple(t.shape)} {t.dtype}, expected "
+                             f"contiguous {shape} {dtype}")
+    return M, N, shape != (M, 1)
+
+
+def quantize_cuda(x, s, z):
+    """Launch K9 on x (M, N) f32/bf16; s f32 and z int32 per row (M, 1) or
+    per channel (1, N).  Returns int8 (M, N)."""
+    _build.require_cuda(x, s, z)
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"quantize takes float32/bfloat16, not {x.dtype}")
+    M, N, per_channel = _layout(x, s, z, "quantize")
+    q = torch.empty((M, N), dtype=torch.int8, device=x.device)
+    lib = _build.library("quantize", _SIG)
+    QUANTIZE_COUNT.launches += 1
+    _build.check(lib.quantize(x.data_ptr(), _DTYPES[x.dtype], s.data_ptr(), z.data_ptr(),
+                              q.data_ptr(), M, N, int(per_channel),
+                              _build.stream_ptr(x.device)), "quantize")
+    return q
+
+
+def dequantize_cuda(q, s, z, out_dtype=torch.float32):
+    """Launch K10 on q (M, N) int8; s/z as for ``quantize_cuda``.  Returns
+    (M, N) in ``out_dtype`` (float32 or bfloat16)."""
+    _build.require_cuda(q, s, z)
+    if q.dtype != torch.int8 or out_dtype not in _DTYPES:
+        raise ValueError(f"dequantize maps int8 to float32/bfloat16, not {q.dtype} "
+                         f"to {out_dtype}")
+    M, N, per_channel = _layout(q, s, z, "dequantize")
+    y = torch.empty((M, N), dtype=out_dtype, device=q.device)
+    lib = _build.library("quantize", _SIG)
+    DEQUANTIZE_COUNT.launches += 1
+    _build.check(lib.dequantize(q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(),
+                                _DTYPES[out_dtype], M, N, int(per_channel),
+                                _build.stream_ptr(q.device)), "dequantize")
+    return y
+
+
+def quantize(x, s, z):
+    """K9: the plain version for a CPU tensor, the CUDA kernel otherwise."""
+    if x.device.type == "cpu":
+        return quantize_plain(x, s, z)
+    return quantize_cuda(x, s, z)
+
+
+def dequantize(q, s, z, out_dtype=torch.float32):
+    """K10: the plain version for a CPU tensor, the CUDA kernel otherwise."""
+    if q.device.type == "cpu":
+        return dequantize_plain(q, s, z, out_dtype)
+    return dequantize_cuda(q, s, z, out_dtype)

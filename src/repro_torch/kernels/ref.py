@@ -60,6 +60,28 @@ def pdq_prologue_ref(x):
     return x_q, s_x, s1, s2
 
 
+def act_stats_ref(x):
+    """Row moments: s1 = sum x, s2 = sum x^2 over the last axis, in f32;
+    x (..., K) -> two (...) tensors."""
+    x32 = x.float()
+    return x32.sum(-1), (x32 * x32).sum(-1)
+
+
+def quantize_ref(x, scale, zero_point):
+    """Affine int8 quantize: clamp(round(x / scale) + z, -128, 127), with
+    true division by the scale tensor and rounding half to even."""
+    q = torch.round(x.float() / scale) + torch.as_tensor(zero_point, device=x.device).float()
+    return q.clamp(-128, 127).to(torch.int8)
+
+
+def dequantize_ref(q, scale, zero_point, dtype=torch.float32):
+    """(q - z) * scale computed in ``dtype``, as the reference's oracle:
+    q - z and the scale each round to ``dtype`` first, then one product
+    (for bf16 an f32 product of two bf16 values, exact, rounded once)."""
+    z = torch.as_tensor(zero_point, device=q.device)
+    return (q.to(torch.int32) - z).to(dtype) * torch.as_tensor(scale, device=q.device).to(dtype)
+
+
 def silu_mul(g, u):
     """silu(g) * u written as g / (1 + exp(-g)) * u: the exact float
     sequence the SwiGLU kernel's epilogue evaluates."""

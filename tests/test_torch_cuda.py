@@ -16,12 +16,18 @@ in the reference, and exactly 0 in the kernels); K5's s_x within rtol
 1e-5, its codes equal where o rounds to the same pro_dtype value under
 the same s_x and never more than 1 apart.  The page scatter (K7) is
 bit-equal to its plain version in every direction the paged pool uses it.
+The moment reduction (K8) sums like K1, within the same 1e-5, and two
+launches on one input are bit-equal; quantize (K9) gives the plain
+version's int8 codes exactly, .5 ties included, and dequantize (K10) its
+bits exactly, f32 and bf16.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import act_stats as st
 from repro_torch.kernels import kv_cache as kv
 from repro_torch.kernels import pdq_prologue as pro
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import w8a8_matmul as mm
 
 
@@ -241,3 +247,88 @@ def test_decode_attend_fused_kernel_matches_plain(gen, G, Dh, Sp, lens, pro_dtyp
         mag = pf.float().abs().sum(-1, keepdim=True)
         _sums_close(k[3][ok], p[3][ok], mag[ok])
         _sums_close(k[4][ok], p[4][ok], (pf.float() ** 2).sum(-1, keepdim=True)[ok])
+
+
+def _act_stats_case(x):
+    k, p = st.act_stats_cuda(x), st.act_stats_plain(x)
+    again = st.act_stats_cuda(x)
+    assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+    mag = x.float().abs().sum(-1)
+    _sums_close(k[0], p[0], mag)
+    _sums_close(k[1], p[1], (x.float() ** 2).sum(-1))
+
+
+@pytest.mark.parametrize("M,K,dtype", [(1, 64, torch.float32), (3, 77, torch.float32),
+                                       (5, 33, torch.bfloat16), (17, 2048, torch.bfloat16),
+                                       (70, 5632, torch.float32), (300, 290, torch.bfloat16)])
+def test_act_stats_kernel_matches_plain(gen, M, K, dtype):
+    _act_stats_case((3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype))
+
+
+@pytest.mark.parametrize("B,T,K,gamma,dtype", [(2, 100, 33, 4, torch.float32),
+                                               (2, 100, 36, 4, torch.float32),
+                                               (3, 50, 64, 3, torch.bfloat16),
+                                               (8, 256, 2048, 4, torch.bfloat16)])
+def test_act_stats_kernel_reads_strided_rows(gen, B, T, K, gamma, dtype):
+    """The sampling stride's rows x[:, ::gamma, :], read in place."""
+    x = (3 * torch.randn((B, T, K), generator=gen, device="cuda")).to(dtype)
+    _act_stats_case(x[:, ::gamma, :])
+
+
+def test_act_stats_kernel_misaligned_base(gen):
+    flat = torch.randn((1 + 6 * 64,), generator=gen, device="cuda")
+    x = flat[1:].view(6, 64)                                # 4 bytes off 16
+    assert x.data_ptr() % 16
+    _act_stats_case(x)
+
+
+def _affine(gen, M, N, per_channel, ties):
+    """Scales in [0.001, 0.3] (powers of two on every other row or channel,
+    where x / s is exact), zero points in [-40, 40), and x on .5 ties of
+    the grid where ``ties`` (else normal, some past the int8 range)."""
+    n = N if per_channel else M
+    s = 0.001 + 0.299 * torch.rand((n,), generator=gen, device="cuda")
+    pow2 = 2.0 ** -torch.randint(1, 9, (n,), generator=gen, device="cuda").float()
+    s = torch.where(torch.arange(n, device="cuda") % 2 == 0, pow2, s)
+    z = torch.randint(-40, 40, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    shape = (1, N) if per_channel else (M, 1)
+    s, z = s.reshape(shape).contiguous(), z.reshape(shape).contiguous()
+    if ties:
+        k = torch.randint(-140, 140, (M, N), generator=gen, device="cuda").float()
+        x = (k + 0.5) * s
+    else:
+        x = 60 * torch.randn((M, N), generator=gen, device="cuda") * s
+    return x, s, z
+
+
+_AFFINE_SHAPES = [(1, 1), (5, 3), (64, 256), (300, 290), (2048, 2049)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("M,N", _AFFINE_SHAPES)
+def test_quantize_kernel_matches_plain(gen, M, N, per_channel, dtype, ties):
+    x, s, z = _affine(gen, M, N, per_channel, ties)
+    x = x.to(dtype)
+    assert torch.equal(qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("M,N", _AFFINE_SHAPES)
+def test_dequantize_kernel_matches_plain(gen, M, N, per_channel, out_dtype):
+    _, s, z = _affine(gen, M, N, per_channel, False)
+    q = torch.randint(-128, 128, (M, N), generator=gen, device="cuda", dtype=torch.int8)
+    assert _same_bits(qz.dequantize_cuda(q, s, z, out_dtype),
+                      qz.dequantize_plain(q, s, z, out_dtype))
+
+
+def test_quantize_kernels_misaligned_rows(gen):
+    """A base 1 byte (int8) or 4 bytes (f32) off 16 takes the element path."""
+    _, s, z = _affine(gen, 6, 64, False, False)
+    xf = torch.randn((1 + 6 * 64,), generator=gen, device="cuda")[1:].view(6, 64)
+    assert torch.equal(qz.quantize_cuda(xf, s, z), qz.quantize_plain(xf, s, z))
+    qb = torch.randint(-128, 128, (1 + 6 * 64,), generator=gen, device="cuda",
+                       dtype=torch.int8)[1:].view(6, 64)
+    assert torch.equal(qz.dequantize_cuda(qb, s, z), qz.dequantize_plain(qb, s, z))

@@ -16,9 +16,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.bridge import _tensor
+from repro_torch.kernels import act_stats as tas
 from repro_torch.kernels import kv_cache as tkv
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pdq_prologue as tpro
+from repro_torch.kernels import quantize as tqz
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import w8a8_matmul as tmm
 
@@ -202,7 +204,8 @@ def test_ops_count_entries_on_cpu_and_never_launch():
     assert {k: v["entries"] for k, v in c.items()} == {
         "pdq_prologue": 1, "w8a8_matmul": 1, "w8a8_swiglu_matmul": 0,
         "decode_attend_i8kv": 1, "decode_attend_i8kv_fused": 2,
-        "cache_scatter": 1, "cache_scatter_pages": 1}
+        "cache_scatter": 1, "cache_scatter_pages": 1, "act_stats": 0,
+        "quantize": 0, "dequantize": 0}
     assert all(v["launches"] == 0 for v in c.values())
 
 
@@ -213,6 +216,9 @@ def test_ops_count_entries_on_cpu_and_never_launch():
     lambda x: tmm.w8a8_swiglu_matmul(x, x, x, x, x, x, x, x),
     lambda x: tkv.decode_attend_i8kv(x, x, x, x, x, x),
     lambda x: tkv.decode_attend_i8kv_fused(x, x, x, x, x, x),
+    lambda x: tas.act_stats(x),
+    lambda x: tqz.quantize(x, x, x),
+    lambda x: tqz.dequantize(x, x, x),
 ])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor takes the plain version: anything else goes to the
