@@ -32,14 +32,19 @@ Phases, each of which must pass (any failure exits non-zero):
   2. kernels  - call each kernel's wrapper on card tensors at the shapes
                 the full-width paths give it, hold the result against its
                 plain PyTorch version on the same inputs, and time both
-                (CUDA events, median, L2 flushed before every launch);
+                (CUDA events, median, L2 flushed before every launch); K2
+                and K3 on both routes (wgmma, the main path's, and generic,
+                which must give the same bits), beside torch._int_mm on
+                the K-major weights and on a row-major copy, with the host
+                time per call of each route and K3's quantize tail;
   3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
                 just before and read just after each run, every kernel of
                 the path must have launched as often as its op was entered,
-                the census must hold exactly, and the other paths' kernels
-                must not have run; the runs go in turns A B C C A D1 D2, so
+                the census must hold exactly, every K2/K3 launch must have
+                taken the wgmma route, and the other paths' kernels must
+                not have run; the runs go in turns A B C C A D1 D2, so
                 that A's and C's times compare within one call; D1's and
                 D2's greedy streams must equal A's first run's, D1 must
                 share the system prompt's pages, D2 must preempt, spill and
@@ -54,10 +59,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 plain path's top-2 margin is below it;
   6. unfused  - path E, after the serving runs: counts zeroed before and read
                 after, an exact census (each unfused call one K8 and one K2,
-                no K1), the re-quantized output equal to the projection's own
-                codes and dequantized back bit for bit, the same calls on CPU
-                copies of the inputs (the plain versions) within one int8
-                step, fused against unfused within one step per row (the
+                no K1; every K2 on the wgmma route), the re-quantized output
+                equal to the projection's own codes and dequantized back bit
+                for bit, the same calls on CPU copies of the inputs (the
+                plain versions) within one int8 step, fused against unfused
+                within one step per row (the
                 reference's contract), both timed end to end, and three
                 unfused calls profiled.
 
@@ -115,6 +121,12 @@ PATHS = {
     "D2": (True, True, _A_KERNELS + ("cache_scatter_pages",),
            dict(_PAGED, pool_pages=D2_POOL_PAGES)),
 }
+
+
+# K2/K3 rows also carry the generic route's time, torch._int_mm on the
+# row-major copy, the host time per call of each route and K3's tail
+EXTRA_KEYS = ("generic_ms", "library_rowmajor_ms", "host_us", "generic_host_us",
+              "tail_ms")
 
 
 class SmokeError(RuntimeError):
@@ -219,34 +231,27 @@ def phase_kernels(eng):
     import torch
     from repro_torch.kernels import kv_cache as kv
     from repro_torch.kernels import pdq_prologue as pro
-    from repro_torch.kernels import w8a8_matmul as mm
     gen = torch.Generator(device=eng.device)
     gen.manual_seed(1234)
     t = kernel_inputs(eng, gen)
-    M, d, x = t["M"], t["d"], t["x"]
+    d, x = t["d"], t["x"]
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=eng.device)
     rows, detail = {}, []
 
-    def record(name, shape, err, k_ms, p_ms, b_ms, b_by, lib_ms, primary):
+    def record(name, shape, err, k_ms, p_ms, b_ms, b_by, lib_ms, primary, **extra):
         row = dict(name=name, shape=shape, max_abs_err=err, ms=k_ms,
-                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   **extra)
         detail.append(row)
         log(f"kernel {name} {shape}: err {err:.3g} kernel {k_ms:.4f} ms "
             f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            + "".join(f" {k} {v}" for k, v in extra.items()))
         if primary:
             rows[name] = row
 
     # prefill-shaped rows: 8 slots x the 256-token bucket
     x_pre = torch.randn((2048, d), generator=gen, device=eng.device).to(torch.bfloat16)
-
-    def int_mm_rows(x_q):
-        # torch._int_mm needs more than 16 rows: decode rows pad to 32
-        if x_q.shape[0] > 16:
-            return x_q
-        xl = torch.zeros((32, x_q.shape[1]), dtype=torch.int8, device=x_q.device)
-        xl[:x_q.shape[0]] = x_q
-        return xl
 
     # ---- K1 pdq_prologue: decode (M, 2048) and prefill (2048, 2048) rows
     for xm, primary in ((x, True), (x_pre, False)):
@@ -267,72 +272,8 @@ def phase_kernels(eng):
                median_ms(lambda: pro.pdq_prologue_plain(xm), flush=flush),
                b_ms, b_by, None, primary)
 
-    # ---- K2 w8a8_matmul: grouped QKV (per-block), wo, w_down (per-row)
-    h_in = torch.randn((M, eng.cfg.d_ff), generator=gen,
-                       device=eng.device).to(torch.bfloat16)
-    cases = (("qkv", t["qkv"], x, True, True), ("wo", t["wo"], x, False, False),
-             ("w_down", t["down"], h_in, False, False),
-             ("qkv prefill", t["qkv"], x_pre, True, False))
-    for label, rec, xin, per_block, primary in cases:
-        base, (lo, hi) = epi_operands(rec, xin, per_block)
-        args = base + (None, None, lo, hi)
-        kw = dict(out_dtype=torch.bfloat16)
-        yk = mm.w8a8_matmul_cuda(*args, **kw)
-        yp = mm.w8a8_matmul_plain(*args, **kw)
-        err = max_abs(yk, yp)
-        need(err <= 1e-6 * float(yp.float().abs().max()) + 1e-6,
-             f"K2 {label} fp_clamp output differs from plain by {err}")
-        # the requant epilogue on the same product: int8 codes equal
-        qargs = base + (torch.full_like(lo, 0.05), torch.zeros_like(lo, dtype=torch.int32))
-        need(torch.equal(mm.w8a8_matmul_cuda(*qargs), mm.w8a8_matmul_plain(*qargs)),
-             f"K2 {label} requant codes differ from plain")
-        Mx, K = base[0].shape
-        N = rec["q"].shape[1]
-        E = lo.shape[1]
-        # x_q, w_q, bf16 out, s_w, and per row s_x plus E (lo, hi) pairs
-        b_ms, b_by = bound_ms(Mx * K + K * N + Mx * N * 2 + N * 4 + Mx * (4 + 8 * E),
-                              2 * Mx * K * N, INT8_OPS)
-        xl, wq = int_mm_rows(args[0]), rec["q"]
-        record("w8a8_matmul", f"{label}: x ({Mx}, {K}) @ w ({K}, {N}), epilogue "
-               f"({Mx}, {E})", err,
-               median_ms(lambda: mm.w8a8_matmul_cuda(*args, **kw), flush=flush),
-               median_ms(lambda: mm.w8a8_matmul_plain(*args, **kw), flush=flush),
-               b_ms, b_by,
-               median_ms(lambda: torch._int_mm(xl, wq), flush=flush), primary)
-
-    # ---- K3 w8a8_swiglu_matmul: gate/up (M, 2048) @ (2048, 11264)
-    gu = t["gu"]
-    for xin, primary in ((x, True), (x_pre, False)):
-        base, (lo, hi) = epi_operands(gu, xin, True)
-        sargs = base + (lo, hi)
-        ko = mm.w8a8_swiglu_matmul_cuda(*sargs)      # (hsw, hsw_q, s_x, s1, s2)
-        po = mm.w8a8_swiglu_matmul_plain(*sargs)
-        hsw_err = max_abs(ko[0], po[0])
-        need(hsw_err <= 1e-6 * float(po[0].abs().max()) + 1e-30,
-             f"K3 hsw differs from plain by {hsw_err}")
-        same = ko[0] == po[0]
-        dq = (ko[1].int() - po[1].int()).abs()
-        need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
-             "K3 hsw_q differs from plain where hsw agrees, or by > 1 code")
-        need(torch.equal(ko[2], po[2]), "K3 s_x differs from plain")
-        absh = po[0].abs().sum(-1, keepdim=True)
-        need(bool(((ko[3] - po[3]).abs() <= SUM_RTOL * absh).all()), "K3 s1 outside tolerance")
-        need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K3 s2 outside tolerance")
-        err = max(max_abs(u, v) for u, v in zip(ko, po))
-        Mx, K = base[0].shape
-        N = gu["q"].shape[1]
-        P = N // 2
-        # what pdq_mlp reads and keeps: x_q, w_q, s_w, s_x, the (lo, hi)
-        # pairs, hsw_q and its three row values (hsw is the kernel's scratch)
-        b_ms, b_by = bound_ms(Mx * K + K * N + N * 4 + Mx * (4 + 8 * N // 128)
-                              + Mx * P + 12 * Mx, 2 * Mx * K * N, INT8_OPS)
-        xl = int_mm_rows(base[0])
-        record("w8a8_swiglu_matmul", f"x ({Mx}, {K}) @ w ({K}, {N}); hsw code "
-               f"mismatches {int((dq > 0).sum())}", err,
-               median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs), flush=flush),
-               median_ms(lambda: mm.w8a8_swiglu_matmul_plain(*sargs), flush=flush),
-               b_ms, b_by, median_ms(lambda: torch._int_mm(xl, gu["q"]), flush=flush),
-               primary)
+    # ---- K2 w8a8_matmul and K3 w8a8_swiglu_matmul, both routes
+    matmul_kernels(eng, t, gen, flush, record, x_pre)
 
     # ---- K4 decode_attend_i8kv and K5 its fused form: one decode step's
     # attention over path A's int8 cache, lengths ragged across the tile
@@ -383,6 +324,184 @@ def phase_kernels(eng):
                          flush=flush),
                name == "k")
     return rows, detail
+
+
+def int_mm_rows(x_q):
+    """x_q as ``torch._int_mm`` takes it: more than 16 rows, so decode rows
+    pad to 32."""
+    import torch
+    if x_q.shape[0] > 16:
+        return x_q
+    xl = torch.zeros((32, x_q.shape[1]), dtype=torch.int8, device=x_q.device)
+    xl[:x_q.shape[0]] = x_q
+    return xl
+
+
+def library_int_mm(x_q, w_q, flush):
+    """``torch._int_mm`` (the int32 product alone) on the weight record as
+    the port stores it (K-major) and on a row-major (K, N) copy, the
+    records' earlier layout: (K-major ms or None, row-major ms, note)."""
+    import torch
+    xl, w_rm = int_mm_rows(x_q), w_q.contiguous()
+    row_ms = median_ms(lambda: torch._int_mm(xl, w_rm), flush=flush)
+    try:
+        need(torch.equal(torch._int_mm(xl, w_q), torch._int_mm(xl, w_rm)),
+             "torch._int_mm differs between the two layouts")
+        return median_ms(lambda: torch._int_mm(xl, w_q), flush=flush), row_ms, ""
+    except RuntimeError as e:          # a yardstick only: record why it is missing
+        return None, row_ms, f"K-major _int_mm refused: {e}"
+
+
+def host_us(fn, n=100):
+    """The host's time per call of ``fn`` (the wrapper and its launch,
+    not the device's work), enqueued back to back behind a device spin."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def matmul_kernels(eng, t, gen, flush, record, x_pre):
+    """K2 and K3 at path A's shapes: each route against the plain version
+    and against each other (equal bits but for K3's s1/s2, summed in
+    another order), timed beside the plain version, ``torch._int_mm`` on
+    both weight layouts and the bound; the host time per call of each
+    route; K3's quantize tail from the kernel's own stamps."""
+    import torch
+    from repro_torch.kernels import w8a8_matmul as mm
+    M, x = t["M"], t["x"]
+    h_in = torch.randn((M, eng.cfg.d_ff), generator=gen,
+                       device=eng.device).to(torch.bfloat16)
+    cases = (("qkv", t["qkv"], x, True, True), ("wo", t["wo"], x, False, False),
+             ("w_down", t["down"], h_in, False, False),
+             ("qkv prefill", t["qkv"], x_pre, True, False))
+    for label, rec, xin, per_block, primary in cases:
+        base, (lo, hi) = epi_operands(rec, xin, per_block)
+        args = base + (None, None, lo, hi)
+        kw = dict(out_dtype=torch.bfloat16)
+        need(mm.route_for(base[0], base[1]) == "wgmma", f"K2 {label} takes the generic route")
+        yk = mm.w8a8_matmul_cuda(*args, **kw)
+        yg = mm.w8a8_matmul_cuda(*args, route="generic", **kw)
+        yp = mm.w8a8_matmul_plain(*args, **kw)
+        err = max_abs(yk, yp)
+        need(err <= 1e-6 * float(yp.float().abs().max()) + 1e-6,
+             f"K2 {label} fp_clamp output differs from plain by {err}")
+        need(torch.equal(yk, yg), f"K2 {label}: the wgmma and generic routes differ")
+        # the requant epilogue on the same product: int8 codes equal
+        qargs = base + (torch.full_like(lo, 0.05), torch.zeros_like(lo, dtype=torch.int32))
+        qp = mm.w8a8_matmul_plain(*qargs)
+        for route in ("wgmma", "generic"):
+            need(torch.equal(mm.w8a8_matmul_cuda(*qargs, route=route), qp),
+                 f"K2 {label} requant codes of the {route} route differ from plain")
+        Mx, K = base[0].shape
+        N = rec["q"].shape[1]
+        E = lo.shape[1]
+        # x_q, w_q, bf16 out, s_w, and per row s_x plus E (lo, hi) pairs
+        b_ms, b_by = bound_ms(Mx * K + K * N + Mx * N * 2 + N * 4 + Mx * (4 + 8 * E),
+                              2 * Mx * K * N, INT8_OPS)
+        lib_ms, row_ms, note = library_int_mm(base[0], rec["q"], flush)
+        record("w8a8_matmul", f"{label}: x ({Mx}, {K}) @ w ({K}, {N}), epilogue "
+               f"({Mx}, {E}); plan {mm.wgmma_plan(Mx, K, N, False, mm._sms(eng.device))}"
+               f"{'; ' + note if note else ''}", err,
+               median_ms(lambda: mm.w8a8_matmul_cuda(*args, **kw), flush=flush),
+               median_ms(lambda: mm.w8a8_matmul_plain(*args, **kw), flush=flush),
+               b_ms, b_by, lib_ms, primary,
+               generic_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, route="generic", **kw),
+                                    flush=flush),
+               library_rowmajor_ms=row_ms,
+               host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, **kw)),
+               generic_host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, route="generic",
+                                                                   **kw)))
+
+    # K3: gate/up (M, 2048) @ (2048, 11264), decode and prefill rows
+    gu = t["gu"]
+    stamps = torch.zeros((2 * mm._sms(eng.device),), dtype=torch.int64, device=eng.device)
+    for xin, primary in ((x, True), (x_pre, False)):
+        base, (lo, hi) = epi_operands(gu, xin, True)
+        sargs = base + (lo, hi)
+        need(mm.route_for(base[0], base[1]) == "wgmma", "K3 takes the generic route")
+        ko = mm.w8a8_swiglu_matmul_cuda(*sargs)      # (hsw, hsw_q, s_x, s1, s2)
+        go = mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic")
+        po = mm.w8a8_swiglu_matmul_plain(*sargs)
+        hsw_err = max_abs(ko[0], po[0])
+        need(hsw_err <= 1e-6 * float(po[0].abs().max()) + 1e-30,
+             f"K3 hsw differs from plain by {hsw_err}")
+        same = ko[0] == po[0]
+        dq = (ko[1].int() - po[1].int()).abs()
+        need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
+             "K3 hsw_q differs from plain where hsw agrees, or by > 1 code")
+        need(torch.equal(ko[2], po[2]), "K3 s_x differs from plain")
+        absh = po[0].abs().sum(-1, keepdim=True)
+        need(bool(((ko[3] - po[3]).abs() <= SUM_RTOL * absh).all()), "K3 s1 outside tolerance")
+        need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K3 s2 outside tolerance")
+        need(all(torch.equal(u, v) for u, v in zip(ko[:3], go[:3])),
+             "K3: the wgmma and generic routes differ in hsw, hsw_q or s_x")
+        err = max(max_abs(u, v) for u, v in zip(ko, po))
+        Mx, K = base[0].shape
+        N = gu["q"].shape[1]
+        P = N // 2
+        # what pdq_mlp reads and keeps: x_q, w_q, s_w, s_x, the (lo, hi)
+        # pairs, hsw_q and its three row values (hsw is the kernel's scratch)
+        b_ms, b_by = bound_ms(Mx * K + K * N + N * 4 + Mx * (4 + 8 * N // 128)
+                              + Mx * P + 12 * Mx, 2 * Mx * K * N, INT8_OPS)
+        # the quantize tail (phase 2): from the end of the last block's GEMM
+        # items to the end of the last block's quantize, median of 10 launches
+        tails = []
+        for _ in range(10):
+            flush.zero_()
+            mm.w8a8_swiglu_matmul_cuda(*sargs, stamps=stamps)
+            st = stamps.view(-1, 2)[:mm.wgmma_plan(Mx, K, N, True, mm._sms(eng.device)).grid]
+            tails.append(float(st[:, 1].max() - st[:, 0].max()) / 1e6)
+        tails.sort()
+        lib_ms, row_ms, note = library_int_mm(base[0], gu["q"], flush)
+        record("w8a8_swiglu_matmul", f"x ({Mx}, {K}) @ w ({K}, {N}); plan "
+               f"{mm.wgmma_plan(Mx, K, N, True, mm._sms(eng.device))}; hsw code "
+               f"mismatches {int((dq > 0).sum())}{'; ' + note if note else ''}", err,
+               median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs), flush=flush),
+               median_ms(lambda: mm.w8a8_swiglu_matmul_plain(*sargs), flush=flush),
+               b_ms, b_by, lib_ms, primary,
+               generic_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs,
+                                                                       route="generic"),
+                                    flush=flush),
+               library_rowmajor_ms=row_ms, tail_ms=tails[len(tails) // 2],
+               host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs)),
+               generic_host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(
+                   *sargs, route="generic")))
+
+    # K3 where the GEMM is trivial (K = 16) and the quantize tail is most of
+    # the launch: 64 rows, one generic row tile, whose last block quantizes
+    # all 64 x 5632 values alone
+    xt = torch.randint(-127, 128, (64, 16), dtype=torch.int8, device=eng.device,
+                       generator=gen)
+    wt = mm.k_major(torch.randint(-127, 128, (16, gu["q"].shape[1]), dtype=torch.int8,
+                                  device=eng.device, generator=gen))
+    nb = gu["q"].shape[1] // 128
+    targs = (xt, wt, torch.full((64, 1), 0.01, device=eng.device), None,
+             gu["scale"].reshape(1, -1), None,
+             torch.full((64, nb), -50.0, device=eng.device),
+             torch.full((64, nb), 50.0, device=eng.device))
+    tw = mm.w8a8_swiglu_matmul_cuda(*targs)
+    tg = mm.w8a8_swiglu_matmul_cuda(*targs, route="generic")
+    tp = mm.w8a8_swiglu_matmul_plain(*targs)
+    need(all(torch.equal(u, v) for u, v in zip(tw[:3], tg[:3])),
+         "K3 tail shape: the routes differ")
+    need(bool(torch.isclose(tw[0], tp[0], rtol=1e-6, atol=0).all()),
+         "K3 tail shape: hsw differs from plain")
+    N = gu["q"].shape[1]
+    record("w8a8_swiglu_matmul", f"tail shape: x (64, 16) @ w (16, {N})",
+           max_abs(tw[0], tp[0]),
+           median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*targs), flush=flush),
+           median_ms(lambda: mm.w8a8_swiglu_matmul_plain(*targs), flush=flush),
+           *bound_ms(64 * 16 + 16 * N + N * 4 + 64 * (4 + 8 * N // 128) + 64 * N // 2
+                     + 12 * 64, 2 * 64 * 16 * N, INT8_OPS), None, False,
+           generic_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*targs, route="generic"),
+                                flush=flush))
 
 
 def attend_kernels(eng, gen, flush, record):
@@ -698,6 +817,16 @@ def census(path, n, pre, dec, restores=0):
     return want
 
 
+def check_routes(path, counts):
+    """Every K2 and K3 launch of a run took the wgmma route."""
+    from repro_torch.kernels import ops
+    routes = ops.route_counts()
+    log(f"{path}: K2/K3 launches per route {routes}")
+    for name, r in routes.items():
+        need(r["generic"] == 0 and r["wgmma"] == counts[name]["launches"],
+             f"{path}: {name} launches {counts[name]['launches']}, per route {r}")
+
+
 def phase_serve(eng, path):
     import torch
     from repro_torch.kernels import ops
@@ -710,6 +839,7 @@ def phase_serve(eng, path):
     wall = time.perf_counter() - t0
     counts = ops.counts()
     log(f"serve {path}: {len(reqs)} requests in {wall:.2f} s; counts {counts}")
+    check_routes(path, counts)
     log(f"serve {path}: stats {json.dumps(eng.stats)}")
     for name, c in counts.items():
         need(c["launches"] == c["entries"],
@@ -945,6 +1075,7 @@ def phase_unfused(recs):
     want.update(act_stats=2 * n + n_gamma, w8a8_matmul=2 * n, pdq_prologue=n,
                 quantize=n, dequantize=n)
     log(f"unfused E: counts {counts}")
+    check_routes("E", counts)
     for name, c in counts.items():
         need(c["launches"] == c["entries"] == want[name],
              f"E: {name}: {c['entries']} entries, {c['launches']} launches, census "
@@ -1146,7 +1277,8 @@ def main(argv=None) -> int:
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
-                            library_ms=row["library_ms"], shape=row["shape"]))
+                            library_ms=row["library_ms"], shape=row["shape"],
+                            **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
     need(sorted(k["name"] for k in kernels) == sorted(replaces),
          f"kernel rows {[k['name'] for k in kernels]}")
     OUT_DIR.mkdir(exist_ok=True)

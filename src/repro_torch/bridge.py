@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.api import resolve_device
+
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -26,8 +28,11 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
-    """Reference params (numpy leaves) -> the port's params on ``device``."""
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """Reference params (numpy leaves) -> the port's params on ``device``:
+    the card unless the caller asks for the CPU, and an error where CUDA is
+    absent (``models.api.resolve_device``)."""
+    device = resolve_device(device)
     if tree.get("head") or tree.get("tail") or len(tree["blocks"]) != 1:
         raise NotImplementedError(
             "the port runs the single-kind ('global',) pattern without "

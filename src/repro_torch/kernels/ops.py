@@ -33,6 +33,7 @@ from . import w8a8_matmul as _mm
 from .ref import from_page_rows as from_page_rows
 from .ref import to_page_rows as to_page_rows
 from .ref import true_div
+from .w8a8_matmul import k_major as k_major
 
 LANE = _mm.LANE
 
@@ -53,11 +54,18 @@ COUNTS = {
 def reset_counts() -> None:
     for c in COUNTS.values():
         c.entries = c.launches = 0
+    for r in _mm.ROUTES.values():
+        r.update(dict.fromkeys(r, 0))
 
 
 def counts() -> dict[str, dict[str, int]]:
     return {k: {"entries": c.entries, "launches": c.launches}
             for k, c in COUNTS.items()}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches of K2 and K3 per route (``wgmma``, ``generic``)."""
+    return {k: dict(r) for k, r in _mm.ROUTES.items()}
 
 
 def _rows(x) -> int:
@@ -89,7 +97,9 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
                 colsum=None, fp_range=None, out_dtype=torch.float32):
     """y = s_x*s_w*(x_q @ w_q - z_x*colsum); requantized int8 iff s_out given.
 
-    x_q: (..., K) int8; w_q: (K, N) int8.  s_x/z_x: scalar, (...) or
+    x_q: (..., K) int8; w_q: (K, N) int8, K-major as the weight records
+    store it (any other layout is made K-major here, a copy on every call).
+    s_x/z_x: scalar, (...) or
     (..., 1) per row; s_w: scalar or (N,) per channel.  ``fp_range=(lo,
     hi)`` (exclusive with s_out) clamps in the epilogue and emits
     ``out_dtype``.  Epilogue operands are per row, or per (row, 128-column
@@ -125,6 +135,8 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
         if colsum is None:
             colsum = w_q.sum(0, keepdim=True, dtype=torch.int32)
         colsum = colsum.reshape(1, N)
+    if not _mm.is_k_major(w_q):
+        w_q = k_major(w_q)
     COUNTS["w8a8_matmul"].entries += 1
     y = _mm.w8a8_matmul(
         x_q.reshape(M, K).contiguous(), w_q, _norm_row(s_x, M, torch.float32, dev),

@@ -9,8 +9,11 @@ share one prologue and one wide matmul through ``lin_grouped`` over a
 grouped record; each sibling key keeps its place in the param tree as a
 segment view ``{"group": <shared record>, "seg": SegRef(i)}``.
 
-Records keep the reference's layouts - ``q`` (K, N) int8, ``scale`` (N,),
-``colsum`` (1, N) int32 - so the tests compare them with JAX's directly.
+Records keep the reference's logical layouts - ``q`` (K, N) int8,
+``scale`` (N,), ``colsum`` (1, N) int32 - so the tests compare them with
+JAX's directly.  ``q`` is stored K-major (``ops.k_major``: a view
+``q_nk.t()`` of a contiguous (N, K) tensor), the layout the W8A8 kernels'
+tensor cores read; tensor code reads it as any (K, N) tensor.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ def quantize_weight(w: torch.Tensor, alpha: float = 6.0, beta: float = 6.0) -> d
     w64 = w32.double()
     f32 = dict(dtype=torch.float32, device=w.device)
     return {
-        "q": q,
+        "q": ops.k_major(q),
         "scale": scale,
         "colsum": q.sum(0, keepdim=True, dtype=torch.int32),
         "mu_w": w64.mean().float(),
@@ -95,7 +98,8 @@ def group_quantize_weights(ws, alpha: float = 6.0, beta: float = 6.0,
     padded = tuple(n + (-n) % LANE for n in sizes)
     pads = [p - n for n, p in zip(sizes, padded)]
     return {
-        "q": torch.cat([F.pad(r["q"], (0, p)) for r, p in zip(recs, pads)], 1),
+        "q": ops.k_major(torch.cat([F.pad(r["q"], (0, p))
+                                    for r, p in zip(recs, pads)], 1)),
         "scale": torch.cat([F.pad(r["scale"], (0, p), value=1.0)
                             for r, p in zip(recs, pads)]),
         "colsum": torch.cat([F.pad(r["colsum"], (0, p))
@@ -116,11 +120,13 @@ def group_segment_view(grec: dict, index: int) -> dict:
 
 
 def segment_record(view: dict) -> dict:
-    """A per-projection record sliced out of a segment view."""
+    """A per-projection record sliced out of a segment view; its ``q`` is a
+    K-major view of the group's storage (rows [off, off + n) of the (N, K)
+    array), not a copy."""
     g, i = view["group"], view["seg"].index
     off, n = g["segs"].offsets[i], g["segs"].sizes[i]
     return {
-        "q": g["q"][:, off:off + n].contiguous(),
+        "q": g["q"].t()[off:off + n].t(),
         "scale": g["scale"][off:off + n],
         "colsum": g["colsum"][:, off:off + n],
         **{k: g[k][i] for k in ("mu_w", "var_w", "alpha", "beta")},

@@ -8,7 +8,9 @@ the card:
 
 Tolerances: int8 codes, scales, int32-exact products and scattered bytes
 are equal (K3's hsw scratch within rtol 1e-6, and its codes may differ by
-one only where hsw does); s1/s2 within 1e-5 of the row's sum of magnitudes (another
+one only where hsw does); K2/K3's wgmma route equals the generic route
+bit for bit (K3's s1/s2 aside, summed in another order) and repeats its
+bits on a second launch (the split-K workspace and tickets reset); s1/s2 within 1e-5 of the row's sum of magnitudes (another
 summation order).  The int8-KV attend kernels (K4, K5): o within rtol =
 atol = 2e-4 of plain (the reference's kernel test, tests/test_kernels.py:177),
 on rows of length >= 1 (a row of length 0 is NaN in the plain version, as
@@ -57,9 +59,10 @@ def test_pdq_prologue_kernel_matches_plain(gen, M, K, dtype):
 
 
 def _operands(gen, M, K, N, E):
+    """K2/K3 operands, w_q in the weight records' K-major layout."""
     i8 = dict(dtype=torch.int8, device="cuda", generator=gen)
     x_q = torch.randint(-127, 128, (M, K), **i8)
-    w_q = torch.randint(-127, 128, (K, N), **i8)
+    w_q = mm.k_major(torch.randint(-127, 128, (K, N), **i8))
     f = lambda *s: torch.rand(s, generator=gen, device="cuda")      # noqa: E731
     s_x, s_w = 0.01 + 0.04 * f(M, 1), 0.001 + 0.01 * f(1, N)
     z_x = torch.randint(-3, 4, (M, 1), dtype=torch.int32, device="cuda", generator=gen)
@@ -94,15 +97,101 @@ def test_w8a8_kernel_matches_plain(gen, M, K, N, mode, zero_x):
 def test_swiglu_kernel_matches_plain(gen, M, K, N, zero_x):
     ops = _zero_point(_operands(gen, M, K, N, N // 128), zero_x)
     args = ops[:6] + ops[8:]
-    k, p = mm.w8a8_swiglu_matmul_cuda(*args), mm.w8a8_swiglu_matmul_plain(*args)
+    _swiglu_case(mm.w8a8_swiglu_matmul_cuda(*args), mm.w8a8_swiglu_matmul_plain(*args))
+
+
+# the wgmma route's edges: M across the decode (swap-AB, n = 8..64) and
+# prefill (128-row tile) orientations; N ragged against the 128-column
+# tile; K a multiple of 16 but not of the 128-byte stage
+_WG_ROWS = (1, 5, 8, 17, 63, 64, 65, 130)
+_WG_KN = [(48, 200), (144, 384), (2064, 200), (48, 384), (144, 200), (2064, 384)]
+
+
+@pytest.mark.parametrize("zero_x", [False, True])
+@pytest.mark.parametrize("mode", ["fp32", "fp_clamp_bf16", "requant"])
+@pytest.mark.parametrize("K,N", _WG_KN)
+@pytest.mark.parametrize("M", _WG_ROWS)
+def test_w8a8_wgmma_route_matches_plain_and_generic(gen, M, K, N, mode, zero_x):
+    E = N // 128 if N % 128 == 0 else 1
+    ops = _zero_point(_operands(gen, M, K, N, E), zero_x)
+    ops = {"fp32": ops[:6], "fp_clamp_bf16": ops[:6] + (None, None) + ops[8:],
+           "requant": ops[:8]}[mode]
+    kw = dict(out_dtype=torch.bfloat16 if mode == "fp_clamp_bf16" else torch.float32)
+    assert mm.route_for(ops[0], ops[1]) == "wgmma"
+    before = dict(mm.ROUTES["w8a8_matmul"])
+    first = mm.w8a8_matmul_cuda(*ops, **kw)
+    again = mm.w8a8_matmul_cuda(*ops, **kw)     # finds the workspace and tickets at 0
+    assert mm.ROUTES["w8a8_matmul"]["wgmma"] == before["wgmma"] + 2
+    assert mm.ROUTES["w8a8_matmul"]["generic"] == before["generic"]
+    want = mm.w8a8_matmul_plain(*ops, **kw)
+    assert torch.equal(first, want) and torch.equal(again, want)
+    assert torch.equal(mm.w8a8_matmul_cuda(*ops, route="generic", **kw), want)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 6144), (8, 2048, 2048), (8, 5632, 2048),
+                                   (2048, 2048, 6144)])
+def test_w8a8_wgmma_route_main_path_shapes(gen, M, K, N):
+    """Full-width shapes: K split (up to 8 ways) at decode and the
+    persistent prefill grid; bf16 out with per-128-column clamps, as path
+    A."""
+    ops = _zero_point(_operands(gen, M, K, N, N // 128), True)
+    args = ops[:6] + (None, None) + ops[8:]
+    kw = dict(out_dtype=torch.bfloat16)
+    got = mm.w8a8_matmul_cuda(*args, **kw)
+    assert torch.equal(got, mm.w8a8_matmul_plain(*args, **kw))
+    assert torch.equal(mm.w8a8_matmul_cuda(*args, **kw), got)
+    assert torch.equal(mm.w8a8_matmul_cuda(*args, route="generic", **kw), got)
+
+
+def test_w8a8_route_rule_on_the_card(gen):
+    """A misaligned x takes the generic route (forcing wgmma raises) and an
+    N-major w is refused; the results stay the plain version's."""
+    x_q, w_q, s_x, z_x, s_w, colsum, *_ = _operands(gen, 5, 64, 128, 1)
+    flat = torch.randint(-127, 128, (1 + 5 * 64,), dtype=torch.int8, device="cuda",
+                         generator=gen)
+    x_off = flat[1:].view(5, 64)                           # 1 byte off 16
+    assert mm.route_for(x_q, w_q) == "wgmma" and mm.route_for(x_off, w_q) == "generic"
+    for xq in (x_q, x_off):
+        want = mm.w8a8_matmul_plain(xq, w_q, s_x, z_x, s_w, colsum)
+        assert torch.equal(mm.w8a8_matmul_cuda(xq, w_q, s_x, z_x, s_w, colsum), want)
+    with pytest.raises(ValueError, match="wgmma route needs"):
+        mm.w8a8_matmul_cuda(x_off, w_q, s_x, z_x, s_w, colsum, route="wgmma")
+    with pytest.raises(ValueError, match="K-major"):
+        mm.w8a8_matmul_cuda(x_q, w_q.contiguous(), s_x, z_x, s_w, colsum)
+
+
+def _swiglu_case(k, p):
     same = k[0] == p[0]                                          # hsw
     assert bool(torch.isclose(k[0], p[0], rtol=1e-6, atol=0).all())
     dq = (k[1].int() - p[1].int()).abs()
     assert int(dq[same].max()) == 0 and int(dq.max()) <= 1       # hsw_q
     assert torch.equal(k[2], p[2])                               # s_x
-    mag = p[0].abs().sum(-1, keepdim=True)
-    _sums_close(k[3], p[3], mag)
+    _sums_close(k[3], p[3], p[0].abs().sum(-1, keepdim=True))
     _sums_close(k[4], p[4], (p[0] ** 2).sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("zero_x", [False, True])
+@pytest.mark.parametrize("K,N", [(48, 512), (144, 768), (2064, 256)])
+@pytest.mark.parametrize("M", _WG_ROWS)
+def test_swiglu_wgmma_route_matches_plain_and_generic(gen, M, K, N, zero_x):
+    ops = _zero_point(_operands(gen, M, K, N, N // 128), zero_x)
+    args = ops[:6] + ops[8:]
+    assert mm.route_for(args[0], args[1]) == "wgmma"
+    k = mm.w8a8_swiglu_matmul_cuda(*args)
+    again = mm.w8a8_swiglu_matmul_cuda(*args)   # tickets and grid barrier reset
+    assert all(torch.equal(u, v) for u, v in zip(k, again))
+    _swiglu_case(k, mm.w8a8_swiglu_matmul_plain(*args))
+    g = mm.w8a8_swiglu_matmul_cuda(*args, route="generic")
+    assert all(torch.equal(u, v) for u, v in zip(k[:3], g[:3]))
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+def test_swiglu_wgmma_route_main_path_shapes(gen, M):
+    ops = _zero_point(_operands(gen, M, 2048, 11264, 88), True)
+    args = ops[:6] + ops[8:]
+    k = mm.w8a8_swiglu_matmul_cuda(*args)
+    _swiglu_case(k, mm.w8a8_swiglu_matmul_plain(*args))
+    assert all(torch.equal(u, v) for u, v in zip(k, mm.w8a8_swiglu_matmul_cuda(*args)))
 
 
 @pytest.mark.parametrize("row,dtype", [((3,), torch.int8), ((5, 16), torch.bfloat16),

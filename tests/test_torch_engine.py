@@ -44,7 +44,7 @@ LENS = (3, 40, 17, 9, 33, 25)
 def weights():
     jcfg = j_reduced("stablelm-1.6b")
     jp = j_build(jcfg).init(jax.random.PRNGKey(0))
-    return jcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _prompts():

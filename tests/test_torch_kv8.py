@@ -146,7 +146,7 @@ def models():
     tcfg = dataclasses.replace(t_reduced("stablelm-1.6b"), quant_kv="dynamic")
     jb, tb = j_build(jcfg), t_build(tcfg, "cpu")
     jp = jb.init(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return {"bundle": (jb, tb), "cfg": tcfg, "fp": (jp, tp),
             "pdq": (dict(jp, blocks=jax.vmap(j_quantize)(jp["blocks"])), t_quantize(tp))}
 
@@ -196,7 +196,7 @@ def test_int8_kv_softcap_decodes_the_dequantized_cache_like_jax():
                                attn_softcap=2.0)
     jb, tb = j_build(jcfg), t_build(tcfg, "cpu")
     jp = jb.init(jax.random.PRNGKey(1))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tokens = np.random.default_rng(4).integers(0, 512, (2, 9)).astype(np.int32)
     lens = np.array([9, 6], np.int32)
     jl, jc = jb.prefill_many(jp, {"tokens": jnp.asarray(tokens)}, jb.init_caches(2, 24),

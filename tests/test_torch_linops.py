@@ -66,7 +66,7 @@ def test_quantize_param_tree_quantizes_every_layer_like_vmap():
     jp = j_build(cfg).init(jax.random.PRNGKey(0))
     jq = jax.vmap(jlin.quantize_param_tree)(jp["blocks"])[0]
     tq = tlin.quantize_param_tree(
-        params_from_numpy(jax.tree.map(np.asarray, jp)))["blocks"]
+        params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"))["blocks"]
     assert len(tq) == cfg.n_layers
     for i, layer in enumerate(tq):
         pick = lambda r: jax.tree.map(lambda a: a[i], r)          # noqa: E731

@@ -38,7 +38,7 @@ def models():
     jcfg, tcfg = j_reduced("stablelm-1.6b"), t_reduced("stablelm-1.6b")
     jb, tb = j_build(jcfg), t_build(tcfg, "cpu")
     jp = jb.init(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return {
         "cfg": (jcfg, tcfg), "bundle": (jb, tb),
         "fp": (jp, tp),
