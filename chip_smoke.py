@@ -36,21 +36,26 @@ Phases, each of which must pass (any failure exits non-zero):
                 and K3 on both routes (wgmma, the main path's, and generic,
                 which must give the same bits), beside torch._int_mm on
                 the K-major weights and on a row-major copy, with the host
-                time per call of each route and K3's quantize tail;
+                time per call of each route and K3's quantize tail; K4 and
+                K5 on both routes (split, the paths', and single, the first
+                design) at path A's cache and at a 4096-position one, within
+                ATTEND_TOL of plain and of each other, split bit-equal over
+                two launches with its tickets back at 0;
   3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
                 just before and read just after each run, every kernel of
                 the path must have launched as often as its op was entered,
                 the census must hold exactly, every K2/K3 launch must have
-                taken the wgmma route, and the other paths' kernels must
+                taken the wgmma route and every K4/K5 launch the split
+                route (MAIN_ROUTE), and the other paths' kernels must
                 not have run; the runs go in turns A B C C A D1 D2, so
                 that A's and C's times compare within one call; D1's and
                 D2's greedy streams must equal A's first run's, D1 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore;
   4. profile  - torch.profiler over three decode steps of the full pool of
-                A, C and D1: device time per step, the device's idle share
+                A, B, C and D1: device time per step, the device's idle share
                 of the serve phase's median step, the top kernels;
   5. parity   - on each path, one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
@@ -100,6 +105,9 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05}
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
+# the kernel table's long cache: stablelm-2-1.6b's published context length
+ATTEND_LONG_SP = 4096
+ATTEND_LONG_LENS = (4096, 3500, 2048, 1500, 1024, 700, 129, 1)
 
 E_ROWS = (8, 2048)        # path E: decode rows (the slots), prefill (8 x 256)
 E_GAMMA = 4               # act_stats' sampling stride on E's (8, 256, K) input
@@ -124,9 +132,10 @@ PATHS = {
 
 
 # K2/K3 rows also carry the generic route's time, torch._int_mm on the
-# row-major copy, the host time per call of each route and K3's tail
+# row-major copy, the host time per call of each route and K3's tail; K4/K5
+# rows the single route's time and error
 EXTRA_KEYS = ("generic_ms", "library_rowmajor_ms", "host_us", "generic_host_us",
-              "tail_ms")
+              "tail_ms", "single_ms", "single_err")
 
 
 class SmokeError(RuntimeError):
@@ -506,63 +515,105 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
 
 def attend_kernels(eng, gen, flush, record):
     """K4 and K5 against their plain versions at the full-width decode
-    shapes (B = slots, Hkv, G, Dh of the model, Sp of path A's cache),
-    K5 with wo's prologue in bf16, as the main path runs it."""
+    shapes (B = slots, Hkv, G, Dh of the model, Sp of path A's cache,
+    ATTEND_LENS), and at a long cache (Sp 4096, ATTEND_LONG_LENS) for the
+    kernel table only; K5 with wo's prologue in bf16, as the main path
+    runs it.  Each on both routes: the split route (the one every path
+    takes) and the single route (the first design), both within
+    ATTEND_TOL of plain and of each other, the split route bit-equal over
+    two launches with its tickets back at 0, both timed in this call."""
     import torch
     from repro_torch.kernels import kv_cache as kv
     cfg = eng.cfg
     B, Hkv, Dh = eng.slots, cfg.n_kv_heads, cfg.hd
     G = cfg.n_heads // Hkv
     Sp = eng.caches["blocks"][0]["k"].shape[3]
-    need(len(ATTEND_LENS) == B and max(ATTEND_LENS) <= Sp,
-         f"attend lengths {ATTEND_LENS} do not fit B {B}, Sp {Sp}")
     dev = eng.device
-    i8 = dict(dtype=torch.int8, device=dev, generator=gen)
-    f = lambda *s: torch.rand(s, generator=gen, device=dev)      # noqa: E731
-    args = (torch.randn((B, Hkv * G, Dh), generator=gen, device=dev),
-            torch.randint(-127, 128, (B, Hkv, Sp, Dh), **i8),
-            torch.randint(-127, 128, (B, Hkv, Sp, Dh), **i8),
-            0.01 + 0.04 * f(B, Hkv, Sp), 0.01 + 0.04 * f(B, Hkv, Sp),
-            torch.tensor(ATTEND_LENS, dtype=torch.int32, device=dev))
-    shape = (f"B {B} Hkv {Hkv} G {G} Dh {Dh} Sp {Sp}, lengths "
-             f"{list(ATTEND_LENS)}")
-    valid = sum(ATTEND_LENS) * Hkv
-    qo_bytes = 2 * B * Hkv * G * Dh * 4 + 4 * B        # q in, o out, length
-    kv_bytes = valid * (2 * Dh + 8)                    # valid K/V rows + scales
-    ops = valid * 4 * G * Dh                           # q.k and p.v, f32
+    for lens, sp, primary in ((ATTEND_LENS, Sp, True),
+                              (ATTEND_LONG_LENS, ATTEND_LONG_SP, False)):
+        need(len(lens) == B and max(lens) <= sp,
+             f"attend lengths {lens} do not fit B {B}, Sp {sp}")
+        i8 = dict(dtype=torch.int8, device=dev, generator=gen)
+        f = lambda *s: torch.rand(s, generator=gen, device=dev)      # noqa: E731
+        args = (torch.randn((B, Hkv * G, Dh), generator=gen, device=dev),
+                torch.randint(-127, 128, (B, Hkv, sp, Dh), **i8),
+                torch.randint(-127, 128, (B, Hkv, sp, Dh), **i8),
+                0.01 + 0.04 * f(B, Hkv, sp), 0.01 + 0.04 * f(B, Hkv, sp),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+        plan = kv.attend_plan(B, Hkv, G, sp, Dh)
+        shape = (f"B {B} Hkv {Hkv} G {G} Dh {Dh} Sp {sp}, lengths {list(lens)} "
+                 f"(sum {sum(lens)}); split plan {plan.splits} splits of {plan.chunk}")
+        valid = sum(lens) * Hkv
+        qo_bytes = 2 * B * Hkv * G * Dh * 4 + 4 * B        # q in, o out, length
+        kv_bytes = valid * (2 * Dh + 8)                    # valid K/V rows + scales
+        ops = valid * 4 * G * Dh                           # q.k and p.v, f32
 
-    ko = kv.decode_attend_i8kv_cuda(*args)
-    po = kv.decode_attend_i8kv_plain(*args)
-    need(bool(torch.isclose(ko, po, rtol=ATTEND_TOL, atol=ATTEND_TOL).all()),
-         "K4 o outside tolerance of plain")
-    b_ms, b_by = bound_ms(kv_bytes + qo_bytes, ops, F32_OPS)
-    record("decode_attend_i8kv", shape, max_abs(ko, po),
-           median_ms(lambda: kv.decode_attend_i8kv_cuda(*args), flush=flush),
-           median_ms(lambda: kv.decode_attend_i8kv_plain(*args), flush=flush),
-           b_ms, b_by, None, True)
+        def close(a, b):
+            return bool(torch.isclose(a, b, rtol=ATTEND_TOL, atol=ATTEND_TOL).all())
 
-    pro = torch.bfloat16
-    ko = kv.decode_attend_i8kv_fused_cuda(*args, pro)
-    po = kv.decode_attend_i8kv_fused_plain(*args, pro)
-    need(bool(torch.isclose(ko[0], po[0], rtol=ATTEND_TOL, atol=ATTEND_TOL).all()),
-         "K5 o outside tolerance of plain")
-    need(bool(torch.isclose(ko[2], po[2], rtol=1e-5, atol=0).all()),
-         "K5 s_x outside rtol 1e-5 of plain")
-    kf, pf = (t.reshape(B, -1).to(pro) for t in (ko[0], po[0]))
-    same = (kf == pf) & (ko[2] == po[2])
-    dq = (ko[1].int() - po[1].int()).abs()
-    need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
-         "K5 o_q differs from plain where o and s_x agree, or by > 1 code")
-    absx = pf.float().abs().sum(-1, keepdim=True)
-    need(bool(((ko[3] - po[3]).abs() <= SUM_RTOL * absx).all()), "K5 s1 outside tolerance")
-    need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K5 s2 outside tolerance")
-    b_ms, b_by = bound_ms(kv_bytes + qo_bytes + B * Hkv * G * Dh + 12 * B, ops, F32_OPS)
-    record("decode_attend_i8kv_fused", f"{shape}, prologue in bf16; o_q code "
-           f"mismatches {int((dq > 0).sum())}",
-           max(max_abs(u, v) for u, v in zip(ko, po)),
-           median_ms(lambda: kv.decode_attend_i8kv_fused_cuda(*args, pro), flush=flush),
-           median_ms(lambda: kv.decode_attend_i8kv_fused_plain(*args, pro), flush=flush),
-           b_ms, b_by, None, True)
+        def at_rest():
+            torch.cuda.synchronize()
+            return int(kv._tickets(dev, 1).abs().sum()) == 0
+
+        ko = kv.decode_attend_i8kv_cuda(*args)
+        need(torch.equal(ko, kv.decode_attend_i8kv_cuda(*args)) and at_rest(),
+             "K4 split: two launches differ, or a ticket is left set")
+        so = kv.decode_attend_i8kv_cuda(*args, route="single")
+        po = kv.decode_attend_i8kv_plain(*args)
+        need(close(ko, po) and close(so, po) and close(ko, so),
+             "K4 o outside tolerance of plain or between the routes")
+        b_ms, b_by = bound_ms(kv_bytes + qo_bytes, ops, F32_OPS)
+        record("decode_attend_i8kv", shape, max_abs(ko, po),
+               median_ms(lambda: kv.decode_attend_i8kv_cuda(*args), flush=flush),
+               median_ms(lambda: kv.decode_attend_i8kv_plain(*args), flush=flush),
+               b_ms, b_by, None, primary, single_err=max_abs(so, po),
+               single_ms=median_ms(lambda: kv.decode_attend_i8kv_cuda(*args, route="single"),
+                                   flush=flush))
+        del ko, so, po
+
+        pro = torch.bfloat16
+        ko = kv.decode_attend_i8kv_fused_cuda(*args, pro)
+        again = kv.decode_attend_i8kv_fused_cuda(*args, pro)
+        need(all(torch.equal(u, v) for u, v in zip(ko, again)) and at_rest(),
+             "K5 split: two launches differ, or a ticket is left set")
+        so = kv.decode_attend_i8kv_fused_cuda(*args, pro, route="single")
+        po = kv.decode_attend_i8kv_fused_plain(*args, pro)
+        pf = po[0].reshape(B, -1).to(pro)
+        mismatches = []
+        for name, out in (("split", ko), ("single", so)):
+            need(close(out[0], po[0]), f"K5 {name} o outside tolerance of plain")
+            need(bool(torch.isclose(out[2], po[2], rtol=1e-5, atol=0).all()),
+                 f"K5 {name} s_x outside rtol 1e-5 of plain")
+            kf = out[0].reshape(B, -1).to(pro)
+            same = (kf == pf) & (out[2] == po[2])
+            dq = (out[1].int() - po[1].int()).abs()
+            need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
+                 f"K5 {name} o_q differs from plain where o and s_x agree, or by > 1")
+            # s1/s2 sum the kernel's own rounded o: within SUM_RTOL of those
+            # sums, and of plain's within that plus the rounded rows' own
+            # difference (o within ATTEND_TOL may round to a neighbouring
+            # bf16 value; 0 where a row rounds alike)
+            for i, (own, ref) in enumerate(((kf.float(), pf.float()),
+                                            (kf.float() ** 2, pf.float() ** 2)), start=3):
+                mag = own.abs().sum(-1, keepdim=True)
+                apart = (own - ref).abs().sum(-1, keepdim=True)
+                need(bool(((out[i] - own.sum(-1, keepdim=True)).abs() <= SUM_RTOL * mag).all())
+                     and bool(((out[i] - po[i]).abs() <= SUM_RTOL * mag + apart).all()),
+                     f"K5 {name} {'s1' if i == 3 else 's2'} outside tolerance")
+            mismatches.append(int((dq > 0).sum()))
+        need(close(ko[0], so[0]), "K5 o differs between the routes")
+        b_ms, b_by = bound_ms(kv_bytes + qo_bytes + B * Hkv * G * Dh + 12 * B, ops, F32_OPS)
+        record("decode_attend_i8kv_fused", f"{shape}, prologue in bf16; o_q code "
+               f"mismatches split {mismatches[0]}, single {mismatches[1]}",
+               max(max_abs(u, v) for u, v in zip(ko, po)),
+               median_ms(lambda: kv.decode_attend_i8kv_fused_cuda(*args, pro), flush=flush),
+               median_ms(lambda: kv.decode_attend_i8kv_fused_plain(*args, pro), flush=flush),
+               b_ms, b_by, None, primary,
+               single_err=max(max_abs(u, v) for u, v in zip(so, po)),
+               single_ms=median_ms(lambda: kv.decode_attend_i8kv_fused_cuda(
+                   *args, pro, route="single"), flush=flush))
+        del ko, again, so, po, args
+        torch.cuda.empty_cache()
 
 
 def page_kernels(eng, gen, flush, record):
@@ -817,13 +868,21 @@ def census(path, n, pre, dec, restores=0):
     return want
 
 
+# the route every launch of a serving or ops-level run must take
+MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
+              "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split"}
+
+
 def check_routes(path, counts):
-    """Every K2 and K3 launch of a run took the wgmma route."""
+    """Every K2 and K3 launch of a run took the wgmma route, every K4 and
+    K5 launch the split route."""
     from repro_torch.kernels import ops
     routes = ops.route_counts()
-    log(f"{path}: K2/K3 launches per route {routes}")
+    log(f"{path}: K2-K5 launches per route {routes}")
     for name, r in routes.items():
-        need(r["generic"] == 0 and r["wgmma"] == counts[name]["launches"],
+        main = MAIN_ROUTE[name]
+        need(r[main] == counts[name]["launches"]
+             and all(v == 0 for k, v in r.items() if k != main),
              f"{path}: {name} launches {counts[name]['launches']}, per route {r}")
 
 
@@ -1224,7 +1283,7 @@ def main(argv=None) -> int:
         c, run = phase_serve(eng, path)
         if path not in counts:
             counts[path] = c
-            if path in ("A", "C", "D1"):
+            if path in ("A", "B", "C", "D1"):
                 run["profile"] = phase_profile(eng, path, run["decode_step_median_ms"])
             if path in ("A", "B", "C"):
                 parity[path] = phase_parity(eng, path)

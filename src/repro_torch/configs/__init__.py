@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config('<arch-id>')``.
 
 Only the families the port runs are registered; the others join with their
-slice (ROADMAP.md Queue 1, item 8).
+slice (ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ ALL_ARCHS = tuple(_MODULES)
 
 def get_config(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)} (the "
+                       f"other families are ROADMAP.md Queue 1, item 6)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG.validate()
 

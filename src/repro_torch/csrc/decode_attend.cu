@@ -7,7 +7,7 @@
 //   o[b, h] = softmax_s(q[b, h] . (k[b, h/G, s] * ks[b, h/G, s]) / sqrt(Dh))
 //             . (v[b, h/G, s] * vs[b, h/G, s]),   s < length[b]
 // with k/v int8 in kernel layout (B, Hkv, Sp, Dh) and f32 scales per
-// (head, position).
+// (head, position).  A row of length 0 gives o = 0.
 //
 // decode_attend_i8kv_fused replaces decode_attend_i8kv_fused_p
 // (src/repro/kernels/kv_cache.py:161, pallas_call at :193): the same
@@ -19,29 +19,58 @@
 //
 // Bound on the H100: bytes.  Each valid position moves 2 * Dh int8 bytes
 // and two f32 scales and costs ~4 * G * Dh flops: far below the card's
-// ratio of compute to bandwidth.
+// ratio of compute to bandwidth.  At decode sizes (a few MB) the kernel is
+// bound by latency instead: how many dependent trips to memory its longest
+// path makes, and how many SMs share the rows.
 //
-// Design (simple and right first): one block of 128 threads per (kv head,
-// batch row); 256 blocks at stablelm-1.6b's full width.  The block walks
-// its row in tiles of 128 positions up to length[b] only: tiles past the
-// length are never read (the TPU kernel streamed the whole cache and
-// masked it), and the ragged last tile is masked here.  A tile's K and V
-// rows are copied to shared memory with 16-byte loads; K rows are padded
-// to an odd word stride so that thread t reading row t hits distinct
-// banks.  Thread t computes the G logits of position t, dequantizing K in
-// registers; an online softmax (running max and sum per query head, exact
-// zeros for masked positions, expf and IEEE arithmetic, no fast math)
-// rescales the accumulators; then each thread owns up to 8 of the G * Dh
-// outputs and sums p * v over the tile.  Reductions use fixed shuffle
-// trees and a fixed order across warps: no float atomics, the same result
-// every run.  Split-S (several blocks per row and a combine step) and TMA
-// are later work.
+// Two routes, both with a fixed summation order (no float atomics: two
+// launches give the same bits), both leaving every ticket at zero.
 //
-// The fused prologue needs every head of a row.  Each block writes its o
-// slice, fences, and draws an atomic ticket for its batch row; the block
-// that draws the last ticket reads the row back from L2, reduces amax,
-// s1 and s2 in a fixed order, quantizes, and resets the row's ticket to 0,
-// so the ticket buffer is zero again for the next launch on the stream.
+// "split" (decode_attend_i8kv_split; the route every caller takes):
+// Flash-Decoding.  The grid is (splits, Hkv, B) with splits = ceil(Sp /
+// CHUNK), sized from the cache's shape and never from length (which lives
+// on the device; reading it would sync the host every step).  Block (s, h,
+// b) owns positions [s * CHUNK, (s + 1) * CHUNK) of row b; a block whose
+// chunk starts at or past length[b] returns before any load (block 0 always
+// runs, so that a row of length 0 writes its zeros).  CHUNK = 128 = one
+// position per thread.  Inside a block:
+//   - q's loads go out beside length's; then two cp.async stages: the
+//     chunk's valid K rows (stage 1) and V rows (stage 2), in 16-byte units
+//     that consecutive threads copy from consecutive addresses, so a warp
+//     moves whole lines.  The block waits for stage 1 only, so V is in
+//     flight while the logits and the softmax are computed.  K rows sit at
+//     an odd stride of 16-byte units, so a quarter-warp's 16-byte reads of
+//     its own rows hit distinct banks.
+//   - logits: thread t dots position t's K row with q (shared, broadcast
+//     float4 reads); int8 turns into f32 exactly by a byte permute into the
+//     mantissa of 2^23 and one subtraction (no I2F, a quarter-rate unit).
+//   - softmax and P.V per warp over its 32 positions: lanes split a V row
+//     into 4-byte words, lane groups take alternate positions four at a
+//     time (their weights p * vs from shared memory), a fixed xor-shuffle
+//     tree sums the groups; then the 4 warps' (m, l, acc) merge through
+//     shared memory in warp order.
+// A row whose valid prefix fits one chunk is written at once.  Otherwise
+// each split writes its partial (m, l, acc[G * Dh]) in f32 to a workspace
+// and draws a ticket for its (b, h) behind a release fence (take_ticket);
+// the block that draws the last one merges the partials in split order,
+//   m = max m_i,  l = sum l_i e^(m_i - m),  o = sum acc_i e^(m_i - m) / l,
+// reading them all back from L2 (its own too), so the bits do not depend on
+// which block came last, and resets the ticket.  K5 adds a second ticket
+// per batch row over that row's Hkv merges; its last block runs the
+// prologue (row_prologue, shared with the single route).  No wait spins:
+// a block that is not last simply exits.  The workspace is never filled:
+// a merge reads only the records its row's active splits have written.
+//
+// "single" (decode_attend_i8kv / decode_attend_i8kv_fused; the first
+// design, kept to time the two against each other in one call): one block
+// of 128 threads per (kv head, batch row) walks its row in 128-position
+// tiles up to length[b], staging each tile with plain 16-byte loads; an
+// online softmax rescales the accumulators tile by tile, and 64-128
+// threads each own outputs and sum p * v over the tile serially.
+// K5's last block per row (an atomic ticket) runs the prologue.
+//
+// Both routes: expf and IEEE arithmetic, no fast math; reductions in fixed
+// shuffle trees and fixed orders across warps and splits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -279,6 +308,297 @@ int launch(const void* q, const void* kq, const void* vq, const void* ks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ split route
+namespace split {
+
+constexpr int WARPS_S = 4;
+constexpr int CHUNK = 32 * WARPS_S;     // positions per split, one per thread
+static_assert(CHUNK == THREADS, "row_prologue runs on a block of THREADS");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four int8 values (one word) as exact f32: the byte x + 128 placed in the
+// mantissa of 2^23 is 2^23 + 128 + x; one subtraction leaves x.
+__device__ __forceinline__ void i8x4_to_f32(int w, float* f) {
+  const unsigned u = static_cast<unsigned>(w) ^ 0x80808080u;
+  f[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
+  f[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
+  f[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
+  f[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
+}
+
+// A block's ticket after its global writes, in the release / acquire
+// pattern of CUTLASS's barriers: the block's barrier orders its threads'
+// writes before thread 0's acq_rel fence, which publishes them at gpu scope
+// (fences are cumulative) before the relaxed atomic draws; the block that
+// draws the last of ``count`` fences again before the barrier that lets its
+// threads read the others' writes, and resets the ticket.  Returns true for
+// every block but the last.
+__device__ __forceinline__ bool take_ticket(int* ticket, int count, int* is_last) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int prev;
+    asm volatile("fence.acq_rel.gpu;\n\tatom.relaxed.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(prev) : "l"(ticket) : "memory");
+    const bool last = prev == count - 1;
+    if (last) {
+      asm volatile("fence.acq_rel.gpu;" ::: "memory");
+      *ticket = 0;
+    }
+    *is_last = last;
+  }
+  __syncthreads();
+  return !*is_last;
+}
+
+// GM query heads per kv head and DM head dim at most; the main path (G 1,
+// Dh 64) gets a lean instance, every other shape the (8, 128) one.
+template <int GM, int DM>
+struct SplitSmem {
+  union {
+    int4 kt[CHUNK * (DM / 16 + 1)];     // K rows, (Dh / 16) | 1 units apart
+    struct {
+      float m[WARPS_S][GM], l[WARPS_S][GM];
+      float acc[WARPS_S][GM * DM];
+    } red;                              // the warps' partials, after the logits
+  } u;
+  int4 vt[CHUNK * DM / 16];             // V rows, Dh bytes apart
+  float4 q[GM * DM / 4];
+  float pw[WARPS_S][GM][32];            // p * vs of each warp's positions
+};
+
+template <int GM, int DM, bool FUSED>
+__global__ void __launch_bounds__(CHUNK)
+split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
+             const int8_t* __restrict__ vq, const float* __restrict__ ksc,
+             const float* __restrict__ vsc, const int* __restrict__ length,
+             float* __restrict__ o, int B, int Hkv, int G, int Sp, int Dh,
+             float scale, float* __restrict__ ws, int rec, int* __restrict__ tickets,
+             bool pro_bf16, int8_t* __restrict__ oq, float* __restrict__ osx,
+             float* __restrict__ os1, float* __restrict__ os2) {
+  __shared__ SplitSmem<GM, DM> sm;
+  __shared__ int is_last;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = Hkv * G, GD = G * Dh, du = Dh / 16, ku = du | 1, wr = Dh / 4;
+  // q's loads go out beside length's
+  const float* qb = q + (static_cast<long long>(b) * H + static_cast<long long>(h) * G) * Dh;
+  constexpr int QR = (GM * DM + CHUNK - 1) / CHUNK;
+  float qr[QR];
+#pragma unroll
+  for (int r = 0; r < QR; ++r)
+    if (tid + r * CHUNK < GD) qr[r] = qb[tid + r * CHUNK];
+  const int n = min(max(length[b], 0), Sp);
+  const int nsplit = max(1, (n + CHUNK - 1) / CHUNK);
+  if (s >= nsplit) return;              // past the valid prefix: no loads
+
+  const long long slab = static_cast<long long>(b) * Hkv + h;
+  const int p = s * CHUNK + tid;
+  const bool valid = p < n;
+  const int nb = min(CHUNK, n - s * CHUNK);          // valid positions here
+  const long long base = (slab * Sp + s * CHUNK) * Dh;
+
+  // the scales, then stage 1, the chunk's K rows, and stage 2, its V rows,
+  // each copied in 16-byte units that consecutive threads take from
+  // consecutive addresses (whole lines a warp); V stays in flight through
+  // the logits and the softmax
+  const float ks = valid ? ksc[slab * Sp + p] : 0.f;
+  const float vs = valid ? vsc[slab * Sp + p] : 0.f;
+  for (int c = tid; c < nb * du; c += CHUNK)
+    cp_async16(&sm.u.kt[(c / du) * ku + c % du], kq + base + 16LL * c);
+  cp_async_commit();
+  for (int c = tid; c < nb * du; c += CHUNK) cp_async16(&sm.vt[c], vq + base + 16LL * c);
+  cp_async_commit();
+  float* qs = reinterpret_cast<float*>(sm.q);
+#pragma unroll
+  for (int r = 0; r < QR; ++r) {
+    const int i = tid + r * CHUNK;
+    if (i < GD) qs[(i / Dh) * DM + i % Dh] = qr[r];
+  }
+  cp_async_wait<1>();
+  __syncthreads();                      // q and every K row in place
+
+  // logits of position p for the G query heads
+  float lg[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) lg[g] = 0.f;
+  if (valid) {
+#pragma unroll
+    for (int u = 0; u < DM / 16; ++u) {
+      if (u >= du) break;
+      const int4 kw = sm.u.kt[tid * ku + u];
+      float kf[16];
+      i8x4_to_f32(kw.x, kf);
+      i8x4_to_f32(kw.y, kf + 4);
+      i8x4_to_f32(kw.z, kf + 8);
+      i8x4_to_f32(kw.w, kf + 12);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        float a = lg[g];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 qq = sm.q[g * (DM / 4) + 4 * u + j];
+          a = fmaf(qq.x, kf[4 * j], a);
+          a = fmaf(qq.y, kf[4 * j + 1], a);
+          a = fmaf(qq.z, kf[4 * j + 2], a);
+          a = fmaf(qq.w, kf[4 * j + 3], a);
+        }
+        lg[g] = a;
+      }
+    }
+  }
+
+  // the warp's softmax over its 32 positions; p * vs weighs V's row
+  float mw[GM], lw[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) break;
+    const float x = valid ? lg[g] * ks * scale : -INFINITY;
+    mw[g] = warp_max(x);
+    const float pr = valid ? expf(x - mw[g]) : 0.f;
+    lw[g] = warp_sum(pr);
+    sm.pw[warp][g][lane] = pr * vs;
+  }
+
+  // P.V: a lane group of LG lanes covers one V row in 4-byte words; the
+  // 32 / LG groups take alternate positions of the warp's valid ones, four
+  // at a time so that their shared-memory reads are in flight together.
+  // Rows past the valid ones are read too (finite int8 codes) and weighed 0.
+  cp_async_wait<0>();
+  __syncthreads();                      // every V row (and p * vs) in place
+  const int LG = wr > 16 ? 32 : wr > 8 ? 16 : wr > 4 ? 8 : 4;
+  const int groups = 32 / LG, grp = lane / LG, wi = min(lane % LG, wr - 1);
+  const int nv = min(max(n - (s * CHUNK + 32 * warp), 0), 32);
+  const int* vw = reinterpret_cast<const int*>(sm.vt) + warp * 32 * wr;
+  float acc[GM][4];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+  for (int j0 = grp; j0 < nv; j0 += 4 * groups) {
+    int word[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) word[r] = vw[min(j0 + r * groups, 31) * wr + wi];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + r * groups;
+      float vf[4];
+      i8x4_to_f32(word[r], vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= G) break;
+        const float w = j < nv ? sm.pw[warp][g][min(j, 31)] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(w, vf[e], acc[g][e]);
+      }
+    }
+  }
+  for (int off = LG; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+
+  // the 4 warps' partials merge in warp order (the K rows' space is reused)
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        sm.u.red.m[warp][g] = mw[g];
+        sm.u.red.l[warp][g] = lw[g];
+      }
+  if (lane < wr)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sm.u.red.acc[warp][g * Dh + 4 * lane + e] = acc[g][e];
+  __syncthreads();
+
+  float* ob = o + (static_cast<long long>(b) * H + static_cast<long long>(h) * G) * Dh;
+  float* rb = ws + (slab * gridDim.x + s) * rec;      // this split's record: m, l, acc
+  for (int i = tid; i < GD; i += CHUNK) {
+    const int g = i / Dh;
+    float m = -INFINITY;
+    for (int w = 0; w < WARPS_S; ++w) m = fmaxf(m, sm.u.red.m[w][g]);
+    float l = 0.f, a = 0.f;
+    for (int w = 0; w < WARPS_S; ++w) {
+      const float mi = sm.u.red.m[w][g];
+      const float f = mi == -INFINITY ? 0.f : expf(mi - m);
+      l += sm.u.red.l[w][g] * f;
+      a += sm.u.red.acc[w][i] * f;
+    }
+    if (nsplit == 1) {
+      ob[i] = a / fmaxf(l, 1e-30f);
+    } else {
+      if (i % Dh == 0) {
+        rb[g] = m;
+        rb[G + g] = l;
+      }
+      rb[2 * G + i] = a;
+    }
+  }
+
+  if (nsplit > 1) {
+    // the last split of (b, h) merges every split's record in split order
+    if (take_ticket(&tickets[slab], nsplit, &is_last)) return;
+    const float* r0 = ws + slab * gridDim.x * rec;
+    for (int i = tid; i < GD; i += CHUNK) {
+      const int g = i / Dh;
+      float m = -INFINITY;
+#pragma unroll 4
+      for (int k = 0; k < nsplit; ++k) m = fmaxf(m, __ldcg(r0 + k * rec + g));
+      float l = 0.f, a = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < nsplit; ++k) {
+        const float* r = r0 + k * rec;
+        const float f = expf(__ldcg(r + g) - m);
+        l += __ldcg(r + G + g) * f;
+        a += __ldcg(r + 2 * G + i) * f;
+      }
+      ob[i] = a / fmaxf(l, 1e-30f);
+    }
+  }
+  if (!FUSED) return;
+
+  // K5: the last of row b's Hkv merges runs wo's prologue over the row
+  if (take_ticket(&tickets[static_cast<long long>(B) * Hkv + b], Hkv, &is_last)) return;
+  const long long orow = static_cast<long long>(b) * H * Dh;
+  row_prologue(o + orow, H * Dh, pro_bf16, oq + orow, osx + b, os1 + b, os2 + b);
+}
+
+template <int GM, int DM, bool FUSED>
+void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kq,
+                  const void* vq, const void* ks, const void* vs, const void* length,
+                  void* o, int B, int Hkv, int G, int Sp, int Dh, void* ws, int rec,
+                  void* tickets, bool pro_bf16, void* oq, void* sx, void* s1, void* s2) {
+  split_kernel<GM, DM, FUSED><<<grid, CHUNK, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(length),
+      static_cast<float*>(o), B, Hkv, G, Sp, Dh,
+      1.0f / sqrtf(static_cast<float>(Dh)), static_cast<float*>(ws), rec,
+      static_cast<int*>(tickets), pro_bf16, static_cast<int8_t*>(oq),
+      static_cast<float*>(sx), static_cast<float*>(s1), static_cast<float*>(s2));
+}
+
+}  // namespace split
+
 }  // namespace
 
 // q (B, Hkv * G, Dh) f32; kq/vq (B, Hkv, Sp, Dh) int8, 16-byte aligned;
@@ -303,4 +623,43 @@ extern "C" int decode_attend_i8kv_fused(const void* q, const void* kq, const voi
                                         int pro_bf16, void* stream) {
   return launch<true>(q, kq, vq, ks, vs, length, o, B, Hkv, G, Sp, Dh, pro_bf16 != 0,
                       oq, sx, s1, s2, tickets, stream);
+}
+
+// The split route of both kernels: q, kq, vq, ks, vs, length and o as
+// decode_attend_i8kv; fused != 0 adds oq, sx, s1, s2 as
+// decode_attend_i8kv_fused (otherwise they may be null).  splits = ceil(Sp /
+// 128) (at least 1); ws: f32 scratch of B * Hkv * splits * rec values, rec
+// >= G * (Dh + 2), never read before it is written; tickets: B * Hkv + B
+// int32, zero on entry and zero again on exit.
+extern "C" int decode_attend_i8kv_split(const void* q, const void* kq, const void* vq,
+                                        const void* ks, const void* vs,
+                                        const void* length, void* o, void* oq,
+                                        void* sx, void* s1, void* s2, void* ws,
+                                        void* tickets, int B, int Hkv, int G, int Sp,
+                                        int Dh, int splits, int rec, int fused,
+                                        int pro_bf16, void* stream) {
+  if (B <= 0 || Hkv <= 0) return 0;
+  if (G < 1 || G > GMAX || Dh < 16 || Dh > DMAX || Dh % 16 || B > 65535 ||
+      Hkv > 65535 || splits < 1 ||
+      static_cast<long long>(splits) * split::CHUNK < Sp || rec < G * (Dh + 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(Hkv),
+                  static_cast<unsigned>(B));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool lean = G == 1 && Dh <= 64;
+  const bool pb = pro_bf16 != 0;
+  if (fused && lean)
+    split::launch_split<1, 64, true>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv, G,
+                                     Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
+  else if (fused)
+    split::launch_split<GMAX, DMAX, true>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv,
+                                          G, Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
+  else if (lean)
+    split::launch_split<1, 64, false>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv, G,
+                                      Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
+  else
+    split::launch_split<GMAX, DMAX, false>(grid, st, q, kq, vq, ks, vs, length, o, B,
+                                           Hkv, G, Sp, Dh, ws, rec, tickets, pb, oq, sx,
+                                           s1, s2);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,12 @@ K4, flash-decode attention over the int8 KV cache in kernel layout (B,
 Hkv, Sp, Dh), and K5, the same with wo's PDQ prologue over each row's
 flattened output (``csrc/decode_attend.cu``; plain versions
 ``ref.decode_attend_i8kv_ref`` / ``ref.decode_attend_i8kv_fused_ref``).
+Each launch takes one of two routes: ``split`` (Flash-Decoding: the
+sequence axis split into CHUNK-position pieces across blocks, merged in
+split order; ``attend_plan`` lays it out), which every caller takes, or
+``single`` (one block per (kv head, row), the first design), which only
+the card tests and ``chip_smoke.py`` ask for, to time the two in one call.
+``ROUTES`` counts the launches of each.
 
 K6, the cache-row scatter: ``dst[b] = src[src_map[b]]`` where ``src_map[b]
 >= 0``; other rows keep their bits.  Unlike the functional TPU kernel, this
@@ -22,6 +28,7 @@ no side is relaid out to page rows first.  The plain version is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -37,12 +44,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"cache_scatter": [_P, _P, _P, _L, _L, _P],
         "cache_scatter_pages": [_P, _P, _P] + [_L] * 14 + [_P]}
 _ATTEND_SIG = {"decode_attend_i8kv": [_P] * 7 + [_I] * 5 + [_P],
-               "decode_attend_i8kv_fused": [_P] * 12 + [_I] * 6 + [_P]}
-MAX_ROWS = 65535                       # the kernels' grid y (and K7's z) extent
+               "decode_attend_i8kv_fused": [_P] * 12 + [_I] * 6 + [_P],
+               "decode_attend_i8kv_split": [_P] * 13 + [_I] * 9 + [_P]}
+# K4/K5 launches per route, beside ATTEND_COUNT / FUSED_COUNT
+ROUTES = {"decode_attend_i8kv": {"split": 0, "single": 0},
+          "decode_attend_i8kv_fused": {"split": 0, "single": 0}}
+MAX_ROWS = 65535                       # the kernels' grid y/z (and K7's z) extent
 MAX_ROW_BYTES = 2 ** 31 - 1            # K7 offsets within a page row are 32-bit
 MAX_GROUP, MAX_HEAD_DIM = 8, 128       # the attend kernel's register/smem plan
+CHUNK = 128                            # split route: positions a block owns
 _PRO_BF16 = {None: 0, torch.float32: 0, torch.bfloat16: 1}
-_TICKETS: dict = {}                    # per device; the kernel leaves them zero
+_TICKETS: dict = {}                    # per device; the kernels leave them zero
+_WS: dict = {}                         # per device; the split route's partials
 
 cache_scatter_plain = ref.cache_scatter_ref
 
@@ -179,6 +192,51 @@ decode_attend_i8kv_plain = ref.decode_attend_i8kv_ref
 decode_attend_i8kv_fused_plain = ref.decode_attend_i8kv_fused_ref
 
 
+def attend_limits(B: int, H: int, Hkv: int, Dh: int) -> int:
+    """The attend kernels' shape limits (both routes); returns G = H /
+    Hkv.  B and Hkv are grid extents; G and Dh size the registers and
+    shared memory."""
+    G = H // Hkv if Hkv > 0 else 0
+    if (Hkv <= 0 or H % Hkv or not 1 <= G <= MAX_GROUP or Dh % 16
+            or not 16 <= Dh <= MAX_HEAD_DIM or not 0 <= B <= MAX_ROWS
+            or Hkv > MAX_ROWS):
+        raise ValueError(f"decode_attend_i8kv takes H = G * Hkv with G <= "
+                         f"{MAX_GROUP}, Dh a multiple of 16 up to {MAX_HEAD_DIM} "
+                         f"and B, Hkv <= {MAX_ROWS}; got B {B}, H {H}, Hkv {Hkv}, "
+                         f"Dh {Dh}")
+    return G
+
+
+@dataclasses.dataclass(frozen=True)
+class AttendPlan:
+    """The split route's launch: block (s, h, b) of ``grid`` = (splits,
+    Hkv, B) owns positions [s * chunk, (s + 1) * chunk) of row b's cache
+    (the last chunk ends at Sp).  Each split that holds a valid position
+    of a row longer than one chunk writes a ``record`` of f32 (m and l per
+    query head, then the G * Dh unnormalised outputs, padded to a multiple
+    of 4) into the workspace, ``B * Hkv * splits * record * 4`` bytes.
+    ``tickets`` int32: one per (b, h) for the split merge, then one per b
+    for K5's prologue."""
+    chunk: int
+    splits: int
+    grid: tuple
+    record: int
+    workspace_bytes: int
+    tickets: int
+
+
+def attend_plan(B: int, Hkv: int, G: int, Sp: int, Dh: int) -> AttendPlan:
+    """The split route's plan from the cache's shape alone: never from the
+    lengths, which live on the device (reading them would sync every
+    decode step).  Blocks whose chunk starts past a row's length return
+    before any load."""
+    attend_limits(B, G * Hkv, Hkv, Dh)
+    splits = max(1, -(-Sp // CHUNK))
+    record = -(-G * (Dh + 2) // 4) * 4
+    return AttendPlan(CHUNK, splits, (splits, Hkv, B), record,
+                      B * Hkv * splits * record * 4, B * Hkv + B)
+
+
 def _attend_check(q, k_q, v_q, k_scale, v_scale, length):
     """The attend kernels' operands: q (B, H, Dh) f32; k_q/v_q (B, Hkv,
     Sp, Dh) int8, 16-byte aligned; scales (B, Hkv, Sp) f32; length (B,)
@@ -195,23 +253,71 @@ def _attend_check(q, k_q, v_q, k_scale, v_scale, length):
             raise ValueError(f"decode_attend_i8kv operand {tuple(t.shape)} {t.dtype} "
                              f"(contiguous {t.is_contiguous()}), expected "
                              f"contiguous {shape} {dtype}")
-    G = H // Hkv if Hkv else 0
-    if (Hkv == 0 or H % Hkv or not 1 <= G <= MAX_GROUP or Dh % 16
-            or not 16 <= Dh <= MAX_HEAD_DIM or B > MAX_ROWS):
-        raise ValueError(f"decode_attend_i8kv takes H = G * Hkv with G <= "
-                         f"{MAX_GROUP}, Dh a multiple of 16 up to {MAX_HEAD_DIM} "
-                         f"and B <= {MAX_ROWS}; got B {B}, H {H}, Hkv {Hkv}, Dh {Dh}")
+    G = attend_limits(B, H, Hkv, Dh)
     if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
         raise ValueError("decode_attend_i8kv needs 16-byte aligned k_q and v_q")
     return B, Hkv, G, Sp, Dh
 
 
-def decode_attend_i8kv_cuda(q, k_q, v_q, k_scale, v_scale, length):
-    """Launch K4; returns o (B, H, Dh) f32."""
-    B, Hkv, G, Sp, Dh = _attend_check(q, k_q, v_q, k_scale, v_scale, length)
+def _tickets(device, n):
+    """A zeroed (>= n,) int32 ticket buffer for ``device``.  Both routes
+    return every ticket they draw to 0, so the buffer is zeroed once, when
+    it grows, not per call; launches on one stream never overlap."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 64),), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
+
+
+def _workspace(device, nbytes):
+    """The split route's f32 workspace of ``device`` (>= nbytes), grown when
+    needed and never filled: a merge reads only records written in the
+    same launch."""
+    ws = _WS.get(device)
+    n = -(-nbytes // 4)
+    if ws is None or ws.numel() < n:
+        ws = torch.empty((max(n, 1 << 16),), dtype=torch.float32, device=device)
+        _WS[device] = ws
+    return ws
+
+
+def _route(route):
+    if route not in (None, "split", "single"):
+        raise ValueError(f"route must be None, 'split' or 'single', got {route!r}")
+    return route or "split"
+
+
+def _launch_split(op, count, args, dims, o, outs=(None,) * 4, pro_bf16=0):
+    """The split route of K4 (``outs`` None) or K5 (``outs`` = o_q, s_x,
+    s1, s2) on checked operands ``args`` of shape ``dims``."""
+    B, Hkv, G, Sp, Dh = dims
+    plan = attend_plan(B, Hkv, G, Sp, Dh)
+    dev = o.device
+    ws = _workspace(dev, plan.workspace_bytes)
+    tk = _tickets(dev, plan.tickets)
+    lib = _build.library("decode_attend", _ATTEND_SIG)
+    count.launches += 1
+    ROUTES[op]["split"] += 1
+    _build.check(lib.decode_attend_i8kv_split(
+        *(t.data_ptr() for t in args), o.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in outs), ws.data_ptr(),
+        tk.data_ptr(), B, Hkv, G, Sp, Dh, plan.splits, plan.record,
+        int(outs[0] is not None), pro_bf16, _build.stream_ptr(dev)), op)
+
+
+def decode_attend_i8kv_cuda(q, k_q, v_q, k_scale, v_scale, length, *, route=None):
+    """Launch K4 on ``route`` (None: ``split``); returns o (B, H, Dh) f32."""
+    route = _route(route)
+    args = (q, k_q, v_q, k_scale, v_scale, length)
+    dims = B, Hkv, G, Sp, Dh = _attend_check(*args)
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if route == "split":
+        _launch_split("decode_attend_i8kv", ATTEND_COUNT, args, dims, o)
+        return o
     lib = _build.library("decode_attend", _ATTEND_SIG)
     ATTEND_COUNT.launches += 1
+    ROUTES["decode_attend_i8kv"]["single"] += 1
     _build.check(lib.decode_attend_i8kv(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), length.data_ptr(), o.data_ptr(), B, Hkv, G, Sp, Dh,
@@ -219,23 +325,15 @@ def decode_attend_i8kv_cuda(q, k_q, v_q, k_scale, v_scale, length):
     return o
 
 
-def _tickets(device, B):
-    """A zeroed (>= B,) int32 ticket buffer for ``device``.  K5 returns
-    every ticket it draws to 0, so the buffer is zeroed once, not per
-    call; launches on one stream never overlap."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < B:
-        t = torch.zeros((max(B, 64),), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
-
-
 def decode_attend_i8kv_fused_cuda(q, k_q, v_q, k_scale, v_scale, length,
-                                  pro_dtype=None):
-    """Launch K5; returns (o (B, H, Dh) f32, o_q (B, H * Dh) int8, s_x, s1,
-    s2 each (B, 1) f32).  ``pro_dtype`` (None, float32 or bfloat16) is the
-    type o is rounded to before the prologue."""
-    B, Hkv, G, Sp, Dh = _attend_check(q, k_q, v_q, k_scale, v_scale, length)
+                                  pro_dtype=None, *, route=None):
+    """Launch K5 on ``route`` (None: ``split``); returns (o (B, H, Dh) f32,
+    o_q (B, H * Dh) int8, s_x, s1, s2 each (B, 1) f32).  ``pro_dtype``
+    (None, float32 or bfloat16) is the type o is rounded to before the
+    prologue."""
+    route = _route(route)
+    args = (q, k_q, v_q, k_scale, v_scale, length)
+    dims = B, Hkv, G, Sp, Dh = _attend_check(*args)
     if pro_dtype not in _PRO_BF16:
         raise ValueError(f"pro_dtype must be None, float32 or bfloat16, got {pro_dtype}")
     dev = q.device
@@ -243,8 +341,13 @@ def decode_attend_i8kv_fused_cuda(q, k_q, v_q, k_scale, v_scale, length,
     o_q = torch.empty((B, q.shape[1] * Dh), dtype=torch.int8, device=dev)
     s_x, s1, s2 = (torch.empty((B, 1), dtype=torch.float32, device=dev)
                    for _ in range(3))
+    if route == "split":
+        _launch_split("decode_attend_i8kv_fused", FUSED_COUNT, args, dims, o,
+                      (o_q, s_x, s1, s2), _PRO_BF16[pro_dtype])
+        return o, o_q, s_x, s1, s2
     lib = _build.library("decode_attend", _ATTEND_SIG)
     FUSED_COUNT.launches += 1
+    ROUTES["decode_attend_i8kv_fused"]["single"] += 1
     _build.check(lib.decode_attend_i8kv_fused(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), length.data_ptr(), o.data_ptr(), o_q.data_ptr(),

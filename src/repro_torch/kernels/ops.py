@@ -54,7 +54,7 @@ COUNTS = {
 def reset_counts() -> None:
     for c in COUNTS.values():
         c.entries = c.launches = 0
-    for r in _mm.ROUTES.values():
+    for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values()):
         r.update(dict.fromkeys(r, 0))
 
 
@@ -64,8 +64,9 @@ def counts() -> dict[str, dict[str, int]]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of K2 and K3 per route (``wgmma``, ``generic``)."""
-    return {k: dict(r) for k, r in _mm.ROUTES.items()}
+    """Launches per route of K2 and K3 (``wgmma``, ``generic``) and of K4
+    and K5 (``split``, ``single``)."""
+    return {k: dict(r) for k, r in (*_mm.ROUTES.items(), *_kv.ROUTES.items())}
 
 
 def _rows(x) -> int:

@@ -20,7 +20,7 @@ def _check_supported(cfg: ArchConfig) -> None:
             or cfg.tail or cfg.embed_scale):
         raise NotImplementedError(
             f"{cfg.name}: the port runs the dense GQA decoder only; other "
-            f"families are ROADMAP.md Queue 1 item 8")
+            f"families are ROADMAP.md Queue 1, item 6")
 
 
 def attn_dims(cfg: ArchConfig) -> AttnDims:

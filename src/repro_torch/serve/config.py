@@ -36,6 +36,9 @@ class ServeConfig:
     fault: Any = None               # FaultInjector (tests only)
     pdq_fallback: bool = False
     mesh: Any = None                # multi-GPU serving (Queue 1 item 8)
+    slots_per_replica: int | None = None   # mesh engines (item 8)
+    multihost: bool = False         # multi-process serving (item 8)
+    launch_timeout: float | None = None    # multihost watchdog (item 8)
     snapshot_path: str | None = None
 
     # ---- paged KV pool
@@ -53,6 +56,8 @@ class ServeConfig:
     device: str = "cuda"
 
     def validate(self) -> "ServeConfig":
+        if self.multihost and self.mesh is None:
+            raise ValueError("multihost=True needs a mesh")
         if self.mesh is not None and self.spill:
             raise ValueError("host spill is single-device only")
         if self.paged and not self.batch_prefill:
@@ -84,7 +89,8 @@ def build_engine(config: ServeConfig, *, cfg=None, params=None):
 
     config.validate()
     resolve_device(config.device)
-    if config.mesh is not None:
+    if (config.mesh is not None or config.slots_per_replica is not None
+            or config.multihost or config.launch_timeout is not None):
         raise not_ported("multi-GPU serving", "8")
     if (cfg is None) != (params is None):
         raise ValueError("pass both cfg and params, or neither")

@@ -11,12 +11,14 @@ are equal (K3's hsw scratch within rtol 1e-6, and its codes may differ by
 one only where hsw does); K2/K3's wgmma route equals the generic route
 bit for bit (K3's s1/s2 aside, summed in another order) and repeats its
 bits on a second launch (the split-K workspace and tickets reset); s1/s2 within 1e-5 of the row's sum of magnitudes (another
-summation order).  The int8-KV attend kernels (K4, K5): o within rtol =
-atol = 2e-4 of plain (the reference's kernel test, tests/test_kernels.py:177),
-on rows of length >= 1 (a row of length 0 is NaN in the plain version, as
-in the reference, and exactly 0 in the kernels); K5's s_x within rtol
-1e-5, its codes equal where o rounds to the same pro_dtype value under
-the same s_x and never more than 1 apart.  The page scatter (K7) is
+summation order).  The int8-KV attend kernels (K4, K5), on both routes:
+o within rtol = atol = 2e-4 of plain (the reference's kernel test,
+tests/test_kernels.py:177) and the split route within the same of the
+single route, on rows of length >= 1 (a row of length 0 is NaN in the
+plain version, as in the reference, and exactly 0 in the kernels); K5's
+s_x within rtol 1e-5, its codes equal where o rounds to the same pro_dtype
+value under the same s_x and never more than 1 apart; the split route
+repeats its bits on a second launch and leaves every ticket at 0.  The page scatter (K7) is
 bit-equal to its plain version in every direction the paged pool uses it.
 The moment reduction (K8) sums like K1, within the same 1e-5, and two
 launches on one input are bit-equal; quantize (K9) gives the plain
@@ -300,42 +302,95 @@ def _attend_operands(gen, B, Hkv, G, Dh, Sp, lens):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
-# Sp not a multiple of the kernel's 128-position tile; lengths 1, tile - 1,
-# tile, tile + 1 and Sp, a row of length 0, and B up to 9
+# Sp not a multiple of the 128-position tile (the single route's) and
+# chunk (the split route's); lengths 1, CHUNK - 1, CHUNK, CHUNK + 1,
+# multiples of CHUNK and Sp, a row of length 0, and B up to 9; Sp 4096 (the
+# split route's 32 splits) with lengths up to Sp; G 8 with Dh 128, the
+# largest instance; Dh 16, 48 and 96 (the P.V lane groups of 4, 16 and 32
+# lanes with some idle)
 _ATTEND_CASES = [(1, 64, 130, [1, 127, 128, 129, 130, 0, 64]),
                  (4, 64, 300, [300, 1, 127, 128, 129, 0, 250, 299, 2]),
                  (1, 128, 257, [257, 128, 129, 1, 127, 0, 200, 256, 3]),
-                 (4, 128, 130, [129, 130, 1, 0, 127, 128])]
+                 (4, 128, 130, [129, 130, 1, 0, 127, 128]),
+                 (1, 64, 512, [127, 128, 129, 256, 384, 512, 0, 1]),
+                 (1, 64, 4096, [4096, 4095, 1, 0, 2049, 3000, 128, 640, 129]),
+                 (8, 128, 640, [640, 0, 1, 127, 128, 129, 256, 511, 384]),
+                 (8, 128, 4096, [4096, 1, 0, 3968, 255]),
+                 (2, 48, 260, [260, 129, 0, 1, 128, 256, 5]),
+                 (4, 16, 384, [383, 384, 0, 1, 129, 256]),
+                 (1, 96, 300, [300, 128, 1, 0, 257])]
+
+
+def _tickets_at_rest(device):
+    """Every ticket the attend kernels drew is back at 0."""
+    torch.cuda.synchronize()
+    assert int(kv._tickets(device, 1).abs().sum()) == 0
+
+
+def _routes_run(fn, op):
+    """``fn`` twice on the split route (the second launch finds the tickets
+    reset, and gives the same bits) and once on the single route, with the
+    route counts checked; returns (split, single)."""
+    before = dict(kv.ROUTES[op])
+    k, again = fn(), fn()
+    single = fn(route="single")
+    assert kv.ROUTES[op] == {"split": before["split"] + 2, "single": before["single"] + 1}
+    for a, b in zip(k if isinstance(k, tuple) else (k,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(a, b)
+    return k, single
 
 
 @pytest.mark.parametrize("G,Dh,Sp,lens", _ATTEND_CASES)
 def test_decode_attend_kernel_matches_plain(gen, G, Dh, Sp, lens):
     args = _attend_operands(gen, len(lens), 3, G, Dh, Sp, lens)
-    k, p = kv.decode_attend_i8kv_cuda(*args), kv.decode_attend_i8kv_plain(*args)
+    k, single = _routes_run(lambda **kw: kv.decode_attend_i8kv_cuda(*args, **kw),
+                            "decode_attend_i8kv")
+    _tickets_at_rest(args[0].device)
+    p = kv.decode_attend_i8kv_plain(*args)
     ok = args[-1] > 0
-    assert bool(torch.isclose(k[ok], p[ok], rtol=2e-4, atol=2e-4).all())
-    assert bool((k[~ok] == 0).all())
+    for got in (k, single):
+        assert bool(torch.isclose(got[ok], p[ok], rtol=2e-4, atol=2e-4).all())
+        assert bool((got[~ok] == 0).all())
+    assert bool(torch.isclose(k, single, rtol=2e-4, atol=2e-4).all())
 
 
 @pytest.mark.parametrize("pro_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,Dh,Sp,lens", _ATTEND_CASES)
 def test_decode_attend_fused_kernel_matches_plain(gen, G, Dh, Sp, lens, pro_dtype):
     args = _attend_operands(gen, len(lens), 3, G, Dh, Sp, lens)
-    for _ in range(2):          # the second launch finds the tickets reset
-        k = kv.decode_attend_i8kv_fused_cuda(*args, pro_dtype)
-        p = kv.decode_attend_i8kv_fused_plain(*args, pro_dtype)
-        ok = args[-1] > 0
-        assert bool(torch.isclose(k[0][ok], p[0][ok], rtol=2e-4, atol=2e-4).all())
-        assert bool((k[0][~ok] == 0).all()) and bool((k[1][~ok] == 0).all())
-        assert bool(torch.isclose(k[2][ok], p[2][ok], rtol=1e-5, atol=0).all())
-        B = len(lens)
-        kf, pf = (t.reshape(B, -1).to(pro_dtype) for t in (k[0], p[0]))
-        same = (kf == pf) & (k[2] == p[2]) & ok[:, None]
-        dq = (k[1].int() - p[1].int()).abs()
+    k, single = _routes_run(
+        lambda **kw: kv.decode_attend_i8kv_fused_cuda(*args, pro_dtype, **kw),
+        "decode_attend_i8kv_fused")
+    _tickets_at_rest(args[0].device)
+    p = kv.decode_attend_i8kv_fused_plain(*args, pro_dtype)
+    ok = args[-1] > 0
+    B = len(lens)
+    pf = p[0].reshape(B, -1).to(pro_dtype)
+    for got in (k, single):
+        assert bool(torch.isclose(got[0][ok], p[0][ok], rtol=2e-4, atol=2e-4).all())
+        assert bool((got[0][~ok] == 0).all()) and bool((got[1][~ok] == 0).all())
+        assert bool(torch.isclose(got[2][ok], p[2][ok], rtol=1e-5, atol=0).all())
+        kf = got[0].reshape(B, -1).to(pro_dtype)
+        same = (kf == pf) & (got[2] == p[2]) & ok[:, None]
+        dq = (got[1].int() - p[1].int()).abs()
         assert int(dq[same].max()) == 0 and int(dq[ok].max()) <= 1
-        mag = pf.float().abs().sum(-1, keepdim=True)
-        _sums_close(k[3][ok], p[3][ok], mag[ok])
-        _sums_close(k[4][ok], p[4][ok], (pf.float() ** 2).sum(-1, keepdim=True)[ok])
+        _prologue_sums_close(got, p, kf, pf, ok)
+    assert bool(torch.isclose(k[0], single[0], rtol=2e-4, atol=2e-4).all())
+
+
+def _prologue_sums_close(got, p, kf, pf, ok):
+    """K5's s1/s2 are sums of the kernel's own o rounded to pro_dtype
+    (``kf``): within 1e-5 of those sums (another order), and of plain's
+    within the same plus the rounded rows' own difference, as o within
+    2e-4 of plain may round to a neighbouring bf16 value (0 where the row
+    rounds alike)."""
+    kf, pf = kf.float(), pf.float()
+    for i, (own, ref) in enumerate(((kf, pf), (kf ** 2, pf ** 2)), start=3):
+        mag = own.abs().sum(-1, keepdim=True)
+        _sums_close(got[i][ok], own.sum(-1, keepdim=True)[ok], mag[ok])
+        apart = (own - ref).abs().sum(-1, keepdim=True)
+        assert bool(((got[i] - p[i]).abs() <= 1e-5 * mag.clamp_min(1.0) + apart)[ok].all())
 
 
 def _act_stats_case(x):

@@ -114,7 +114,8 @@ def test_build_engine_needs_cuda_by_default():
 
 @pytest.mark.parametrize("field,value", [
     ("chunked_prefill", True), ("decode_steps", 4), ("pdq_fallback", True),
-    ("mesh", object()), ("batch_prefill", False)])
+    ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
+    ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
@@ -123,13 +124,34 @@ def test_unported_options_name_their_roadmap_item(weights, field, value):
 
 @pytest.mark.parametrize("fields,match", [
     (dict(paged=True, batch_prefill=False), "needs batch_prefill"),
-    (dict(spill=True, mesh=object()), "single-device")])
+    (dict(spill=True, mesh=object()), "single-device"),
+    (dict(multihost=True), "multihost=True needs a mesh")])
 def test_inconsistent_configs_raise_value_error(weights, fields, match):
     """ServeConfig.validate: the reference's checks, before any engine is
     built."""
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **fields)
     with pytest.raises(ValueError, match=match):
         build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+
+
+def test_multihost_with_a_mesh_names_item_8(weights):
+    """``multihost=True`` passes validate beside a mesh and then names
+    multi-GPU serving's item, as the other two multi-GPU fields do."""
+    cfg = ServeConfig(device="cpu", slots=2, max_len=32, multihost=True, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+
+
+def test_other_model_families_name_item_6():
+    """Model families the port does not run yet point at Queue 1 item 6,
+    from the registry and from build_model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    with pytest.raises(KeyError, match="item 6"):
+        get_config("gemma2-2b")
+    cfg = dataclasses.replace(t_reduced("stablelm-1.6b"), pattern=("local", "global"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
+        build_model(cfg, "cpu").init(0)
 
 
 def test_temperature_streams_depend_only_on_seed_uid_step(weights):
