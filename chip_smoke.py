@@ -32,7 +32,11 @@ Phases, each of which must pass (any failure exits non-zero):
   2. kernels  - call each kernel's wrapper on card tensors at the shapes
                 the full-width paths give it, hold the result against its
                 plain PyTorch version on the same inputs, and time both
-                (CUDA events, median, L2 flushed before every launch); K2
+                (CUDA events, median, L2 flushed before every launch); K1
+                in its plain mode and with the RMSNorm in front and the
+                interval after it (QKV's and gate/up's records, a nonzero
+                norm weight), its normed row, x_q and s_x bit-equal to
+                plain's, two launches bit-equal; K2
                 and K3 on both routes (wgmma, the main path's, and generic,
                 which must give the same bits), beside torch._int_mm on
                 the K-major weights and on a row-major copy, with the host
@@ -46,7 +50,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
                 just before and read just after each run, every kernel of
                 the path must have launched as often as its op was entered,
-                the census must hold exactly, every K2/K3 launch must have
+                the census must hold exactly (K1's launches per mode too:
+                QKV and gate/up with norm and interval, wo with the interval
+                where K5 does not run its prologue), every K2/K3 launch must have
                 taken the wgmma route and every K4/K5 launch the split
                 route (MAIN_ROUTE), and the other paths' kernels must
                 not have run; the runs go in turns A B C C A D1 D2, so
@@ -135,7 +141,7 @@ PATHS = {
 # row-major copy, the host time per call of each route and K3's tail; K4/K5
 # rows the single route's time and error
 EXTRA_KEYS = ("generic_ms", "library_rowmajor_ms", "host_us", "generic_host_us",
-              "tail_ms", "single_ms", "single_err")
+              "tail_ms", "single_ms", "single_err", "mode", "same_bytes_ms")
 
 
 class SmokeError(RuntimeError):
@@ -239,7 +245,6 @@ def phase_kernels(eng):
     detail rows."""
     import torch
     from repro_torch.kernels import kv_cache as kv
-    from repro_torch.kernels import pdq_prologue as pro
     gen = torch.Generator(device=eng.device)
     gen.manual_seed(1234)
     t = kernel_inputs(eng, gen)
@@ -262,24 +267,8 @@ def phase_kernels(eng):
     # prefill-shaped rows: 8 slots x the 256-token bucket
     x_pre = torch.randn((2048, d), generator=gen, device=eng.device).to(torch.bfloat16)
 
-    # ---- K1 pdq_prologue: decode (M, 2048) and prefill (2048, 2048) rows
-    for xm, primary in ((x, True), (x_pre, False)):
-        k_out = pro.pdq_prologue_cuda(xm)
-        p_out = pro.pdq_prologue_plain(xm)
-        need(torch.equal(k_out[0], p_out[0]), "K1 x_q differs from plain")
-        need(torch.equal(k_out[1], p_out[1]), "K1 s_x differs from plain")
-        absx = xm.float().abs().sum(-1, keepdim=True)
-        need(bool(((k_out[2] - p_out[2]).abs() <= SUM_RTOL * absx).all()),
-             "K1 s1 outside tolerance")
-        need(bool(((k_out[3] - p_out[3]).abs() <= SUM_RTOL * p_out[3]).all()),
-             "K1 s2 outside tolerance")
-        err = max(max_abs(a, b) for a, b in zip(k_out, p_out))
-        Mx, K = xm.shape
-        b_ms, b_by = bound_ms(Mx * K * 3 + Mx * 12, 6 * Mx * K, F32_OPS)
-        record("pdq_prologue", f"x ({Mx}, {K}) bf16", err,
-               median_ms(lambda: pro.pdq_prologue_cuda(xm), flush=flush),
-               median_ms(lambda: pro.pdq_prologue_plain(xm), flush=flush),
-               b_ms, b_by, None, primary)
+    # ---- K1 pdq_prologue: the plain mode and the main path's fused modes
+    prologue_kernels(eng, t, gen, flush, record, x_pre)
 
     # ---- K2 w8a8_matmul and K3 w8a8_swiglu_matmul, both routes
     matmul_kernels(eng, t, gen, flush, record, x_pre)
@@ -333,6 +322,83 @@ def phase_kernels(eng):
                          flush=flush),
                name == "k")
     return rows, detail
+
+
+def check_prologue(x, norm, interval, label):
+    """K1 against plain in one mode: the normed row (its mean of squares
+    is the plain version's own reduction), x_q and s_x bit-equal to plain's;
+    s1/s2 within SUM_RTOL of the row's sums; lo_g/hi_g bit-equal to the
+    plain interval of the kernel's own s1/s2; a second launch bit-equal.
+    Returns the largest |kernel - plain| over the outputs."""
+    import torch
+    from repro_torch.kernels import pdq_prologue as pro
+    from repro_torch.kernels import ref
+    k = pro.pdq_prologue_cuda(x, norm, interval, return_normed=True)
+    p = pro.pdq_prologue_plain(x, norm, interval, return_normed=True)
+    y = k[-1]
+    own = pro.pdq_prologue_plain(y)
+    need(torch.equal(y, x if norm is None else p[-1]),
+         f"K1 {label}: the normed row differs from plain's")
+    need(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+         f"K1 {label}: x_q/s_x differ from plain")
+    yf = y.float()
+    need(bool(((k[2] - own[2]).abs() <= SUM_RTOL * yf.abs().sum(-1, keepdim=True)).all()),
+         f"K1 {label}: s1 outside tolerance")
+    need(bool(((k[3] - own[3]).abs() <= SUM_RTOL * own[3]).all()),
+         f"K1 {label}: s2 outside tolerance")
+    if interval is not None:
+        rec, blocks = interval
+        lo_g, hi_g = ref.grid_extent(*ref.pdq_interval(rec, k[2], k[3])[2:])
+        if blocks is not None:
+            lo_g, hi_g = ref.blockwise(lo_g, blocks), ref.blockwise(hi_g, blocks)
+        need(torch.equal(k[4], lo_g) and torch.equal(k[5], hi_g),
+             f"K1 {label}: lo_g/hi_g differ from the plain interval of its own sums")
+    again = pro.pdq_prologue_cuda(x, norm, interval)
+    need(all(torch.equal(a, b) for a, b in zip(again, k)),
+         f"K1 {label}: two launches differ")
+    return max(max_abs(a, b) for a, b in zip(k[:-1], p[:-1]))
+
+
+def prologue_kernels(eng, t, gen, flush, record, x_pre):
+    """K1 at path A's shapes: the plain mode (``ops.pdq_prologue``, the
+    int8-out projections) at decode and prefill rows; the interval mode
+    (wo at prefill, E's fused projection: one column a row) at prefill
+    rows; and the main path's norm + prologue + interval launches: QKV (3
+    segments, 48 blocks) and gate/up (2 segments, 88 blocks) at decode, QKV
+    at prefill, on layer 0's records and a seeded nonzero norm weight.
+    Bound: the bytes the op must move (h, the norm weight and the weight
+    stats read once; x_q, s_x, s1, s2, lo_g and hi_g written once).
+    ``same_bytes_ms``: ``x.to(torch.int8)`` on the same rows, a PyTorch
+    kernel that moves the plain mode's bytes and computes nothing, in the
+    same harness; ``host_us``, the host's time per call (the wrapper and
+    its launch)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pdq_prologue as pro
+    d, x = t["d"], t["x"]
+    w = (0.2 * torch.randn((d,), generator=gen, device=eng.device)).to(torch.bfloat16)
+    norm = (w, eng.cfg.norm_eps)
+    cases = [(x, None, None, False), (x_pre, None, None, False),
+             (x_pre, None, (t["wo"], None), False)]
+    for rec, xm, primary in ((t["qkv"], x, True), (t["gu"], x, False),
+                             (t["qkv"], x_pre, False)):
+        cases.append((xm, norm, (rec, ops._blocks(rec["segs"])), primary))
+    for xm, nrm, iv, primary in cases:
+        Mx, K = xm.shape
+        err = check_prologue(xm, nrm, iv, f"({Mx}, {K})")
+        blocks = () if iv is None else iv[1] or (1,)
+        n_seg, cols = len(blocks), sum(blocks)
+        b_ms, b_by = bound_ms(Mx * K * 3 + Mx * 12 + (0 if nrm is None else 2 * K)
+                              + 8 * Mx * cols + 16 * n_seg,
+                              (6 + (5 if nrm else 0)) * Mx * K, F32_OPS)
+        mode = pro.mode_of(nrm, iv)
+        record("pdq_prologue", f"{mode}: x ({Mx}, {K}) bf16"
+               + (f", {n_seg} segments, {cols} blocks" if iv else ""), err,
+               median_ms(lambda: pro.pdq_prologue_cuda(xm, nrm, iv), flush=flush),
+               median_ms(lambda: pro.pdq_prologue_plain(xm, nrm, iv), flush=flush),
+               b_ms, b_by, None, primary, mode=mode,
+               same_bytes_ms=median_ms(lambda: xm.to(torch.int8), flush=flush),
+               host_us=host_us(lambda: pro.pdq_prologue_cuda(xm, nrm, iv)))
 
 
 def int_mm_rows(x_q):
@@ -868,6 +934,19 @@ def census(path, n, pre, dec, restores=0):
     return want
 
 
+def prologue_mode_census(path, n, pre, dec):
+    """K1's launches per mode in a serving run of ``path``: with PDQ
+    weights QKV and gate/up take norm + interval at every prefill and
+    decode step; wo takes the interval alone at prefill, and at decode too
+    with the fp KV cache (with int8 KV its prologue runs in K5)."""
+    int8_kv, pdq = PATHS[path][:2]
+    want = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
+    if pdq:
+        want.update({"norm+interval": 2 * n * (pre + dec),
+                     "interval": n * (pre + (0 if int8_kv else dec))})
+    return want
+
+
 # the route every launch of a serving or ops-level run must take
 MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
               "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split"}
@@ -910,6 +989,11 @@ def phase_serve(eng, path):
                   st.get("spill_restores", 0))
     got = {k: c["entries"] for k, c in counts.items()}
     need(got == want, f"{path}: op entries {got}, census {want}")
+    modes = ops.prologue_modes()
+    want_modes = prologue_mode_census(path, eng.cfg.n_layers, st["prefill_batches"],
+                                      st["decode_steps"])
+    log(f"{path}: K1 launches per mode {modes}")
+    need(modes == want_modes, f"{path}: K1 launches per mode {modes}, census {want_modes}")
     need(st["completed"] == len(reqs) and st["failed"] == 0,
          f"not every request completed: {st}")
     if PATHS[path][3]:
@@ -933,6 +1017,7 @@ def phase_serve(eng, path):
         f"{len(dec)} median {steps[len(steps) // 2] * 1e3:.2f} ms, "
         f"{decode_tps:.1f} tokens/s over {eng.stats['decode_tokens']} tokens")
     return counts, dict(wall_s=wall, prefill_s=sum(pre), prefill_launches=len(pre),
+                        prologue_modes=modes,
                         decode_step_median_ms=steps[len(steps) // 2] * 1e3,
                         decode_tokens_per_s=decode_tps, stats=eng.stats,
                         streams={r.uid: list(r.generated) for r in reqs})
@@ -1005,7 +1090,10 @@ def phase_profile(eng, path, step_ms, steps=3):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the kernel wrappers to their plain versions for CUDA tensors
-    (this script's reference run only; the package never does this)."""
+    (this script's reference run only; the package never does this).  K1's
+    one wrapper takes every mode, so its swap covers the norm and interval
+    stages too: the reference run applies rms_norm and prices intervals in
+    plain torch."""
     from repro_torch.kernels import act_stats as st
     from repro_torch.kernels import kv_cache as kv
     from repro_torch.kernels import pdq_prologue as pro
@@ -1135,6 +1223,10 @@ def phase_unfused(recs):
                 quantize=n, dequantize=n)
     log(f"unfused E: counts {counts}")
     check_routes("E", counts)
+    modes = ops.prologue_modes()
+    need(modes == dict(prologue=0, norm=0, interval=n, **{"norm+interval": 0}),
+         f"E: K1 launches per mode {modes}: every fused projection prices its "
+         f"interval in K1")
     for name, c in counts.items():
         need(c["launches"] == c["entries"] == want[name],
              f"E: {name}: {c['entries']} entries, {c['launches']} launches, census "
@@ -1338,6 +1430,14 @@ def main(argv=None) -> int:
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
+        if name == "pdq_prologue":
+            # every mode's row, and A's launches per mode
+            kernels[-1].update(
+                mode_launches=serve["A"][0]["prologue_modes"],
+                modes=[{k: r[k] for k in ("mode", "shape", "max_abs_err",
+                                          "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "same_bytes_ms", "host_us")}
+                       for r in detail if r["name"] == name])
     need(sorted(k["name"] for k in kernels) == sorted(replaces),
          f"kernel rows {[k['name'] for k in kernels]}")
     OUT_DIR.mkdir(exist_ok=True)

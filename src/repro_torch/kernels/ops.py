@@ -19,7 +19,6 @@ fp fallback and PDQ telemetry wait for later slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -29,8 +28,11 @@ from . import act_stats as _as
 from . import kv_cache as _kv
 from . import pdq_prologue as _pro
 from . import quantize as _qz
+from . import ref
 from . import w8a8_matmul as _mm
 from .ref import from_page_rows as from_page_rows
+from .ref import grid_extent as _grid_extent
+from .ref import pdq_interval as pdq_interval
 from .ref import to_page_rows as to_page_rows
 from .ref import true_div
 from .w8a8_matmul import k_major as k_major
@@ -54,7 +56,7 @@ COUNTS = {
 def reset_counts() -> None:
     for c in COUNTS.values():
         c.entries = c.launches = 0
-    for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values()):
+    for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values(), _pro.MODES):
         r.update(dict.fromkeys(r, 0))
 
 
@@ -67,6 +69,12 @@ def route_counts() -> dict[str, dict[str, int]]:
     """Launches per route of K2 and K3 (``wgmma``, ``generic``) and of K4
     and K5 (``split``, ``single``)."""
     return {k: dict(r) for k, r in (*_mm.ROUTES.items(), *_kv.ROUTES.items())}
+
+
+def prologue_modes() -> dict[str, int]:
+    """K1's launches per mode: ``prologue`` alone, with the ``norm`` in
+    front, with the ``interval`` after it, or ``norm+interval``."""
+    return dict(_pro.MODES)
 
 
 def _rows(x) -> int:
@@ -150,32 +158,37 @@ def pdq_prologue(x):
     """ONE pass over x (..., K) emits (x_q int8 like x, s_x, s1, s2 each
     shaped (..., 1)); see kernels/pdq_prologue.py."""
     lead, K = x.shape[:-1], x.shape[-1]
-    COUNTS["pdq_prologue"].entries += 1
-    x_q, s_x, s1, s2 = _pro.pdq_prologue(x.reshape(_rows(x), K))
+    x_q, s_x, s1, s2 = _prologue(x)
     return (x_q.reshape(*lead, K), s_x.reshape(*lead, 1),
             s1.reshape(*lead, 1), s2.reshape(*lead, 1))
 
 
-def pdq_interval(wrec, s1, s2):
-    """PDQ surrogate interval from the prologue sums (paper Eqs. 8-9).
-
-    s1/s2: (..., 1).  Returns (lo, hi, s_out, z_out) per row; grouped
-    records carry (n_seg,) weight stats and broadcast to (..., n_seg).
-    """
-    mean = wrec["mu_w"] * s1
-    sigma = torch.sqrt(torch.clamp_min(wrec["var_w"] * s2, 0.0)) + 1e-8
-    lo = torch.clamp_max(mean - wrec["alpha"] * sigma, 0.0)
-    hi = torch.clamp_min(mean + wrec["beta"] * sigma, 0.0)
-    s_out = torch.clamp_min(true_div(hi - lo, 255.0), 1e-8)
-    z_out = -torch.round(lo / s_out) - 128.0
-    return lo, hi, s_out, z_out
+def _prologue(x, norm=None, wrec=None, blocks=None):
+    """K1 over the rows of x (..., K), as (M, ...) tensors: (x_q, s_x, s1,
+    s2) and with ``wrec`` the interval's (lo_g, hi_g), per segment or, with
+    ``blocks``, per 128-column block; ``norm = (w, eps)`` RMS-normalizes
+    each row first."""
+    COUNTS["pdq_prologue"].entries += 1
+    return _pro.pdq_prologue(x.reshape(_rows(x), x.shape[-1]), norm,
+                             None if wrec is None else (wrec, blocks))
 
 
-def _grid_extent(s_out, z_out):
-    """The representable extent [(-128 - z) s, (127 - z) s] of the int8
-    grid: fp-out clamps to it (not the raw interval) so that it matches
-    requant -> dequant at the clip boundaries."""
-    return (-128.0 - z_out) * s_out, (127.0 - z_out) * s_out
+def _blocks(segs) -> tuple:
+    """Each segment's count of 128-column blocks."""
+    return tuple(p // LANE for p in segs.padded)
+
+
+def _blockwise(a, segs):
+    """Per-segment (..., n_seg) -> per-128-column-block (..., N/128)."""
+    return ref.blockwise(a, _blocks(segs))
+
+
+def _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype):
+    """The fp-clamp W8A8 product of K1's (M, ...) outputs, shaped like x."""
+    y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], colsum=wrec["colsum"],
+                    fp_range=(lo_g, hi_g),
+                    out_dtype=torch.float32 if out_dtype is None else out_dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
@@ -183,20 +196,20 @@ def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
 
     ``wrec`` is a record from ``models.linops.quantize_weight``.  out='fp'
     returns y (..., N) in ``out_dtype`` (default f32) with the interval
-    clamp in the epilogue; out='int8' returns (y_q (..., N) int8, s_out
-    (..., 1) f32, z_out (..., 1) i32).
+    clamp in the epilogue, priced in the prologue's launch; out='int8'
+    returns (y_q (..., N) int8, s_out (..., 1) f32, z_out (..., 1) i32).
     """
     if out not in ("fp", "int8"):
         raise ValueError(out)
-    x_q, s_x, s1, s2 = pdq_prologue(x)
     if out == "int8":
+        x_q, s_x, s1, s2 = pdq_prologue(x)
         lo, hi, s_out, z_out = pdq_interval(wrec, s1, s2)
         z_out = z_out.to(torch.int32)
         y_q = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], s_out, z_out,
                           colsum=wrec["colsum"])
         return y_q, s_out, z_out
-    return pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec,
-                                   out_dtype=out_dtype)
+    x_q, s_x, _, _, lo_g, hi_g = _prologue(x, wrec=wrec)
+    return _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype)
 
 
 def pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec, *, out_dtype=None):
@@ -211,25 +224,13 @@ def pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec, *, out_dtype=None):
                        out_dtype=out_dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def _block_index(padded: tuple, device: torch.device):
-    """Segment index of every 128-column block: segment i spans padded[i]
-    / 128 blocks.  Built once per layout and device."""
-    idx = np.repeat(np.arange(len(padded)), [p // LANE for p in padded])
-    return torch.as_tensor(idx, device=device)
-
-
-def _blockwise(a, segs):
-    """Per-segment (..., n_seg) -> per-128-column-block (..., N/128)."""
-    return a.index_select(-1, _block_index(segs.padded, a.device))
-
-
-def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None):
+def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
     """Grouped PDQ dense: ONE prologue + ONE wide W8A8 matmul for every
     projection that reads the same input.  ``grec`` is a record from
     ``models.linops.group_quantize_weights``; every segment prices its own
     interval from the shared (s1, s2) and the matmul applies it per
-    128-column block.
+    128-column block.  ``norm = (w, eps)``: x is the un-normed input and
+    the prologue's launch applies ``ref.rms_norm`` first.
 
     out='fp' returns a tuple of per-segment outputs (..., N_i) in
     ``out_dtype`` (default f32); out='int8' returns (tuple of per-segment
@@ -237,28 +238,28 @@ def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None):
     """
     if out not in ("fp", "int8"):
         raise ValueError(out)
-    out_dtype = torch.float32 if out_dtype is None else out_dtype
     segs = grec["segs"]
-    x_q, s_x, s1, s2 = pdq_prologue(x)
-    _, _, s_out, z_out = pdq_interval(grec, s1, s2)          # (..., n_seg)
     bounds = list(zip(segs.offsets, segs.sizes))
     if out == "int8":
+        lead = x.shape[:-1]
+        x_q, s_x, s1, s2 = _prologue(x, norm)
+        _, _, s_out, z_out = pdq_interval(grec, s1, s2)      # (M, n_seg)
         z_out = z_out.to(torch.int32)
         y_q = w8a8_matmul(x_q, grec["q"], s_x, 0, grec["scale"],
                           _blockwise(s_out, segs), _blockwise(z_out, segs),
-                          colsum=grec["colsum"])
-        return tuple(y_q[..., o:o + n] for o, n in bounds), s_out, z_out
-    lo_g, hi_g = _grid_extent(s_out, z_out)
-    y = w8a8_matmul(x_q, grec["q"], s_x, 0, grec["scale"], colsum=grec["colsum"],
-                    fp_range=(_blockwise(lo_g, segs), _blockwise(hi_g, segs)),
-                    out_dtype=out_dtype)
+                          colsum=grec["colsum"]).reshape(*lead, -1)
+        return (tuple(y_q[..., o:o + n] for o, n in bounds),
+                s_out.reshape(*lead, -1), z_out.reshape(*lead, -1))
+    x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, grec, _blocks(segs))
+    y = _fp_matmul(x, x_q, s_x, grec, lo_g, hi_g, out_dtype)
     return tuple(y[..., o:o + n] for o, n in bounds)
 
 
-def pdq_mlp(x, grec, down_rec, *, out_dtype=None):
-    """Quantized SwiGLU MLP in three launches: the prologue of x, the fused
-    gate/up matmul whose epilogue also computes silu(g) * u and w_down's
-    prologue (kernel K3), and the w_down matmul.
+def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
+    """Quantized SwiGLU MLP in three launches: the prologue of x (with the
+    gate/up interval, and with ``norm = (w, eps)`` the RMSNorm of x in
+    front), the fused gate/up matmul whose epilogue also computes silu(g) *
+    u and w_down's prologue (kernel K3), and the w_down matmul.
 
     ``grec`` must be the two equal, 128-column padded segments
     ``group_quantize_weights((w_gate, w_up))`` makes.  The reference's
@@ -273,15 +274,10 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None):
                          f"{segs.padded}")
     lead, K = x.shape[:-1], x.shape[-1]
     M, Nt = _rows(x), segs.total
-    x_q, s_x, s1, s2 = pdq_prologue(x)
-    _, _, s_out, z_out = pdq_interval(grec, s1, s2)           # (..., 2)
-    lo_g, hi_g = _grid_extent(s_out, z_out)
-    nb = Nt // LANE
+    x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, grec, _blocks(segs))
     COUNTS["w8a8_swiglu_matmul"].entries += 1
     _hsw, hsw_q, sxo, s1o, s2o = _mm.w8a8_swiglu_matmul(
-        x_q.reshape(M, K), grec["q"], s_x.reshape(M, 1), None,
-        grec["scale"].reshape(1, Nt), None,
-        _blockwise(lo_g, segs).reshape(M, nb), _blockwise(hi_g, segs).reshape(M, nb))
+        x_q, grec["q"], s_x, None, grec["scale"].reshape(1, Nt), None, lo_g, hi_g)
     dff = down_rec["q"].shape[0]
     hq = hsw_q[:, :dff].reshape(*lead, dff)
     _, _, so2, zo2 = pdq_interval(down_rec, s1o.reshape(*lead, 1),

@@ -10,6 +10,9 @@ Rounding is half to even everywhere (``torch.round``), as ``jnp.round``.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -58,6 +61,79 @@ def pdq_prologue_ref(x):
     s1 = x32.sum(-1, keepdim=True)
     s2 = (x32 * x32).sum(-1, keepdim=True)
     return x_q, s_x, s1, s2
+
+
+def mean_square(x):
+    """Each row's mean of squares in f32, (..., 1): the reduction inside
+    ``rms_norm``, which K1's norm takes from here so that its bits are the
+    plain version's on any device."""
+    x = x.float()
+    return torch.mean(x * x, dim=-1, keepdim=True)
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMSNorm in f32, rounded back to x's dtype: x * rsqrt(mean(x^2) + eps)
+    * (1 + weight) (the reference's ``models/layers.py``)."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(mean_square(x) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def pdq_interval(wrec, s1, s2):
+    """PDQ surrogate interval from the prologue sums (paper Eqs. 8-9).
+
+    s1/s2: (..., 1).  Returns (lo, hi, s_out, z_out) per row; grouped
+    records carry (n_seg,) weight stats and broadcast to (..., n_seg).
+    """
+    mean = wrec["mu_w"] * s1
+    sigma = torch.sqrt(torch.clamp_min(wrec["var_w"] * s2, 0.0)) + 1e-8
+    lo = torch.clamp_max(mean - wrec["alpha"] * sigma, 0.0)
+    hi = torch.clamp_min(mean + wrec["beta"] * sigma, 0.0)
+    s_out = torch.clamp_min(true_div(hi - lo, 255.0), 1e-8)
+    z_out = -torch.round(lo / s_out) - 128.0
+    return lo, hi, s_out, z_out
+
+
+def grid_extent(s_out, z_out):
+    """The representable extent [(-128 - z) s, (127 - z) s] of the int8
+    grid: fp-out clamps to it (not the raw interval) so that it matches
+    requant -> dequant at the clip boundaries."""
+    return (-128.0 - z_out) * s_out, (127.0 - z_out) * s_out
+
+
+@functools.lru_cache(maxsize=64)
+def _block_index(blocks: tuple, device: torch.device):
+    """Segment index of every 128-column block: segment i spans blocks[i]
+    blocks.  Built once per layout and device."""
+    idx = np.repeat(np.arange(len(blocks)), blocks)
+    return torch.as_tensor(idx, device=device)
+
+
+def blockwise(a, blocks: tuple):
+    """Per-segment (..., n_seg) -> per-128-column-block (..., sum(blocks))."""
+    return a.index_select(-1, _block_index(tuple(blocks), a.device))
+
+
+def pdq_prologue_fused_ref(x, norm=None, interval=None, return_normed=False):
+    """K1 in every mode, as the composition it replaces: ``rms_norm(x, w,
+    eps)`` first when ``norm = (w, eps)``; the prologue of that row; with
+    ``interval = (wrec, blocks)`` also the interval's grid extent (lo_g,
+    hi_g) priced from the row's own s1/s2, one column per segment, or per
+    128-column block when ``blocks`` (each segment's block count) is given.
+    Returns (x_q, s_x, s1, s2[, lo_g, hi_g][, the normed row])."""
+    if norm is not None:
+        x = rms_norm(x, *norm)
+    out = pdq_prologue_ref(x)
+    if interval is not None:
+        wrec, blocks = interval
+        lo_g, hi_g = grid_extent(*pdq_interval(wrec, out[2], out[3])[2:])
+        if blocks is not None:
+            lo_g, hi_g = blockwise(lo_g, blocks), blockwise(hi_g, blocks)
+        out += (lo_g, hi_g)
+    if return_normed:
+        out += (x,)
+    return out
 
 
 def act_stats_ref(x):

@@ -214,14 +214,16 @@ def _cache_kv_float(cache, dtype):
 
 
 def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
-              causal: bool = True, seq_lens=None):
+              causal: bool = True, seq_lens=None, norm=None):
     """mode 'prefill' (S tokens, optional right-padding ``seq_lens``) or
-    'decode' (S == 1); returns (y (B, S, d), cache)."""
+    'decode' (S == 1); returns (y (B, S, d), cache).  ``norm = (w, eps)``:
+    attend over rms_norm(x, w, eps)."""
     B, S, _ = x.shape
     H, Hkv, Dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
-    # Q/K/V read the same normed input: quantized params run ONE prologue +
-    # ONE wide W8A8 matmul for the triple (linops.lin_grouped)
-    q, k, v = lin_grouped(x, (p["wq"], p["wk"], p["wv"]))
+    # Q/K/V read the same normed input: quantized params run ONE prologue
+    # (norm and intervals included) + ONE wide W8A8 matmul for the triple
+    # (linops.lin_grouped)
+    q, k, v = lin_grouped(x, (p["wq"], p["wk"], p["wv"]), norm=norm)
     q = apply_rope(q.reshape(B, S, H, Dh), positions, dims.rope_theta)
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, dims.rope_theta)
     v = v.reshape(B, S, Hkv, Dh)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import rms_norm as rms_norm
 from repro_torch.kernels.ref import true_div
 from .linops import _common_group, is_quantized, is_segment_view, lin, lin_grouped
 
@@ -20,13 +21,6 @@ def uniform_init(shape, scale, dtype, gen: torch.Generator):
 
 def dense_init(d_in, d_out, dtype, gen: torch.Generator):
     return uniform_init((d_in, d_out), (3.0 / d_in) ** 0.5, dtype, gen)
-
-
-def rms_norm(x, weight, eps: float = 1e-6):
-    dt = x.dtype
-    x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + weight.float())).to(dt)
 
 
 def softcap(x, cap: float | None):
@@ -60,14 +54,16 @@ def mlp_init(d_model, d_ff, dtype, gen):
     }
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, norm=None):
+    """The SwiGLU MLP of x, or with ``norm = (w, eps)`` of rms_norm(x, w,
+    eps)."""
     # gate/up read the same normed input: quantized params run the fused
-    # prologue + SwiGLU matmul + w_down triple (ops.pdq_mlp)
+    # norm + prologue + interval, SwiGLU matmul and w_down triple (ops.pdq_mlp)
     grec = _common_group((p["w_gate"], p["w_up"]))
     if (grec is not None and is_quantized(p["w_down"])
             and not is_segment_view(p["w_down"])):
-        return ops.pdq_mlp(x, grec, p["w_down"], out_dtype=x.dtype)
-    g, u = lin_grouped(x, (p["w_gate"], p["w_up"]))
+        return ops.pdq_mlp(x, grec, p["w_down"], out_dtype=x.dtype, norm=norm)
+    g, u = lin_grouped(x, (p["w_gate"], p["w_up"]), norm=norm)
     return lin(torch.nn.functional.silu(g) * u, p["w_down"])
 
 

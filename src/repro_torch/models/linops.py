@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import true_div
+from repro_torch.kernels.ref import rms_norm, true_div
 
 # grouped segments pad their N extent to this boundary so every
 # (row, 128-column block) epilogue cell belongs to exactly one segment
@@ -163,14 +163,18 @@ def _common_group(ws) -> dict | None:
     return g
 
 
-def lin_grouped(x: torch.Tensor, ws) -> tuple:
+def lin_grouped(x: torch.Tensor, ws, norm=None) -> tuple:
     """(x @ w1, x @ w2, ...) for projections sharing the input x: ONE
     prologue + ONE wide W8A8 matmul when every member is a view of one
-    grouped record, else per-projection ``lin``."""
+    grouped record, else per-projection ``lin``.  ``norm = (w, eps)``: the
+    shared input is rms_norm(x, w, eps), applied inside the prologue's
+    launch for a group and in plain torch first otherwise."""
     ws = tuple(ws)
     grec = _common_group(ws)
     if grec is not None:
-        return ops.pdq_dense_grouped(x, grec, out="fp", out_dtype=x.dtype)
+        return ops.pdq_dense_grouped(x, grec, out="fp", out_dtype=x.dtype, norm=norm)
+    if norm is not None:
+        x = rms_norm(x, *norm)
     return tuple(lin(x, w) for w in ws)
 
 

@@ -72,10 +72,12 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
     stacked = caches["blocks"][0]
     for i, p in enumerate(params["blocks"]):
         cache = {k: v[i] for k, v in stacked.items()}
-        a, _ = gqa_apply(p["attn"], dims, rms_norm(h, p["attn_norm"], eps),
-                         positions, mode=mode, cache=cache, seq_lens=seq_lens)
+        # each block's norm runs inside the prologue that reads its output
+        # (one K1 launch) wherever that input feeds one PDQ group
+        a, _ = gqa_apply(p["attn"], dims, h, positions, mode=mode, cache=cache,
+                         seq_lens=seq_lens, norm=(p["attn_norm"], eps))
         h = h + a
-        h = h + mlp_apply(p["ffn"], rms_norm(h, p["ffn_norm"], eps))
+        h = h + mlp_apply(p["ffn"], h, norm=(p["ffn_norm"], eps))
     return rms_norm(h, params["final_norm"], eps), caches
 
 

@@ -11,7 +11,10 @@ are equal (K3's hsw scratch within rtol 1e-6, and its codes may differ by
 one only where hsw does); K2/K3's wgmma route equals the generic route
 bit for bit (K3's s1/s2 aside, summed in another order) and repeats its
 bits on a second launch (the split-K workspace and tickets reset); s1/s2 within 1e-5 of the row's sum of magnitudes (another
-summation order).  The int8-KV attend kernels (K4, K5), on both routes:
+summation order).  K1's fused modes: with the RMSNorm in front, the normed
+row, x_q and s_x bit-equal to plain's (the kernel takes the row's mean
+of squares from the plain version's own reduction); the interval's lo_g/hi_g bit-equal to the plain
+interval of the kernel's own s1/s2; two launches bit-equal.  The int8-KV attend kernels (K4, K5), on both routes:
 o within rtol = atol = 2e-4 of plain (the reference's kernel test,
 tests/test_kernels.py:177) and the split route within the same of the
 single route, on rows of length >= 1 (a row of length 0 is NaN in the
@@ -32,6 +35,7 @@ from repro_torch.kernels import act_stats as st
 from repro_torch.kernels import kv_cache as kv
 from repro_torch.kernels import pdq_prologue as pro
 from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import ref
 from repro_torch.kernels import w8a8_matmul as mm
 
 
@@ -58,6 +62,107 @@ def test_pdq_prologue_kernel_matches_plain(gen, M, K, dtype):
     mag = x.float().abs().sum(-1, keepdim=True)
     _sums_close(k[2], p[2], mag)
     _sums_close(k[3], p[3], (x.float() ** 2).sum(-1, keepdim=True))
+
+
+# K1's fused modes: the norm in front, the interval after it, per segment
+# or per 128-column block
+_PRO_MODES = [(False, 0), (True, 0), (False, 1), (False, 3), (True, 2), (True, 3)]
+
+
+def _prologue_operands(gen, K, dtype, n_seg):
+    """A nonzero norm weight (K,) and the interval's (rec, blocks): a
+    single record's 0-dim stats for one segment, else (n_seg,) stats and
+    128-column block counts."""
+    f = lambda *s: torch.rand(s, generator=gen, device="cuda")      # noqa: E731
+    w = (0.4 * f(K) - 0.2).to(dtype)
+    n = () if n_seg == 1 else (n_seg,)
+    rec = {"mu_w": 2e-3 * f(*n) - 1e-3, "var_w": (0.5 + f(*n)) / K,
+           "alpha": torch.full(n, 6.0, device="cuda"),
+           "beta": torch.full(n, 6.0, device="cuda")}
+    return w, (rec, (5, 1, 2)[:n_seg] if n_seg > 1 else None)
+
+
+def _prologue_modes_case(x, norm, interval):
+    """K1 against plain in one mode: the (normed) row, x_q and s_x
+    bit-equal; s1/s2 within 1e-5 of the row's sums; lo_g/hi_g bit-equal to
+    the plain interval of the kernel's own s1/s2; a second launch (without
+    the normed row) bit-equal."""
+    k = pro.pdq_prologue_cuda(x, norm, interval, return_normed=True)
+    p = pro.pdq_prologue_plain(x, norm, interval, return_normed=True)
+    y = k[-1]
+    own = pro.pdq_prologue_plain(y)
+    assert torch.equal(y, x if norm is None else p[-1])
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    _sums_close(k[2], own[2], y.float().abs().sum(-1, keepdim=True))
+    _sums_close(k[3], own[3], (y.float() ** 2).sum(-1, keepdim=True))
+    if interval is not None:
+        rec, blocks = interval
+        lo_g, hi_g = ref.grid_extent(*ref.pdq_interval(rec, k[2], k[3])[2:])
+        if blocks is not None:
+            lo_g, hi_g = ref.blockwise(lo_g, blocks), ref.blockwise(hi_g, blocks)
+        assert torch.equal(k[4], lo_g) and torch.equal(k[5], hi_g)
+    again = pro.pdq_prologue_cuda(x, norm, interval)
+    assert len(again) == len(k) - 1
+    assert all(torch.equal(a, b) for a, b in zip(again, k))
+
+
+@pytest.mark.parametrize("norm,n_seg", _PRO_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [64, 77, 2048, 5632])
+@pytest.mark.parametrize("M", [1, 3, 17, 70, 2048])
+def test_pdq_prologue_modes_match_plain(gen, M, K, dtype, norm, n_seg):
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype)
+    w, interval = _prologue_operands(gen, K, dtype, n_seg or 1)
+    _prologue_modes_case(x, (w, 1e-5) if norm else None, interval if n_seg else None)
+
+
+@pytest.mark.parametrize("M", [3, 70])
+def test_pdq_prologue_modes_misaligned_rows(gen, M):
+    """A row base 2 bytes off 16 takes the scalar loads."""
+    flat = (3 * torch.randn((1 + M * 2048,), generator=gen, device="cuda")).to(torch.bfloat16)
+    x = flat[1:].view(M, 2048)
+    assert x.data_ptr() % 16
+    w, interval = _prologue_operands(gen, 2048, torch.bfloat16, 3)
+    _prologue_modes_case(x, (w, 1e-5), interval)
+
+
+# rows long enough that the kernel's plan gives a thread 1, 2, 4 or 8
+# 16-byte vectors (bf16), or 2, 8, 16 or 32 elements (f32 rows of a length
+# that is no multiple of 4 take the scalar path)
+_LONG_ROWS = [(5, K, torch.bfloat16) for K in (2048, 16384, 32768, 65536)] + [
+    (3, K, torch.float32) for K in (1027, 4099, 8195, 16387)]
+
+
+@pytest.mark.parametrize("M,K,dtype", _LONG_ROWS)
+def test_pdq_prologue_long_rows(gen, M, K, dtype):
+    """Every layout the plan picks for a long row computes the same
+    function, with and without the norm and the interval."""
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype)
+    w, interval = _prologue_operands(gen, K, dtype, 2)
+    _prologue_modes_case(x, (w, 1e-5), interval)
+    _prologue_modes_case(x, None, None)
+
+
+def test_pdq_prologue_c_entry_is_the_plain_mode(gen):
+    """The C entry ``pdq_prologue`` (the prologue alone, its signature
+    unchanged) launches the fused entry's plain mode."""
+    import ctypes
+    x = (3 * torch.randn((17, 2048), generator=gen, device="cuda")).to(torch.bfloat16)
+    want = pro.pdq_prologue_cuda(x)
+    got = [torch.empty_like(t) for t in want]
+    lib = pro._build.library("pdq_prologue", pro._SIG)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.pdq_prologue(x.data_ptr(), 1, *(t.data_ptr() for t in got), 17, 2048,
+                            ctypes.c_void_p(stream)) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_pdq_prologue_refuses_a_row_too_long(gen):
+    """A row longer than a CTA's registers hold (8 x 1024 16-byte vectors)
+    is refused at launch, not computed wrong."""
+    x = torch.zeros((1, 8 * 1024 * 8 + 8), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="pdq_prologue"):
+        pro.pdq_prologue_cuda(x)
 
 
 def _operands(gen, M, K, N, E):
