@@ -10,12 +10,15 @@ device="cuda")), and one path of ops-level calls on its weights (E):
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
      w8a8_matmul, K3 w8a8_swiglu_matmul, K5 decode_attend_i8kv_fused,
-     K6 cache_scatter; 7 launches per layer and decode step);
+     K6 cache_scatter, one launch a round for every cache leaf; 7 launches
+     per layer and decode step);
   B  int8_kv=True, fp weights              K4 decode_attend_i8kv and K6;
   C  int8_kv=False, quantize_weights=True  the fp KV cache: K1, K2, K3, K6;
-  D  A with the pool paged: paged=True, spill=True, page_size=64, which adds
-     K7 cache_scatter_pages (every pool movement: prefill landing, decode
-     gather and write-back, COW copy, spill restore); D1 with the default
+  D  A with the pool paged: paged=True, spill=True, page_size=64, where K7
+     cache_scatter_pages takes K6's place: every pool movement (prefill
+     landing, decode gather and write-back, COW copy, spill restore) is one
+     launch over all its leaves, the gather writing its whole scratch, the
+     init fill included; D1 with the default
      pool (every slot can hold max_len), D2 with a pool small enough that
      decode growth preempts requests and spills them to host memory;
   E  the ops-level quantization entry points on path A's own PDQ records
@@ -44,7 +47,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 K5 on both routes (split, the paths', and single, the first
                 design) at path A's cache and at a 4096-position one, within
                 ATTEND_TOL of plain and of each other, split bit-equal over
-                two launches with its tickets back at 0;
+                two launches with its tickets back at 0; K6 and K7 as one
+                launch a movement over every leaf (a round's six-leaf
+                landing; D1's whole gather at position 300 into a scratch
+                poisoned with 0xFF, its write-back, a ragged gather, a COW
+                copy), bit-equal to plain, bound from kv.move_plan;
   3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
@@ -125,15 +132,16 @@ D2_POOL_PAGES = 17        # D2's physical pages: 16 usable, 2 slots' worth
 # path: (int8_kv, quantize_weights, the kernels it must launch, paging)
 _A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
               "decode_attend_i8kv_fused", "cache_scatter")
+# a paged pool moves every leaf with K7, its slot-row ``len`` included
+_D_KERNELS = _A_KERNELS[:-1] + ("cache_scatter_pages",)
 _PAGED = dict(paged=True, spill=True, page_size=PAGE)
 PATHS = {
     "A": (True, True, _A_KERNELS, {}),
     "B": (True, False, ("decode_attend_i8kv", "cache_scatter"), {}),
     "C": (False, True, ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
                         "cache_scatter"), {}),
-    "D1": (True, True, _A_KERNELS + ("cache_scatter_pages",), _PAGED),
-    "D2": (True, True, _A_KERNELS + ("cache_scatter_pages",),
-           dict(_PAGED, pool_pages=D2_POOL_PAGES)),
+    "D1": (True, True, _D_KERNELS, _PAGED),
+    "D2": (True, True, _D_KERNELS, dict(_PAGED, pool_pages=D2_POOL_PAGES)),
 }
 
 
@@ -277,50 +285,14 @@ def phase_kernels(eng):
     # attention over path A's int8 cache, lengths ragged across the tile
     attend_kernels(eng, gen, flush, record)
 
-    # ---- K7 cache_scatter_pages: path D's pool movements at full width
+    # ---- K7 cache_scatter_pages: path D1's pool movements at full width
     page_kernels(eng, gen, flush, record)
 
     # ---- K8 act_stats, K9 quantize, K10 dequantize: path E's shapes
     quant_kernels(eng, gen, flush, record)
 
-    # ---- K6 cache_scatter: one admission round's leaves, stacked rows
-    pool = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
-    sub = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
-    for leaf in sub.values():
-        if leaf.is_floating_point():
-            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=eng.device))
-        else:
-            leaf.copy_(torch.randint(-100, 100, leaf.shape, generator=gen,
-                                     device=eng.device, dtype=leaf.dtype))
-    n, B = pool["k"].shape[:2]
-    smap = torch.tensor([2, -1, 0, 1, -1, 3, -1, -1], dtype=torch.int32,
-                        device=eng.device)[:B]
-    stack = torch.arange(n, device=eng.device, dtype=torch.int32)[:, None]
-    fmap = torch.where(smap[None] >= 0, smap[None] + B * stack, -1).reshape(-1)
-    fmap = fmap.to(torch.int32)
-    landed = int((fmap >= 0).sum())
-    for name in pool:
-        dst = pool[name].reshape((n * B,) + pool[name].shape[2:])
-        src = sub[name].reshape((n * B,) + sub[name].shape[2:])
-        want = kv.cache_scatter_plain(dst.clone(), src, fmap)
-        got = kv.cache_scatter_cuda(dst.clone(), src, fmap)
-        need(torch.equal(got, want), f"K6 {name} leaf differs from plain")
-        err = max_abs(got, want)
-        del got, want
-        row_bytes = dst[0].numel() * dst.element_size()
-        b_ms, b_by = bound_ms(2 * landed * row_bytes + 4 * n * B, 0, INT8_OPS)
-        dk, dp = dst.clone(), dst.clone()
-        src_rows = fmap[fmap >= 0].long()
-        dst_rows = torch.nonzero(fmap >= 0).flatten()
-        record("cache_scatter", f"{name}: ({n * B}, {row_bytes} B) rows, "
-               f"{landed} landed", err,
-               median_ms(lambda: kv.cache_scatter_cuda(dk, src, fmap), flush=flush),
-               median_ms(lambda: kv.cache_scatter_plain(dp, src, fmap), flush=flush),
-               b_ms, b_by,
-               median_ms(lambda: dk.index_copy_(0, dst_rows,
-                                                src.index_select(0, src_rows)),
-                         flush=flush),
-               name == "k")
+    # ---- K6 cache_scatter: one admission round's landing, six leaves
+    slot_row_kernels(eng, gen, flush, record)
     return rows, detail
 
 
@@ -682,97 +654,174 @@ def attend_kernels(eng, gen, flush, record):
         torch.cuda.empty_cache()
 
 
+def moved_bytes(moves, plans):
+    """A movement's bytes for its bound: each visited row written once,
+    each moved row read once (``kv.move_plan``), and each distinct map and
+    row list on the card read once."""
+    seen = {}
+    for mv in moves:
+        for t in (mv.map, mv.rows):
+            if t is not None:
+                seen[t.data_ptr()] = 4 * t.numel()
+    return sum(p.bytes_written + p.bytes_read for p in plans) + sum(seen.values())
+
+
+def time_movement(label, moves, count, flush, record, primary, name, lib_calls,
+                  poison=False):
+    """One movement (device ``moves``) as one launch against the plain
+    version, bit for bit (with ``poison`` the kernel's destinations are set
+    to 0xFF bytes first, so every byte the comparison reads was written),
+    then timed: kernel, plain, and ``lib_calls`` (index_copy_ of the moved
+    page rows of every leaf, in one timed region; null if None)."""
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+
+    def clones():
+        out = []
+        for mv in moves:
+            d = mv.dst.clone()
+            out.append(mv._replace(dst=d, src=d if mv.src is mv.dst else mv.src))
+        return out
+
+    plain = clones()
+    kv.cache_move_plain(plain)
+    kern = clones()
+    if poison:
+        for mv in kern:
+            mv.dst.view(torch.uint8).fill_(0xFF)
+    kv.cache_move_cuda(kern, count)
+    torch.cuda.synchronize()
+    for mv, w in zip(kern, plain):
+        need(torch.equal(mv.dst.view(torch.uint8), w.dst.view(torch.uint8)),
+             f"{name} {label}: leaf {tuple(mv.dst.shape)} {mv.dst.dtype} differs "
+             f"from plain")
+    err = 0.0                                   # bit-equal, checked above
+    plans = kv.move_plan(moves)
+    b_ms, b_by = bound_ms(moved_bytes(moves, plans), 0, INT8_OPS)
+    k_ms = median_ms(lambda: kv.cache_move_cuda(kern, count), flush=flush)
+    p_ms = median_ms(lambda: kv.cache_move_plain(plain), flush=flush)
+    lib_ms = None if lib_calls is None else median_ms(
+        lambda: [c() for c in lib_calls], flush=flush)
+    runs = sum(p.runs for p in plans)
+    record(name, f"{label}: {len(moves)} leaves, {runs} runs, "
+           f"{sum(p.bytes_written for p in plans)} B written, "
+           f"{sum(p.bytes_read for p in plans)} B read", err, k_ms, p_ms, b_ms,
+           b_by, lib_ms, primary)
+    del kern, plain
+
+
+def index_copies(moves, to_rows):
+    """The library yardstick of a movement's scatter part: per leaf,
+    ``index_copy_`` of the moved page rows (selected beforehand) into dst's
+    page rows (``to_rows`` lays a side out as page rows, a copy for a
+    logical leaf)."""
+    import torch
+    calls = []
+    for mv in moves:
+        d_pr = to_rows(mv.dst, mv)
+        m = mv.map
+        d_rows = torch.nonzero(m >= 0).flatten()
+        sel = to_rows(mv.src, mv).index_select(1, m[d_rows].long())
+        calls.append(lambda d_pr=d_pr, d_rows=d_rows, sel=sel:
+                     d_pr.index_copy_(1, d_rows, sel))
+    return calls
+
+
 def page_kernels(eng, gen, flush, record):
-    """K7 against its plain version (the reference's composition through
-    page rows) on path D's full-width leaves: the int8 K leaf's decode
-    gather (pool (n, 65, Hkv, 64, Dh) -> logical (n, 8, Hkv, 512, Dh)
-    scratch, frontiers ragged, -1 past them), its write-back (one page per
-    row, two free slots both on the dump page 0), the COW copy (the pool
-    onto itself, disjoint pages) and the f32 scale leaf's gather.  Bit-equal;
-    the library call is ``index_copy_`` on the page axis from page rows
-    already selected and laid out."""
+    """K7, one launch per movement, against its plain version (each leaf's
+    init fill, then the reference's composition through page rows) at path
+    D1's profile shape, full width: the whole decode gather of 8 slots at
+    position 300 (five leaves: pool (24, 65, 32, 64, 64) int8 k/v, f32
+    scales, int32 pos -> the (24, 8, ...) logical tree, 5 of 8 pages from
+    the pool, the rest the leaf's init fill) into a scratch poisoned with
+    0xFF bytes, its write-back (one page per slot and leaf), the gather at
+    ragged frontiers with two free slots, the COW copy of 8 pages, and the
+    k leaf's gather alone (the pre-redesign kernel's unit).  Each bit-equal
+    to plain.  Bound: ``kv.move_plan``'s bytes."""
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
-    from repro_torch.kernels import ref
-    cfg, dev = eng.cfg, eng.device
-    n, B, Hkv, Dh = cfg.n_layers, eng.slots, cfg.n_kv_heads, cfg.hd
-    n_pp = eng.max_len // PAGE
-    Sp = eng.max_len + (-eng.max_len) % 128
-    n_leaf, N = Sp // PAGE, B * n_pp + 1
+    from repro_torch.kernels import ops, ref
+    B, n_pp = eng.slots, eng.max_len // PAGE
+    N = B * n_pp + 1
+    po = eng.bundle.paged_cache(B, eng.max_len, PAGE)
+    pool = po.init(N)
+    for d in pool["blocks"]:
+        for leaf in d.values():
+            leaf.view(torch.uint8).copy_(torch.randint(
+                0, 256, leaf.view(torch.uint8).shape, generator=gen, device=eng.device,
+                dtype=torch.uint8))
+    pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
+    at300 = np.full((B,), 300, np.int32)
+
+    def rows_of(x, mv):
+        if mv.seq_axis is None or x.shape[mv.seq_axis] == PAGE:
+            return x                           # page rows already (the pool)
+        return ref.to_page_rows(x, mv.seq_axis, PAGE, batch_axis=mv.batch_axis).contiguous()
+
+    logical, moves = po.gather_moves(pool, pt, at300)
+    gather = ops.device_moves(moves)
+    time_movement("D1 gather at position 300", gather, kv.PAGES_COUNT, flush, record,
+                  True, "cache_scatter_pages", index_copies(gather, rows_of), poison=True)
+    for mv in gather:
+        mv.dst.copy_(torch.randint(-100, 100, mv.dst.shape, generator=gen,
+                                   device=eng.device).to(mv.dst.dtype))
+    wb = ops.device_moves(po.writeback_moves(pool, logical, pt, at300[:, None]))
+    time_movement("D1 write-back at position 300", wb, kv.PAGES_COUNT, flush, record,
+                  False, "cache_scatter_pages", index_copies(wb, rows_of))
+    time_movement("k gather alone", [next(mv for mv in gather if mv.dst.dim() == 5)],
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages", None,
+                  poison=True)
+    del logical, moves, gather, wb
+    torch.cuda.empty_cache()
     lens = np.asarray(ATTEND_LENS)
-    pt = np.full((B, n_pp), -1, np.int32)
-    for b, L in enumerate(lens):          # slot b owns up to its frontier page
-        k = min(L // PAGE + 1, n_pp)
-        pt[b, :k] = 1 + b * n_pp + np.arange(k)
-    gmap = np.full((B, n_leaf), -1, np.int32)
-    gmap[:, :n_pp] = np.where(np.arange(n_pp)[None] * PAGE < lens[:, None], pt, -1)
-    gmap = gmap.reshape(B * n_leaf)
-    wpt = pt.copy()
-    wpt[B - 2:] = -1                      # two free slots
-    j = np.clip(lens // PAGE, 0, n_pp - 1)
-    ent = wpt[np.arange(B), j]
-    wmap = np.full((N,), -1, np.int32)
-    wmap[np.where(ent > 0, ent, 0)] = np.arange(B) * n_leaf + j
+    rpt = pt.copy()
+    rpt[B - 2:] = -1                           # two free slots
+    _, moves = po.gather_moves(pool, rpt, lens)
+    time_movement(f"gather at ragged frontiers {tuple(int(x) for x in lens)}",
+                  ops.device_moves(moves),
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages", None,
+                  poison=True)
+    del moves
     cmap = np.full((N,), -1, np.int32)
-    cmap[N - 8:] = np.arange(1, 9)        # 8 fresh pages take 8 others
+    cmap[N - 8:] = np.arange(1, 9)             # 8 fresh pages take 8 others
+    copy = [kv.Move(p_, p_, batch_axis=1, host_map=cmap)
+            for k, p_ in pool["blocks"][0].items()
+            if po.meta["blocks"][0][k].kind == "seq"]
+    time_movement("COW copy of 8 pages", ops.device_moves(copy), kv.PAGES_COUNT, flush,
+                  record, False, "cache_scatter_pages", None)
+    del pool, copy
+    torch.cuda.empty_cache()
 
-    def rand(shape, dtype):
-        if dtype == torch.int8:
-            return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=dtype)
-        return torch.rand(shape, generator=gen, device=dev)
 
-    def bits(t):
-        return t.view(torch.uint8)
-
-    leaves = {"k": ((n, B, Hkv, Sp, Dh), (n, N, Hkv, PAGE, Dh), torch.int8),
-              "k_scale": ((n, B, Hkv, Sp), (n, N, Hkv, PAGE), torch.float32)}
-    cases = (("k", "gather", gmap, True), ("k", "write-back", wmap, False),
-             ("k", "copy", cmap, False), ("k_scale", "gather", gmap, False))
-    for name, how, m_np, primary in cases:
-        lshape, pshape, dtype = leaves[name]
-        logical, pool = rand(lshape, dtype), rand(pshape, dtype)
-        m = torch.as_tensor(m_np, device=dev)
-        if how == "gather":
-            dst, src, sa = logical, pool, 3
-        elif how == "write-back":
-            dst, src, sa = pool, logical, 3
-        else:
-            dst, src, sa = pool, None, None
-
-        def run_kernel(d, s=src, m=m, sa=sa):
-            return kv.cache_scatter_pages_cuda(d, d if s is None else s, m, sa, PAGE, 1,
-                                               host_map=m_np if s is None else None)
-
-        def run_plain(d, s=src, m=m, sa=sa):
-            return kv.cache_scatter_pages_plain(d, d if s is None else s, m, sa, PAGE, 1)
-
-        got, want = run_kernel(dst.clone()), run_plain(dst.clone())
-        need(torch.equal(bits(got), bits(want)), f"K7 {name} {how} differs from plain")
-        err = max_abs(got, want)
-        del got, want
-        moved = int((m_np >= 0).sum()) * n
-        row_bytes = kv.page_side(pool, None, None, 1)[2]
-        b_ms, b_by = bound_ms(2 * moved * row_bytes + 4 * m_np.size, 0, INT8_OPS)
-        # the library call: index_copy_ on the page axis, from the page rows
-        # already selected and laid out as the destination's page rows
-        d_rows = torch.nonzero(m >= 0).flatten()
-        s_rows = m[d_rows].long()
-        s_pr = (ref.to_page_rows(src, sa, PAGE, batch_axis=1) if how == "write-back"
-                else pool)
-        sel = s_pr.index_select(1, s_rows)
-        d_pr = (ref.to_page_rows(dst, sa, PAGE, batch_axis=1).contiguous()
-                if how == "gather" else dst.clone())
-        dk, dp = dst.clone(), dst.clone()
-        src_shape = tuple((pool if src is None else src).shape)
-        record("cache_scatter_pages",
-               f"{name} {how}: {tuple(dst.shape)} <- {src_shape} {dtype}, "
-               f"{moved} page rows of {row_bytes} B moved",
-               err, median_ms(lambda: run_kernel(dk), flush=flush),
-               median_ms(lambda: run_plain(dp), flush=flush), b_ms, b_by,
-               median_ms(lambda: d_pr.index_copy_(1, d_rows, sel), flush=flush), primary)
-        del logical, pool, dst, src, dk, dp, d_pr, sel, s_pr
-        torch.cuda.empty_cache()
+def slot_row_kernels(eng, gen, flush, record):
+    """K6: one admission round's landing into path A's slot-row pool, its
+    six leaves (k, v, k_scale, v_scale, pos, len) in one launch, 4 of 8
+    slots landed; then the k and pos leaves alone (the pre-redesign
+    kernel's unit).  Library: ``index_copy_`` of the landed rows of every
+    leaf in one timed region."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops
+    pool = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
+    sub = eng.bundle.init_caches(eng.slots, eng.max_len)["blocks"][0]
+    for leaf in sub.values():
+        leaf.view(torch.uint8).copy_(torch.randint(
+            0, 256, leaf.view(torch.uint8).shape, generator=gen, device=eng.device,
+            dtype=torch.uint8))
+    smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)[:eng.slots]
+    moves = ops.device_moves([kv.Move(pool[k], sub[k], batch_axis=1, host_map=smap)
+                              for k in pool])
+    time_movement("one round's landing, 4 of 8 slots", moves, kv.COUNT, flush, record,
+                  True, "cache_scatter", index_copies(moves, lambda x, mv: x))
+    for k in ("k", "pos"):
+        mv = moves[list(pool).index(k)]
+        time_movement(f"{k} leaf alone, {tuple(mv.dst.shape)} {mv.dst.dtype}", [mv],
+                      kv.COUNT, flush, record, False, "cache_scatter",
+                      index_copies([mv], lambda x, mv: x))
+    del pool, sub, moves
+    torch.cuda.empty_cache()
 
 
 def quant_kernels(eng, gen, flush, record):
@@ -913,19 +962,17 @@ def census(path, n, pre, dec, restores=0):
     Per layer: prefill runs the prologue 3x, W8A8 3x and SwiGLU once with
     PDQ weights; a decode step the same, except that with int8 KV and PDQ
     the fused attend (once) takes the place of wo's prologue (7 launches:
-    tools/check_census.py's decode_int8kv).  A slot-row pool lands each
-    cache leaf once a round (6 leaves with int8 KV, else 4).  A paged pool
-    moves its 5 paged leaves (k, v, k_scale, v_scale, pos) with K7 and the
-    flat ``len`` with K6: a round lands 5 + 1, a decode step gathers and
-    writes back 10, a restore scatters 5 + 1."""
+    tools/check_census.py's decode_int8kv).  Every pool movement is one
+    launch over all its leaves: a slot-row pool lands a round with one K6;
+    a paged pool lands a round, gathers, writes back and restores with one
+    K7 each (its flat ``len`` rides in the landing's and the restore's)."""
     int8_kv, pdq, _, paging = PATHS[path]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
-                cache_scatter=(6 if int8_kv else 4) * pre, cache_scatter_pages=0,
+                cache_scatter=pre, cache_scatter_pages=0,
                 act_stats=0, quantize=0, dequantize=0)
     if paging:
-        want.update(cache_scatter=pre + restores,
-                    cache_scatter_pages=5 * pre + 10 * dec + 5 * restores)
+        want.update(cache_scatter=0, cache_scatter_pages=pre + 2 * dec + restores)
     if pdq:
         want.update(pdq_prologue=n * (3 * pre + (2 if int8_kv else 3) * dec),
                     w8a8_matmul=3 * n * (pre + dec), w8a8_swiglu_matmul=n * (pre + dec))
@@ -1024,8 +1071,10 @@ def phase_serve(eng, path):
 
 
 def device_rows(prof, per):
-    """(ms, kernel, launches) per ``per`` runs of every device row of a
-    torch.profiler trace, longest first."""
+    """(ms, kernel, launches, recorded) per ``per`` runs of every device
+    row of a torch.profiler trace, longest first: launches is the recorded
+    count over ``per``, rounded down (a record the profiler misses near the
+    window's start lowers it), ``recorded`` the count itself."""
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
@@ -1033,7 +1082,7 @@ def device_rows(prof, per):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us / per / 1e3, ev.key, ev.count // per))
+        rows.append((dev_us / per / 1e3, ev.key, ev.count // per, ev.count))
     rows.sort(reverse=True)
     return rows
 
@@ -1075,7 +1124,7 @@ def phase_profile(eng, path, step_ms, steps=3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = device_rows(prof, steps)
     busy_ms = sum(r[0] for r in rows)
-    top = [dict(kernel=k[:70], ms=ms, launches=n) for ms, k, n in rows[:10]]
+    top = [dict(kernel=k[:70], ms=ms, launches=n) for ms, k, n, _ in rows[:10]]
     out = dict(step_ms=step_ms, step_ms_under_profiler=wall_ms,
                kernels_per_step=sum(r[2] for r in rows),
                device_busy_ms=busy_ms if rows else None,
@@ -1083,7 +1132,8 @@ def phase_profile(eng, path, step_ms, steps=3):
                top_kernels=top)
     log(f"profile {path}: {json.dumps(out)}")
     # every device row (kernels and copies), for chiprun_out/chip_smoke.json
-    out["all_device_rows"] = [dict(kernel=k[:120], ms=ms, launches=n) for ms, k, n in rows]
+    out["all_device_rows"] = [dict(kernel=k[:120], ms=ms, launches=n, recorded=c)
+                              for ms, k, n, c in rows]
     return out
 
 
@@ -1107,8 +1157,7 @@ def plain_kernels():
              (mm, "w8a8_swiglu_matmul_cuda", mm.w8a8_swiglu_matmul_plain),
              (kv, "decode_attend_i8kv_cuda", kv.decode_attend_i8kv_plain),
              (kv, "decode_attend_i8kv_fused_cuda", kv.decode_attend_i8kv_fused_plain),
-             (kv, "cache_scatter_cuda", kv.cache_scatter_plain),
-             (kv, "cache_scatter_pages_cuda", kv.cache_scatter_pages_plain)]
+             (kv, "cache_move_cuda", kv.cache_move_plain)]
     saved = [getattr(m, a) for m, a, _ in swaps]
     try:
         for m, a, f in swaps:
@@ -1265,7 +1314,7 @@ def phase_unfused(recs):
                                             if prof_rows else None),
                          unfused_device_kernels=sum(p[2] for p in prof_rows),
                          unfused_kernels=[dict(kernel=k[:70], ms=ms, launches=c)
-                                          for ms, k, c in prof_rows]))
+                                          for ms, k, c, _ in prof_rows]))
     # the same function on CPU copies takes the plain versions (after every
     # timing, so that no CPU work shares the host with one): s_out is priced
     # from sums taken in another order (SUM_RTOL), which can move a code at

@@ -1,165 +1,185 @@
-// Cache-row scatter (K6) and page scatter (K7), written by hand for Hopper
-// (sm_90a).
+// Pool movements of the serving KV cache: the cache-row scatter (K6) and the
+// page scatter (K7), written by hand for Hopper (sm_90a) as ONE kernel that
+// runs a whole movement - every leaf of the cache - in one launch.
 //
-// K6 replaces the Pallas TPU kernel cache_scatter_p
-// (src/repro/kernels/kv_cache.py:246, pallas_call at :283):
-//   out[b] = src[map[b]] if map[b] >= 0 else dst[b], bit-exact, any dtype.
+// Replaces the Pallas TPU kernels cache_scatter_p
+// (src/repro/kernels/kv_cache.py:246, pallas_call at :283) and
+// cache_scatter_pages_p (:291, cache_scatter_p over page rows):
+//   out[p] = src[map[p]] if map[p] >= 0 else dst[p], bit-exact, any dtype.
 //
-// This kernel writes dst IN PLACE (the serving pool is rebound to the
-// result anyway; the reference's engine donates it for the same reason),
-// so rows with map[b] == -1 need no work at all: their blocks return at
-// once.  A row is moved as raw bytes, whatever the element type.
+// A leaf is described by a Leaf record (below); a movement passes up to
+// MAX_LEAVES of them as one kernel parameter.  Page row r (counted over
+// the whole stack) of a side starts at
+//   (r / rows_per_outer) * outer_stride + (r % rows_per_outer) * page_stride
+// and is the concatenation of chunks of chunk_bytes, chunk_stride apart: a
+// physical pool page or a slot row is one contiguous chunk (rows_per_outer
+// 1); a logical int8 K/V leaf (n, B, Hkv, Sp, Dh) has rows_per_outer = Sp /
+// page and one chunk of page * Dh bytes per kv head.  Stack entry z of an
+// (n, rows, ...) leaf reads src row z * src_rows + map[p] into dst row
+// z * dst_rows + p.
 //
-// Bound on the H100: bytes (each landed row is read once and written once;
-// no arithmetic).  Design: grid (chunks of 16 KB, rows); each thread moves
-// 16-byte vectors when the row length and both bases are 16-byte aligned,
-// and single bytes otherwise (the 4-byte `len` rows).
+// Two rules for a row whose map entry is -1.  A leaf with the FILL flag (the
+// decode gather, which writes a fresh scratch) writes the row with its fill
+// word, the leaf's init element repeated: every byte of the scratch is
+// written once, from src or from the broadcast init, as the TPU kernel
+// writes every output row.  Any other leaf keeps the row's bits: dst is
+// updated IN PLACE (a landing, write-back, COW copy or restore), and only
+// the rows the wrapper lists (`rows`, the map's targets) are visited.
+//
+// Bound on the H100: bytes (each moved row read once and written once, each
+// filled row written once; no arithmetic).  Design: the unit of work is a
+// piece (<= PIECE bytes) of a RUN, a byte range contiguous on both sides;
+// (leaf, stack entry, dst row, run, piece) is flattened into one index
+// space.  A warp takes 32 >> lanes_log2 units at a time (a 4 KiB run takes
+// the whole warp, a 256-byte run of a scale or pos leaf half of it, so two
+// ride together) and decodes each unit's addresses once.  Blocks stride
+// over the space, sized to fill the SMs.  Each lane moves 16-byte vectors,
+// UNROLL loads in flight before their stores, when the leaf's runs, strides
+// and both bases are 16-byte aligned, single bytes otherwise.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int VEC = 16;
-constexpr int UNROLL = 4;
-constexpr long long CHUNK = static_cast<long long>(THREADS) * VEC * UNROLL;
+constexpr int UNROLL = 8;
+constexpr unsigned PIECE = 32u * VEC * UNROLL;   // 4 KiB: one pass of a warp
+constexpr int MAX_LEAVES = 16;
+constexpr long long FILL = 1, VECTOR = 2;
 
-__global__ void __launch_bounds__(THREADS)
-scatter_rows(const int* __restrict__ map, uint8_t* __restrict__ dst,
-             const uint8_t* __restrict__ src, long long row_bytes, bool vec) {
-  const int s = map[blockIdx.y];
-  if (s < 0) return;
-  uint8_t* d = dst + static_cast<long long>(blockIdx.y) * row_bytes;
-  const uint8_t* sp = src + static_cast<long long>(s) * row_bytes;
-  const long long base = static_cast<long long>(blockIdx.x) * CHUNK;
-  if (vec) {
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long o = base + (static_cast<long long>(u) * THREADS + threadIdx.x) * VEC;
-      if (o < row_bytes)
-        *reinterpret_cast<int4*>(d + o) = *reinterpret_cast<const int4*>(sp + o);
-    }
-  } else {
-    const long long stop = base + CHUNK < row_bytes ? base + CHUNK : row_bytes;
-    for (long long o = base + threadIdx.x; o < stop; o += THREADS) d[o] = sp[o];
-  }
-}
-
-}  // namespace
-
-// map: (rows,) int32 in [-1, src_rows); dst: (rows, row_bytes) bytes,
-// updated in place; src: (src_rows, row_bytes) bytes.  rows <= 65535.
-extern "C" int cache_scatter(const void* map, void* dst, const void* src,
-                             long long rows, long long row_bytes, void* stream) {
-  if (rows <= 0 || row_bytes <= 0) return 0;
-  const bool vec = row_bytes % VEC == 0 &&
-                   reinterpret_cast<uintptr_t>(dst) % VEC == 0 &&
-                   reinterpret_cast<uintptr_t>(src) % VEC == 0;
-  const dim3 grid(static_cast<unsigned>((row_bytes + CHUNK - 1) / CHUNK),
-                  static_cast<unsigned>(rows));
-  scatter_rows<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(map), static_cast<uint8_t*>(dst),
-      static_cast<const uint8_t*>(src), row_bytes, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// K7: page scatter.  Replaces cache_scatter_pages_p
-// (src/repro/kernels/kv_cache.py:291), which is cache_scatter_p over PAGE
-// ROWS: dst page row p takes src page row map[p] where map[p] >= 0, and
-// keeps its bits otherwise; exact for any dtype.
-//
-// The reference reaches page rows by reshaping each side (to_page_rows), a
-// free relayout under XLA and a full copy of the leaf in PyTorch.  This
-// kernel addresses each side in its own layout instead, from a Side: page
-// row r (counted over the whole stack) starts at
-//   (r / rows_per_outer) * outer_stride + (r % rows_per_outer) * page_stride
-// and is the concatenation of runs of chunk_bytes, chunk_stride apart.  A
-// physical pool page is one contiguous run; a logical int8 K/V leaf (n, B,
-// Hkv, Sp, Dh) has rows_per_outer = Sp / page and one run of page * Dh
-// bytes per kv head.  Stack entry z of an (n, rows, ...) leaf reads src
-// row z * src_rows + map[p] into dst row z * dst_rows + p.
-//
-// Bound on the H100: bytes (each moved page read once and written once; no
-// arithmetic).  Design: grid (16 KB ranges of the page row, dst rows, stack
-// entries); a block whose map entry is -1 returns at once; each thread moves
-// 16-byte vectors when every run, stride and base is 16-byte aligned (a
-// vector then never straddles a run on either side), single bytes
-// otherwise.
-struct Side {
-  long long outer_stride, page_stride, chunk_stride, rows_per_outer;
-  unsigned chunk_bytes;
+// One leaf of a movement, every field 64-bit, in the order the wrapper
+// (kernels/kv_cache.py, cache_move_cuda) writes them.
+struct Leaf {
+  long long dst, src, map, rows;     // addresses; rows 0: visit every dst row
+  long long d_outer, d_page, d_chunk_stride, d_rows_per_outer, d_chunk;
+  long long s_outer, s_page, s_chunk_stride, s_rows_per_outer, s_chunk;
+  long long dst_rows, src_rows;      // page rows per stack entry
+  long long listed;                  // dst rows visited per stack entry
+  long long run, runs, pieces;       // run bytes; runs a row; pieces a run
+  long long lanes_log2;              // lanes a unit: 1 << lanes_log2
+  long long units, item_begin;       // this leaf's units; its first warp item
+  long long fill, flags;             // the fill word; FILL | VECTOR
 };
+static_assert(sizeof(Leaf) == 25 * 8, "Leaf is 25 64-bit fields");
 
-namespace {
+struct Table {
+  Leaf leaf[MAX_LEAVES];
+  long long n, items;
+};
+static_assert(sizeof(Table) <= 4096, "the table fits the kernel parameter space");
 
-// byte o (< 2^31) of a page row, as an offset from the row's start
-__device__ __forceinline__ long long side_offset(const Side& s, unsigned o) {
-  return static_cast<long long>(o / s.chunk_bytes) * s.chunk_stride + o % s.chunk_bytes;
+__device__ __forceinline__ long long row_start(unsigned r, long long rpo, long long outer,
+                                               long long page) {
+  const unsigned q = r / static_cast<unsigned>(rpo);
+  return static_cast<long long>(q) * outer +
+         static_cast<long long>(r - q * static_cast<unsigned>(rpo)) * page;
 }
 
-__global__ void __launch_bounds__(THREADS)
-scatter_pages(const int* __restrict__ map, uint8_t* __restrict__ dst,
-              const uint8_t* __restrict__ src, Side ds, Side ss,
-              long long dst_rows, long long src_rows, unsigned row_bytes, bool vec) {
-  const int m = map[blockIdx.y];
-  if (m < 0) return;
-  const long long rd = static_cast<long long>(blockIdx.z) * dst_rows + blockIdx.y;
-  const long long rs = static_cast<long long>(blockIdx.z) * src_rows + m;
-  uint8_t* d = dst + (rd / ds.rows_per_outer) * ds.outer_stride +
-               (rd % ds.rows_per_outer) * ds.page_stride;
-  const uint8_t* sp = src + (rs / ss.rows_per_outer) * ss.outer_stride +
-                      (rs % ss.rows_per_outer) * ss.page_stride;
-  const unsigned base = blockIdx.x * static_cast<unsigned>(CHUNK);
-  if (vec) {
+// byte o of a page row (o a run's start), as an offset from the row's start
+__device__ __forceinline__ long long chunk_offset(unsigned o, long long chunk,
+                                                  long long stride) {
+  const unsigned q = o / static_cast<unsigned>(chunk);
+  return static_cast<long long>(q) * stride + (o - q * static_cast<unsigned>(chunk));
+}
+
+__global__ void __launch_bounds__(THREADS) move_pages(const __grid_constant__ Table t) {
+  const unsigned lane = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * WARPS;
+  for (long long item = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
+       item < t.items; item += step) {
+    int l = 0;                               // the leaf this warp item lies in
+    while (l + 1 < t.n && item >= t.leaf[l + 1].item_begin) ++l;
+    const Leaf& f = t.leaf[l];
+    const unsigned lg = static_cast<unsigned>(f.lanes_log2);
+    const unsigned L = 1u << lg;
+    const unsigned u = static_cast<unsigned>(item - f.item_begin) * (32u >> lg) + (lane >> lg);
+    if (u >= f.units) continue;
+    const unsigned sub = lane & (L - 1);
+    // unit -> (stack entry z, listed row i, run, piece)
+    const unsigned per_row = static_cast<unsigned>(f.runs * f.pieces);
+    const unsigned rr = u / per_row, rem = u - rr * per_row;
+    const unsigned listed = static_cast<unsigned>(f.listed);
+    const unsigned z = rr / listed, i = rr - z * listed;
+    const unsigned p = f.rows ? static_cast<unsigned>(reinterpret_cast<const int*>(f.rows)[i]) : i;
+    const int m = reinterpret_cast<const int*>(f.map)[p];
+    if (m < 0 && !(f.flags & FILL)) continue;
+    const unsigned pieces = static_cast<unsigned>(f.pieces);
+    const unsigned run = rem / pieces, piece = rem - run * pieces;
+    const unsigned run_bytes = static_cast<unsigned>(f.run);
+    const unsigned start = piece * PIECE;
+    const unsigned len = min(PIECE, run_bytes - start);
+    const unsigned o = run * run_bytes;
+    const long long d_off =
+        row_start(z * static_cast<unsigned>(f.dst_rows) + p, f.d_rows_per_outer, f.d_outer,
+                  f.d_page) + chunk_offset(o, f.d_chunk, f.d_chunk_stride) + start;
+    uint8_t* d = reinterpret_cast<uint8_t*>(f.dst) + d_off;
+    const uint8_t* s = nullptr;
+    if (m >= 0)
+      s = reinterpret_cast<const uint8_t*>(f.src) +
+          row_start(z * static_cast<unsigned>(f.src_rows) + static_cast<unsigned>(m),
+                    f.s_rows_per_outer, f.s_outer, f.s_page) +
+          chunk_offset(o, f.s_chunk, f.s_chunk_stride) + start;
+    const unsigned w = static_cast<unsigned>(f.fill);
+    if (f.flags & VECTOR) {
+      int4* dv = reinterpret_cast<int4*>(d);
+      const unsigned nv = len / VEC;
+      if (s == nullptr) {
+        const int4 fw = make_int4(w, w, w, w);
+        for (unsigned v = sub; v < nv; v += L) dv[v] = fw;
+        continue;
+      }
+      const int4* sv = reinterpret_cast<const int4*>(s);
+      for (unsigned v0 = sub; v0 < nv; v0 += L * UNROLL) {
+        int4 r[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const unsigned o = base + (u * THREADS + threadIdx.x) * VEC;
-      if (o < row_bytes)
-        *reinterpret_cast<int4*>(d + side_offset(ds, o)) =
-            *reinterpret_cast<const int4*>(sp + side_offset(ss, o));
+        for (int k = 0; k < UNROLL; ++k)
+          if (v0 + k * L < nv) r[k] = sv[v0 + k * L];
+#pragma unroll
+        for (int k = 0; k < UNROLL; ++k)
+          if (v0 + k * L < nv) dv[v0 + k * L] = r[k];
+      }
+    } else if (s == nullptr) {
+      // the fill word repeats the element, so byte (offset % 4) of it is
+      // the element's byte at any element-aligned offset from the leaf base
+      for (unsigned b = sub; b < len; b += L)
+        d[b] = static_cast<uint8_t>(w >> (8 * ((d_off + b) & 3)));
+    } else {
+      for (unsigned b = sub; b < len; b += L) d[b] = s[b];
     }
-  } else {
-    const unsigned stop = row_bytes - base < CHUNK ? row_bytes : base + CHUNK;
-    for (unsigned o = base + threadIdx.x; o < stop; o += THREADS)
-      d[side_offset(ds, o)] = sp[side_offset(ss, o)];
   }
 }
 
-bool side_aligned(const Side& s, const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % VEC == 0 && s.outer_stride % VEC == 0 &&
-         s.page_stride % VEC == 0 && s.chunk_stride % VEC == 0 &&
-         s.chunk_bytes % VEC == 0;
+int grid_size(long long items) {
+  static int dev_blocks[64];                 // resident blocks per device, cached
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (dev_blocks[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, move_pages, THREADS, 0);
+    dev_blocks[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const long long want = (items + WARPS - 1) / WARPS;
+  return static_cast<int>(want < 1 ? 1 : want < dev_blocks[dev] ? want : dev_blocks[dev]);
 }
 
 }  // namespace
 
-// map: (dst_rows,) int32 in [-1, src_rows), one map for every stack entry;
-// dst/src: n_stack * dst_rows / src_rows page rows of row_bytes (< 2^31)
-// bytes each, laid out as their side's (outer_stride, page_stride,
-// chunk_stride, rows_per_outer, chunk_bytes) say, in bytes.  dst is
-// updated in place; the caller guarantees that no page row is both read
-// and written.  dst_rows and n_stack <= 65535.
-extern "C" int cache_scatter_pages(const void* map, void* dst, const void* src,
-                                   long long n_stack, long long dst_rows,
-                                   long long src_rows, long long row_bytes,
-                                   long long d_outer, long long d_page,
-                                   long long d_chunk_stride, long long d_rows_per_outer,
-                                   long long d_chunk_bytes, long long s_outer,
-                                   long long s_page, long long s_chunk_stride,
-                                   long long s_rows_per_outer, long long s_chunk_bytes,
-                                   void* stream) {
-  if (n_stack <= 0 || dst_rows <= 0 || row_bytes <= 0) return 0;
-  const Side ds{d_outer, d_page, d_chunk_stride, d_rows_per_outer,
-                static_cast<unsigned>(d_chunk_bytes)};
-  const Side ss{s_outer, s_page, s_chunk_stride, s_rows_per_outer,
-                static_cast<unsigned>(s_chunk_bytes)};
-  const bool vec = side_aligned(ds, dst) && side_aligned(ss, src);
-  const dim3 grid(static_cast<unsigned>((row_bytes + CHUNK - 1) / CHUNK),
-                  static_cast<unsigned>(dst_rows), static_cast<unsigned>(n_stack));
-  scatter_pages<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(map), static_cast<uint8_t*>(dst),
-      static_cast<const uint8_t*>(src), ds, ss, dst_rows, src_rows,
-      static_cast<unsigned>(row_bytes), vec);
+// table: n Leaf records as 25 int64 each (n <= MAX_LEAVES); items: the warp
+// items of the whole movement (the last leaf's item_begin plus its items).
+// Launches once on `stream`, even with no items, so that a movement is
+// always one launch.  Allocates nothing.
+extern "C" int cache_move(const long long* table, long long n, long long items,
+                          void* stream) {
+  if (n < 1 || n > MAX_LEAVES || items < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Table t;
+  memset(&t, 0, sizeof t);
+  memcpy(t.leaf, table, static_cast<size_t>(n) * sizeof(Leaf));
+  t.n = n;
+  t.items = items;
+  move_pages<<<grid_size(items), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -387,51 +387,103 @@ def decode_attend_i8kv(q, k_q, v_q, k_scale, v_scale, length, *,
 def cache_scatter_rows(dst, src, src_map, *, batch_axis: int = 0):
     """Cache-row scatter IN PLACE: dst row s takes src[src_map[s]] when
     src_map[s] >= 0 and keeps its bits otherwise; returns ``dst``.  Any
-    dtype and trailing shape.
+    dtype and trailing shape.  One leaf of ``cache_move``: a slot row is a
+    page row of the whole sequence.
 
-    ``batch_axis=1`` handles stacked per-block leaves (n, B, ...): the stack
-    folds into the row axis and src_map is expanded per stack entry, so
-    the kernel sees one flat (rows, R) problem.  A numpy ``src_map`` (the
-    scheduler's plans) is range-checked on the host.
+    ``batch_axis=1`` handles stacked per-block leaves (n, B, ...): one map
+    serves every stack entry.  A numpy ``src_map`` (the scheduler's plans)
+    is range-checked on the host.
     """
-    if not dst.is_contiguous():
-        raise ValueError("cache_scatter_rows writes dst in place: it must be "
-                         "contiguous")
-    Bs = src.shape[batch_axis]
     if not torch.is_tensor(src_map):
-        m = np.asarray(src_map, np.int32)
-        if m.size and (m.min() < -1 or m.max() >= Bs):
-            raise ValueError(f"src_map values must lie in [-1, {Bs})")
-        src_map = torch.as_tensor(m, device=dst.device)
-    if batch_axis == 1:
-        n, B = dst.shape[0], dst.shape[1]
-        stack = torch.arange(n, dtype=torch.int32, device=dst.device)[:, None]
-        m = torch.where(src_map[None, :] >= 0, src_map[None, :] + Bs * stack,
-                        -1).reshape(n * B).to(torch.int32)
-        cache_scatter_rows(dst.view((n * B,) + dst.shape[2:]),
-                           src.reshape((n * Bs,) + src.shape[2:]), m)
-        return dst
-    if batch_axis != 0:
-        raise ValueError(f"batch_axis must be 0 or 1, got {batch_axis}")
-    COUNTS["cache_scatter"].entries += 1
-    _kv.cache_scatter(dst, src, src_map.to(torch.int32))
+        mv = _kv.Move(dst, src, batch_axis=batch_axis,
+                      host_map=np.asarray(src_map, np.int32))
+    else:
+        mv = _kv.Move(dst, src, src_map.to(device=dst.device, dtype=torch.int32),
+                      batch_axis=batch_axis)
+    cache_move([mv], "cache_scatter")
     return dst
 
 
 # ---------------------------------------------------------------------------
-# Paged KV-cache pool: the page scatter (serve/pages.py's device half).  A
-# cache leaf's seq axis splits into pages and the page index folds into the
-# batch axis (``to_page_rows``); every pool movement - prefill landing,
-# decode gather and write-back, COW copy, spill restore - is then a row
-# scatter over page rows, which K7 runs without relaying either side out.
+# Pool movements: the paged pool (serve/pages.py's device half) and the
+# slot-row landing.  A cache leaf's seq axis splits into pages and the page
+# index folds into the batch axis (``to_page_rows``); every pool movement -
+# prefill landing, decode gather and write-back, COW copy, spill restore -
+# is then a row scatter over page rows of every leaf, which ONE launch of
+# the movement kernel runs without relaying either side out.
 # ---------------------------------------------------------------------------
+
+
+def device_moves(moves):
+    """The moves with their host maps on the device, in ONE host-to-device
+    copy: each distinct ``host_map`` of a move without a device map, and
+    for each such in-place leaf the list of the map's targets (the rows the
+    kernel visits).  A move with a device map is left as it is."""
+    parts, at, where = [], 0, {}
+
+    def put(key, a):
+        nonlocal at
+        parts.append(a)
+        where[key] = slice(at, at + a.size)
+        at += a.size
+
+    for mv in moves:
+        k = id(mv.host_map)
+        if mv.map is None and ("map", k) not in where:
+            put(("map", k), np.asarray(mv.host_map, np.int32))
+        if mv.map is None and mv.fill is None and ("rows", k) not in where:
+            put(("rows", k), np.flatnonzero(np.asarray(mv.host_map) >= 0).astype(np.int32))
+    if not parts:
+        return list(moves)
+    flat = torch.as_tensor(np.concatenate(parts), device=moves[0].dst.device)
+    return [mv if mv.map is not None else mv._replace(
+        map=flat[where[("map", id(mv.host_map))]],
+        rows=None if mv.fill is not None else flat[where[("rows", id(mv.host_map))]])
+        for mv in moves]
+
+
+def cache_move(moves, op: str = "cache_scatter_pages"):
+    """ONE pool movement over every leaf in ``moves`` (``kernels.kv_cache.
+    Move``), in one launch, counted under ``op``: ``cache_scatter`` (K6)
+    for a slot-row landing, ``cache_scatter_pages`` (K7) for the paged
+    pool's movements.  Each dst is updated in place (a leaf with a fill:
+    every row written) and must be contiguous.
+
+    A move carries its map as ``host_map`` (numpy, the scheduler's plans;
+    sent with the others in one copy) or as a device ``map``.  A host map
+    is range-checked here.  ``src is dst`` (the COW copy) needs a host map
+    whose targets and sources are disjoint; any other overlap raises.
+    """
+    bounds = {}
+    for mv in moves:
+        if not mv.dst.is_contiguous():
+            raise ValueError(f"{op} writes dst in place: it must be contiguous")
+        rows_s = _kv.layout(mv).src_rows        # the two sides pair
+        h = mv.host_map
+        if h is not None:
+            if id(h) not in bounds:
+                a = np.asarray(h)
+                bounds[id(h)] = (int(a.min()), int(a.max())) if a.size else (-1, -1)
+            lo, hi = bounds[id(h)]
+            if lo < -1 or hi >= rows_s:
+                raise ValueError(f"{op}: map values must lie in [-1, {rows_s})")
+        if _kv.overlaps(mv.dst, mv.src):
+            if mv.src is not mv.dst or h is None:
+                raise ValueError(f"{op}: dst and src overlap; only src is dst with "
+                                 f"a host map is allowed")
+            if _kv.targets_meet_sources(h):
+                raise ValueError(f"{op}: a page is both a target and a source of "
+                                 f"an in-place copy")
+    COUNTS[op].entries += 1
+    _kv.cache_move(device_moves(moves), COUNTS[op])
 
 
 def cache_scatter_pages(dst, src, page_map, *, batch_axis: int = 0,
                         seq_axis: int | None = None, page: int | None = None,
                         host_map=None):
     """Row scatter over PAGES, IN PLACE: dst page row p takes src page row
-    ``page_map[p]`` (-1 keeps its bits); returns ``dst``.  Any dtype.
+    ``page_map[p]`` (-1 keeps its bits); returns ``dst``.  Any dtype.  One
+    leaf of ``cache_move``.
 
     With ``seq_axis`` None both sides are page rows already (a physical
     pool, or ``to_page_rows`` of a leaf), as in the reference.  With
@@ -445,28 +497,11 @@ def cache_scatter_pages(dst, src, page_map, *, batch_axis: int = 0,
     device ``page_map``.  ``src is dst`` (the COW copy) needs a host map
     whose targets and sources are disjoint; any other overlap raises.
     """
-    if not dst.is_contiguous():
-        raise ValueError("cache_scatter_pages writes dst in place: it must be "
-                         "contiguous")
-    if batch_axis not in (0, 1):
-        raise ValueError(f"batch_axis must be 0 or 1, got {batch_axis}")
-    host = host_map
-    if not torch.is_tensor(page_map):
-        host = page_map
-        page_map = torch.as_tensor(np.asarray(page_map, np.int32), device=dst.device)
-    if host is not None:
-        host = np.asarray(host, np.int32)
-        rows_s = _kv.page_side(src, seq_axis, page, batch_axis)[1]
-        if host.size and (host.min() < -1 or host.max() >= rows_s):
-            raise ValueError(f"page_map values must lie in [-1, {rows_s})")
-    if _kv.overlaps(dst, src):
-        if src is not dst or host is None:
-            raise ValueError("cache_scatter_pages: dst and src overlap; only "
-                             "src is dst with a host map is allowed")
-        if _kv.targets_meet_sources(host):
-            raise ValueError("cache_scatter_pages: a page is both a target and "
-                             "a source of an in-place copy")
-    COUNTS["cache_scatter_pages"].entries += 1
-    _kv.cache_scatter_pages(dst, src, page_map.to(torch.int32), seq_axis, page,
-                            batch_axis, host)
+    if torch.is_tensor(page_map):
+        mv = _kv.Move(dst, src, page_map.to(device=dst.device, dtype=torch.int32),
+                      seq_axis, page, batch_axis, host_map=host_map)
+    else:
+        mv = _kv.Move(dst, src, None, seq_axis, page, batch_axis,
+                      host_map=np.asarray(page_map, np.int32))
+    cache_move([mv], "cache_scatter_pages")
     return dst

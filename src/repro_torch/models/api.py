@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.kv_cache import Move
 
 from .config import ArchConfig
 from .transformer import lm_apply, lm_init, lm_init_caches, lm_logits
@@ -53,6 +54,7 @@ class _PageMeta:
     n_leaf: int = 0      # this leaf's pages per sequence (>= pool n_pp)
     shape: tuple = ()
     dtype: Any = None
+    fill: Any = None     # 'seq': the element its init repeats (0-dim, CPU)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +62,10 @@ class PagedCacheOps:
     """Device half of the paged KV-cache pool (serve/pages.py holds the
     allocator): closures that move data between the physical page pool and
     the logical (B, ...) cache layout the step functions consume.  Every
-    paged leaf moves with one page scatter (``ops.cache_scatter_pages``,
-    K7), every flat leaf with one row scatter (K6); the maps are built in
-    numpy from the plan's arrays and sent to the device once per op.
+    movement is ONE launch of the movement kernel over all its leaves
+    (``ops.cache_move``, counted as K7): the paged leaves move as pages,
+    the flat ones as slot rows; the maps are built in numpy from the plan's
+    arrays and sent to the device once per movement.
 
     Unlike the reference's functions they update ``pool`` in place.  Leaves
     whose shape does not grow with ``max_len`` (the flat ``len`` leaf, and
@@ -72,13 +75,15 @@ class PagedCacheOps:
     page: int
     n_pp: int            # page-table width: max_len // page
     meta: Any            # cache-shaped tree of _PageMeta
-    init: Callable[..., Any]       # (n_pages) -> physical pool tree
+    init: Callable[..., Any]       # (n_pages, device=None) -> physical pool tree
     gather: Callable[..., Any]     # (pool, pt, lengths) -> logical caches
     writeback: Callable[..., Any]  # (pool, logical, pt, positions) -> pool
     land: Callable[..., Any]       # (pool, sub, src_map, rows, js) -> pool
     copy: Callable[..., Any]       # (pool, copy_map) -> pool (COW)
     capture: Callable[..., Any]    # (pool, slot, page_ids) -> host record
     restore: Callable[..., Any]    # (pool, rec, pmap, src_map) -> pool
+    gather_moves: Callable[..., Any]     # (pool, pt, lengths) -> (logical, moves)
+    writeback_moves: Callable[..., Any]  # (pool, logical, pt, positions) -> moves
 
 
 _SECTIONS = (("head", 0), ("tail", 0), ("blocks", 1))
@@ -100,16 +105,16 @@ def _leaves(tree):
             yield from ((ba, (sec, i, k), v) for k, v in d.items())
 
 
-def _device_maps(maps: dict, device) -> dict:
-    """Send numpy int32 maps to ``device`` in one host-to-device copy;
-    returns {key: its slice}."""
-    keys = list(maps)
-    flat = torch.as_tensor(np.concatenate([maps[k] for k in keys]), device=device)
-    out, at = {}, 0
-    for k in keys:
-        out[k] = flat[at:at + maps[k].size]
-        at += maps[k].size
-    return out
+def _init_fill(x: torch.Tensor) -> torch.Tensor:
+    """The one element a paged leaf's init repeats, as a 0-dim CPU tensor
+    (the gather writes it into every page row it does not fill from the
+    pool); raises if the init is anything else."""
+    flat = x.reshape(-1)
+    u = flat.view(torch.uint8).reshape(flat.numel(), -1)
+    if not flat.numel() or not bool((u == u[:1]).all()):
+        raise ValueError(f"a paged cache leaf's init must repeat one element; the "
+                         f"{tuple(x.shape)} {x.dtype} leaf's does not")
+    return flat[0].cpu().clone()
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
@@ -165,11 +170,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
 
     def cache_scatter(caches, sub, src_map):
         """Pool slot s takes sub batch row src_map[s]; -1 keeps the slot.
-        One kernel launch per cache leaf, in place on ``caches``."""
-        scat = kernel_ops.cache_scatter_rows
-        for c, s in zip(caches["blocks"], sub["blocks"]):
-            for name in c:
-                scat(c[name], s[name], src_map, batch_axis=1)
+        One kernel launch for every cache leaf (K6), in place on
+        ``caches``."""
+        m = np.asarray(src_map, np.int32)
+        kernel_ops.cache_move([Move(c[name], s[name], batch_axis=1, host_map=m)
+                               for c, s in zip(caches["blocks"], sub["blocks"])
+                               for name in c], "cache_scatter")
         return caches
 
     def paged_cache(batch: int, max_len: int, page: int = 64) -> PagedCacheOps:
@@ -204,12 +210,14 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
             return _PageMeta("seq", seq_axis=ax, n_leaf=S // page,
                              shape=tuple(sa.shape), dtype=sa.dtype)
 
-        meta = _tree_map(classify, a, b)
-        # batch-1 pristine init: the gather scratch starts from each leaf's
-        # INIT fill (``pos`` -1, int8 scales 1), so unallocated page regions
-        # read bit-exactly like the never-written region of a slot-row cache
+        # batch-1 pristine init: each paged leaf's INIT element (``pos`` -1,
+        # int8 scales 1), which the gather writes into every page row it
+        # does not fill from the pool, so that unallocated page regions read
+        # bit-exactly like the never-written region of a slot-row cache
         base1 = init_caches(1, max_len)
-        scat_pages = kernel_ops.cache_scatter_pages
+        meta = _tree_map(lambda m, b1, *, ba: dataclasses.replace(m, fill=_init_fill(b1))
+                         if m.kind == "seq" else m, _tree_map(classify, a, b), base1)
+        del base1
 
         def paged(m):
             return m.kind == "seq"
@@ -217,23 +225,20 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         # the distinct pages-per-sequence of the paged leaves: one map each
         n_leaves = sorted({m.n_leaf for _, _, m in _leaves(meta) if paged(m)})
 
-        def init(n_pages: int):
+        def init(n_pages: int, device=None):
             def one(m, *, ba):
                 shape = list(m.shape)
                 if paged(m):
                     shape[ba], shape[m.seq_axis] = n_pages, page
                 # flat pool leaves fill with zeros, scales included, as the
                 # reference's pool does
-                return torch.zeros(tuple(shape), dtype=m.dtype, device=dev)
+                return torch.zeros(tuple(shape), dtype=m.dtype, device=device or dev)
             return _tree_map(one, meta)
 
-        def gather(pool, pt, lengths):
-            """Physical pages -> a fresh (B, ...) logical tree the decode
-            step runs on in place.  pt (B, n_pp) page tables and lengths
-            (B,) written tokens per row, numpy.  -1 entries and pages at or
-            beyond the write frontier gather nothing, leaving the scratch at
-            the leaf's INIT fill.  Flat leaves are the pool's own tensors,
-            so the decode step's writes to them land in the pool."""
+        def gather_moves(pool, pt, lengths):
+            """The gather's movement: a fresh logical tree on the pool's
+            device (``torch.empty``; flat leaves are the pool's own tensors)
+            and its moves, one a paged leaf, each with its init fill."""
             pt = np.asarray(pt, np.int32)
             B = pt.shape[0]
             keep = np.arange(n_pp)[None, :] * page < np.asarray(lengths)[:, None]
@@ -243,26 +248,40 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 g = np.full((B, nl), -1, np.int32)
                 g[:, :n_pp] = pt
                 maps[nl] = g.reshape(B * nl)
-            dmaps = _device_maps(maps, dev)
+            moves = []
 
-            def one(m, pool_leaf, b1, *, ba):
+            def one(m, pool_leaf, *, ba):
                 if not paged(m):
                     return pool_leaf
                 shape = list(m.shape)
                 shape[ba] = B
-                z = b1.expand(shape).contiguous()
-                return scat_pages(z, pool_leaf, dmaps[m.n_leaf], batch_axis=ba,
-                                  seq_axis=m.seq_axis, page=page)
-            return _tree_map(one, meta, pool, base1)
+                out = torch.empty(shape, dtype=m.dtype, device=pool_leaf.device)
+                moves.append(Move(out, pool_leaf, None, m.seq_axis, page, ba,
+                                  fill=m.fill, host_map=maps[m.n_leaf]))
+                return out
+            return _tree_map(one, meta, pool), moves
 
-        def writeback(pool, logical, pt, positions):
-            """Scatter each row's decode-written page (the one holding
-            position ``positions[b, 0]``) back into the pool.  Whole pages
-            are written, so a recycled page comes back fully cleaned (init
-            fill past the last written token: the gather laundered it).
-            Free slots (-1 table entries) land on the write-only DUMP page
-            0; repeated targets there are last-write-wins, as in JAX, and
-            page 0 is never read."""
+        def gather(pool, pt, lengths):
+            """Physical pages -> a fresh (B, ...) logical tree the decode
+            step runs on in place.  pt (B, n_pp) page tables and lengths
+            (B,) written tokens per row, numpy.  -1 entries, pages at or
+            beyond the write frontier and a leaf's pages past n_pp gather
+            nothing: the kernel writes them with the leaf's INIT element.
+            Flat leaves are the pool's own tensors, so the decode step's
+            writes to them land in the pool."""
+            logical, moves = gather_moves(pool, pt, lengths)
+            kernel_ops.cache_move(moves)
+            return logical
+
+        def writeback_moves(pool, logical, pt, positions):
+            """The write-back's moves, one a paged leaf: each row's
+            decode-written page (the one holding position ``positions[b,
+            0]``) back into the pool.  Whole pages are written, so a
+            recycled page comes back fully cleaned (init fill past the last
+            written token: the gather laundered it).  Free slots (-1 table
+            entries) land on the write-only DUMP page 0; repeated targets
+            there are last-write-wins in the numpy map, as in JAX, and page
+            0 is never read."""
             pt = np.asarray(pt, np.int32)
             B = pt.shape[0]
             j = np.clip(np.asarray(positions)[:, 0] // page, 0, n_pp - 1)
@@ -275,49 +294,63 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 w = np.full((N,), -1, np.int32)
                 w[tgt] = np.arange(B) * nl + j
                 maps[nl] = w
-            dmaps = _device_maps(maps, dev)
+            moves = []
 
             def one(m, pool_leaf, lg, *, ba):
                 if paged(m):
-                    scat_pages(pool_leaf, lg, dmaps[m.n_leaf], batch_axis=ba,
-                               seq_axis=m.seq_axis, page=page)
-                elif lg is not pool_leaf:      # flat state IS the new rows
+                    moves.append(Move(pool_leaf, lg, None, m.seq_axis, page, ba,
+                                      host_map=maps[m.n_leaf]))
+            _tree_map(one, meta, pool, logical)
+            return moves
+
+        def writeback(pool, logical, pt, positions):
+            """Scatter each row's decode-written page back into the pool
+            (``writeback_moves``), in one launch; flat leaves are the pool's
+            own rows already."""
+            kernel_ops.cache_move(writeback_moves(pool, logical, pt, positions))
+
+            def flat(m, pool_leaf, lg, *, ba):
+                if not paged(m) and lg is not pool_leaf:   # flat state IS the new rows
                     pool_leaf.copy_(lg)
-                return pool_leaf
-            return _tree_map(one, meta, pool, logical)
+            _tree_map(flat, meta, pool, logical)
+            return pool
 
         def land(pool, sub, src_map, land_rows, land_js):
-            """Land a bucketed prefill batch: flat leaves take whole slot
-            rows through ``src_map`` (K6); paged leaves take pages - pool
-            page p takes page ``land_js[p]`` of scratch row ``land_rows[p]``
-            (-1 keeps; the planner leaves shared prefix pages out)."""
+            """Land a bucketed prefill batch in one launch: flat leaves take
+            whole slot rows through ``src_map``; paged leaves take pages -
+            pool page p takes page ``land_js[p]`` of scratch row
+            ``land_rows[p]`` (-1 keeps; the planner leaves shared prefix
+            pages out)."""
             rows = np.asarray(land_rows, np.int32)
             js = np.asarray(land_js, np.int32)
             maps = {nl: np.where(rows >= 0, rows * nl + js, -1).astype(np.int32)
                     for nl in n_leaves}
-            maps["slots"] = np.asarray(src_map, np.int32)
-            dmaps = _device_maps(maps, dev)
+            slots = np.asarray(src_map, np.int32)
+            moves = []
 
             def one(m, pool_leaf, s, *, ba):
-                if paged(m):
-                    return scat_pages(pool_leaf, s, dmaps[m.n_leaf], batch_axis=ba,
-                                      seq_axis=m.seq_axis, page=page)
-                return kernel_ops.cache_scatter_rows(pool_leaf, s, dmaps["slots"],
-                                                     batch_axis=ba)
-            return _tree_map(one, meta, pool, sub)
+                moves.append(Move(pool_leaf, s, None, m.seq_axis, page, ba,
+                                  host_map=maps[m.n_leaf]) if paged(m) else
+                             Move(pool_leaf, s, batch_axis=ba, host_map=slots))
+                return pool_leaf
+            _tree_map(one, meta, pool, sub)
+            kernel_ops.cache_move(moves)
+            return pool
 
         def copy(pool, copy_map):
-            """Pool-internal page copy (the COW arm): page p takes page
-            ``copy_map[p]`` (-1 keeps); the map's targets are fresh pages,
-            never sources, which the page scatter checks on the host."""
+            """Pool-internal page copy (the COW arm), in one launch: page p
+            takes page ``copy_map[p]`` (-1 keeps); the map's targets are
+            fresh pages, never sources, which the ops layer checks on the
+            host."""
             cmap = np.asarray(copy_map, np.int32)
-            dmap = _device_maps({"pages": cmap}, dev)["pages"]
+            moves = []
 
             def one(m, pool_leaf, *, ba):
                 if paged(m):
-                    scat_pages(pool_leaf, pool_leaf, dmap, batch_axis=ba, host_map=cmap)
-                return pool_leaf
-            return _tree_map(one, meta, pool)
+                    moves.append(Move(pool_leaf, pool_leaf, batch_axis=ba, host_map=cmap))
+            _tree_map(one, meta, pool)
+            kernel_ops.cache_move(moves)
+            return pool
 
         def capture(pool, slot: int, page_ids):
             """Host copy of one request's pages, padded with zero pages to
@@ -337,25 +370,27 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
             return _tree_map(one, meta, pool)
 
         def restore(pool, rec, pmap, src_map):
-            """Scatter a spill record back: paged leaves from its captured
-            (n_pp-padded) pages through ``pmap`` (pool page -> record page,
-            -1 keeps), flat leaves from its captured rows through
-            ``src_map`` (slot -> record row 0, -1 keeps)."""
-            maps = {"pages": np.asarray(pmap, np.int32),
-                    "slots": np.asarray(src_map, np.int32)}
-            dmaps = _device_maps(maps, dev)
+            """Scatter a spill record back in one launch: paged leaves from
+            its captured (n_pp-padded) pages through ``pmap`` (pool page ->
+            record page, -1 keeps), flat leaves from its captured rows
+            through ``src_map`` (slot -> record row 0, -1 keeps)."""
+            pages = np.asarray(pmap, np.int32)
+            slots = np.asarray(src_map, np.int32)
+            moves = []
 
             def one(m, pool_leaf, rv, *, ba):
-                rv = rv.to(dev)
-                if paged(m):
-                    return scat_pages(pool_leaf, rv, dmaps["pages"], batch_axis=ba)
-                return kernel_ops.cache_scatter_rows(pool_leaf, rv, dmaps["slots"],
-                                                     batch_axis=ba)
-            return _tree_map(one, meta, pool, rec)
+                moves.append(Move(pool_leaf, rv.to(dev), batch_axis=ba,
+                                  host_map=pages if paged(m) else slots))
+                return pool_leaf
+            _tree_map(one, meta, pool, rec)
+            kernel_ops.cache_move(moves)
+            return pool
 
         return PagedCacheOps(page=page, n_pp=n_pp, meta=meta, init=init,
                              gather=gather, writeback=writeback, land=land,
-                             copy=copy, capture=capture, restore=restore)
+                             copy=copy, capture=capture, restore=restore,
+                             gather_moves=gather_moves,
+                             writeback_moves=writeback_moves)
 
     return ModelBundle(cfg=cfg, device=dev, init=init, init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,

@@ -7,7 +7,7 @@ model bundle on one device:
 
   * ``_exec_prefill``: one ``prefill_many`` over a fresh prefill pool, then
     ``_land_sub`` lands the rows into the serving pool in place (one
-    ``cache_scatter`` launch per cache leaf);
+    ``cache_scatter`` launch for every cache leaf);
   * ``_exec_decode``: one ``decode_step`` over the whole pool, in place;
   * ``_sample_rows``: greedy argmax over float32 logits (first index on
     ties, as JAX), or temperature sampling.
@@ -17,8 +17,8 @@ ops; the allocator, prefix sharing, preemption and spill bookkeeping are
 the copied core's): prefill lands page-wise through the plan's land maps,
 each decode step gathers the live rows' pages into a fresh logical scratch,
 runs the same ``decode_step`` on it and writes each row's frontier page
-back, and the COW copy, spill capture and restore move pages through the
-page scatter (K7).
+back, and the COW copy, spill capture and restore move pages; each such
+movement is one launch of the page scatter (K7) over every leaf.
 
 With ``quantize_weights=True`` every layer's projections run PDQ int8
 (``models.linops.quantize_param_tree``), which is what the reference's

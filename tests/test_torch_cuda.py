@@ -21,8 +21,10 @@ single route, on rows of length >= 1 (a row of length 0 is NaN in the
 plain version, as in the reference, and exactly 0 in the kernels); K5's
 s_x within rtol 1e-5, its codes equal where o rounds to the same pro_dtype
 value under the same s_x and never more than 1 apart; the split route
-repeats its bits on a second launch and leaves every ticket at 0.  The page scatter (K7) is
-bit-equal to its plain version in every direction the paged pool uses it.
+repeats its bits on a second launch and leaves every ticket at 0.  The pool movements (K6,
+K7) are bit-equal to their plain versions in every direction the pool uses
+them, one launch a movement over leaves of every dtype, and the gather
+writes every byte of a scratch poisoned with 0xFF.
 The moment reduction (K8) sums like K1, within the same 1e-5, and two
 launches on one input are bit-equal; quantize (K9) gives the plain
 version's int8 codes exactly, .5 ties included, and dequantize (K10) its
@@ -395,6 +397,125 @@ def test_page_scatter_refuses_overlap(gen):
     with pytest.raises(ValueError, match="overlap"):           # a view is not src is dst
         kv.cache_scatter_pages_cuda(pool, pool.view(pool.shape), good, None, None, 1,
                                     host_map=good.cpu().numpy())
+
+
+def _fill_of(gen, dtype):
+    """A random 0-dim fill of ``dtype`` (CPU, as the paged pool keeps it)."""
+    return _rand_leaf(gen, (1,), dtype).reshape(()).cpu()
+
+
+def _offset(t, k):
+    """A contiguous copy of ``t`` whose base lies ``k`` elements past an
+    allocation's start (a misaligned base for the byte path)."""
+    flat = torch.empty((k + t.numel(),), dtype=t.dtype, device=t.device)
+    out = flat[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _mixed_movements(gen):
+    """Every leaf of _PAGE_LEAVES in one descriptor table per movement: the
+    gather (each leaf with its fill; one int32 leaf with a base 4 bytes off
+    16, so that its fill takes the byte path), the write-back, the restore
+    and the COW copy.  Returns [(name, moves)]."""
+    gathers, writebacks, restores, copies = [], [], [], []
+    for i, (shape, dtype, seq_axis, page, N) in enumerate(_PAGE_LEAVES):
+        logical, pool, gmap, wmap = _page_case(gen, shape, dtype, seq_axis, page, N)
+        scratch = torch.empty_like(logical)
+        if dtype == torch.int32:
+            scratch = _offset(scratch, 1)
+        gathers.append(kv.Move(scratch, pool, gmap, seq_axis, page, 1,
+                               fill=_fill_of(gen, dtype)))
+        writebacks.append(kv.Move(pool.clone(), logical, wmap, seq_axis, page, 1))
+        n_pp = N // 2
+        record = _rand_leaf(gen, (shape[0], n_pp) + tuple(pool.shape[2:]), dtype)
+        pmap = torch.full((N,), -1, dtype=torch.int32, device="cuda")
+        pmap[1:1 + n_pp] = torch.arange(n_pp, dtype=torch.int32, device="cuda").flip(0)
+        restores.append(kv.Move(pool.clone(), record, pmap, batch_axis=1))
+        cmap = torch.full((N,), -1, dtype=torch.int32, device="cuda")
+        cmap[N - 2:] = torch.tensor([1, 2], dtype=torch.int32, device="cuda")
+        p = pool.clone()
+        copies.append(kv.Move(p, p, cmap, batch_axis=1, host_map=cmap.cpu().numpy()))
+    return [("gather", gathers), ("write-back", writebacks), ("restore", restores),
+            ("copy", copies)]
+
+
+def _plain_of(moves):
+    """The plain movement on clones of every dst (a COW leaf's src is its
+    own clone)."""
+    out = []
+    for mv in moves:
+        d = mv.dst.clone()
+        out.append(mv._replace(dst=d, src=d if mv.src is mv.dst else mv.src))
+    kv.cache_move_plain(out)
+    return [mv.dst for mv in out]
+
+
+def test_page_move_one_launch_per_movement_of_mixed_leaves(gen):
+    """int8, f32, int32 and bf16 leaves, pages 1 to 64, 16-byte and byte
+    paths, in one launch a movement, bit-equal to plain; the gather's
+    scratch poisoned with 0xFF first, so every byte it holds was written."""
+    for name, moves in _mixed_movements(gen):
+        want = _plain_of(moves)
+        if name == "gather":
+            for mv in moves:
+                mv.dst.view(torch.uint8).fill_(0xFF)
+        before = kv.PAGES_COUNT.launches
+        kv.cache_move_cuda(moves)
+        torch.cuda.synchronize()
+        assert kv.PAGES_COUNT.launches == before + 1, name
+        for mv, w in zip(moves, want):
+            assert _same_bits(mv.dst, w), (name, tuple(mv.dst.shape), mv.dst.dtype)
+
+
+def test_page_move_ops_entry_sends_maps_and_targets(gen):
+    """``ops.cache_move`` from numpy maps (one host-to-device copy, the
+    in-place leaves visiting only their targets) equals plain; entries ==
+    launches == 1."""
+    from repro_torch.kernels import ops
+    for name, moves in _mixed_movements(gen):
+        host = [mv._replace(map=None, host_map=mv.map.cpu().numpy()) for mv in moves]
+        want = _plain_of(moves)
+        ops.reset_counts()
+        ops.cache_move(host)
+        torch.cuda.synchronize()
+        assert ops.counts()["cache_scatter_pages"] == {"entries": 1, "launches": 1}
+        for mv, w in zip(host, want):
+            assert _same_bits(mv.dst, w), (name, tuple(mv.dst.shape))
+
+
+def test_slot_row_landing_of_six_leaves_in_one_launch(gen):
+    """K6: an int8-KV pool's six leaves (k, v, k_scale, v_scale, pos, len;
+    the 4-byte len rows on the byte path) landed in one launch."""
+    n, B, Hkv, Sp, Dh = 3, 5, 4, 128, 64
+    shapes = {"pos": ((n, B, 96), torch.int32), "len": ((n, B), torch.int32),
+              "k": ((n, B, Hkv, Sp, Dh), torch.int8), "k_scale": ((n, B, Hkv, Sp),
+                                                          torch.float32),
+              "v": ((n, B, Hkv, Sp, Dh), torch.int8), "v_scale": ((n, B, Hkv, Sp),
+                                                          torch.float32)}
+    smap = torch.tensor([3, -1, 0, -1, 1], dtype=torch.int32, device="cuda")
+    moves = [kv.Move(_rand_leaf(gen, sh, dt), _rand_leaf(gen, (n, 4) + sh[2:], dt),
+                     smap, batch_axis=1) for sh, dt in shapes.values()]
+    want = _plain_of(moves)
+    before = kv.COUNT.launches
+    kv.cache_move_cuda(moves, kv.COUNT)
+    torch.cuda.synchronize()
+    assert kv.COUNT.launches == before + 1
+    for mv, w in zip(moves, want):
+        assert _same_bits(mv.dst, w), tuple(mv.dst.shape)
+
+
+def test_page_move_refuses_a_fill_on_a_listed_or_in_place_leaf(gen):
+    pool = _rand_leaf(gen, (2, 6, 2, 16, 8), torch.int8)
+    m = torch.tensor([-1, -1, -1, -1, 1, 2], dtype=torch.int32, device="cuda")
+    fill = _fill_of(gen, torch.int8)
+    with pytest.raises(ValueError, match="overlap"):
+        kv.cache_move_cuda([kv.Move(pool, pool, m, batch_axis=1, fill=fill,
+                                    host_map=m.cpu().numpy())])
+    with pytest.raises(ValueError, match="visits every row"):
+        kv.cache_move_cuda([kv.Move(pool.clone(), pool, m, batch_axis=1, fill=fill,
+                                    rows=torch.tensor([4, 5], dtype=torch.int32,
+                                                      device="cuda"))])
 
 
 def _attend_operands(gen, B, Hkv, G, Dh, Sp, lens):

@@ -136,7 +136,8 @@ def test_unpadded_prefill_matches_jax(models, kind):
 
 def test_op_counts_per_decode_step_and_admission(models):
     """7 kernel-op entries per layer per decode step (prologue 3, W8A8 3,
-    SwiGLU 1) and 4 cache_scatter entries (k, v, pos, len) per landing."""
+    SwiGLU 1) and 1 cache_scatter entry per landing (its 4 leaves k, v,
+    pos, len in one launch)."""
     tcfg = models["cfg"][1]
     tb, tp = models["bundle"][1], models["pdq"][1]
     caches = tb.init_caches(4, 16)
@@ -152,7 +153,7 @@ def test_op_counts_per_decode_step_and_admission(models):
                  "dequantize": 0}
     tops.reset_counts()
     tb.cache_scatter(caches, tb.init_caches(4, 16), np.array([1, -1, 0, -1], np.int32))
-    assert tops.counts()["cache_scatter"]["entries"] == 4
+    assert tops.counts()["cache_scatter"]["entries"] == 1
 
 
 def test_cache_scatter_lands_rows_like_jax(models):
