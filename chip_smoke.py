@@ -51,7 +51,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 launch a movement over every leaf (a round's six-leaf
                 landing; D1's whole gather at position 300 into a scratch
                 poisoned with 0xFF, its write-back, a ragged gather, a COW
-                copy), bit-equal to plain, bound from kv.move_plan;
+                copy), bit-equal to plain, bound from kv.move_plan; K8, K9
+                and K10 at path E's rows and at 16384 rows (past the L2),
+                beside a PyTorch kernel that moves the same bytes;
   3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
@@ -60,11 +62,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 the census must hold exactly (K1's launches per mode too:
                 QKV and gate/up with norm and interval, wo with the interval
                 where K5 does not run its prologue), every K2/K3 launch must have
-                taken the wgmma route and every K4/K5 launch the split
-                route (MAIN_ROUTE), and the other paths' kernels must
-                not have run; the runs go in turns A B C C A D1 D2, so
-                that A's and C's times compare within one call; D1's and
-                D2's greedy streams must equal A's first run's, D1 must
+                taken the wgmma route, every K4/K5 launch the split route
+                and every K8/K9 launch the vector route (MAIN_ROUTE), and
+                the other paths' kernels must not have run; the runs go in
+                turns A B C C A D1 D2, so that A's and C's times compare
+                within one call; D1's and D2's greedy streams must equal
+                A's first run's, D1 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore;
   4. profile  - torch.profiler over three decode steps of the full pool of
@@ -77,8 +80,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 plain path's top-2 margin is below it;
   6. unfused  - path E, after the serving runs: counts zeroed before and read
                 after, an exact census (each unfused call one K8 and one K2,
-                no K1; every K2 on the wgmma route), the re-quantized output
-                equal to the projection's own codes and dequantized back bit
+                no K1; every K2 on the wgmma route, every K8 and K9 on the
+                vector route), the re-quantized output equal to the
+                projection's own codes and dequantized back bit
                 for bit, the same calls on CPU copies of the inputs (the
                 plain versions) within one int8 step, fused against unfused
                 within one step per row (the
@@ -123,6 +127,7 @@ ATTEND_LONG_SP = 4096
 ATTEND_LONG_LENS = (4096, 3500, 2048, 1500, 1024, 700, 129, 1)
 
 E_ROWS = (8, 2048)        # path E: decode rows (the slots), prefill (8 x 256)
+STREAM_ROWS = 16384       # K8/K9/K10 rows past the L2: 128 MiB of f32 at d_model
 E_GAMMA = 4               # act_stats' sampling stride on E's (8, 256, K) input
 E_SPIN = 20_000_000       # E's device spin before each timed call, cycles (~10 ms)
 E_PROFILED = 3            # unfused calls in E's profile of each case
@@ -830,10 +835,12 @@ def quant_kernels(eng, gen, flush, record):
     gives it) and bf16 and on the sampling stride's rows, within SUM_RTOL
     and bit-equal over two launches; K9 and K10 per row and per channel,
     f32 and bf16, and at ragged shapes with x on .5 ties, codes and bits
-    equal.  Library calls, timed on f32 and not used by the port:
+    equal; K8, K9 and K10 also at a streaming size (16384 rows, past the
+    50 MB L2).  Library calls, timed on f32 and not used by the port:
     torch.quantize_per_channel for K9 and torch.dequantize of the same
     codes for K10; none for K8, as no single PyTorch call returns both
-    sums."""
+    sums.  Beside them (``same_bytes_ms``), a PyTorch kernel that moves the
+    same bytes: x.sum(-1) for K8, x.to(int8) for K9, q.to(dtype) for K10."""
     import torch
     from repro_torch.kernels import act_stats as st
     from repro_torch.kernels import quantize as qz
@@ -846,7 +853,8 @@ def quant_kernels(eng, gen, flush, record):
     strided = randn(8, 2048 // 8, d).to(torch.bfloat16)[:, ::E_GAMMA]
     for xm, primary in ((randn(8, d), False), (x_pre, True),
                         (randn(8, d).to(torch.bfloat16), False),
-                        (x_pre.to(torch.bfloat16), False), (strided, False)):
+                        (x_pre.to(torch.bfloat16), False), (strided, False),
+                        (randn(STREAM_ROWS, d), False)):
         k, p = st.act_stats_cuda(xm), st.act_stats_plain(xm)
         again = st.act_stats_cuda(xm)
         need(torch.equal(k[0], again[0]) and torch.equal(k[1], again[1]),
@@ -861,7 +869,7 @@ def quant_kernels(eng, gen, flush, record):
                max(max_abs(a, b) for a, b in zip(k, p)),
                median_ms(lambda: st.act_stats_cuda(xm), flush=flush),
                median_ms(lambda: st.act_stats_plain(xm), flush=flush), b_ms, b_by, None,
-               primary)
+               primary, same_bytes_ms=median_ms(lambda: xm.sum(-1), flush=flush))
 
     def affine(M, N, per_channel, ties):
         """Scales in [0.001, 0.3], powers of two on every other row or
@@ -888,6 +896,7 @@ def quant_kernels(eng, gen, flush, record):
     # (M, N, per channel, dtype, .5 ties, timed, primary)
     cases = [(2048, d, False, torch.float32, False, True, True),
              (2048, d, True, torch.float32, False, True, False),
+             (STREAM_ROWS, d, False, torch.float32, False, True, False),
              (8, d, False, torch.float32, False, True, False),
              (2048, d, False, torch.bfloat16, False, True, False),
              (300, 290, False, torch.float32, True, False, False),
@@ -922,7 +931,8 @@ def quant_kernels(eng, gen, flush, record):
         record("quantize", f"x {how} -> int8{lib_note}", max_abs(kq, pq),
                median_ms(lambda: qz.quantize_cuda(x, s, z), flush=flush),
                median_ms(lambda: qz.quantize_plain(x, s, z), flush=flush), b_ms, b_by,
-               lib_ms, primary)
+               lib_ms, primary,
+               same_bytes_ms=median_ms(lambda: x.to(torch.int8), flush=flush))
         out_dtype = dtype                  # K10 back to the type K9 was given
         ky = qz.dequantize_cuda(q, s, z, out_dtype)
         py = qz.dequantize_plain(q, s, z, out_dtype)
@@ -937,7 +947,8 @@ def quant_kernels(eng, gen, flush, record):
                f"{str(out_dtype)[6:]}{lib_note}", max_abs(ky, py),
                median_ms(lambda: qz.dequantize_cuda(q, s, z, out_dtype), flush=flush),
                median_ms(lambda: qz.dequantize_plain(q, s, z, out_dtype), flush=flush),
-               b_ms, b_by, lib_ms, primary)
+               b_ms, b_by, lib_ms, primary,
+               same_bytes_ms=median_ms(lambda: q.to(out_dtype), flush=flush))
 
 
 def make_requests(cfg, n=8, seed=0):
@@ -996,15 +1007,16 @@ def prologue_mode_census(path, n, pre, dec):
 
 # the route every launch of a serving or ops-level run must take
 MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
-              "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split"}
+              "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split",
+              "act_stats": "vector", "quantize": "vector"}
 
 
 def check_routes(path, counts):
     """Every K2 and K3 launch of a run took the wgmma route, every K4 and
-    K5 launch the split route."""
+    K5 launch the split route, every K8 and K9 launch the vector route."""
     from repro_torch.kernels import ops
     routes = ops.route_counts()
-    log(f"{path}: K2-K5 launches per route {routes}")
+    log(f"{path}: K2-K5, K8, K9 launches per route {routes}")
     for name, r in routes.items():
         main = MAIN_ROUTE[name]
         need(r[main] == counts[name]["launches"]

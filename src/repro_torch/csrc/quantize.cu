@@ -9,8 +9,8 @@
 //
 // Rounding and division follow the plain versions (kernels/ref.py) bit for
 // bit: IEEE division by the scale (nvcc's default -prec-div=true; no fast
-// math), never a reciprocal multiply, and rintf, which rounds half to even
-// like torch.round; a reciprocal or roundf would move codes at .5 ties.
+// math), never a reciprocal multiply, and round half to even, like
+// torch.round; a reciprocal or roundf would move codes at .5 ties.
 // Dequantize to bf16 follows the reference's ops contract
 // (repro/kernels/ref.py dequantize_ref): q - z and s each round to bf16,
 // their product forms in f32 (exact for two bf16 values) and rounds once.
@@ -19,12 +19,35 @@
 //
 // Bound on the H100: bytes.  Each element is read once and written once
 // (5 bytes an element f32 -> int8, 3 for bf16); a few flops an element.
+// But K9's IEEE division, rintf and its two conversions run on the card's
+// quarter-rate units (16 an SM a clock): with the data in L2, or at bf16,
+// they and not the bytes set its time.
 //
-// Design: elementwise.  Grid x covers a row's columns, THREADS * 4 a block,
-// grid y the rows (a loop when M exceeds the grid).  Each thread takes 4
-// consecutive columns: one vector load and one vector store when N, the
-// bases and the element sizes allow it, else element by element.  The
-// ragged end of each row is masked; nothing is padded.
+// K9's design.  A thread takes E consecutive columns of one row, one (row,
+// E columns) pair a thread over a 1-D grid (no limit on M): on the vector
+// route one 16-byte load (E = 4 f32 or 8 bf16), the scale and zero point
+// once (per row) or as 16-byte loads (per channel), and one store of the E
+// codes; on the wide route, for f32 per row larger than the L2, E = 16
+// (four 16-byte loads, evict-first, and one 16-byte store); else element
+// by element, the ragged end of a row masked (the element route: N % E or
+// a base off 16 bytes).  Nothing is padded.  The codes: t = x / s by IEEE
+// division, then t + 1.5 * 2^23, whose low mantissa bits hold rint(t)
+// (the FADD rounds half to even) when |t| < 2^22, and the zero point and
+// the clamp in integers, exact when |z| < 2^23 as the plain version's
+// float sum then is; a unit with any other t or z (huge, NaN, inf) takes
+// the float formula, rintf and all.  The zero point is used right after
+// the loads: a load first used past the first division waits behind the
+// division's slow-path call, a second round trip for every thread.  The
+// wrapper (kernels/quantize.py, `plan`) picks the route and the grid.
+// Measured and not kept (PERF.md §6): 16 columns a thread on every
+// route, a persistent grid, and warp-coalesced 512-element chunks with the
+// codes exchanged through shared memory.
+//
+// K10's design: elementwise.  Grid x covers a row's columns, THREADS * 4 a
+// block, grid y the rows (a loop when M exceeds the grid).  Each thread
+// takes 4 consecutive columns: one vector load and one vector store when
+// N, the bases and the element sizes allow it, else element by element.
+// The ragged end of each row is masked; nothing is padded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,29 +82,149 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-template <typename T, bool PER_CHANNEL, bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
-quantize_kernel(const T* __restrict__ x, const float* __restrict__ s,
-                const int* __restrict__ z, int8_t* __restrict__ q, long long M, int N) {
-  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * V;
-  if (c0 >= N) return;
-  for (long long row = blockIdx.y; row < M; row += gridDim.y) {
-    const T* xr = x + row * N;
-    int8_t* qr = q + row * N;
-    if (VECTOR) {
-      const Pack<T> in = *reinterpret_cast<const Pack<T>*>(xr + c0);
-      Pack<int8_t> out;
+constexpr int Q_THREADS = 256;         // K9: threads a block at most
+constexpr float MAGIC = 12582912.f;    // 1.5 * 2^23
+constexpr int BIAS = 0x4B400000;       // its bits
+
+// A zero point ready for quant_n: z - BIAS, and whether |z| >= 2^23.
+struct Zero {
+  int zb;
+  bool big;
+};
+__device__ __forceinline__ Zero zero(int z) {
+  return Zero{static_cast<int>(static_cast<unsigned>(z) - BIAS),
+              z >= (1 << 23) || z <= -(1 << 23)};
+}
+
+// K9's codes of n values, equal to quant()'s (the note above).
+template <int n>
+__device__ __forceinline__ void quant_n(const float (&v)[n], const float (&sc)[n],
+                                        const Zero (&zc)[n], int (&out)[n]) {
+  bool slow = false;
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const long long j = PER_CHANNEL ? c0 + i : row;
-        out.v[i] = quant(to_f32(in.v[i]), s[j], z[j]);
-      }
-      *reinterpret_cast<Pack<int8_t>*>(qr + c0) = out;
+  for (int k = 0; k < n; ++k) {
+    const float t = v[k] / sc[k];
+    slow |= !(fabsf(t) < 4194304.f) || zc[k].big;
+    const unsigned bits = static_cast<unsigned>(__float_as_int(__fadd_rn(t, MAGIC)));
+    const int i = static_cast<int>(bits + static_cast<unsigned>(zc[k].zb));
+    out[k] = min(max(i, -128), 127);
+  }
+  if (slow) {
+#pragma unroll
+    for (int k = 0; k < n; ++k) {
+      out[k] = quant(v[k], sc[k], static_cast<int>(static_cast<unsigned>(zc[k].zb) + BIAS));
+    }
+  }
+}
+
+// four codes as one 32-bit word, the first in the lowest byte
+__device__ __forceinline__ int pack4(const int* c) {
+  return (c[0] & 0xff) | (c[1] & 0xff) << 8 | (c[2] & 0xff) << 16 | (c[3] & 0xff) << 24;
+}
+
+// n / d as (n * magic) >> shift for n < 2^31, with magic = ceil(2^shift /
+// d) and shift = 31 + ceil(log2 d) (exact: n * (magic * d - 2^shift) <
+// 2^shift); a division past that
+struct Divisor {
+  unsigned long long magic;
+  int shift, d;
+};
+
+Divisor make_divisor(int d) {
+  int shift = 31;
+  while ((1LL << (shift - 31)) < d) ++shift;
+  const unsigned long long p = 1ULL << shift;
+  return Divisor{(p + static_cast<unsigned>(d) - 1) / static_cast<unsigned>(d), shift, d};
+}
+
+__device__ __forceinline__ long long divide(long long n, const Divisor& v) {
+  if ((n >> 31) == 0) {
+    return static_cast<long long>((static_cast<unsigned long long>(n) * v.magic) >> v.shift);
+  }
+  return n / v.d;
+}
+
+// E values of x from 16-byte loads, x 16-byte aligned
+template <typename T, int E, bool STREAM>
+__device__ __forceinline__ void load_cols(const T* x, float (&v)[E]) {
+  constexpr int L = E * sizeof(T) / 16;
+  uint4 r[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint4* p = reinterpret_cast<const uint4*>(x) + i;
+    r[i] = STREAM ? __ldcs(p) : *p;
+  }
+  const T* h = reinterpret_cast<const T*>(r);
+#pragma unroll
+  for (int i = 0; i < E; ++i) v[i] = to_f32(h[i]);
+}
+
+// E codes as one store of E bytes, q E-byte aligned
+template <int E, bool STREAM>
+__device__ __forceinline__ void store_cols(int8_t* q, const int (&c)[E]) {
+  if constexpr (E == 4) {
+    *reinterpret_cast<int*>(q) = pack4(c);
+  } else if constexpr (E == 8) {
+    *reinterpret_cast<int2*>(q) = make_int2(pack4(c), pack4(c + 4));
+  } else {
+    const int4 w = make_int4(pack4(c), pack4(c + 4), pack4(c + 8), pack4(c + 12));
+    if (STREAM) {
+      __stcs(reinterpret_cast<int4*>(q), w);
     } else {
-      for (int c = c0; c < min(c0 + V, N); ++c) {
-        const long long j = PER_CHANNEL ? c : row;
-        qr[c] = quant(to_f32(xr[c]), s[j], z[j]);
+      *reinterpret_cast<int4*>(q) = w;
+    }
+  }
+}
+
+// One (row, E columns) pair a thread: units = ceil(N / E) pairs a row.
+template <typename T, bool PER_CHANNEL, int E, bool VECTOR, bool STREAM>
+__global__ void __launch_bounds__(Q_THREADS)
+quantize_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                const int* __restrict__ z, int8_t* __restrict__ q, long long M, int N,
+                Divisor units) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long row = divide(g, units);
+  if (row >= M) return;
+  const int c0 = static_cast<int>(g - row * units.d) * E;
+  const long long at = row * N + c0;
+  float v[E], sc[E];
+  Zero zc[E];
+  int out[E];
+  if (VECTOR) {
+    load_cols<T, E, STREAM>(x + at, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) v[i] = c0 + i < N ? to_f32(x[at + i]) : 0.f;
+  }
+  if (PER_CHANNEL) {
+    if (VECTOR) {
+#pragma unroll
+      for (int k = 0; k < E; k += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(s + c0 + k);
+        const int4 b = *reinterpret_cast<const int4*>(z + c0 + k);
+        sc[k] = a.x, sc[k + 1] = a.y, sc[k + 2] = a.z, sc[k + 3] = a.w;
+        zc[k] = zero(b.x), zc[k + 1] = zero(b.y), zc[k + 2] = zero(b.z), zc[k + 3] = zero(b.w);
       }
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        sc[i] = c0 + i < N ? s[c0 + i] : 1.f;
+        zc[i] = zero(c0 + i < N ? z[c0 + i] : 0);
+      }
+    }
+  } else {
+    const float sr = s[row];
+    const Zero zr = zero(z[row]);
+#pragma unroll
+    for (int i = 0; i < E; ++i) sc[i] = sr, zc[i] = zr;
+  }
+  quant_n<E>(v, sc, zc, out);
+  if (VECTOR) {
+    store_cols<E, STREAM>(q + at, out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      if (c0 + i < N) q[at + i] = static_cast<int8_t>(out[i]);
     }
   }
 }
@@ -132,13 +275,40 @@ dim3 grid_of(long long M, int N) {
     else KERNEL<T, false, false><<<grid, THREADS, 0, st>>>(__VA_ARGS__);         \
   } while (0)
 
+// route: 0 element, 1 vector, 2 wide (f32 per row only)
 template <typename T>
-void launch_quantize(const void* x, const float* s, const int* z, int8_t* q,
-                     long long M, int N, bool per_channel, cudaStream_t st) {
-  const bool vec = N % V == 0 && aligned(x, sizeof(T) * V) && aligned(q, V);
-  const dim3 grid = grid_of(M, N);
+int launch_quantize(const void* x, const float* s, const int* z, int8_t* q, long long M,
+                    int N, bool per_channel, int route, int threads, int grid,
+                    cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const int cols = route == 2 ? 16 : E;
+  if (route != 0 && (N % cols != 0 || !aligned(x, 16) || !aligned(q, 16) ||
+                     (per_channel && (!aligned(s, 16) || !aligned(z, 16))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == 2 && (per_channel || sizeof(T) != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int units = (N + cols - 1) / cols;
+  if (static_cast<long long>(grid) * threads < M * units) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const T* xt = static_cast<const T*>(x);
-  DISPATCH(quantize_kernel, T, per_channel, vec, xt, s, z, q, M, N);
+  const Divisor div = make_divisor(units);
+#define QUANTIZE_LAUNCH(PC, COLS, VEC, STREAM)                                         \
+  quantize_kernel<T, PC, COLS, VEC, STREAM><<<grid, threads, 0, st>>>(xt, s, z, q, M, N, \
+                                                                      div)
+  if (route == 2) {
+    if constexpr (sizeof(T) == 4) QUANTIZE_LAUNCH(false, 16, true, true);
+  } else if (route == 1) {
+    if (per_channel) QUANTIZE_LAUNCH(true, E, true, false);
+    else QUANTIZE_LAUNCH(false, E, true, false);
+  } else {
+    if (per_channel) QUANTIZE_LAUNCH(true, E, false, false);
+    else QUANTIZE_LAUNCH(false, E, false, false);
+  }
+#undef QUANTIZE_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -153,20 +323,29 @@ void launch_dequantize(const int8_t* q, const float* s, const int* z, void* y,
 }  // namespace
 
 // dtype of x: 0 = float32, 1 = bfloat16.  s/z hold M values (per row) or N
-// (per_channel != 0).  Rows are contiguous, N elements each.
+// (per_channel != 0).  Rows are contiguous, N elements each.  The route is
+// the caller's: 0 element by element, 1 vector (E = 4 f32 or 8 bf16
+// columns a thread), 2 wide (16 f32 columns a thread, per row); one (row,
+// columns) pair a thread, `threads` a block (32 to 256) and `grid` blocks
+// covering every pair.
 extern "C" int quantize(const void* x, int dtype, const void* s, const void* z, void* q,
-                        long long M, int N, int per_channel, void* stream) {
+                        long long M, int N, int per_channel, int route, int threads, int grid,
+                        void* stream) {
   if (M <= 0 || N <= 0) return 0;
+  if (route < 0 || route > 2 || threads < 32 || threads > Q_THREADS || threads % 32 != 0 ||
+      grid <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(s);
   const int* zi = static_cast<const int*>(z);
   int8_t* qi = static_cast<int8_t*>(q);
   if (dtype == 0) {
-    launch_quantize<float>(x, sf, zi, qi, M, N, per_channel != 0, st);
-  } else {
-    launch_quantize<__nv_bfloat16>(x, sf, zi, qi, M, N, per_channel != 0, st);
+    return launch_quantize<float>(x, sf, zi, qi, M, N, per_channel != 0, route, threads, grid,
+                                  st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_quantize<__nv_bfloat16>(x, sf, zi, qi, M, N, per_channel != 0, route, threads,
+                                        grid, st);
 }
 
 // out_dtype of y: 0 = float32, 1 = bfloat16; s/z as for quantize.

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -105,6 +106,13 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device) -> int:
+    """The card's L2 cache in bytes, read once per device."""
+    import torch
+    return torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def stream_ptr(device) -> int:

@@ -56,7 +56,8 @@ COUNTS = {
 def reset_counts() -> None:
     for c in COUNTS.values():
         c.entries = c.launches = 0
-    for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values(), _pro.MODES):
+    for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values(), *_as.ROUTES.values(),
+              *_qz.ROUTES.values(), _pro.MODES):
         r.update(dict.fromkeys(r, 0))
 
 
@@ -66,9 +67,11 @@ def counts() -> dict[str, dict[str, int]]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches per route of K2 and K3 (``wgmma``, ``generic``) and of K4
-    and K5 (``split``, ``single``)."""
-    return {k: dict(r) for k, r in (*_mm.ROUTES.items(), *_kv.ROUTES.items())}
+    """Launches per route of K2 and K3 (``wgmma``, ``generic``), of K4
+    and K5 (``split``, ``single``), of K8 (``vector``, ``element``) and of
+    K9 (``vector``, ``wide``, ``element``)."""
+    return {k: dict(r) for k, r in (*_mm.ROUTES.items(), *_kv.ROUTES.items(),
+                                    *_as.ROUTES.items(), *_qz.ROUTES.items())}
 
 
 def prologue_modes() -> dict[str, int]:

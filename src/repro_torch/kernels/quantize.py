@@ -4,12 +4,16 @@
 K9 writes int8 codes ``clamp(round(x / s) + z, -128, 127)`` from f32/bf16
 values with a per-row or per-channel scale and zero point; K10 maps codes
 back, ``(q - z) * s`` in f32 or bf16.  Both are in ``csrc/quantize.cu``,
-whose note says what bounds them and which bf16 arithmetic K10 follows.
-The plain versions are ``ref.quantize_ref`` and ``ref.dequantize_ref``.
+whose note says what bounds them and which bf16 arithmetic K10 follows;
+``plan`` picks K9's route and grid from the shape, alignment and the
+card's L2.  The plain versions are ``ref.quantize_ref`` and
+``ref.dequantize_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -17,13 +21,53 @@ from . import _build, ref
 
 QUANTIZE_COUNT = _build.OpCount()      # K9
 DEQUANTIZE_COUNT = _build.OpCount()    # K10
+# K9's launches per route (``plan``)
+ROUTES = {"quantize": {"vector": 0, "wide": 0, "element": 0}}
+_ROUTE_CODE = {"element": 0, "vector": 1, "wide": 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIG = {"quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
+_SIG = {"quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
         "dequantize": [_P, _P, _P, _P, _I, _L, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID = 2 ** 31 - 1                 # K9's blocks (a 1-D grid)
 
 quantize_plain = ref.quantize_ref
 dequantize_plain = ref.dequantize_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A K9 launch: ``route`` ("vector": one 16-byte load a thread,
+    ``columns`` = 4 f32 or 8 bf16; "wide": 16 f32 columns a thread, four
+    16-byte loads; "element": element by element), ``units`` = ceil(N /
+    columns) pairs (row, columns) a row, one a thread, ``threads`` a block
+    and ``grid`` blocks."""
+    route: str
+    columns: int
+    units: int
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(M: int, N: int, elem: int, per_channel: bool, aligned: bool,
+         l2_bytes: int) -> Plan:
+    """K9's launch for x (M, N) of ``elem`` bytes; ``aligned``: x, q and
+    (per channel) s and z all start 16-byte aligned; ``l2_bytes``: the
+    card's L2.  The vector route needs that and N a multiple of its
+    columns, so that every row starts aligned; f32 per row larger than the
+    L2 takes the wide route (16 columns a thread, evict-first).  One pair a
+    thread over a 1-D grid: 128 threads a block per channel, else 256
+    (what measured faster on the card, PERF.md §6)."""
+    cols = 16 // elem
+    if aligned and not per_channel and elem == 4 and N % 16 == 0 and M * N * elem > l2_bytes:
+        route, cols = "wide", 16
+    elif aligned and N % cols == 0:
+        route = "vector"
+    else:
+        route = "element"
+    units = -(-N // cols)
+    threads = 128 if per_channel and route == "vector" else 256
+    return Plan(route, cols, units, threads, -(-M * units // threads))
 
 
 def _layout(a, s, z, what):
@@ -52,11 +96,17 @@ def quantize_cuda(x, s, z):
         raise ValueError(f"quantize takes float32/bfloat16, not {x.dtype}")
     M, N, per_channel = _layout(x, s, z, "quantize")
     q = torch.empty((M, N), dtype=torch.int8, device=x.device)
+    bases = (x, q, s, z) if per_channel else (x, q)
+    p = plan(M, N, x.element_size(), per_channel, all(t.data_ptr() % 16 == 0 for t in bases),
+             _build.l2_bytes(x.device))
+    if p.grid > MAX_GRID:
+        raise ValueError(f"quantize: {M} x {N} needs {p.grid} blocks (> {MAX_GRID})")
     lib = _build.library("quantize", _SIG)
     QUANTIZE_COUNT.launches += 1
+    ROUTES["quantize"][p.route] += 1
     _build.check(lib.quantize(x.data_ptr(), _DTYPES[x.dtype], s.data_ptr(), z.data_ptr(),
-                              q.data_ptr(), M, N, int(per_channel),
-                              _build.stream_ptr(x.device)), "quantize")
+                              q.data_ptr(), M, N, int(per_channel), _ROUTE_CODE[p.route],
+                              p.threads, p.grid, _build.stream_ptr(x.device)), "quantize")
     return q
 
 

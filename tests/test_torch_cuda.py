@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels import act_stats as st
 from repro_torch.kernels import kv_cache as kv
+from repro_torch.kernels import ops
 from repro_torch.kernels import pdq_prologue as pro
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
@@ -630,15 +631,53 @@ def _act_stats_case(x):
 
 @pytest.mark.parametrize("M,K,dtype", [(1, 64, torch.float32), (3, 77, torch.float32),
                                        (5, 33, torch.bfloat16), (17, 2048, torch.bfloat16),
-                                       (70, 5632, torch.float32), (300, 290, torch.bfloat16)])
+                                       (70, 5632, torch.float32), (300, 290, torch.bfloat16),
+                                       (1, 5632, torch.float32), (1, 11264, torch.bfloat16),
+                                       (2048, 11264, torch.float32),
+                                       (16385, 2048, torch.bfloat16),
+                                       (16385, 5632, torch.float32)])
 def test_act_stats_kernel_matches_plain(gen, M, K, dtype):
     _act_stats_case((3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype))
+
+
+@pytest.mark.parametrize("M,K,dtype", [(8, 2048, torch.float32), (8, 11264, torch.float32),
+                                       (8, 2048, torch.bfloat16), (3, 4096, torch.bfloat16),
+                                       (2048, 5632, torch.float32), (20000, 64, torch.float32),
+                                       (9, 77, torch.bfloat16)])
+def test_act_stats_kernel_blocks_and_chunks(gen, M, K, dtype):
+    """One block a row at every block size and chunk the plan gives (32 to
+    256 threads, 1 to 8 units a thread in flight, rows of several chunks),
+    on the route the plan names."""
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype)
+    p = st.plan(*_plan_args(x))
+    ops.reset_counts()
+    _act_stats_case(x)
+    assert ops.route_counts()["act_stats"]["vector" if p.vector else "element"] == 2
+
+
+@pytest.mark.parametrize("M,K,dtype", [(16385, 2048, torch.float32),
+                                       (33000, 2048, torch.bfloat16)])
+def test_act_stats_kernel_streams_past_the_l2(gen, M, K, dtype):
+    """Inputs larger than the L2 take the evict-first loads, with the same
+    sums."""
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(dtype)
+    assert st.plan(*_plan_args(x)).stream
+    _act_stats_case(x)
+
+
+def _plan_args(x):
+    rows, _, so, si, K = st.row_layout(x)
+    return (rows, K, x.element_size(), x.data_ptr() % 16 == 0, so, si,
+            torch.cuda.get_device_properties(x.device).L2_cache_size)
 
 
 @pytest.mark.parametrize("B,T,K,gamma,dtype", [(2, 100, 33, 4, torch.float32),
                                                (2, 100, 36, 4, torch.float32),
                                                (3, 50, 64, 3, torch.bfloat16),
-                                               (8, 256, 2048, 4, torch.bfloat16)])
+                                               (8, 256, 2048, 4, torch.bfloat16),
+                                               (3, 51, 64, 4, torch.float32),
+                                               (2, 99, 2048, 4, torch.bfloat16),
+                                               (4, 75, 5632, 3, torch.float32)])
 def test_act_stats_kernel_reads_strided_rows(gen, B, T, K, gamma, dtype):
     """The sampling stride's rows x[:, ::gamma, :], read in place."""
     x = (3 * torch.randn((B, T, K), generator=gen, device="cuda")).to(dtype)
@@ -650,6 +689,18 @@ def test_act_stats_kernel_misaligned_base(gen):
     x = flat[1:].view(6, 64)                                # 4 bytes off 16
     assert x.data_ptr() % 16
     _act_stats_case(x)
+
+
+@pytest.mark.parametrize("M,K,dtype", [(6, 64, torch.float32), (300, 2048, torch.bfloat16),
+                                       (9, 5632, torch.float32)])
+def test_act_stats_kernel_column_slice_takes_the_element_route(gen, M, K, dtype):
+    """x[:, 1:] of a contiguous (M, K + 1): a base off 16 and an odd row
+    stride, read element by element."""
+    x = (3 * torch.randn((M, K + 1), generator=gen, device="cuda")).to(dtype)[:, 1:]
+    assert x.data_ptr() % 16 and not st.plan(*_plan_args(x)).vector
+    ops.reset_counts()
+    _act_stats_case(x)
+    assert ops.route_counts()["act_stats"] == {"vector": 0, "element": 2}
 
 
 def _affine(gen, M, N, per_channel, ties):
@@ -671,7 +722,8 @@ def _affine(gen, M, N, per_channel, ties):
     return x, s, z
 
 
-_AFFINE_SHAPES = [(1, 1), (5, 3), (64, 256), (300, 290), (2048, 2049)]
+_AFFINE_SHAPES = [(1, 1), (5, 3), (64, 256), (300, 290), (2048, 2049), (70000, 32),
+                  (65537, 33)]
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -692,6 +744,56 @@ def test_dequantize_kernel_matches_plain(gen, M, N, per_channel, out_dtype):
     q = torch.randint(-128, 128, (M, N), generator=gen, device="cuda", dtype=torch.int8)
     assert _same_bits(qz.dequantize_cuda(q, s, z, out_dtype),
                       qz.dequantize_plain(q, s, z, out_dtype))
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("M,N", [(64, 256), (16384, 2048), (300, 290), (2048, 2049),
+                                 (8, 12), (8, 24)])
+def test_quantize_kernel_routes(gen, M, N, per_channel):
+    """Each route the plan names (vector where N and the bases allow it,
+    wide for f32 per row past the L2, element by element at ragged N);
+    .5 ties at f32 and bf16, codes equal."""
+    l2 = torch.cuda.get_device_properties("cuda").L2_cache_size
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s, z = _affine(gen, M, N, per_channel, True)
+        x = x.to(dtype)
+        route = qz.plan(M, N, x.element_size(), per_channel, True, l2).route
+        ops.reset_counts()
+        assert torch.equal(qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z))
+        assert ops.route_counts()["quantize"][route] == 1
+
+
+def test_quantize_kernel_wide_route(gen):
+    """f32 per row larger than the L2: 16 columns a thread, evict-first;
+    codes equal, .5 ties and values past the int8 range included."""
+    M, N = 8192, 2048
+    l2 = torch.cuda.get_device_properties("cuda").L2_cache_size
+    assert M * N * 4 > l2 and qz.plan(M, N, 4, False, True, l2).route == "wide"
+    for ties in (False, True):
+        x, s, z = _affine(gen, M, N, False, ties)
+        ops.reset_counts()
+        assert torch.equal(qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z))
+        assert ops.route_counts()["quantize"]["wide"] == 1
+
+
+def test_quantize_kernel_codes_at_the_edges(gen):
+    """The fast codes against the float formula where they part: |x / s|
+    near and past 2^22, huge zero points, inf and the int8 clamp; NaN
+    (whose code the plain version leaves to the cast) takes the float
+    formula's code, -128."""
+    big = 2.0 ** 22
+    vals = torch.tensor([0.5, 1.5, -0.5, -2.5, 127.5, -128.5, 300.0, -300.0, big - 0.5,
+                         big - 1.5, big, big + 1, -big, 2 * big + 1, 1e30, -1e30,
+                         float("inf"), float("-inf"), 1e-30, -0.0], device="cuda")
+    x = vals.repeat(8, 4)[:, :64].contiguous()
+    for zr in (0, 5, -(2 ** 23) + 3, 2 ** 23, 2 ** 30, -(2 ** 31)):
+        s = torch.ones((8, 1), device="cuda")
+        z = torch.full((8, 1), zr, dtype=torch.int32, device="cuda")
+        assert torch.equal(qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z))
+    nan = torch.full((8, 64), float("nan"), device="cuda")
+    s, z = torch.ones((8, 1), device="cuda"), torch.zeros((8, 1), dtype=torch.int32,
+                                                          device="cuda")
+    assert bool((qz.quantize_cuda(nan, s, z) == -128).all())
 
 
 def test_quantize_kernels_misaligned_rows(gen):
