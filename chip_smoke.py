@@ -21,12 +21,21 @@ device="cuda")), and one path of ops-level calls on its weights (E):
      init fill included; D1 with the default
      pool (every slot can hold max_len), D2 with a pool small enough that
      decode growth preempts requests and spills them to host memory;
+  A16, D16  A and D1 with decode_steps=16: every dispatch runs a block of
+     16 model steps, sampling on the card (a row past its budget freezes),
+     and a paged dispatch gathers once and writes back each row's window of
+     pages once;
   E  the ops-level quantization entry points on path A's own PDQ records
      (layer 0's Q segment of the grouped QKV, wo and w_down) at 8 and 2048
      rows: ops.pdq_dense_unfused, the pre-fusion projection (K8 act_stats +
      K2's requant epilogue), ops.act_stats (also with the sampling stride
      gamma), ops.quantize (K9) and ops.dequantize (K10) of its output on its
      own grid, and the fused ops.pdq_dense (K1 + K2) beside it.
+
+On every path each decode dispatch is one replay of the engine's CUDA
+graph of its N-step block, captured once per engine (serve/decode_graph.py):
+one copy of the plan's rows in, the replay, one copy of the (8, N) tokens
+out.
 
 Phases, each of which must pass (any failure exits non-zero):
 
@@ -57,22 +66,28 @@ Phases, each of which must pass (any failure exits non-zero):
   3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
-                just before and read just after each run, every kernel of
+                just before and read just after each run (a replay adds what
+                its capture counted), every decode dispatch must have been a
+                graph replay, every kernel of
                 the path must have launched as often as its op was entered,
-                the census must hold exactly (K1's launches per mode too:
+                the census must hold exactly with N model steps a dispatch
+                (K1's launches per mode too:
                 QKV and gate/up with norm and interval, wo with the interval
                 where K5 does not run its prologue), every K2/K3 launch must have
                 taken the wgmma route, every K4/K5 launch the split route
                 and every K8/K9 launch the vector route (MAIN_ROUTE), and
                 the other paths' kernels must not have run; the runs go in
-                turns A B C C A D1 D2, so that A's and C's times compare
-                within one call; D1's and D2's greedy streams must equal
-                A's first run's, D1 must
+                turns A B C C A D1 D2 A16 D16, so that A's and C's times
+                compare within one call; D1's, D2's, A16's and D16's greedy
+                streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
-                restore;
-  4. profile  - torch.profiler over three decode steps of the full pool of
-                A, B, C and D1: device time per step, the device's idle share
-                of the serve phase's median step, the top kernels;
+                restore; per-token decode time and tokens/s of each run;
+  4. step     - on A, B, C and D1, one decode step of the full pool at
+                position 300 two ways on the same state, eager (ops
+                launched from the host) and a replay of the engine's
+                one-step graph, in five alternated pairs of three-step
+                windows: wall ms a step; then torch.profiler over a window
+                of each: device busy ms, kernels a step and idle share;
   5. parity   - on each path, one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
@@ -133,8 +148,13 @@ E_SPIN = 20_000_000       # E's device spin before each timed call, cycles (~10 
 E_PROFILED = 3            # unfused calls in E's profile of each case
 PAGE = 64                 # path D's page size
 D2_POOL_PAGES = 17        # D2's physical pages: 16 usable, 2 slots' worth
+N_BLOCK = 16              # A16's and D16's decode steps a dispatch
+STEP_POS = 300            # phase 4: the position every row decodes at
+STEP_PAIRS = 5            # phase 4: alternated (eager, graph) pairs
+STEP_RUNS = 3             # phase 4: steps a timed or profiled window
 
-# path: (int8_kv, quantize_weights, the kernels it must launch, paging)
+# path: (int8_kv, quantize_weights, the kernels it must launch, the other
+# ServeConfig fields: paging, decode_steps)
 _A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
               "decode_attend_i8kv_fused", "cache_scatter")
 # a paged pool moves every leaf with K7, its slot-row ``len`` included
@@ -147,7 +167,18 @@ PATHS = {
                         "cache_scatter"), {}),
     "D1": (True, True, _D_KERNELS, _PAGED),
     "D2": (True, True, _D_KERNELS, dict(_PAGED, pool_pages=D2_POOL_PAGES)),
+    "A16": (True, True, _A_KERNELS, dict(decode_steps=N_BLOCK)),
+    "D16": (True, True, _D_KERNELS, dict(_PAGED, decode_steps=N_BLOCK)),
 }
+
+
+def is_paged(path) -> bool:
+    return bool(PATHS[path][3].get("paged"))
+
+
+def block_of(path) -> int:
+    """A path's decode steps a dispatch (N)."""
+    return PATHS[path][3].get("decode_steps", 1)
 
 
 # K2/K3 rows also carry the generic route's time, torch._int_mm on the
@@ -969,21 +1000,24 @@ def make_requests(cfg, n=8, seed=0):
 
 def census(path, n, pre, dec, restores=0):
     """Op entries a serving run of ``path`` makes with ``n`` layers, ``pre``
-    prefill launches, ``dec`` decode steps and ``restores`` spill restores.
-    Per layer: prefill runs the prologue 3x, W8A8 3x and SwiGLU once with
-    PDQ weights; a decode step the same, except that with int8 KV and PDQ
-    the fused attend (once) takes the place of wo's prologue (7 launches:
-    tools/check_census.py's decode_int8kv).  Every pool movement is one
-    launch over all its leaves: a slot-row pool lands a round with one K6;
-    a paged pool lands a round, gathers, writes back and restores with one
-    K7 each (its flat ``len`` rides in the landing's and the restore's)."""
-    int8_kv, pdq, _, paging = PATHS[path]
+    prefill launches, ``dec`` decode dispatches of N = ``block_of(path)``
+    model steps each (every row runs every step of a block) and
+    ``restores`` spill restores.  Per layer: prefill runs the prologue 3x,
+    W8A8 3x and SwiGLU once with PDQ weights; a decode step the same,
+    except that with int8 KV and PDQ the fused attend (once) takes the
+    place of wo's prologue (7 launches: tools/check_census.py's
+    decode_int8kv).  Every pool movement is one launch over all its leaves:
+    a slot-row pool lands a round with one K6; a paged pool lands a round,
+    gathers and writes back a dispatch's block, and restores with one K7
+    each (its flat ``len`` rides in the landing's and the restore's)."""
+    int8_kv, pdq = PATHS[path][:2]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
                 cache_scatter=pre, cache_scatter_pages=0,
                 act_stats=0, quantize=0, dequantize=0)
-    if paging:
+    if is_paged(path):
         want.update(cache_scatter=0, cache_scatter_pages=pre + 2 * dec + restores)
+    dec *= block_of(path)
     if pdq:
         want.update(pdq_prologue=n * (3 * pre + (2 if int8_kv else 3) * dec),
                     w8a8_matmul=3 * n * (pre + dec), w8a8_swiglu_matmul=n * (pre + dec))
@@ -998,6 +1032,7 @@ def prologue_mode_census(path, n, pre, dec):
     decode step; wo takes the interval alone at prefill, and at decode too
     with the fp KV cache (with int8 KV its prologue runs in K5)."""
     int8_kv, pdq = PATHS[path][:2]
+    dec *= block_of(path)
     want = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
     if pdq:
         want.update({"norm+interval": 2 * n * (pre + dec),
@@ -1044,6 +1079,10 @@ def phase_serve(eng, path):
         need((c["launches"] > 0) == (name in PATHS[path][2]),
              f"{path}: {name} launched {c['launches']} times")
     st = eng.stats
+    # every decode dispatch replayed the engine's graph, captured once
+    need(st["graph_replays"] == st["decode_steps"],
+         f"{path}: {st['graph_replays']} graph replays, {st['decode_steps']} decode "
+         f"dispatches")
     want = census(path, eng.cfg.n_layers, st["prefill_batches"], st["decode_steps"],
                   st.get("spill_restores", 0))
     got = {k: c["entries"] for k, c in counts.items()}
@@ -1055,7 +1094,7 @@ def phase_serve(eng, path):
     need(modes == want_modes, f"{path}: K1 launches per mode {modes}, census {want_modes}")
     need(st["completed"] == len(reqs) and st["failed"] == 0,
          f"not every request completed: {st}")
-    if PATHS[path][3]:
+    if is_paged(path):
         # COW copies would move pages outside the census; none is expected
         # (only full prompt pages are shared)
         need(st["cow_copies"] == 0, f"{path}: {st['cow_copies']} COW copies")
@@ -1072,13 +1111,18 @@ def phase_serve(eng, path):
     steps = sorted(dec)
     log(f"serve {path}: prefill launches {len(pre)} total {sum(pre):.3f} s "
         f"({eng.stats['prefill_tokens']} prompt tokens, "
-        f"{eng.stats['prefill_padded_tokens']} padded); decode steps "
-        f"{len(dec)} median {steps[len(steps) // 2] * 1e3:.2f} ms, "
-        f"{decode_tps:.1f} tokens/s over {eng.stats['decode_tokens']} tokens")
+        f"{eng.stats['prefill_padded_tokens']} padded); decode dispatches of "
+        f"{block_of(path)} steps {len(dec)} median {steps[len(steps) // 2] * 1e3:.2f} ms, "
+        f"{decode_tps:.1f} tokens/s ({1e3 / decode_tps:.3f} ms a token) over "
+        f"{eng.stats['decode_tokens']} tokens; graph captured in "
+        f"{eng._graph.capture_s:.2f} s, pool {eng._graph.pool_bytes / 2**20:.1f} MiB")
     return counts, dict(wall_s=wall, prefill_s=sum(pre), prefill_launches=len(pre),
-                        prologue_modes=modes,
+                        prologue_modes=modes, decode_steps_per_dispatch=block_of(path),
                         decode_step_median_ms=steps[len(steps) // 2] * 1e3,
-                        decode_tokens_per_s=decode_tps, stats=eng.stats,
+                        decode_tokens_per_s=decode_tps,
+                        decode_ms_per_token=1e3 / decode_tps,
+                        graph_capture_s=eng._graph.capture_s,
+                        graph_pool_bytes=eng._graph.pool_bytes, stats=eng.stats,
                         streams={r.uid: list(r.generated) for r in reqs})
 
 
@@ -1099,53 +1143,89 @@ def device_rows(prof, per):
     return rows
 
 
-def phase_profile(eng, path, step_ms, steps=3):
-    """Where a decode step's time goes: torch.profiler over ``steps``
-    decode steps of the full pool at position 300 (on a paged pool: the
-    gather, the step and the write-back, every slot holding pages up to
-    its frontier).  Device busy time per step is the sum of the CUDA
-    kernels' time; the idle share compares it with the serve phase's
-    unprofiled median step (``step_ms``), since the profiler itself slows
-    the host.  Reports null device numbers if the profiler records no
-    kernels."""
+def phase_step(eng, path, serve_step_ms):
+    """Phase 4: one decode step of the full pool at position STEP_POS (on a
+    paged pool every slot holding pages up to its frontier), two ways on
+    the same state: ``eager`` - the engine's one-step block (the step and
+    its sampling) run as ops launched from the host, as every decode ran
+    before the graph - and ``graph``, a replay of the engine's captured
+    one-step graph.  On a paged pool both gather into the engine's scratch
+    first and write the page back after; both end in the tokens' copy to
+    the host.  STEP_PAIRS alternated pairs of STEP_RUNS-step windows (eager
+    first, then graph first, and so on) give the wall ms a step; then
+    torch.profiler over one window of each gives the device busy ms and
+    kernels a step, and the idle share is 1 - busy / median wall.  Device
+    numbers are null if the profiler records no kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    need(block_of(path) == 1, f"{path}: phase 4 compares one-step blocks")
     B = eng.slots
-    tok = torch.zeros((B, 1), dtype=torch.int32, device=eng.device)
-    pos = torch.full((B, 1), 300, dtype=torch.int32, device=eng.device)
-    if eng.paged:
-        po, n_pp = eng._paged_ops, eng.n_pp
-        pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
-        pos_np = np.full((B, 1), 300, np.int32)
+    rows = (np.zeros(B, np.int32), np.full(B, STEP_POS, np.int32),
+            np.arange(B, dtype=np.int32), np.zeros(B, np.int32), np.ones(B, np.int32))
+    t = [torch.as_tensor(a, device=eng.device) for a in rows]
+    caches = eng._logical if eng.paged else eng.caches
+    po = eng._paged_ops if eng.paged else None
+    pt = (1 + np.arange(B * eng.n_pp, dtype=np.int32)).reshape(B, -1) if eng.paged else None
 
+    def around(fn):
         def step():
-            logical = po.gather(eng.caches, pt, pos_np[:, 0])
-            eng.bundle.decode_step(eng.params, logical, tok, pos)
-            po.writeback(eng.caches, logical, pt, pos_np)
-    else:
-        def step():
-            eng.bundle.decode_step(eng.params, eng.caches, tok, pos)
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+            if po is not None:
+                po.gather(eng.caches, pt, rows[1], out=caches)
+            fn()
+            if po is not None:
+                po.writeback(eng.caches, caches, pt, rows[1][:, None], n_steps=rows[4])
+        return step
+
+    variants = {
+        "eager": around(lambda: eng._block(caches, t[0][:, None], t[1][:, None],
+                                           *t[2:])[0].cpu()),
+        "graph": around(lambda: eng._graph(*rows)),
+    }
+
+    def window(fn):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = device_rows(prof, steps)
-    busy_ms = sum(r[0] for r in rows)
-    top = [dict(kernel=k[:70], ms=ms, launches=n) for ms, k, n, _ in rows[:10]]
-    out = dict(step_ms=step_ms, step_ms_under_profiler=wall_ms,
-               kernels_per_step=sum(r[2] for r in rows),
-               device_busy_ms=busy_ms if rows else None,
-               device_idle_share=(1 - busy_ms / step_ms) if rows else None,
-               top_kernels=top)
-    log(f"profile {path}: {json.dumps(out)}")
-    # every device row (kernels and copies), for chiprun_out/chip_smoke.json
-    out["all_device_rows"] = [dict(kernel=k[:120], ms=ms, launches=n, recorded=c)
-                              for ms, k, n, c in rows]
+        t0 = time.perf_counter()
+        for _ in range(STEP_RUNS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STEP_RUNS
+
+    for fn in variants.values():
+        fn()
+    walls = {k: [] for k in variants}
+    for i in range(STEP_PAIRS):
+        for name in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            walls[name].append(window(variants[name]))
+    out = dict(serve_step_ms=serve_step_ms)
+    for name, fn in variants.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_RUNS):
+                fn()
+            torch.cuda.synchronize()
+        rows_ = device_rows(prof, STEP_RUNS)
+        busy = sum(r[0] for r in rows_)
+        wall = sorted(walls[name])[STEP_PAIRS // 2]
+        out[name] = dict(wall_ms=walls[name], wall_ms_median=wall,
+                         device_busy_ms=busy if rows_ else None,
+                         device_idle_share=(1 - busy / wall) if rows_ else None,
+                         kernels_per_step=sum(r[2] for r in rows_),
+                         top_kernels=[dict(kernel=k[:70], ms=ms, launches=n)
+                                      for ms, k, n, _ in rows_[:8]],
+                         all_device_rows=[dict(kernel=k[:120], ms=ms, launches=n,
+                                               recorded=c) for ms, k, n, c in rows_])
+    g, e = out["graph"], out["eager"]
+    out["speedup"] = e["wall_ms_median"] / g["wall_ms_median"]
+    if g["device_busy_ms"] is not None:
+        out["serve_step_idle_share"] = 1 - g["device_busy_ms"] / serve_step_ms
+    log(f"step {path}: " + json.dumps({
+        **{k: {kk: v[kk] for kk in ("wall_ms", "wall_ms_median", "device_busy_ms",
+                                    "device_idle_share", "kernels_per_step",
+                                    "top_kernels")} for k, v in out.items()
+           if k in variants},
+        "speedup": out["speedup"], "serve_step_ms": serve_step_ms,
+        "serve_step_idle_share": out.get("serve_step_idle_share")}))
     return out
 
 
@@ -1359,16 +1439,23 @@ def phase_unfused(recs):
     return counts, rows
 
 
-def check_paged_run(path, run, ref_run):
-    """D1/D2 against A's first run: the same greedy streams, request for
-    request (prefill runs at (slots, bucket) whatever the pool, and every
-    decode op is row-independent, so the pool's layout must not move a
-    token); D1 shares the system prompt's pages, D2 preempts, spills every
-    victim to host memory and restores it."""
-    st = run["stats"]
+def check_streams(path, run, ref_run):
+    """A run's greedy streams equal A's first run's, request for request
+    (prefill runs at (slots, bucket) whatever the pool or the block, and
+    every decode op is row-independent, so neither the pool's layout nor
+    the steps a dispatch may move a token)."""
     for uid, toks in ref_run["streams"].items():
         need(run["streams"][uid] == toks,
              f"{path}: request {uid} stream {run['streams'][uid]} differs from A's {toks}")
+    log(f"serve {path}: streams equal A's")
+
+
+def check_paged_run(path, run, ref_run):
+    """D1/D2/D16 against A's first run: the same greedy streams
+    (``check_streams``); each shares the system prompt's pages, D2
+    preempts, spills every victim to host memory and restores it."""
+    st = run["stats"]
+    check_streams(path, run, ref_run)
     need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
     if path == "D2":
         need(st["preemptions"] >= 1 and st["spill_restores"] >= 1,
@@ -1410,25 +1497,28 @@ def main(argv=None) -> int:
     params = build_model(cfg, "cuda").init(0)
 
     def engine(path):
-        int8_kv, pdq, _, paging = PATHS[path]
+        int8_kv, pdq, _, extra = PATHS[path]
         t0 = time.perf_counter()
         eng = build_engine(ServeConfig(arch="stablelm-1.6b", reduced=False, slots=8,
                                        max_len=512, int8_kv=int8_kv,
-                                       quantize_weights=pdq, device="cuda", **paging),
+                                       quantize_weights=pdq, device="cuda", **extra),
                            cfg=cfg, params=params)
         torch.cuda.synchronize()
         log(f"model {path}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
             f"{cfg.dtype}, {'PDQ-int8' if pdq else 'bf16'} weights, "
             f"{'int8' if int8_kv else 'bf16'} KV cache, "
             f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
-            f"built in {time.perf_counter() - t0:.1f} s")
+            f"{eng.decode_steps} decode steps a dispatch, built in "
+            f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
+            f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB)")
         return eng
 
     # A and C serve twice, in turns A (B) C C A, so that their end-to-end
     # times compare within this call whatever the host's warm-up costs; then
-    # the paged pool at parity (D1) and under pressure (D2)
+    # the paged pool at parity (D1) and under pressure (D2); then A and D1
+    # at 16 decode steps a dispatch
     serve, counts, parity = {}, {}, {}
-    for path in ("A", "B", "C", "C", "A", "D1", "D2"):
+    for path in ("A", "B", "C", "C", "A", "D1", "D2", "A16", "D16"):
         eng = engine(path)
         if path == "A" and not serve:
             rows, detail = phase_kernels(eng)
@@ -1437,17 +1527,21 @@ def main(argv=None) -> int:
         if path not in counts:
             counts[path] = c
             if path in ("A", "B", "C", "D1"):
-                run["profile"] = phase_profile(eng, path, run["decode_step_median_ms"])
+                run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
             if path in ("A", "B", "C"):
                 parity[path] = phase_parity(eng, path)
-        if path in ("D1", "D2"):
+        if path in ("D1", "D2", "D16"):
             check_paged_run(path, run, serve["A"][0])
+        if path == "A16":
+            check_streams(path, run, serve["A"][0])
         serve.setdefault(path, []).append(run)
         del eng
         torch.cuda.empty_cache()
     for path, runs in serve.items():
-        log(f"serve {path}: decode step median per run "
-            f"{[r['decode_step_median_ms'] for r in runs]} ms, prefill per run "
+        log(f"serve {path}: decode dispatch median per run "
+            f"{[r['decode_step_median_ms'] for r in runs]} ms, per token "
+            f"{[r['decode_ms_per_token'] for r in runs]} ms, tokens/s "
+            f"{[r['decode_tokens_per_s'] for r in runs]}, prefill per run "
             f"{[r['prefill_s'] for r in runs]} s")
     # path E: the unfused projection and the standalone quantization ops
     counts["E"], unfused = phase_unfused(recs)

@@ -53,12 +53,51 @@ COUNTS = {
 }
 
 
-def reset_counts() -> None:
+def _count_cells():
+    """(owner, key) of every count: each op's entries and launches, each
+    route's and each K1 mode's launches."""
     for c in COUNTS.values():
-        c.entries = c.launches = 0
+        yield c.__dict__, "entries"
+        yield c.__dict__, "launches"
     for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values(), *_as.ROUTES.values(),
               *_qz.ROUTES.values(), _pro.MODES):
-        r.update(dict.fromkeys(r, 0))
+        yield from ((r, k) for k in r)
+
+
+def reset_counts() -> None:
+    for d, k in _count_cells():
+        d[k] = 0
+
+
+def count_state() -> list[int]:
+    """Every count as one flat list (``_count_cells`` order): what a
+    captured graph compares before and after its capture."""
+    return [d[k] for d, k in _count_cells()]
+
+
+def set_counts(state) -> None:
+    """Put back a ``count_state``: capture and warm-up leave the counts as
+    they found them."""
+    for (d, k), v in zip(_count_cells(), state, strict=True):
+        d[k] = v
+
+
+def add_counts(delta) -> None:
+    """Add a ``count_state`` difference: each replay of a captured graph
+    adds what its capture counted, so the counts still say what ran."""
+    for (d, k), v in zip(_count_cells(), delta, strict=True):
+        d[k] += v
+
+
+def persistent_buffers() -> list:
+    """The kernels' device buffers that outlive a call (K2/K3's split-K
+    workspace, tickets and grid barrier; K4/K5's split workspace and
+    tickets).  A module replaces one when a later call needs it larger and
+    drops the old one; a captured graph keeps this list, so the buffers it
+    launches on are never freed under it (each is zero at rest, so the
+    graph and eager calls may use different ones)."""
+    return [*_mm._WS.values(), *_mm._TICKETS.values(), *_kv._WS.values(),
+            *_kv._TICKETS.values()]
 
 
 def counts() -> dict[str, dict[str, int]]:

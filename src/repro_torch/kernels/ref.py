@@ -102,10 +102,11 @@ def grid_extent(s_out, z_out):
     return (-128.0 - z_out) * s_out, (127.0 - z_out) * s_out
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _block_index(blocks: tuple, device: torch.device):
     """Segment index of every 128-column block: segment i spans blocks[i]
-    blocks.  Built once per layout and device."""
+    blocks.  Built once per layout and device and never dropped: a captured
+    decode graph reads it."""
     idx = np.repeat(np.arange(len(blocks)), blocks)
     return torch.as_tensor(idx, device=device)
 

@@ -76,14 +76,14 @@ class PagedCacheOps:
     n_pp: int            # page-table width: max_len // page
     meta: Any            # cache-shaped tree of _PageMeta
     init: Callable[..., Any]       # (n_pages, device=None) -> physical pool tree
-    gather: Callable[..., Any]     # (pool, pt, lengths) -> logical caches
-    writeback: Callable[..., Any]  # (pool, logical, pt, positions) -> pool
+    gather: Callable[..., Any]     # (pool, pt, lengths, out=None) -> logical caches
+    writeback: Callable[..., Any]  # (pool, logical, pt, positions, n_steps, max_steps) -> pool
     land: Callable[..., Any]       # (pool, sub, src_map, rows, js) -> pool
     copy: Callable[..., Any]       # (pool, copy_map) -> pool (COW)
     capture: Callable[..., Any]    # (pool, slot, page_ids) -> host record
     restore: Callable[..., Any]    # (pool, rec, pmap, src_map) -> pool
-    gather_moves: Callable[..., Any]     # (pool, pt, lengths) -> (logical, moves)
-    writeback_moves: Callable[..., Any]  # (pool, logical, pt, positions) -> moves
+    gather_moves: Callable[..., Any]     # (pool, pt, lengths, out=None) -> (logical, moves)
+    writeback_moves: Callable[..., Any]  # (pool, logical, pt, positions, ...) -> moves
 
 
 _SECTIONS = (("head", 0), ("tail", 0), ("blocks", 1))
@@ -235,10 +235,13 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 return torch.zeros(tuple(shape), dtype=m.dtype, device=device or dev)
             return _tree_map(one, meta)
 
-        def gather_moves(pool, pt, lengths):
-            """The gather's movement: a fresh logical tree on the pool's
-            device (``torch.empty``; flat leaves are the pool's own tensors)
-            and its moves, one a paged leaf, each with its init fill."""
+        def gather_moves(pool, pt, lengths, out=None):
+            """The gather's movement: a logical tree on the pool's device
+            and its moves, one a paged leaf, each with its init fill.  The
+            paged leaves are ``out``'s (a logical tree this gather made
+            before, which the caller keeps: a captured decode graph reads
+            fixed pointers) or fresh ``torch.empty`` ones; flat leaves are
+            the pool's own tensors."""
             pt = np.asarray(pt, np.int32)
             B = pt.shape[0]
             keep = np.arange(n_pp)[None, :] * page < np.asarray(lengths)[:, None]
@@ -250,49 +253,71 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 maps[nl] = g.reshape(B * nl)
             moves = []
 
-            def one(m, pool_leaf, *, ba):
+            def one(m, pool_leaf, lg, *, ba):
                 if not paged(m):
                     return pool_leaf
                 shape = list(m.shape)
                 shape[ba] = B
-                out = torch.empty(shape, dtype=m.dtype, device=pool_leaf.device)
-                moves.append(Move(out, pool_leaf, None, m.seq_axis, page, ba,
+                if lg is None:
+                    lg = torch.empty(shape, dtype=m.dtype, device=pool_leaf.device)
+                elif tuple(lg.shape) != tuple(shape) or lg.dtype != m.dtype:
+                    raise ValueError(f"gather out leaf {tuple(lg.shape)} {lg.dtype}, "
+                                     f"expected {tuple(shape)} {m.dtype}")
+                moves.append(Move(lg, pool_leaf, None, m.seq_axis, page, ba,
                                   fill=m.fill, host_map=maps[m.n_leaf]))
-                return out
-            return _tree_map(one, meta, pool), moves
+                return lg
+            if out is None:
+                return _tree_map(lambda m, p, *, ba: one(m, p, None, ba=ba),
+                                 meta, pool), moves
+            return _tree_map(one, meta, pool, out), moves
 
-        def gather(pool, pt, lengths):
-            """Physical pages -> a fresh (B, ...) logical tree the decode
-            step runs on in place.  pt (B, n_pp) page tables and lengths
-            (B,) written tokens per row, numpy.  -1 entries, pages at or
-            beyond the write frontier and a leaf's pages past n_pp gather
-            nothing: the kernel writes them with the leaf's INIT element.
-            Flat leaves are the pool's own tensors, so the decode step's
-            writes to them land in the pool."""
-            logical, moves = gather_moves(pool, pt, lengths)
+        def gather(pool, pt, lengths, out=None):
+            """Physical pages -> a (B, ...) logical tree the decode step
+            runs on in place: ``out``'s paged leaves, or fresh ones.  pt (B,
+            n_pp) page tables and lengths (B,) written tokens per row,
+            numpy.  -1 entries, pages at or beyond the write frontier and a
+            leaf's pages past n_pp gather nothing: the kernel writes them
+            with the leaf's INIT element.  Flat leaves are the pool's own
+            tensors, so the decode step's writes to them land in the
+            pool."""
+            logical, moves = gather_moves(pool, pt, lengths, out)
             kernel_ops.cache_move(moves)
             return logical
 
-        def writeback_moves(pool, logical, pt, positions):
+        def writeback_moves(pool, logical, pt, positions, n_steps=None,
+                            max_steps: int = 1):
             """The write-back's moves, one a paged leaf: each row's
-            decode-written page (the one holding position ``positions[b,
-            0]``) back into the pool.  Whole pages are written, so a
-            recycled page comes back fully cleaned (init fill past the last
-            written token: the gather laundered it).  Free slots (-1 table
-            entries) land on the write-only DUMP page 0; repeated targets
-            there are last-write-wins in the numpy map, as in JAX, and page
-            0 is never read."""
+            decode-written pages back into the pool - the pages holding
+            positions ``positions[b, 0]`` through ``positions[b, 0] +
+            n_steps[b] - 1`` (an N-step block's; ``n_steps`` None: one
+            step).  ``max_steps``, the block bound, fixes each row's window
+            at ``W = (max_steps + page - 2) // page + 1`` candidate pages, as
+            in the reference.  Whole pages are written, so a recycled page
+            comes back fully cleaned (init fill past the last written
+            token: the gather laundered it).  Free slots (-1 table entries)
+            and candidates past a row's last page land on the write-only
+            DUMP page 0; repeated targets there are last-write-wins in the
+            numpy map (candidate by candidate, row by row), as in JAX, and
+            page 0 is never read."""
             pt = np.asarray(pt, np.int32)
             B = pt.shape[0]
-            j = np.clip(np.asarray(positions)[:, 0] // page, 0, n_pp - 1)
-            ent = pt[np.arange(B), j]
-            tgt = np.where(ent > 0, ent, 0)
+            rows = np.arange(B)
+            p0 = np.asarray(positions)[:, 0]
+            j0 = np.clip(p0 // page, 0, n_pp - 1)
+            j1 = j0 if n_steps is None else np.clip(
+                (p0 + np.maximum(np.asarray(n_steps), 1) - 1) // page, 0, n_pp - 1)
+            W = (int(max_steps) + page - 2) // page + 1
             N = next(pool[sec][i][k].shape[ba] for ba, (sec, i, k), m in _leaves(meta)
                      if paged(m))
             maps = {}
             for nl in n_leaves:
                 w = np.full((N,), -1, np.int32)
-                w[tgt] = np.arange(B) * nl + j
+                for c in range(W):
+                    jb = np.minimum(j0 + c, n_pp - 1)
+                    valid = j0 + c <= j1
+                    ent = pt[rows, jb]
+                    w[np.where(valid & (ent > 0), ent, 0)] = np.where(
+                        valid, rows * nl + jb, -1)
                 maps[nl] = w
             moves = []
 
@@ -303,11 +328,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
             _tree_map(one, meta, pool, logical)
             return moves
 
-        def writeback(pool, logical, pt, positions):
-            """Scatter each row's decode-written page back into the pool
+        def writeback(pool, logical, pt, positions, n_steps=None, max_steps: int = 1):
+            """Scatter each row's decode-written pages back into the pool
             (``writeback_moves``), in one launch; flat leaves are the pool's
             own rows already."""
-            kernel_ops.cache_move(writeback_moves(pool, logical, pt, positions))
+            kernel_ops.cache_move(writeback_moves(pool, logical, pt, positions,
+                                                  n_steps, max_steps))
 
             def flat(m, pool_leaf, lg, *, ba):
                 if not paged(m) and lg is not pool_leaf:   # flat state IS the new rows

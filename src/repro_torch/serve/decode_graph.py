@@ -1,0 +1,112 @@
+"""One decode block captured as a CUDA graph (the port's counterpart of the
+reference's jitted ``lax.scan`` block, ``repro/serve/engine.py``).
+
+``DecodeGraph`` captures ``block(caches, tokens, positions, uids, steps,
+n_steps) -> (toks (B, N) int32, ok (B, N) bool)`` - ``engine.decode_scan``
+over the engine's N - once, over fixed buffers: the five (B,) inputs in one
+int32 device tensor, the cache tree the engine decodes in place (the
+slot-row pool, or the paged engine's persistent logical scratch), and the
+(2, B, N) int32 output.  A dispatch is then one host-to-device copy of the
+inputs from a pinned staging buffer, one ``replay()`` and one
+device-to-host copy of the output.
+
+Before the capture the block runs once eagerly on a side stream over a
+scratch tree of the same shapes (``warm_caches``): that builds and loads
+the kernels, sets their launch attributes and allocates the kernels'
+persistent buffers (``ops.persistent_buffers``) at the sizes the block
+needs, all of which capture forbids.  The warm-up writes only the scratch,
+and a capture runs nothing, so the engine's pool is left as it was.
+
+The kernels' counts are host integers, which a replay does not touch.
+Warm-up and capture leave them as they found them; the graph keeps what its
+capture counted and adds it on every replay, so ``ops.counts()`` still says
+what ran on the card.
+
+A capture that fails raises: there is no eager fallback.
+"""
+from __future__ import annotations
+
+import gc
+import time
+
+import torch
+
+from repro_torch.kernels import ops
+
+INPUTS = ("tokens", "positions", "uids", "steps", "n_steps")
+
+
+def _warm_up(body, caches, device) -> None:
+    """Run ``body(caches)`` once on a side stream and wait for it."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body(caches)
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+def _capture(body, caches, device):
+    """(graph, output, seconds, pool bytes): ``body(caches)`` captured and
+    instantiated, its output a tensor of the graph's private pool, the time
+    of capture and instantiation, and the memory the pool reserved.
+
+    Python's cycle collector is off during the capture (``torch.cuda.graph``
+    collects once as it starts): an engine dropped earlier lives in
+    reference cycles, and collecting it mid-capture destroys its graph and
+    frees its pinned staging buffer, which invalidates the capture."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            reserved = torch.cuda.memory_reserved(device)
+            out = body(caches)
+    finally:
+        if collecting:
+            gc.enable()
+    torch.cuda.synchronize(device)
+    return (graph, out, time.perf_counter() - t0,
+            torch.cuda.memory_reserved(device) - reserved)
+
+
+class DecodeGraph:
+    """One decode block over ``caches``, captured once; call it with the
+    plan's five (B,) numpy rows to replay it (see the module note)."""
+
+    def __init__(self, block, caches, warm_caches, rows: int, device):
+        dev = torch.device(device)
+        self.inputs = torch.zeros((len(INPUTS), rows), dtype=torch.int32, device=dev)
+        self.staging = torch.zeros((len(INPUTS), rows), dtype=torch.int32,
+                                   pin_memory=dev.type == "cuda")
+
+        def body(c):
+            tok, pos, uids, steps, n_steps = self.inputs.unbind(0)
+            toks, ok = block(c, tok[:, None], pos[:, None], uids, steps, n_steps)
+            return torch.stack((toks, ok.to(torch.int32)))
+
+        before = ops.count_state()
+        _warm_up(body, warm_caches, dev)
+        ops.set_counts(before)
+        self.graph, self.out, self.capture_s, self.pool_bytes = _capture(body, caches, dev)
+        self.delta = [a - b for a, b in zip(ops.count_state(), before)]
+        ops.set_counts(before)
+        # the buffers the capture launched on stay alive with the graph
+        self.buffers = ops.persistent_buffers()
+
+    def __call__(self, tokens, positions, uids, steps, n_steps):
+        """Replay the block on the plan's rows; returns numpy (toks (B, N)
+        int32, ok (B, N) bool)."""
+        stage = self.staging.numpy()
+        for i, a in enumerate((tokens, positions, uids, steps, n_steps)):
+            stage[i] = a
+        self.inputs.copy_(self.staging, non_blocking=True)
+        self.graph.replay()
+        ops.add_counts(self.delta)
+        out = self.out.cpu().numpy()
+        return out[0], out[1].astype(bool)
+
+
+__all__ = ["DecodeGraph", "INPUTS"]

@@ -1,52 +1,133 @@
 """Single-device serving engine (port of ``repro/serve/engine.py``).
 
 The scheduler - bucketed batched prefill, continuous batching over a fixed
-slot pool, request isolation, ``stats`` - is ``serve/core.py``, copied
-from the reference unchanged.  This class binds its plans to the port's
-model bundle on one device:
+slot pool, request isolation, N-step decode budgets, ``stats`` - is
+``serve/core.py``, copied from the reference unchanged.  This class binds
+its plans to the port's model bundle on one device:
 
   * ``_exec_prefill``: one ``prefill_many`` over a fresh prefill pool, then
     ``_land_sub`` lands the rows into the serving pool in place (one
     ``cache_scatter`` launch for every cache leaf);
-  * ``_exec_decode``: one ``decode_step`` over the whole pool, in place;
-  * ``_sample_rows``: greedy argmax over float32 logits (first index on
-    ties, as JAX), or temperature sampling.
+  * ``_exec_decode``: one block of ``decode_steps`` (N) model steps over the
+    whole pool, in place (``decode_scan``), sampling on the device inside
+    each step.  On the card the block is a CUDA graph captured once per
+    engine (``serve/decode_graph.py``), so a dispatch is one copy of the
+    plan's rows in, one replay and one copy of the (B, N) tokens out; every
+    decode dispatch replays it, N = 1 included.  On the CPU the block runs
+    eagerly.
 
 With ``paged=True`` the pool is a physical page pool (``bundle.paged_cache``
 ops; the allocator, prefix sharing, preemption and spill bookkeeping are
-the copied core's): prefill lands page-wise through the plan's land maps,
-each decode step gathers the live rows' pages into a fresh logical scratch,
-runs the same ``decode_step`` on it and writes each row's frontier page
-back, and the COW copy, spill capture and restore move pages; each such
-movement is one launch of the page scatter (K7) over every leaf.
+the copied core's): prefill lands page-wise through the plan's land maps;
+a decode dispatch gathers the live rows' pages into the engine's
+persistent logical scratch, runs the block on it and writes each row's
+window of written pages back (``writeback(..., n_steps, max_steps=N)``);
+the COW copy, spill capture and restore move pages.  Each such movement is
+one launch of the page scatter (K7) over every leaf, outside the graph.
 
 With ``quantize_weights=True`` every layer's projections run PDQ int8
 (``models.linops.quantize_param_tree``), which is what the reference's
 engine documents; the reference itself leaves its stacked blocks in fp
 (ROADMAP.md Queue 3).
 
-Temperature sampling draws from a ``torch.Generator`` seeded per (seed,
-uid, step), so a request's stream does not depend on which launch sampled
-it.  It does not reproduce JAX's threefry streams; greedy decoding is the
-contract between the two packages.
+Temperature sampling is Gumbel-max over a counter-based hash of (seed,
+uid, step, vocab index) (``sample``), so a request's stream depends only
+on (seed, uid, prompt, step) - not on the batch, N or the dispatch.  It
+does not reproduce JAX's threefry streams; greedy decoding is the contract
+between the two packages.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.distributed.fault import FaultInjector
+from repro_torch.kernels.ref import true_div
 from repro_torch.models import build_model
 from repro_torch.models.linops import quantize_param_tree
 
 from . import telemetry as tmod
 from .core import DEFAULT_BUCKETS, DecodePlan, PrefillPlan, Request, SchedulerCore
+from .decode_graph import DecodeGraph
 from .pages import SpillRecord
 
-__all__ = ["DECODE_PAD", "DEFAULT_BUCKETS", "Request", "ServeEngine"]
+__all__ = ["DECODE_PAD", "DEFAULT_BUCKETS", "Request", "ServeEngine", "decode_scan",
+           "sample"]
 
-# token-block entry of a row that consumed no decode step (a free slot)
+# token-block entry of a step a row did not consume (its budget ran out
+# before the block did, or a free slot); token ids are non-negative
 DECODE_PAD = -1
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply, lowbias32's shape with
+    multipliers below 2**31) of 32-bit values held in int64, or of a
+    Python int: no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def sample(logits, uids, steps, *, temperature: float, seed: int):
+    """Per-row next token (int32) and all-finite flag of ``logits`` (B, V),
+    from (B,) ``uids`` and ``steps``; plain tensor ops, so a captured graph
+    holds it.  Greedy (``temperature <= 0``) is ``argmax``, the first index
+    on ties.  Otherwise Gumbel-max: ``argmax(logits / T + g)`` with ``g =
+    -log(-log(u))`` and ``u`` a uniform in (0, 1) from a counter-based hash
+    of (seed, uid, step, vocab index), so a draw depends on those alone:
+    not on the row, the batch, N or the dispatch."""
+    ok = torch.isfinite(logits).all(-1)
+    if temperature <= 0.0:
+        return logits.argmax(-1).to(torch.int32), ok
+    key = _mix32((uids.long() & _M32) ^ _mix32(int(seed) & _M32))
+    key = _mix32(key ^ (steps.long() & _M32))
+    vocab = torch.arange(logits.shape[-1], dtype=torch.int64, device=logits.device)
+    bits = _mix32(key[:, None] ^ vocab)
+    u = ((bits >> 8).float() + 0.5) * 2.0 ** -24
+    g = -torch.log(-torch.log(u))
+    return (true_div(logits.float(), float(temperature)) + g).argmax(-1).to(torch.int32), ok
+
+
+def decode_scan(step_fn, sample_fn, n_block: int):
+    """The N-step decode block (the reference's ``lax.scan`` body, as a
+    loop): ``n_block`` calls of ``step_fn(caches, tok, pos)`` carrying
+    (caches, token, position) on the device, ``sample_fn(logits, uids,
+    steps + t)`` inside each step.
+
+    Per-row budgets ride in ``n_steps``: a row past its budget FREEZES - it
+    re-feeds its last token at its last position (rewriting one cache
+    position with identical content, a bit-exact no-op) and emits
+    ``DECODE_PAD`` with ok=True, so every row runs every step.
+
+    Returns ``run(caches, tokens (B, 1), positions (B, 1), uids, steps,
+    n_steps) -> (toks (B, N) int32, ok (B, N) bool)``; ``caches`` are
+    updated in place.
+    """
+    def run(caches, tokens, positions, uids, steps, n_steps):
+        tok, pos, toks, oks = tokens, positions, [], []
+        for t in range(n_block):
+            logits, caches = step_fn(caches, tok, pos)
+            nxt, okt = sample_fn(logits, uids, steps + t)
+            act = t < n_steps
+            toks.append(torch.where(act, nxt, DECODE_PAD))
+            oks.append(okt | ~act)
+            tok = torch.where(act, nxt, tok[:, 0]).to(tokens.dtype)[:, None]
+            pos = torch.where(act, pos[:, 0] + 1, pos[:, 0])[:, None]
+        return torch.stack(toks, 1).to(torch.int32), torch.stack(oks, 1)
+
+    return run
+
+
+def _graphed(device: torch.device) -> bool:
+    """Whether the engine decodes through a captured graph: on the card
+    always, on the CPU never."""
+    return device.type == "cuda"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -76,7 +157,6 @@ class ServeEngine(SchedulerCore):
         for on, what, item in (
                 (not batch_prefill, "the per-request prefill baseline", "9"),
                 (chunked_prefill, "chunked prefill", "6"),
-                (decode_steps != 1, "decode_steps > 1", "4"),
                 (pdq_fallback, "the guarded PDQ fallback", "5")):
             if on:
                 raise not_ported(what, item)
@@ -92,7 +172,7 @@ class ServeEngine(SchedulerCore):
         self._init_scheduler(
             slots=slots, n_replicas=1, max_len=max_len, patch_tokens=0,
             buckets=buckets, batch_prefill=True, chunked_prefill=False,
-            decode_steps=1, fault=fault, tel=tel)
+            decode_steps=decode_steps, fault=fault, tel=tel)
         if paged:
             self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size)
             n_pp = self._paged_ops.n_pp
@@ -106,42 +186,41 @@ class ServeEngine(SchedulerCore):
             # physical page pool: (n_blocks, pool_pages, ..., page, ...) per
             # paged leaf, (n_blocks, slots) rows for the flat ones
             self.caches = self._paged_ops.init(self.pool_pages)
+            # the logical scratch every decode dispatch gathers into (paged
+            # leaves; its flat leaves are the pool's own tensors)
+            no_pages = np.full((self.slots, n_pp), -1, np.int32)
+            self._logical, _ = self._paged_ops.gather_moves(
+                self.caches, no_pages, np.zeros((self.slots,), np.int32))
         else:
             self.caches = self.bundle.init_caches(self.slots, self.max_len)
         # the PDQ health vector [fallbacks, clip_hits, clip_total]: zeros
         # until the telemetry slice ports the device-side counters
         self._pdq_health = np.zeros((3,), np.float32)
+        self._sample_fn = functools.partial(sample, temperature=self.temperature,
+                                            seed=self.seed)
+        self._block = decode_scan(functools.partial(self.bundle.decode_step, self.params),
+                                  self._sample_fn, self.decode_steps)
+        self._graph = None
+        if _graphed(self.device):
+            self._graph = DecodeGraph(
+                self._block, self._logical if self.paged else self.caches,
+                self.bundle.init_caches(self.slots, self.max_len), self.slots,
+                self.device)
+            self.stats["graph_replays"] = 0
 
     # -------------------------------------------------------------- sampling
-    def _row_generator(self, uid: int, step: int) -> torch.Generator:
-        state = np.random.SeedSequence([self.seed, uid, step]).generate_state(1)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(state[0]))
-        return gen
-
-    def _sample(self, logits, uids, steps) -> tuple[np.ndarray, np.ndarray]:
-        """Per-row next token and all-finite flag, as numpy (B,)."""
-        ok = torch.isfinite(logits).all(-1)
-        if self.temperature <= 0.0:
-            return logits.argmax(-1).cpu().numpy(), ok.cpu().numpy()
-        ok_np = ok.cpu().numpy()
-        toks = np.zeros((logits.shape[0],), np.int64)
-        for i, (uid, step) in enumerate(zip(uids, steps)):
-            if uid < 0 or not ok_np[i]:
-                continue
-            p = torch.softmax(logits[i] / self.temperature, -1)
-            toks[i] = int(torch.multinomial(
-                p, 1, generator=self._row_generator(int(uid), int(step))))
-        return toks, ok_np
-
     def _sample_rows(self, kind: str, plan, logits):
-        """Sample every batch row of a launch; the fault injector's logits
-        poisoning applies first (a no-op outside fault tests)."""
+        """Sample every batch row of a prefill launch, as numpy (B,); the
+        fault injector's logits poisoning applies first (a no-op outside
+        fault tests)."""
         rows = self.fault.poison_rows(kind, plan)
         if rows:
             logits = logits.clone()
             logits[torch.as_tensor(rows, device=logits.device)] = float("nan")
-        return self._sample(logits, plan.row_uids, plan.row_steps)
+        dev = logits.device
+        toks, ok = self._sample_fn(logits, torch.as_tensor(plan.row_uids, device=dev),
+                                   torch.as_tensor(plan.row_steps, device=dev))
+        return toks.cpu().numpy(), ok.cpu().numpy()
 
     # ------------------------------------------------------------ exec hooks
     def _exec_prefill(self, plan: PrefillPlan, extras):
@@ -169,23 +248,28 @@ class ServeEngine(SchedulerCore):
             self.bundle.cache_scatter(self.caches, sub, plan.src_map)
 
     def _exec_decode(self, plan: DecodePlan):
-        dev = self.device
-        tokens = torch.as_tensor(plan.tokens, device=dev)
-        positions = torch.as_tensor(plan.positions, device=dev)
+        """One N-step block: (toks (B, N), ok (B, N)) as numpy.  A paged
+        pool gathers into the logical scratch first and writes each row's
+        window of pages back after."""
+        rows = (plan.tokens[:, 0], plan.positions[:, 0], plan.row_uids,
+                plan.row_steps, plan.n_steps)
         if self.paged:
             po = self._paged_ops
-            logical = po.gather(self.caches, plan.page_tables, plan.positions[:, 0])
-            logits, logical = self.bundle.decode_step(self.params, logical, tokens,
-                                                      positions)
-            po.writeback(self.caches, logical, plan.page_tables, plan.positions)
+            po.gather(self.caches, plan.page_tables, plan.positions[:, 0],
+                      out=self._logical)
+        if self._graph is not None:
+            toks, ok = self._graph(*rows)
+            self.stats["graph_replays"] += 1
         else:
-            logits, self.caches = self.bundle.decode_step(self.params, self.caches,
-                                                          tokens, positions)
-        nxt, ok = self._sample(logits, plan.row_uids, plan.row_steps)
+            t = [torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+                 for a in rows]
+            toks, ok = self._block(self._logical if self.paged else self.caches,
+                                   t[0][:, None], t[1][:, None], *t[2:])
+            toks, ok = toks.cpu().numpy(), ok.cpu().numpy()
+        if self.paged:
+            po.writeback(self.caches, self._logical, plan.page_tables, plan.positions,
+                         n_steps=plan.n_steps, max_steps=self.decode_steps)
         self._observe_pdq(self._pdq_health)
-        act = plan.n_steps > 0
-        toks = np.where(act, nxt, DECODE_PAD)[:, None]
-        ok = np.where(act, ok, True)[:, None]
         return toks, self._poison_ok("decode", plan, ok)
 
     # ------------------------------------------------------ paged-pool hooks

@@ -29,10 +29,23 @@ The moment reduction (K8) sums like K1, within the same 1e-5, and two
 launches on one input are bit-equal; quantize (K9) gives the plain
 version's int8 codes exactly, .5 ties included, and dequantize (K10) its
 bits exactly, f32 and bf16.
+The decode graph (serve/decode_graph.py), on a two-layer bf16 stablelm at
+d_model 256: an engine that replays its captured N-step block serves the
+same streams, leaves the same pool bits and counts the same launches as
+the same engine stepping eagerly; capture leaves the pool as a fresh one;
+after 100 replays every ticket, the grid barrier's count and every split-K
+partial are back at 0 (the barrier's generation word moved on by two
+barriers a K3 launch); a replay after the kernels' workspaces grew (an
+eager Sp-4096 attend and a wider W8A8) repeats its bits; and the capture
+runs with Python's cycle collector off.
 """
+import gc
+
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import reduced_config
 from repro_torch.kernels import act_stats as st
 from repro_torch.kernels import kv_cache as kv
 from repro_torch.kernels import ops
@@ -40,6 +53,10 @@ from repro_torch.kernels import pdq_prologue as pro
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ref
 from repro_torch.kernels import w8a8_matmul as mm
+from repro_torch.models import build_model
+from repro_torch.serve import Request, ServeConfig, build_engine
+from repro_torch.serve import decode_graph as dg
+from repro_torch.serve import engine as engine_mod
 
 
 @pytest.fixture
@@ -804,3 +821,143 @@ def test_quantize_kernels_misaligned_rows(gen):
     qb = torch.randint(-128, 128, (1 + 6 * 64,), generator=gen, device="cuda",
                        dtype=torch.int8)[1:].view(6, 64)
     assert torch.equal(qz.dequantize_cuda(qb, s, z), qz.dequantize_plain(qb, s, z))
+
+
+# ---------------------------------------------------------------------------
+# the decode graph
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card")
+    cfg = reduced_config("stablelm-1.6b", d_model=256, d_ff=512, head_dim=64,
+                         vocab=1024, dtype="bfloat16", quant_kv="dynamic")
+    return cfg, build_model(cfg, "cuda").init(0)
+
+
+def _graph_engine(card_model, **kw):
+    cfg, params = card_model
+    kw = dict(dict(slots=4, max_len=128, buckets=(16, 32, 64), quantize_weights=True,
+                   device="cuda"), **kw)
+    return build_engine(ServeConfig(**kw), cfg=cfg, params=params)
+
+
+def _graph_reqs(cfg):
+    rng = np.random.default_rng(3)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, L).astype(np.int32),
+                    max_new=20) for i, L in enumerate((5, 60, 17, 33, 9, 41))]
+
+
+def _leaves(tree):
+    return [v for d in tree["blocks"] for _, v in sorted(d.items())]
+
+
+def _serve_card(eng):
+    reqs = _graph_reqs(eng.cfg)
+    ops.reset_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    assert all(r.done and r.error is None for r in reqs)
+    return ({r.uid: r.generated for r in reqs}, [v.clone() for v in _leaves(eng.caches)],
+            (ops.counts(), ops.route_counts(), ops.prologue_modes()))
+
+
+@pytest.mark.parametrize("n,paged,temperature", [(1, False, 0.0), (4, False, 0.9),
+                                                 (16, True, 0.0), (4, True, 0.9)])
+def test_decode_graph_replay_equals_eager(card_model, monkeypatch, n, paged, temperature):
+    kw = dict(decode_steps=n, temperature=temperature)
+    if paged:
+        kw.update(paged=True, page_size=16)
+    eng = _graph_engine(card_model, **kw)
+    fresh = (eng._paged_ops.init(eng.pool_pages) if paged
+             else eng.bundle.init_caches(eng.slots, eng.max_len))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(eng.caches), _leaves(fresh)))
+    got = _serve_card(eng)
+    assert eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0
+    monkeypatch.setattr(engine_mod, "_graphed", lambda device: False)
+    plain = _graph_engine(card_model, **kw)
+    assert plain._graph is None
+    want = _serve_card(plain)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert got[2] == want[2]
+
+
+def _replay_rows(eng, pos):
+    B = eng.slots
+    return (np.arange(B, dtype=np.int32), np.full(B, pos, np.int32),
+            np.arange(B, dtype=np.int32), np.zeros(B, np.int32), np.ones(B, np.int32))
+
+
+def test_decode_graph_leaves_tickets_at_zero(card_model):
+    """After 100 replays every ticket and split-K partial reads 0, and K3's
+    grid barrier is at rest: its count 0, its generation word moved on by
+    exactly two barriers a K3 launch (the barrier waits for the word to
+    change, so it never needs to return to 0)."""
+    eng = _graph_engine(card_model)
+    _serve_card(eng)
+    (tk,) = mm._TICKETS.values()
+    gen = int(tk[mm.BAR + 1])
+    for _ in range(100):
+        eng._graph(*_replay_rows(eng, 70))
+    torch.cuda.synchronize()
+    assert (int(tk[mm.BAR + 1]) - gen) % 2 ** 32 == 2 * 100 * eng.cfg.n_layers
+    for t in (*kv._TICKETS.values(), tk[:mm.BAR + 1], *mm._WS.values()):
+        assert not bool(t.any())
+
+
+def test_decode_graph_survives_workspace_growth(card_model, gen):
+    """Capture, then grow K4/K5's and K2/K3's workspaces with eager calls
+    (the modules replace them), then replay: the same bits as before."""
+    eng = _graph_engine(card_model)
+    _serve_card(eng)
+    start = [v.clone() for v in _leaves(eng.caches)]
+    rows = _replay_rows(eng, 90)
+    first = eng._graph(*rows)
+    after = [v.clone() for v in _leaves(eng.caches)]
+    for v, s0 in zip(_leaves(eng.caches), start):
+        v.copy_(s0)
+    old = (list(kv._WS.values()), list(mm._WS.values()))
+    B, Hkv, G, Sp, Dh = 8, 8, 4, 4096, 64
+    q = torch.randn((B, Hkv * G, Dh), generator=gen, device="cuda")
+    k_q, v_q = (torch.randint(-127, 128, (B, Hkv, Sp, Dh), generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+    sc = torch.rand((B, Hkv, Sp), generator=gen, device="cuda")
+    kv.decode_attend_i8kv_cuda(q, k_q, v_q, sc, sc, torch.full((B,), Sp, dtype=torch.int32,
+                                                                device="cuda"))
+    # 64 rows of K 16384 split K 8 ways: a 64 x 2048 int32 workspace
+    x_q = torch.randint(-127, 128, (64, 16384), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    w_q = mm.k_major(torch.randint(-127, 128, (16384, 2048), generator=gen, device="cuda",
+                                   dtype=torch.int8))
+    assert mm.wgmma_plan(64, 16384, 2048, False, mm._sms(x_q.device)).splits > 1
+    mm.w8a8_matmul_cuda(x_q, w_q, torch.ones((64, 1), device="cuda"), None,
+                        torch.ones((1, 2048), device="cuda"), None)
+    assert [list(kv._WS.values()), list(mm._WS.values())] != old
+    junk = torch.full((1 << 26,), -1, dtype=torch.int32, device="cuda")   # reuse bait
+    again = eng._graph(*rows)
+    torch.cuda.synchronize()
+    del junk
+    assert np.array_equal(first[0], again[0]) and np.array_equal(first[1], again[1])
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(eng.caches), after))
+
+
+def test_decode_graph_capture_runs_without_the_cycle_collector(card_model):
+    """An engine dropped earlier lives in reference cycles; collecting it
+    inside another engine's capture (its graph destroyed, its pinned buffer
+    freed) invalidated that capture once in a full card run.  The collector
+    is off for exactly the capture: off while the block is captured, on in
+    its warm-up and after."""
+    eng = _graph_engine(card_model)
+    block, seen = eng._block, []
+
+    def watched(*args):
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        return block(*args)
+
+    assert gc.isenabled()
+    g = dg.DecodeGraph(watched, eng.caches, eng.bundle.init_caches(4, 128), 4, "cuda")
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+    toks, ok = g(*_replay_rows(eng, 40))
+    assert toks.shape == (4, 1) and bool(ok.all())

@@ -113,7 +113,7 @@ def test_build_engine_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("chunked_prefill", True), ("decode_steps", 4), ("pdq_fallback", True),
+    ("chunked_prefill", True), ("pdq_fallback", True),
     ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
     ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
