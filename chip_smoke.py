@@ -25,6 +25,16 @@ device="cuda")), and one path of ops-level calls on its weights (E):
      16 model steps, sampling on the card (a row past its budget freezes),
      and a paged dispatch gathers once and writes back each row's window of
      pages once;
+  F  A with pdq_fallback=True, served through ServeService + HttpFrontend
+     on 127.0.0.1 (every request an SSE stream): every PDQ projection is
+     guarded - its W8A8 epilogue flags a non-finite value and the
+     predicated fp-dequant fallback (fp_dequant, csrc/fp_dequant.cu) runs
+     after it, returning at once when the flag is clear; the MLP takes the
+     reference's unfused composition, so K3 does not run, and QKV's and
+     gate/up's RMSNorm runs in plain torch before K1 (interval mode);
+  FF F's engine built and run under ops.pdq_fault() (the capture reads
+     it): every guarded projection's output is poisoned and the fallback
+     carries every projection;
   E  the ops-level quantization entry points on path A's own PDQ records
      (layer 0's Q segment of the grouped QKV, wo and w_down) at 8 and 2048
      rows: ops.pdq_dense_unfused, the pre-fusion projection (K8 act_stats +
@@ -35,7 +45,9 @@ device="cuda")), and one path of ops-level calls on its weights (E):
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
 one copy of the plan's rows in, the replay, one copy of the (8, N) tokens
-out.
+and the block's PDQ health vector out.  Telemetry is on (the default):
+the W8A8 epilogues count clip hits and outputs into the engine's counters,
+and every path prints its pdq_clip_hits, pdq_clip_total and clip rate.
 
 Phases, each of which must pass (any failure exits non-zero):
 
@@ -62,8 +74,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 poisoned with 0xFF, its write-back, a ragged gather, a COW
                 copy), bit-equal to plain, bound from kv.move_plan; K8, K9
                 and K10 at path E's rows and at 16384 rows (past the L2),
-                beside a PyTorch kernel that moves the same bytes;
-  3. serve    - each path serves 8 requests (prompts of 20-250 tokens, the
+                beside a PyTorch kernel that moves the same bytes; K2 and
+                K3 also with the health counters (tel_ms), their counts
+                equal to plain's on both routes; the fallback at QKV's and
+                w_down's shapes, taken (flag set) and not taken;
+  3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
+                prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
                 just before and read just after each run (a replay adds what
@@ -76,23 +92,33 @@ Phases, each of which must pass (any failure exits non-zero):
                 where K5 does not run its prologue), every K2/K3 launch must have
                 taken the wgmma route, every K4/K5 launch the split route
                 and every K8/K9 launch the vector route (MAIN_ROUTE), and
-                the other paths' kernels must not have run; the runs go in
-                turns A B C C A D1 D2 A16 D16, so that A's and C's times
-                compare within one call; D1's, D2's, A16's and D16's greedy
+                the other paths' kernels must not have run (F and FF: no
+                K3, one fallback launch a guarded projection, 4 a layer and
+                model step; FF's pdq_fallbacks exactly that many, F's 0);
+                the runs go in
+                turns A B C C F A D1 D2 A16 D16 FF, so that A's, C's and F's
+                times compare within one call; D1's, D2's, A16's and D16's greedy
                 streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore; per-token decode time and tokens/s of each run;
-  4. step     - on A, B, C and D1, one decode step of the full pool at
+  4. step     - on A, B, C, D1 and F, one decode step of the full pool at
                 position 300 two ways on the same state, eager (ops
                 launched from the host) and a replay of the engine's
                 one-step graph, in five alternated pairs of three-step
                 windows: wall ms a step; then torch.profiler over a window
-                of each: device busy ms, kernels a step and idle share;
-  5. parity   - on each path, one request's first 8 greedy tokens through
+                of each: device busy ms, kernels a step and idle share; on
+                A also a graph of the same block captured with telemetry
+                off, alternated with the two (the counting's cost);
+  5. parity   - on A, B, C, F and FF (F and FF under the guard, FF under
+                the fault), one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
                 the path's LOGIT_TOL, and each step's argmax agrees or the
-                plain path's top-2 margin is below it;
+                plain path's top-2 margin is below it; the PDQ health
+                vector of the kernel run equals the plain run's, also with
+                every record's alpha and beta scaled by CLIP_SCALE so that
+                outputs clip (then within TEL_SLACK: the clamp edges are
+                priced from sums in another order than plain's);
   6. unfused  - path E, after the serving runs: counts zeroed before and read
                 after, an exact census (each unfused call one K8 and one K2,
                 no K1; every K2 on the wgmma route, every K8 and K9 on the
@@ -133,7 +159,23 @@ F32_OPS = 67e12
 # plain einsum (o within ATTEND_TOL); that moves bf16 roundings and int8
 # codes at ties downstream, over 24 layers, and the logits are bf16 (one
 # ulp is 0.03125 at |logit| in [4, 8)): their bound is 8 such ulps.
-LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05}
+LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25}
+# the parity phase's second health comparison: every record's alpha and
+# beta times this, so that outputs clip
+CLIP_SCALE = 0.25
+# |kernel - plain| clip hits allowed in that comparison, as a share of the
+# outputs.  With the records' own alpha and beta almost nothing clips, and
+# kernel and plain count alike.  Once outputs sit on their clamp edges the
+# edges themselves matter, and they are priced from sums taken in another
+# order than plain's: K3's s1/s2 (w_down's interval; every PDQ path, C
+# included) and K5's o (A, F, FF; within ATTEND_TOL).  An edge an ulp
+# away moves every output clamped to it and everything after, so an output
+# within an ulp of its edge can land on either side.  Measured 5.7e-6 (C)
+# and 7.9e-6 (A) of the outputs.  On FF every projection's output is the
+# fallback's f32 product, summed in another order than plain's, so every
+# activation moves by ulps: measured 1.1e-4 (NVIDIA H100 80GB HBM3, 700 W,
+# PR 21).
+TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3}
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -154,9 +196,12 @@ STEP_PAIRS = 5            # phase 4: alternated (eager, graph) pairs
 STEP_RUNS = 3             # phase 4: steps a timed or profiled window
 
 # path: (int8_kv, quantize_weights, the kernels it must launch, the other
-# ServeConfig fields: paging, decode_steps)
+# ServeConfig fields: paging, decode_steps, the guard)
 _A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
               "decode_attend_i8kv_fused", "cache_scatter")
+# the guard: the unfused MLP (no K3) and the fallback after every projection
+_F_KERNELS = ("pdq_prologue", "w8a8_matmul", "decode_attend_i8kv_fused",
+              "cache_scatter", "fp_dequant")
 # a paged pool moves every leaf with K7, its slot-row ``len`` included
 _D_KERNELS = _A_KERNELS[:-1] + ("cache_scatter_pages",)
 _PAGED = dict(paged=True, spill=True, page_size=PAGE)
@@ -169,7 +214,11 @@ PATHS = {
     "D2": (True, True, _D_KERNELS, dict(_PAGED, pool_pages=D2_POOL_PAGES)),
     "A16": (True, True, _A_KERNELS, dict(decode_steps=N_BLOCK)),
     "D16": (True, True, _D_KERNELS, dict(_PAGED, decode_steps=N_BLOCK)),
+    "F": (True, True, _F_KERNELS, dict(pdq_fallback=True)),
+    "FF": (True, True, _F_KERNELS, dict(pdq_fallback=True)),
 }
+FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
+GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
 
 
 def is_paged(path) -> bool:
@@ -181,11 +230,16 @@ def block_of(path) -> int:
     return PATHS[path][3].get("decode_steps", 1)
 
 
+def is_guarded(path) -> bool:
+    return bool(PATHS[path][3].get("pdq_fallback"))
+
+
 # K2/K3 rows also carry the generic route's time, torch._int_mm on the
 # row-major copy, the host time per call of each route and K3's tail; K4/K5
 # rows the single route's time and error
 EXTRA_KEYS = ("generic_ms", "library_rowmajor_ms", "host_us", "generic_host_us",
-              "tail_ms", "single_ms", "single_err", "mode", "same_bytes_ms")
+              "tail_ms", "single_ms", "single_err", "mode", "same_bytes_ms", "tel_ms",
+              "not_taken_ms", "not_taken_plain_ms", "not_taken_bound_ms", "library_note")
 
 
 class SmokeError(RuntimeError):
@@ -316,6 +370,9 @@ def phase_kernels(eng):
 
     # ---- K2 w8a8_matmul and K3 w8a8_swiglu_matmul, both routes
     matmul_kernels(eng, t, gen, flush, record, x_pre)
+
+    # ---- the guard's predicated fp-dequant fallback, taken and not
+    fallback_kernels(eng, t, gen, flush, record, x_pre)
 
     # ---- K4 decode_attend_i8kv and K5 its fused form: one decode step's
     # attention over path A's int8 cache, lengths ragged across the tile
@@ -482,6 +539,14 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
         for route in ("wgmma", "generic"):
             need(torch.equal(mm.w8a8_matmul_cuda(*qargs, route=route), qp),
                  f"K2 {label} requant codes of the {route} route differ from plain")
+        # the health counters: the epilogue's counts equal plain's, both routes
+        tels = [torch.zeros(3, dtype=torch.int64, device=eng.device) for _ in range(3)]
+        yt = mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw)
+        mm.w8a8_matmul_cuda(*args, route="generic", tel=tels[1], **kw)
+        mm.w8a8_matmul_plain(*args, tel=tels[2], **kw)
+        need(torch.equal(yt, yk) and torch.equal(tels[0], tels[2])
+             and torch.equal(tels[1], tels[2]),
+             f"K2 {label}: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
         Mx, K = base[0].shape
         N = rec["q"].shape[1]
         E = lo.shape[1]
@@ -498,6 +563,8 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
                generic_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, route="generic", **kw),
                                     flush=flush),
                library_rowmajor_ms=row_ms,
+               tel_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw),
+                                flush=flush),
                host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, **kw)),
                generic_host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, route="generic",
                                                                    **kw)))
@@ -525,6 +592,12 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
         need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K3 s2 outside tolerance")
         need(all(torch.equal(u, v) for u, v in zip(ko[:3], go[:3])),
              "K3: the wgmma and generic routes differ in hsw, hsw_q or s_x")
+        tels = [torch.zeros(3, dtype=torch.int64, device=eng.device) for _ in range(3)]
+        mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0])
+        mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic", tel=tels[1])
+        mm.w8a8_swiglu_matmul_plain(*sargs, tel=tels[2])
+        need(torch.equal(tels[0], tels[2]) and torch.equal(tels[1], tels[2]),
+             f"K3: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
         err = max(max_abs(u, v) for u, v in zip(ko, po))
         Mx, K = base[0].shape
         N = gu["q"].shape[1]
@@ -553,6 +626,8 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
                                                                        route="generic"),
                                     flush=flush),
                library_rowmajor_ms=row_ms, tail_ms=tails[len(tails) // 2],
+               tel_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0]),
+                                flush=flush),
                host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs)),
                generic_host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(
                    *sargs, route="generic")))
@@ -585,6 +660,72 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
                      + 12 * 64, 2 * 64 * 16 * N, INT8_OPS), None, False,
            generic_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*targs, route="generic"),
                                 flush=flush))
+
+
+def fallback_kernels(eng, t, gen, flush, record, x_pre):
+    """The predicated fp-dequant fallback at the guarded path's shapes: QKV
+    (8, 2048) -> 6144 and w_down (8, 5632) -> 2048 at decode, QKV at
+    prefill rows, bf16 in and out as path F runs it.  Taken (the flag set
+    before each call, its one-element fill inside the timed call) against
+    the plain version: within one bf16 rounding of the f32 product, summed
+    in another order (one bf16 ulp, 2^-7 relative, apart where the two
+    sums round to neighbours); the flag cleared and one fallback counted.  Not
+    taken: y and the counters untouched.  Bound when taken: x, the int8
+    weight and the scales read once, y written once, against 2 M N K f32
+    operations; not taken: the flag's word read and written.  No single
+    PyTorch call dequantizes an int8 weight and multiplies: library null."""
+    import torch
+    from repro_torch.kernels import fp_dequant as fd
+    from repro_torch.kernels import ref
+    h_in = torch.randn((t["M"], eng.cfg.d_ff), generator=gen,
+                       device=eng.device).to(torch.bfloat16)
+    cases = (("qkv", t["qkv"], t["x"], True), ("w_down", t["down"], h_in, False),
+             ("qkv prefill", t["qkv"], x_pre, False))
+    flag = fd.flag_buffer(eng.device)
+    tel = torch.zeros(3, dtype=torch.int64, device=eng.device)
+    for label, rec, x, primary in cases:
+        (M, K), N = x.shape, rec["q"].shape[1]
+        q, sc = rec["q"], rec["scale"]
+        y0 = torch.randn((M, N), generator=gen, device=eng.device).to(torch.bfloat16)
+        y = y0.clone()
+        tel.zero_()
+        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+        need(torch.equal(y, y0) and not bool(flag.any()) and not bool(tel.any()),
+             f"fallback {label}: the untaken branch wrote y, the flag or the counters")
+        flag[0] = 1
+        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+        need(not bool(flag.any()) and tel.tolist() == [1, 0, 0],
+             f"fallback {label}: flag {flag.tolist()}, counters {tel.tolist()} after a "
+             f"taken call")
+        p = y0.clone()
+        fd.fp_dequant_fallback_plain(p, x, q, sc, torch.ones_like(flag))
+        want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
+        err = max_abs(y, p)
+        need(bool(((y.float() - p.float()).abs()
+                   <= 2 ** -7 * p.float().abs() + 1e-5 * float(want.abs().max())).all()),
+             f"fallback {label}: differs from plain by {err}")
+
+        def taken():
+            flag[:1].fill_(1)
+            fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)
+
+        def taken_plain():
+            flag[:1].fill_(1)
+            fd.fp_dequant_fallback_plain(y, x, q, sc, flag)
+
+        b_ms, b_by = bound_ms(M * K * 2 + K * N + 4 * N + M * N * 2 + 8, 2 * M * N * K,
+                              F32_OPS)
+        nt_ms = median_ms(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag),
+                          flush=flush)
+        record("fp_dequant", f"{label}: taken, x ({M}, {K}) bf16 @ q ({K}, {N}) int8 "
+               f"-> y bf16", err, median_ms(taken, flush=flush),
+               median_ms(taken_plain, flush=flush), b_ms, b_by, None, primary,
+               not_taken_ms=nt_ms,
+               not_taken_plain_ms=median_ms(
+                   lambda: fd.fp_dequant_fallback_plain(y, x, q, sc, flag), flush=flush),
+               not_taken_bound_ms=bound_ms(8, 0, F32_OPS)[0],
+               library_note="no single PyTorch call dequantizes and multiplies",
+               host_us=host_us(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)))
 
 
 def attend_kernels(eng, gen, flush, record):
@@ -773,7 +914,8 @@ def page_kernels(eng, gen, flush, record):
     0xFF bytes, its write-back (one page per slot and leaf), the gather at
     ragged frontiers with two free slots, the COW copy of 8 pages, and the
     k leaf's gather alone (the pre-redesign kernel's unit).  Each bit-equal
-    to plain.  Bound: ``kv.move_plan``'s bytes."""
+    to plain.  Bound: ``kv.move_plan``'s bytes.  Library: ``index_copy_``
+    of each leaf's moved page rows (``index_copies``; it writes no fill)."""
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
@@ -805,27 +947,29 @@ def page_kernels(eng, gen, flush, record):
     wb = ops.device_moves(po.writeback_moves(pool, logical, pt, at300[:, None]))
     time_movement("D1 write-back at position 300", wb, kv.PAGES_COUNT, flush, record,
                   False, "cache_scatter_pages", index_copies(wb, rows_of))
-    time_movement("k gather alone", [next(mv for mv in gather if mv.dst.dim() == 5)],
-                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages", None,
-                  poison=True)
+    k_alone = [next(mv for mv in gather if mv.dst.dim() == 5)]
+    time_movement("k gather alone", k_alone, kv.PAGES_COUNT, flush, record, False,
+                  "cache_scatter_pages", index_copies(k_alone, rows_of), poison=True)
     del logical, moves, gather, wb
     torch.cuda.empty_cache()
     lens = np.asarray(ATTEND_LENS)
     rpt = pt.copy()
     rpt[B - 2:] = -1                           # two free slots
     _, moves = po.gather_moves(pool, rpt, lens)
-    time_movement(f"gather at ragged frontiers {tuple(int(x) for x in lens)}",
-                  ops.device_moves(moves),
-                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages", None,
-                  poison=True)
+    ragged = ops.device_moves(moves)
+    time_movement(f"gather at ragged frontiers {tuple(int(x) for x in lens)}", ragged,
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                  index_copies(ragged, rows_of), poison=True)
+    del ragged
     del moves
     cmap = np.full((N,), -1, np.int32)
     cmap[N - 8:] = np.arange(1, 9)             # 8 fresh pages take 8 others
     copy = [kv.Move(p_, p_, batch_axis=1, host_map=cmap)
             for k, p_ in pool["blocks"][0].items()
             if po.meta["blocks"][0][k].kind == "seq"]
-    time_movement("COW copy of 8 pages", ops.device_moves(copy), kv.PAGES_COUNT, flush,
-                  record, False, "cache_scatter_pages", None)
+    copy = ops.device_moves(copy)
+    time_movement("COW copy of 8 pages", copy, kv.PAGES_COUNT, flush, record, False,
+                  "cache_scatter_pages", index_copies(copy, rows_of))
     del pool, copy
     torch.cuda.empty_cache()
 
@@ -1009,16 +1153,23 @@ def census(path, n, pre, dec, restores=0):
     decode_int8kv).  Every pool movement is one launch over all its leaves:
     a slot-row pool lands a round with one K6; a paged pool lands a round,
     gathers and writes back a dispatch's block, and restores with one K7
-    each (its flat ``len`` rides in the landing's and the restore's)."""
+    each (its flat ``len`` rides in the landing's and the restore's).
+    Under the guard (F, FF) the MLP is unfused: per layer and launch four
+    K2 and four fallbacks, no K3, and K1 for QKV, gate/up and w_down (and
+    wo at prefill; at decode K5 runs wo's prologue)."""
     int8_kv, pdq = PATHS[path][:2]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
                 cache_scatter=pre, cache_scatter_pages=0,
-                act_stats=0, quantize=0, dequantize=0)
+                act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
     if is_paged(path):
         want.update(cache_scatter=0, cache_scatter_pages=pre + 2 * dec + restores)
     dec *= block_of(path)
-    if pdq:
+    if pdq and is_guarded(path):
+        g = GUARDED_PER_LAYER
+        want.update(pdq_prologue=n * (g * pre + (g - 1 if int8_kv else g) * dec),
+                    w8a8_matmul=g * n * (pre + dec), fp_dequant=g * n * (pre + dec))
+    elif pdq:
         want.update(pdq_prologue=n * (3 * pre + (2 if int8_kv else 3) * dec),
                     w8a8_matmul=3 * n * (pre + dec), w8a8_swiglu_matmul=n * (pre + dec))
     if int8_kv:
@@ -1030,11 +1181,16 @@ def prologue_mode_census(path, n, pre, dec):
     """K1's launches per mode in a serving run of ``path``: with PDQ
     weights QKV and gate/up take norm + interval at every prefill and
     decode step; wo takes the interval alone at prefill, and at decode too
-    with the fp KV cache (with int8 KV its prologue runs in K5)."""
+    with the fp KV cache (with int8 KV its prologue runs in K5).  Under
+    the guard the norm runs in plain torch first, so every K1 launch (QKV,
+    gate/up, w_down, wo at prefill) takes the interval alone."""
     int8_kv, pdq = PATHS[path][:2]
     dec *= block_of(path)
     want = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
-    if pdq:
+    if pdq and is_guarded(path):
+        g = GUARDED_PER_LAYER
+        want["interval"] = n * (g * pre + (g - 1 if int8_kv else g) * dec)
+    elif pdq:
         want.update({"norm+interval": 2 * n * (pre + dec),
                      "interval": n * (pre + (0 if int8_kv else dec))})
     return want
@@ -1059,14 +1215,110 @@ def check_routes(path, counts):
              f"{path}: {name} launches {counts[name]['launches']}, per route {r}")
 
 
+def fault_requests(cfg, n=3, seed=5):
+    """FF's requests: ``n`` short prompts (20-60 tokens, the 64 bucket) of
+    8 new tokens, so that the fallback carries every projection of a run
+    within seconds."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=int(L)).astype(np.int32),
+                    max_new=8) for i, L in enumerate(rng.integers(20, 61, size=n))]
+
+
+def run_batch(eng, reqs):
+    """Serve ``reqs`` with ``engine.run``: {request index: (tokens, finish
+    reason, error)}."""
+    eng.run(reqs)
+    return {i: (list(r.generated), r.finish_reason if r.done else None, r.error)
+            for i, r in enumerate(reqs)}
+
+
+def run_http(eng, reqs):
+    """Serve ``reqs`` through the front door: ``ServeService`` (its loop
+    thread replays the engine's graph) and ``HttpFrontend`` on 127.0.0.1,
+    each request its own client thread POSTing a streamed completion and
+    reading its SSE events.  Returns {request index: (tokens, finish
+    reason, error)}; stops the server, the service and every thread it
+    started."""
+    import asyncio
+    import http.client
+    import threading
+    from repro_torch.serve import HttpFrontend, ServeService
+    svc = ServeService(eng, max_pending=len(reqs)).start()
+    box, ready = {}, threading.Event()
+
+    def serve():
+        async def amain():
+            fe = await HttpFrontend(svc, port=0).start()
+            box.update(port=fe.port, loop=asyncio.get_running_loop(), stop=asyncio.Event())
+            ready.set()
+            await box["stop"].wait()
+            await fe.stop()
+        asyncio.run(amain())
+
+    server = threading.Thread(target=serve, daemon=True)
+    server.start()
+    out = {}
+    try:
+        need(ready.wait(60), "the HTTP front door did not start")
+
+        def client(i, r):
+            c = http.client.HTTPConnection("127.0.0.1", box["port"], timeout=600)
+            try:
+                c.request("POST", "/v1/completions",
+                          json.dumps({"prompt": [int(t) for t in r.prompt],
+                                      "max_tokens": r.max_new, "stream": True}),
+                          {"Content-Type": "application/json"})
+                resp = c.getresponse()
+                toks, fin = [], {}
+                for raw in resp.fp:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    d = json.loads(line[6:])
+                    if "token" in d:
+                        toks.append(d["token"])
+                    else:
+                        fin = d
+                out[i] = (toks, fin.get("finish_reason") if resp.status == 200
+                          else f"HTTP {resp.status}", fin.get("error"))
+            finally:
+                c.close()
+
+        clients = [threading.Thread(target=client, args=(i, r), daemon=True)
+                   for i, r in enumerate(reqs)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(600)
+    finally:
+        if "loop" in box:
+            box["loop"].call_soon_threadsafe(box["stop"].set)
+        server.join(60)
+        svc.stop()
+    need(svc.error is None, f"the service loop failed: {svc.error!r}")
+    return out
+
+
+def pdq_health(st):
+    """A run's PDQ health from its stats, with the clip rate."""
+    total = st["pdq_clip_total"]
+    return dict(pdq_fallbacks=st["pdq_fallbacks"], pdq_clip_hits=st["pdq_clip_hits"],
+                pdq_clip_total=total,
+                pdq_clip_rate=st["pdq_clip_hits"] / total if total else None)
+
+
 def phase_serve(eng, path):
     import torch
     from repro_torch.kernels import ops
-    reqs = make_requests(eng.cfg)
+    reqs = fault_requests(eng.cfg) if path == FAULT_PATH else make_requests(eng.cfg)
+    drive = run_http if path == "F" else run_batch
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
-    eng.run(reqs)
+    with ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
+        results = drive(eng, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
@@ -1094,17 +1346,27 @@ def phase_serve(eng, path):
     need(modes == want_modes, f"{path}: K1 launches per mode {modes}, census {want_modes}")
     need(st["completed"] == len(reqs) and st["failed"] == 0,
          f"not every request completed: {st}")
+    health = pdq_health(st)
+    log(f"serve {path}: pdq {json.dumps(health)}")
+    pdq = PATHS[path][1]
+    need((st["pdq_clip_total"] > 0) == pdq, f"{path}: PDQ health {health}")
+    launches = st["prefill_batches"] + st["decode_steps"] * block_of(path)
+    want_fb = GUARDED_PER_LAYER * eng.cfg.n_layers * launches if path == FAULT_PATH else 0
+    need(st["pdq_fallbacks"] == want_fb,
+         f"{path}: {st['pdq_fallbacks']} fallbacks, {want_fb} expected")
     if is_paged(path):
         # COW copies would move pages outside the census; none is expected
         # (only full prompt pages are shared)
         need(st["cow_copies"] == 0, f"{path}: {st['cow_copies']} COW copies")
         need(st["spills"] == st["preemptions"] and not eng.failures.count("spill"),
              f"{path}: a spill failed: {st}, {list(eng.failures.events)}")
-    for r in reqs:
-        need(r.done and r.error is None and len(r.generated) == r.max_new,
-             f"request {r.uid}: {len(r.generated)} tokens, error {r.error}")
-        need(all(0 <= tok < eng.cfg.vocab for tok in r.generated),
-             f"request {r.uid}: token out of range")
+    need(sorted(results) == list(range(len(reqs))), f"{path}: results {sorted(results)}")
+    for i, r in enumerate(reqs):
+        toks, fin, err = results[i]
+        need(fin == "complete" and err is None and len(toks) == r.max_new,
+             f"{path}: request {i}: {len(toks)} tokens, finish {fin}, error {err}")
+        need(all(0 <= tok < eng.cfg.vocab for tok in toks),
+             f"{path}: request {i}: token out of range")
     dec = [dt for dt, _ in eng.straggler.history]
     pre = [dt for dt, _ in eng.prefill_straggler.history]
     decode_tps = eng.stats["decode_tokens"] / sum(dec)
@@ -1123,7 +1385,7 @@ def phase_serve(eng, path):
                         decode_ms_per_token=1e3 / decode_tps,
                         graph_capture_s=eng._graph.capture_s,
                         graph_pool_bytes=eng._graph.pool_bytes, stats=eng.stats,
-                        streams={r.uid: list(r.generated) for r in reqs})
+                        pdq=health, streams={i: res[0] for i, res in results.items()})
 
 
 def device_rows(prof, per):
@@ -1155,7 +1417,10 @@ def phase_step(eng, path, serve_step_ms):
     first, then graph first, and so on) give the wall ms a step; then
     torch.profiler over one window of each gives the device busy ms and
     kernels a step, and the idle share is 1 - busy / median wall.  Device
-    numbers are null if the profiler records no kernels."""
+    numbers are null if the profiler records no kernels.  On A a third
+    variant, ``graph_tel_off``: the same one-step block captured with
+    telemetry off (no counter pointers, no counters' memset), in the same
+    rotation - what the counting costs a replayed step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1177,11 +1442,21 @@ def phase_step(eng, path, serve_step_ms):
                 po.writeback(eng.caches, caches, pt, rows[1][:, None], n_steps=rows[4])
         return step
 
+    tel = eng._tel_buffer()
     variants = {
         "eager": around(lambda: eng._block(caches, t[0][:, None], t[1][:, None],
-                                           *t[2:])[0].cpu()),
+                                           *t[2:], tel)[0].cpu()),
         "graph": around(lambda: eng._graph(*rows)),
     }
+    if path == "A":
+        from repro_torch.serve.decode_graph import DecodeGraph
+
+        def block_off(c, tok, pos, uids, steps, n_steps, _tel):
+            return eng._scan(c, tok, pos, uids, steps, n_steps, None)
+
+        off = DecodeGraph(block_off, caches, eng.bundle.init_caches(B, eng.max_len), B,
+                          eng.device)
+        variants["graph_tel_off"] = around(lambda: off(*rows))
 
     def window(fn):
         torch.cuda.synchronize()
@@ -1194,8 +1469,9 @@ def phase_step(eng, path, serve_step_ms):
     for fn in variants.values():
         fn()
     walls = {k: [] for k in variants}
+    order = list(variants)
     for i in range(STEP_PAIRS):
-        for name in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+        for name in (order if i % 2 == 0 else order[::-1]):
             walls[name].append(window(variants[name]))
     out = dict(serve_step_ms=serve_step_ms)
     for name, fn in variants.items():
@@ -1217,6 +1493,11 @@ def phase_step(eng, path, serve_step_ms):
                                                recorded=c) for ms, k, n, c in rows_])
     g, e = out["graph"], out["eager"]
     out["speedup"] = e["wall_ms_median"] / g["wall_ms_median"]
+    if "graph_tel_off" in out:
+        o = out["graph_tel_off"]
+        out["tel_cost_wall"] = g["wall_ms_median"] / o["wall_ms_median"] - 1
+        if g["device_busy_ms"] is not None and o["device_busy_ms"] is not None:
+            out["tel_cost_busy"] = g["device_busy_ms"] / o["device_busy_ms"] - 1
     if g["device_busy_ms"] is not None:
         out["serve_step_idle_share"] = 1 - g["device_busy_ms"] / serve_step_ms
     log(f"step {path}: " + json.dumps({
@@ -1225,7 +1506,9 @@ def phase_step(eng, path, serve_step_ms):
                                     "top_kernels")} for k, v in out.items()
            if k in variants},
         "speedup": out["speedup"], "serve_step_ms": serve_step_ms,
-        "serve_step_idle_share": out.get("serve_step_idle_share")}))
+        "serve_step_idle_share": out.get("serve_step_idle_share"),
+        "tel_cost_wall": out.get("tel_cost_wall"),
+        "tel_cost_busy": out.get("tel_cost_busy")}))
     return out
 
 
@@ -1237,6 +1520,7 @@ def plain_kernels():
     stages too: the reference run applies rms_norm and prices intervals in
     plain torch."""
     from repro_torch.kernels import act_stats as st
+    from repro_torch.kernels import fp_dequant as fd
     from repro_torch.kernels import kv_cache as kv
     from repro_torch.kernels import pdq_prologue as pro
     from repro_torch.kernels import quantize as qz
@@ -1249,7 +1533,8 @@ def plain_kernels():
              (mm, "w8a8_swiglu_matmul_cuda", mm.w8a8_swiglu_matmul_plain),
              (kv, "decode_attend_i8kv_cuda", kv.decode_attend_i8kv_plain),
              (kv, "decode_attend_i8kv_fused_cuda", kv.decode_attend_i8kv_fused_plain),
-             (kv, "cache_move_cuda", kv.cache_move_plain)]
+             (kv, "cache_move_cuda", kv.cache_move_plain),
+             (fd, "fp_dequant_fallback_cuda", fd.fp_dequant_fallback_plain)]
     saved = [getattr(m, a) for m, a, _ in swaps]
     try:
         for m, a, f in swaps:
@@ -1260,33 +1545,79 @@ def plain_kernels():
             setattr(m, a, f)
 
 
+def scale_records(tree, f, seen=None):
+    """Every PDQ record's alpha and beta in ``tree`` times ``f``, in place
+    (a grouped record shared by its segment views once)."""
+    seen = set() if seen is None else seen
+    if isinstance(tree, dict):
+        if "alpha" in tree and id(tree) not in seen:
+            seen.add(id(tree))
+            tree["alpha"].mul_(f)
+            tree["beta"].mul_(f)
+        for v in tree.values():
+            scale_records(v, f, seen)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            scale_records(v, f, seen)
+
+
+def tel_agree(path, label, k_tel, p_tel):
+    """The kernel run's [fallbacks, clip_hits, clip_total] against the
+    plain run's: fallbacks and totals equal, hits within TEL_SLACK of the
+    total."""
+    k, p = k_tel.tolist(), p_tel.tolist()
+    slack = int(TEL_SLACK[path] * p[2])
+    need(k[0] == p[0] and k[2] == p[2] and abs(k[1] - p[1]) <= slack,
+         f"parity {path} ({label}): kernel PDQ health {k}, plain {p}, hit slack {slack}")
+    log(f"parity {path} ({label}): PDQ health kernel {k}, plain {p} "
+        f"(clip rate {k[1] / k[2] if k[2] else 0:.6g})")
+    return dict(kernel=k, plain=p, slack=slack)
+
+
 def phase_parity(eng, path, n_tokens=8):
+    """Phase 5 on ``eng`` (its guard, and for FF the fault, active around
+    both runs).  Returns (max logit difference, the health comparisons)."""
     import torch
+    from repro_torch.kernels import ops
     bundle, params = eng.bundle, eng.params
     prompt = make_requests(eng.cfg, n=1, seed=7)[0].prompt
     L = len(prompt)
     tokens = torch.as_tensor(prompt, device=eng.device)[None]
 
     def run(teacher=None):
-        caches = bundle.init_caches(1, 64 + L)
-        logits, caches = bundle.prefill_many(
-            params, {"tokens": tokens}, caches,
-            torch.tensor([L], dtype=torch.int32, device=eng.device))
-        out, toks = [logits[0].float()], []
-        for i in range(n_tokens - 1):
-            tok = int(out[-1].argmax()) if teacher is None else teacher[i]
-            toks.append(tok)
-            logits, caches = bundle.decode_step(
-                params, caches,
-                torch.tensor([[tok]], dtype=torch.int32, device=eng.device),
-                torch.tensor([[L + i]], dtype=torch.int32, device=eng.device))
-            out.append(logits[0].float())
+        tel = eng._tel_buffer()
+        with ops.pdq_guard(is_guarded(path)), ops.pdq_telemetry(counters=tel), \
+                ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
+            caches = bundle.init_caches(1, 64 + L)
+            logits, caches = bundle.prefill_many(
+                params, {"tokens": tokens}, caches,
+                torch.tensor([L], dtype=torch.int32, device=eng.device))
+            out, toks = [logits[0].float()], []
+            for i in range(n_tokens - 1):
+                tok = int(out[-1].argmax()) if teacher is None else teacher[i]
+                toks.append(tok)
+                logits, caches = bundle.decode_step(
+                    params, caches,
+                    torch.tensor([[tok]], dtype=torch.int32, device=eng.device),
+                    torch.tensor([[L + i]], dtype=torch.int32, device=eng.device))
+                out.append(logits[0].float())
         toks.append(int(out[-1].argmax()) if teacher is None else -1)
-        return out, toks
+        return out, toks, tel
 
-    k_logits, k_toks = run()
+    k_logits, k_toks, k_tel = run()
     with plain_kernels():
-        p_logits, _ = run(teacher=k_toks)
+        p_logits, _, p_tel = run(teacher=k_toks)
+    health = [tel_agree(path, "records' alpha, beta", k_tel, p_tel)]
+    # the same with outputs clipping: every record's alpha and beta scaled
+    # (this engine serves nothing after its parity phase)
+    scale_records(params, CLIP_SCALE)
+    _, s_toks, k_tel = run()
+    with plain_kernels():
+        _, _, p_tel = run(teacher=s_toks)
+    scale_records(params, 1 / CLIP_SCALE)         # a power of 2: exactly undone
+    health.append(tel_agree(path, f"alpha, beta x {CLIP_SCALE}", k_tel, p_tel))
+    need(not PATHS[path][1] or health[-1]["kernel"][1] > 0,
+         f"parity {path}: no output clipped at alpha, beta x {CLIP_SCALE}")
     tol = LOGIT_TOL[path]
     diffs = []
     for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
@@ -1304,7 +1635,7 @@ def phase_parity(eng, path, n_tokens=8):
     log(f"parity {path}: {n_tokens} greedy tokens {k_toks}; max |logits diff| "
         f"per step {diffs} (tolerance {tol}); max |logit| "
         f"{float(max(kl.abs().max() for kl in k_logits)):.4g}")
-    return max(diffs)
+    return max(diffs), health
 
 
 def e_records(eng):
@@ -1496,29 +1827,35 @@ def main(argv=None) -> int:
     cfg = get_config("stablelm-1.6b")
     params = build_model(cfg, "cuda").init(0)
 
+    from repro_torch.kernels import ops
+
     def engine(path):
         int8_kv, pdq, _, extra = PATHS[path]
         t0 = time.perf_counter()
-        eng = build_engine(ServeConfig(arch="stablelm-1.6b", reduced=False, slots=8,
-                                       max_len=512, int8_kv=int8_kv,
-                                       quantize_weights=pdq, device="cuda", **extra),
-                           cfg=cfg, params=params)
+        # FF's graph is captured under the fault hook, which it reads
+        with ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
+            eng = build_engine(ServeConfig(arch="stablelm-1.6b", reduced=False, slots=8,
+                                           max_len=512, int8_kv=int8_kv,
+                                           quantize_weights=pdq, device="cuda", **extra),
+                               cfg=cfg, params=params)
         torch.cuda.synchronize()
         log(f"model {path}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
             f"{cfg.dtype}, {'PDQ-int8' if pdq else 'bf16'} weights, "
             f"{'int8' if int8_kv else 'bf16'} KV cache, "
             f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
-            f"{eng.decode_steps} decode steps a dispatch, built in "
+            f"{eng.decode_steps} decode steps a dispatch, "
+            f"{'guarded' + (' under the fault hook' if path == FAULT_PATH else '') if eng.pdq_fallback else 'unguarded'}, built in "
             f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
             f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB)")
         return eng
 
-    # A and C serve twice, in turns A (B) C C A, so that their end-to-end
-    # times compare within this call whatever the host's warm-up costs; then
-    # the paged pool at parity (D1) and under pressure (D2); then A and D1
-    # at 16 decode steps a dispatch
+    # A and C serve twice, in turns A (B) C C F A, so that their and F's
+    # end-to-end times compare within this call whatever the host's warm-up
+    # costs; then the paged pool at parity (D1) and under pressure (D2);
+    # then A and D1 at 16 decode steps a dispatch; last FF, every projection
+    # falling back
     serve, counts, parity = {}, {}, {}
-    for path in ("A", "B", "C", "C", "A", "D1", "D2", "A16", "D16"):
+    for path in ("A", "B", "C", "C", "F", "A", "D1", "D2", "A16", "D16", "FF"):
         eng = engine(path)
         if path == "A" and not serve:
             rows, detail = phase_kernels(eng)
@@ -1526,10 +1863,10 @@ def main(argv=None) -> int:
         c, run = phase_serve(eng, path)
         if path not in counts:
             counts[path] = c
-            if path in ("A", "B", "C", "D1"):
+            if path in ("A", "B", "C", "D1", "F"):
                 run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
-            if path in ("A", "B", "C"):
-                parity[path] = phase_parity(eng, path)
+            if path in ("A", "B", "C", "F", "FF"):
+                parity[path], run["parity_pdq"] = phase_parity(eng, path)
         if path in ("D1", "D2", "D16"):
             check_paged_run(path, run, serve["A"][0])
         if path == "A16":
@@ -1542,7 +1879,12 @@ def main(argv=None) -> int:
             f"{[r['decode_step_median_ms'] for r in runs]} ms, per token "
             f"{[r['decode_ms_per_token'] for r in runs]} ms, tokens/s "
             f"{[r['decode_tokens_per_s'] for r in runs]}, prefill per run "
-            f"{[r['prefill_s'] for r in runs]} s")
+            f"{[r['prefill_s'] for r in runs]} s, pdq {[r['pdq'] for r in runs]}")
+    log("serve A and F (guarded, over HTTP): decode dispatch medians "
+        f"A {[r['decode_step_median_ms'] for r in serve['A']]} ms, "
+        f"F {[r['decode_step_median_ms'] for r in serve['F']]} ms; phase 4 graph step "
+        f"A {serve['A'][0]['step']['graph']['wall_ms_median']:.3f} ms, "
+        f"F {serve['F'][0]['step']['graph']['wall_ms_median']:.3f} ms")
     # path E: the unfused projection and the standalone quantization ops
     counts["E"], unfused = phase_unfused(recs)
     del recs
@@ -1558,6 +1900,8 @@ def main(argv=None) -> int:
         "decode_attend_i8kv": "src/repro/kernels/kv_cache.py:62",
         "decode_attend_i8kv_fused": "src/repro/kernels/kv_cache.py:161",
         "cache_scatter": "src/repro/kernels/kv_cache.py:246",
+        # no pallas_call: the fallback branch of _guard_pdq's lax.cond
+        "fp_dequant": "src/repro/kernels/ops.py:209",
     }
     sources = {
         "act_stats": "src/repro_torch/csrc/act_stats.cu",
@@ -1570,10 +1914,11 @@ def main(argv=None) -> int:
         "decode_attend_i8kv": "src/repro_torch/csrc/decode_attend.cu",
         "decode_attend_i8kv_fused": "src/repro_torch/csrc/decode_attend.cu",
         "cache_scatter": "src/repro_torch/csrc/kv_cache.cu",
+        "fp_dequant": "src/repro_torch/csrc/fp_dequant.cu",
     }
     kernels = []
     path_of = {"decode_attend_i8kv": "B", "cache_scatter_pages": "D", "act_stats": "E",
-               "quantize": "E", "dequantize": "E"}
+               "quantize": "E", "dequantize": "E", "fp_dequant": "F"}
     for name, row in rows.items():
         path = path_of.get(name, "A")
         c = counts["D1" if path == "D" else path][name]      # D: D1's run
@@ -1585,6 +1930,9 @@ def main(argv=None) -> int:
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
+        if name == "fp_dequant":
+            # F never takes it; FF takes every one
+            kernels[-1].update(launches_fault=counts[FAULT_PATH][name]["launches"])
         if name == "pdq_prologue":
             # every mode's row, and A's launches per mode
             kernels[-1].update(
@@ -1599,7 +1947,7 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
-             parity_max_logit_diff=parity, unfused=unfused), indent=1))
+             parity_max_logit_diff=parity, unfused=unfused), indent=1, default=str))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

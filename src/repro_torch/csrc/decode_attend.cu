@@ -102,6 +102,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// max(a, b) that returns NaN when either is NaN (PTX max.NaN, sm_80+): wo's
+// prologue takes its row maximum with it, as torch.amax / jnp.max do, so a
+// NaN in o gives a NaN s_x.  The softmax maxima keep fmaxf.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float warp_max_nan(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -119,11 +134,11 @@ __device__ void row_prologue(const float* __restrict__ orow, int n, bool pro_bf1
   for (int i = threadIdx.x; i < n; i += THREADS) {
     float v = __ldcg(orow + i);
     if (pro_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-    amax = fmaxf(amax, fabsf(v));
+    amax = max_nan(amax, fabsf(v));
     t1 += v;
     t2 = __fadd_rn(t2, __fmul_rn(v, v));
   }
-  amax = warp_max(amax);
+  amax = warp_max_nan(amax);
   t1 = warp_sum(t1);
   t2 = warp_sum(t2);
   if (lane == 0) {
@@ -135,11 +150,11 @@ __device__ void row_prologue(const float* __restrict__ orow, int n, bool pro_bf1
   if (threadIdx.x == 0) {
     float a = 0.f, b = 0.f, c = 0.f;
     for (int w = 0; w < WARPS; ++w) {
-      a = fmaxf(a, part[0][w]);
+      a = max_nan(a, part[0][w]);
       b += part[1][w];
       c += part[2][w];
     }
-    const float sc = fmaxf(a, 1e-8f) / 127.0f;
+    const float sc = max_nan(a, 1e-8f) / 127.0f;
     scale = sc;
     *sx = sc;
     *s1 = b;

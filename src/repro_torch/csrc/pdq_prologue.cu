@@ -54,7 +54,10 @@
 // and the logits of path C (every other kernel bit-equal to its plain
 // version) would no longer match.  From ms the kernel takes rsqrtf, the
 // function torch's CUDA rsqrt calls, and the plain version's products in
-// its order, so the normed row is the plain version's bit for bit.
+// its order, so the normed row is the plain version's bit for bit.  The
+// row maximum takes max.NaN (max_nan): a NaN in the row gives a NaN s_x,
+// s1 and s2, and so a NaN y downstream, as torch's amax and jnp.max do
+// (fmaxf would skip the NaN lane).
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,10 +150,18 @@ __device__ __forceinline__ void store_codes(int8_t* dst, const int* q) {
   }
 }
 
+// max(a, b) that returns NaN when either is NaN (PTX max.NaN, sm_80+): the
+// row maximum of torch.amax / jnp.max.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ Stats warp_stats(Stats s) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    s.amax = fmaxf(s.amax, __shfl_xor_sync(0xffffffffu, s.amax, off));
+    s.amax = max_nan(s.amax, __shfl_xor_sync(0xffffffffu, s.amax, off));
     s.s1 = __fadd_rn(s.s1, __shfl_xor_sync(0xffffffffu, s.s1, off));
     s.s2 = __fadd_rn(s.s2, __shfl_xor_sync(0xffffffffu, s.s2, off));
   }
@@ -166,7 +177,7 @@ __device__ __forceinline__ Stats row_stats(Stats s, Stats* part) {
   s = part[0];
   for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i) {
     const Stats o = part[i];
-    s.amax = fmaxf(s.amax, o.amax);
+    s.amax = max_nan(s.amax, o.amax);
     s.s1 = __fadd_rn(s.s1, o.s1);
     s.s2 = __fadd_rn(s.s2, o.s2);
   }
@@ -236,12 +247,12 @@ __global__ void __launch_bounds__(MAX_THREADS) prologue_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float f = to_f32(r[j].v[e]);
-      s.amax = fmaxf(s.amax, fabsf(f));
+      s.amax = max_nan(s.amax, fabsf(f));
       s.s1 = __fadd_rn(s.s1, f);
       s.s2 = __fadd_rn(s.s2, __fmul_rn(f, f));
     }
   s = row_stats(s, part_s);
-  const float sc = __fdiv_rn(fmaxf(s.amax, 1e-8f), 127.0f);
+  const float sc = __fdiv_rn(max_nan(s.amax, 1e-8f), 127.0f);
 
   int8_t* qr = p.xq + row * p.K;
   V* yr = p.y == nullptr ? nullptr : reinterpret_cast<V*>(static_cast<T*>(p.y) + row * p.K);

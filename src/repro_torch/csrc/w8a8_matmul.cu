@@ -86,6 +86,19 @@
 //   a second barrier; then the whole grid streams hsw into hsw_q.
 // - generic route: the last block of a row tile (an atomic ticket, reset
 //   by that block) reduces the partials and quantizes the row tile.
+//
+// NaN travels as in the reference: the clamp and K3's row maximum take
+// max.NaN / min.NaN (max_nan, min_nan), so a NaN product, scale or bound
+// gives a NaN y, as jnp.clip and jnp.max do (fminf/fmaxf would drop it).
+//
+// PDQ health (kernels/ops.py pdq_telemetry, pdq_guard): with a counter
+// pointer `tel` (int64 [fallbacks, clip_hits, clip_total]) a launch adds
+// its clip hits - stored values on or past an edge of their clamp
+// interval (bf16 values after rounding, K3's gate and up values in f32),
+// or requant codes at -128 / 127 - reduced in registers and shared memory
+// to one atomic a block, and its M x N to clip_total (block 0).  With a
+// flag pointer (K2's fp outs under the guard) a thread that stores a
+// non-finite value sets the flag to 1.  Both null: nothing is counted.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -95,6 +108,54 @@
 namespace {
 
 constexpr int LANE = 128;     // per-block epilogue operands span 128 columns
+
+// max / min that return NaN when either operand is NaN (PTX max.NaN /
+// min.NaN, sm_80+), as jnp.maximum / jnp.minimum and torch's do.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// ------------------------------------------------------------ PDQ health
+
+// One thread's share of a launch's health: clip hits and whether it stored
+// a non-finite value.
+struct Tally {
+  unsigned hits = 0;
+  bool bad = false;
+  // a stored value v of clamp interval [lo, hi] (an int8 code: [-128, 127])
+  __device__ __forceinline__ void add(float v, float lo, float hi) {
+    hits += (v <= lo) | (v >= hi);
+    bad |= !isfinite(v);
+  }
+};
+
+// The block's tally, by every thread of the block: a thread that stored a
+// non-finite value sets *flag (every writer stores 1); the hits are summed
+// over each warp and the block's warps, and added to tel[1] with one
+// atomic; `first` (one block a launch) adds the launch's M x N to tel[2].
+__device__ __forceinline__ void flush_tally(const Tally& t, unsigned long long* tel,
+                                            int* flag, unsigned long long total,
+                                            bool first) {
+  __shared__ unsigned s_hits;
+  if (flag && t.bad) *flag = 1;
+  if (!tel) return;
+  if (threadIdx.x == 0) s_hits = 0;
+  __syncthreads();
+  const unsigned w = __reduce_add_sync(0xffffffffu, t.hits);
+  if (threadIdx.x % 32 == 0 && w) atomicAdd(&s_hits, w);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_hits) atomicAdd(tel + 1, static_cast<unsigned long long>(s_hits));
+    if (first) atomicAdd(tel + 2, total);
+  }
+}
 
 // ------------------------------------------------ epilogue arithmetic (both)
 
@@ -112,25 +173,42 @@ __device__ __forceinline__ int zero_corr(const int* __restrict__ zx,
 
 __device__ __forceinline__ float clip(float y, const float* __restrict__ lo,
                                       const float* __restrict__ hi, long long e) {
-  return lo ? fminf(fmaxf(y, __ldg(lo + e)), __ldg(hi + e)) : y;
+  return lo ? min_nan(max_nan(y, __ldg(lo + e)), __ldg(hi + e)) : y;
 }
 
-// Epilogue store of output element i, epilogue operand cell e.
-__device__ __forceinline__ void store(float* out, long long i, float y, const float* so,
-                                      const int* zo, const float* lo, const float* hi,
-                                      long long e) {
-  out[i] = clip(y, lo, hi, e);
+// Epilogue store of output element i, epilogue operand cell e; returns the
+// value stored, as f32 (an int8 code as its value).
+__device__ __forceinline__ float store(float* out, long long i, float y, const float* so,
+                                       const int* zo, const float* lo, const float* hi,
+                                       long long e) {
+  const float v = clip(y, lo, hi, e);
+  out[i] = v;
+  return v;
 }
-__device__ __forceinline__ void store(__nv_bfloat16* out, long long i, float y,
-                                      const float* so, const int* zo, const float* lo,
-                                      const float* hi, long long e) {
-  out[i] = __float2bfloat16_rn(clip(y, lo, hi, e));
+__device__ __forceinline__ float store(__nv_bfloat16* out, long long i, float y,
+                                       const float* so, const int* zo, const float* lo,
+                                       const float* hi, long long e) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(clip(y, lo, hi, e));
+  out[i] = b;
+  return __bfloat162float(b);
 }
-__device__ __forceinline__ void store(int8_t* out, long long i, float y, const float* so,
-                                      const int* zo, const float* lo, const float* hi,
-                                      long long e) {
+__device__ __forceinline__ float store(int8_t* out, long long i, float y, const float* so,
+                                       const int* zo, const float* lo, const float* hi,
+                                       long long e) {
   const float q = rintf(y / __ldg(so + e)) + static_cast<float>(__ldg(zo + e));
-  out[i] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(q, -128.f), 127.f)));
+  const int c = static_cast<int>(fminf(fmaxf(q, -128.f), 127.f));
+  out[i] = static_cast<int8_t>(c);
+  return static_cast<float>(c);
+}
+
+// Tally stored value v of cell e: against [-128, 127] for a requant code
+// (so set), against the clamp interval otherwise.
+__device__ __forceinline__ void tally(Tally& t, float v, const float* so,
+                                      const float* lo, const float* hi, long long e) {
+  if (so)
+    t.add(v, -128.f, 127.f);
+  else
+    t.add(v, __ldg(lo + e), __ldg(hi + e));
 }
 
 // hsw = silu(g) * u as the plain version writes it.
@@ -154,8 +232,10 @@ constexpr int BK = 64;        // k bytes per shared-memory stage
 constexpr int KW = BK / 4;    // packed int32 words per stage
 constexpr int THREADS = 256;  // 16 column groups x 16 row groups
 
+// 16-byte aligned: ws is read as int4, whatever other shared variables
+// the kernel declares beside it
 template <int BM, int NW>
-struct Smem {
+struct __align__(16) Smem {
   int xs[BM][KW + 1];         // xs[r][kw] packs x[m0 + r][k0 + 4kw .. +3]
   int ws[NW][KW][BN];         // ws[t][kw][n] packs w[k0 + 4kw .. +3][col_t + n]
 };
@@ -250,7 +330,7 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ so, const int* __restrict__ zo,
             const float* __restrict__ lo, const float* __restrict__ hi,
             OutT* __restrict__ out, long long M, int K, int N, int epi_cols,
-            bool vec_x, bool vec_w) {
+            bool vec_x, bool vec_w, unsigned long long* tel, int* flag) {
   __shared__ Smem<BM, 1> sm;
   constexpr int TM = BM / 16;
   const long long m0 = static_cast<long long>(blockIdx.y) * BM;
@@ -260,6 +340,8 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   gemm<BM, 1>(sm, acc, x, w, M, K, m0, col, end, vec_x, vec_w);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const bool track = tel || flag;
+  Tally t;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long m = m0 + ty + 16 * i;
@@ -271,9 +353,13 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       if (n >= N) continue;
       const long long e = epi_cols == 1 ? m : m * epi_cols + n / LANE;
       const float y = dequant(acc[0][i][c], zero_corr(zx, colsum, m, n), sxm, sw[n]);
-      store(out, m * N + n, y, so, zo, lo, hi, e);
+      const float v = store(out, m * N + n, y, so, zo, lo, hi, e);
+      if (track) tally(t, v, so, lo, hi, e);
     }
   }
+  if (track)
+    flush_tally(t, tel, flag, static_cast<unsigned long long>(M) * N,
+                blockIdx.x == 0 && blockIdx.y == 0);
 }
 
 template <int BM>
@@ -286,7 +372,7 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
               int8_t* __restrict__ hsw_q, float* __restrict__ osx,
               float* __restrict__ os1, float* __restrict__ os2,
               float* __restrict__ part, int* __restrict__ tickets, long long M,
-              int K, int N, bool vec_x, bool vec_w) {
+              int K, int N, bool vec_x, bool vec_w, unsigned long long* tel) {
   __shared__ Smem<BM, 2> sm;
   __shared__ int is_last;
   __shared__ float srow[BM];
@@ -299,6 +385,7 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   gemm<BM, 2>(sm, acc, x, w, M, K, m0, col, end, vec_x, vec_w);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  Tally t;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long m = m0 + ty + 16 * i;
@@ -316,9 +403,13 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                                      sw[n]), lo, hi, eg);
         const float u = clip(dequant(acc[1][i][c], zero_corr(zx, colsum, m, nu), sxm,
                                      sw[nu]), lo, hi, eu);
+        if (tel) {
+          tally(t, g, nullptr, lo, hi, eg);
+          tally(t, u, nullptr, lo, hi, eu);
+        }
         const float h = silu_mul(g, u);
         hsw[m * P + n] = h;
-        amax = fmaxf(amax, fabsf(h));
+        amax = max_nan(amax, fabsf(h));
         t1 += h;
         t2 = __fadd_rn(t2, __fmul_rn(h, h));
       }
@@ -326,7 +417,7 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, off));
       t1 += __shfl_xor_sync(0xffffffffu, t1, off);
       t2 += __shfl_xor_sync(0xffffffffu, t2, off);
     }
@@ -337,6 +428,10 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       p[2] = t2;
     }
   }
+
+  if (tel)
+    flush_tally(t, tel, nullptr, static_cast<unsigned long long>(M) * N,
+                blockIdx.x == 0 && blockIdx.y == 0);
 
   // last block of this row tile: reduce partials in column-block order,
   // and return the ticket to 0 for the next launch
@@ -353,11 +448,11 @@ swiglu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       float amax = 0.f, t1 = 0.f, t2 = 0.f;
       for (int jj = 0; jj < nj; ++jj) {
         const float* p = part + (m * nj + jj) * 3;
-        amax = fmaxf(amax, __ldcg(p));
+        amax = max_nan(amax, __ldcg(p));
         t1 += __ldcg(p + 1);
         t2 += __ldcg(p + 2);
       }
-      const float sc = fmaxf(amax, 1e-8f) / 127.0f;
+      const float sc = max_nan(amax, 1e-8f) / 127.0f;
       srow[threadIdx.x] = sc;
       osx[m] = sc;
       os1[m] = t1;
@@ -380,27 +475,30 @@ template <int BM, typename OutT>
 void launch_w8a8(const void* x, const void* w, const void* sx, const void* zx,
                  const void* sw, const void* colsum, const void* so,
                  const void* zo, const void* lo, const void* hi, void* out,
-                 long long M, int K, int N, int epi_cols, cudaStream_t st) {
+                 long long M, int K, int N, int epi_cols, void* tel, void* flag,
+                 cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, static_cast<unsigned>((M + BM - 1) / BM));
   const bool vec_x = K % 4 == 0 && aligned(x, 4);
   const bool vec_w = K % 4 == 0 && aligned(w, 4);
   w8a8_kernel<BM, OutT><<<grid, THREADS, 0, st>>>(
       cp<int8_t>(x), cp<int8_t>(w), cp<float>(sx), cp<int>(zx), cp<float>(sw),
       cp<int>(colsum), cp<float>(so), cp<int>(zo), cp<float>(lo), cp<float>(hi),
-      static_cast<OutT*>(out), M, K, N, epi_cols, vec_x, vec_w);
+      static_cast<OutT*>(out), M, K, N, epi_cols, vec_x, vec_w,
+      static_cast<unsigned long long*>(tel), static_cast<int*>(flag));
 }
 
 template <typename OutT>
 void dispatch_w8a8(const void* x, const void* w, const void* sx, const void* zx,
                    const void* sw, const void* colsum, const void* so,
                    const void* zo, const void* lo, const void* hi, void* out,
-                   long long M, int K, int N, int epi_cols, cudaStream_t st) {
+                   long long M, int K, int N, int epi_cols, void* tel, void* flag,
+                   cudaStream_t st) {
   if (M <= 16)
     launch_w8a8<16, OutT>(x, w, sx, zx, sw, colsum, so, zo, lo, hi, out, M, K, N,
-                          epi_cols, st);
+                          epi_cols, tel, flag, st);
   else
     launch_w8a8<64, OutT>(x, w, sx, zx, sw, colsum, so, zo, lo, hi, out, M, K, N,
-                          epi_cols, st);
+                          epi_cols, tel, flag, st);
 }
 
 template <int BM>
@@ -408,7 +506,7 @@ void launch_swiglu(const void* x, const void* w, const void* sx, const void* zx,
                    const void* sw, const void* colsum, const void* lo,
                    const void* hi, void* hsw, void* hsw_q, void* osx,
                    void* os1, void* os2, void* part, void* tickets, long long M,
-                   int K, int N, cudaStream_t st) {
+                   int K, int N, void* tel, cudaStream_t st) {
   const int P = N / 2;
   const dim3 grid((P + BN - 1) / BN, static_cast<unsigned>((M + BM - 1) / BM));
   const bool vec_x = K % 4 == 0 && aligned(x, 4);
@@ -418,7 +516,7 @@ void launch_swiglu(const void* x, const void* w, const void* sx, const void* zx,
       cp<int>(colsum), cp<float>(lo), cp<float>(hi), static_cast<float*>(hsw),
       static_cast<int8_t*>(hsw_q), static_cast<float*>(osx), static_cast<float*>(os1),
       static_cast<float*>(os2), static_cast<float*>(part), static_cast<int*>(tickets),
-      M, K, N, vec_x, vec_w);
+      M, K, N, vec_x, vec_w, static_cast<unsigned long long*>(tel));
 }
 
 }  // namespace generic
@@ -473,6 +571,8 @@ struct Args {
   int* ws;                // split-K int32 workspace, zero at rest
   int* tickets;           // per-column-tile tickets + grid barrier, zero at rest
   long long* stamps;      // K3, optional: per block, ns at the end of phase 1, 2
+  unsigned long long* tel;  // optional: [fallbacks, clip_hits, clip_total]
+  int* flag;              // K2, optional: set to 1 by a non-finite stored value
   int M, K, N, epi_cols, out_kind;
   int col_tiles, nks, kc, splits, items;
 };
@@ -687,9 +787,9 @@ template <> struct Out<1> { using T = __nv_bfloat16; };
 template <> struct Out<2> { using T = int8_t; };
 
 template <int KIND>
-__device__ __forceinline__ void store_any(const Args& a, long long i, float y,
-                                          long long e) {
-  store(static_cast<typename Out<KIND>::T*>(a.out), i, y, a.so, a.zo, a.lo, a.hi, e);
+__device__ __forceinline__ float store_any(const Args& a, long long i, float y,
+                                           long long e) {
+  return store(static_cast<typename Out<KIND>::T*>(a.out), i, y, a.so, a.zo, a.lo, a.hi, e);
 }
 
 // The epilogue operands of one output row, loaded once a row: s_x, z_x
@@ -718,7 +818,7 @@ __device__ __forceinline__ RowOps row_ops(const Args& a, long long m, long long 
 __device__ __forceinline__ float y_of(const Args& a, const RowOps& o, int acc, int n,
                                       float swn) {
   const float y = dequant(acc, a.zx ? o.zx * __ldg(a.colsum + n) : 0, o.sx, swn);
-  return a.lo ? fminf(fmaxf(y, o.lo), o.hi) : y;
+  return a.lo ? min_nan(max_nan(y, o.lo), o.hi) : y;
 }
 
 __device__ __forceinline__ int8_t requant(const RowOps& o, float y) {
@@ -728,13 +828,16 @@ __device__ __forceinline__ int8_t requant(const RowOps& o, float y) {
 
 // K2's outputs n and n + 1 (n even) of row m: one vector store when both
 // lie in the row and N is even (the pair is then aligned to its size).
+// With `track`, the stored values go into the tally.
 template <int KIND>
 __device__ __forceinline__ void store_pair(const Args& a, const RowOps& o, long long m,
-                                           int n, int acc0, int acc1, float sw0, float sw1) {
+                                           int n, int acc0, int acc1, float sw0, float sw1,
+                                           bool track, Tally& t) {
   if (n >= a.N) return;
   const bool two = n + 1 < a.N, vec = two && a.N % 2 == 0;
   const float y0 = y_of(a, o, acc0, n, sw0), y1 = two ? y_of(a, o, acc1, n + 1, sw1) : 0.f;
   const long long i = m * a.N + n;
+  float s0, s1;    // the values stored
   if constexpr (KIND == 0) {
     float* out = static_cast<float*>(a.out);
     if (vec) {
@@ -743,6 +846,8 @@ __device__ __forceinline__ void store_pair(const Args& a, const RowOps& o, long 
       out[i] = y0;
       if (two) out[i + 1] = y1;
     }
+    s0 = y0;
+    s1 = y1;
   } else if constexpr (KIND == 1) {
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
     const __nv_bfloat16 v0 = __float2bfloat16_rn(y0), v1 = __float2bfloat16_rn(y1);
@@ -752,6 +857,8 @@ __device__ __forceinline__ void store_pair(const Args& a, const RowOps& o, long 
       out[i] = v0;
       if (two) out[i + 1] = v1;
     }
+    s0 = __bfloat162float(v0);
+    s1 = __bfloat162float(v1);
   } else {
     int8_t* out = static_cast<int8_t*>(a.out);
     const int8_t v0 = requant(o, y0), v1 = requant(o, y1);
@@ -761,6 +868,13 @@ __device__ __forceinline__ void store_pair(const Args& a, const RowOps& o, long 
       out[i] = v0;
       if (two) out[i + 1] = v1;
     }
+    s0 = static_cast<float>(v0);
+    s1 = static_cast<float>(v1);
+  }
+  if (track) {
+    const float lo = KIND == 2 ? -128.f : o.lo, hi = KIND == 2 ? 127.f : o.hi;
+    t.add(s0, lo, hi);
+    if (two) t.add(s1, lo, hi);
   }
 }
 
@@ -806,6 +920,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
 
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool track = a.tel || a.flag;
+  Tally t;                               // the consumers' stored values
   const int P = a.N / 2;                 // K3's half width
   const int cols = SWIGLU ? P : a.N;     // output columns of one half
 
@@ -933,8 +1049,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
             coords<SWAP>(r, wgi, rt, ct * CT, m, n);
             if (m >= a.M || n >= a.N) continue;
             const long long e = a.epi_cols == 1 ? m : m * a.epi_cols + ct;
-            store_any<KIND>(a, m * a.N + n, dequant(acc[0][r], zero_corr(a.zx, a.colsum, m, n),
-                                             __ldg(a.sx + m), __ldg(a.sw + n)), e);
+            const float v = store_any<KIND>(
+                a, m * a.N + n,
+                dequant(acc[0][r], zero_corr(a.zx, a.colsum, m, n), __ldg(a.sx + m),
+                        __ldg(a.sw + n)), e);
+            if (track) tally(t, v, a.so, a.lo, a.hi, e);
           }
         } else {
           // a row's columns come in neighbouring pairs, one store a pair;
@@ -955,7 +1074,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
 #pragma unroll
             for (int j = 0; j < NACC / 4; ++j)
               store_pair<KIND>(a, o, m, n0 + 8 * j, acc[0][4 * j + 2 * i],
-                               acc[0][4 * j + 2 * i + 1], swv[2 * j], swv[2 * j + 1]);
+                               acc[0][4 * j + 2 * i + 1], swv[2 * j], swv[2 * j + 1], track,
+                               t);
           }
         }
       } else {
@@ -968,7 +1088,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
 #pragma unroll
         for (int i = 0; i < NK; ++i) pa[i] = p1[i] = p2[i] = 0.f;
         const auto part_add = [&](int i, float hv) {
-          pa[i] = fmaxf(pa[i], fabsf(hv));
+          pa[i] = max_nan(pa[i], fabsf(hv));
           p1[i] += hv;
           p2[i] = __fadd_rn(p2[i], __fmul_rn(hv, hv));
         };
@@ -985,6 +1105,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
                                          __ldg(a.sw + n)), a.lo, a.hi, m * nb + ct);
             const float u = clip(dequant(acc[1][r], zero_corr(a.zx, a.colsum, m, nu), sxm,
                                          __ldg(a.sw + nu)), a.lo, a.hi, m * nb + P / LANE + ct);
+            if (track) {
+              tally(t, g, nullptr, a.lo, a.hi, m * nb + ct);
+              tally(t, u, nullptr, a.lo, a.hi, m * nb + P / LANE + ct);
+            }
             const float hv = silu_mul(g, u);
             a.hsw[m * P + n] = hv;
             part_add(2 * (r >> 2) + (r & 1), hv);
@@ -1004,8 +1128,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
               float hv[2];
 #pragma unroll
               for (int b = 0; b < 2; ++b) {
-                hv[b] = silu_mul(y_of(a, og, acc[0][r + b], n + b, __ldg(a.sw + n + b)),
-                                 y_of(a, ou, acc[1][r + b], P + n + b, __ldg(a.sw + P + n + b)));
+                const float g = y_of(a, og, acc[0][r + b], n + b, __ldg(a.sw + n + b));
+                const float u = y_of(a, ou, acc[1][r + b], P + n + b, __ldg(a.sw + P + n + b));
+                if (track) {
+                  t.add(g, og.lo, og.hi);
+                  t.add(u, ou.lo, ou.hi);
+                }
+                hv[b] = silu_mul(g, u);
                 part_add(i, hv[b]);
               }
               *reinterpret_cast<float2*>(a.hsw + m * P + n) = make_float2(hv[0], hv[1]);
@@ -1018,7 +1147,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
           for (int i = 0; i < NK; ++i)
 #pragma unroll
             for (int off = 1; off < 4; off <<= 1) {
-              pa[i] = fmaxf(pa[i], __shfl_xor_sync(0xffffffffu, pa[i], off));
+              pa[i] = max_nan(pa[i], __shfl_xor_sync(0xffffffffu, pa[i], off));
               p1[i] += __shfl_xor_sync(0xffffffffu, p1[i], off);
               p2[i] += __shfl_xor_sync(0xffffffffu, p2[i], off);
             }
@@ -1041,7 +1170,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
           for (int i = 0; i < NK; ++i)
 #pragma unroll
             for (int off = 4; off < 32; off <<= 1) {
-              pa[i] = fmaxf(pa[i], __shfl_xor_sync(0xffffffffu, pa[i], off));
+              pa[i] = max_nan(pa[i], __shfl_xor_sync(0xffffffffu, pa[i], off));
               p1[i] += __shfl_xor_sync(0xffffffffu, p1[i], off);
               p2[i] += __shfl_xor_sync(0xffffffffu, p2[i], off);
             }
@@ -1059,7 +1188,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
             const int tok = threadIdx.x;
             float am = 0.f, t1 = 0.f, t2 = 0.f;
             for (int wi = 0; wi < 8; ++wi) {
-              am = fmaxf(am, red[wi][tok][0]);
+              am = max_nan(am, red[wi][tok][0]);
               t1 += red[wi][tok][1];
               t2 += red[wi][tok][2];
             }
@@ -1087,18 +1216,18 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
       float am = 0.f, t1 = 0.f, t2 = 0.f;
       for (int jj = lane; jj < nj; jj += 32) {
         const float* p = a.part + (static_cast<long long>(m) * nj + jj) * 3;
-        am = fmaxf(am, __ldcg(p));
+        am = max_nan(am, __ldcg(p));
         t1 += __ldcg(p + 1);
         t2 += __ldcg(p + 2);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, off));
+        am = max_nan(am, __shfl_xor_sync(0xffffffffu, am, off));
         t1 += __shfl_xor_sync(0xffffffffu, t1, off);
         t2 += __shfl_xor_sync(0xffffffffu, t2, off);
       }
       if (lane == 0) {
-        a.osx[m] = fmaxf(am, 1e-8f) / 127.0f;
+        a.osx[m] = max_nan(am, 1e-8f) / 127.0f;
         a.os1[m] = t1;
         a.os2[m] = t2;
       }
@@ -1142,6 +1271,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUt
       if (threadIdx.x == 0) a.stamps[2 * blockIdx.x + 1] = now_ns();
     }
   }
+  if (track)
+    flush_tally(t, a.tel, a.flag, static_cast<unsigned long long>(a.M) * a.N,
+                blockIdx.x == 0);
 }
 
 // ---- host side
@@ -1249,19 +1381,21 @@ extern "C" int w8a8_matmul(const void* x, const void* w, const void* sx,
                            const void* zx, const void* sw, const void* colsum,
                            const void* so, const void* zo, const void* lo,
                            const void* hi, void* out, int out_kind, long long M,
-                           int K, int N, int epi_cols, void* stream) {
+                           int K, int N, int epi_cols, void* tel, void* flag,
+                           void* stream) {
   using namespace generic;
   if (M <= 0 || N <= 0) return 0;
+  if ((tel || flag) && !lo && !so) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_kind == 0)
     dispatch_w8a8<float>(x, w, sx, zx, sw, colsum, so, zo, lo, hi, out, M, K, N,
-                         epi_cols, st);
+                         epi_cols, tel, flag, st);
   else if (out_kind == 1)
     dispatch_w8a8<__nv_bfloat16>(x, w, sx, zx, sw, colsum, so, zo, lo, hi, out, M,
-                                 K, N, epi_cols, st);
+                                 K, N, epi_cols, tel, flag, st);
   else
     dispatch_w8a8<int8_t>(x, w, sx, zx, sw, colsum, so, zo, lo, hi, out, M, K, N,
-                          epi_cols, st);
+                          epi_cols, tel, flag, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1275,16 +1409,16 @@ extern "C" int w8a8_swiglu_matmul(const void* x, const void* w, const void* sx,
                                   const void* hi, void* hsw,
                                   void* hsw_q, void* osx, void* os1, void* os2,
                                   void* part, void* tickets, long long M, int K,
-                                  int N, void* stream) {
+                                  int N, void* tel, void* stream) {
   using namespace generic;
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 16)
     launch_swiglu<16>(x, w, sx, zx, sw, colsum, lo, hi, hsw, hsw_q, osx, os1, os2,
-                      part, tickets, M, K, N, st);
+                      part, tickets, M, K, N, tel, st);
   else
     launch_swiglu<64>(x, w, sx, zx, sw, colsum, lo, hi, hsw, hsw_q, osx, os1, os2,
-                      part, tickets, M, K, N, st);
+                      part, tickets, M, K, N, tel, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1299,8 +1433,9 @@ extern "C" int w8a8_matmul_wgmma(const void* x, const void* w, const void* sx,
                                  const void* hi, void* out, int out_kind, int M, int K,
                                  int N, int epi_cols, int col_tiles, int nks, int kc,
                                  int splits, int items, int grid, void* ws,
-                                 void* tickets, void* stream) {
+                                 void* tickets, void* tel, void* flag, void* stream) {
   if (M <= 0 || N <= 0) return 0;
+  if ((tel || flag) && !lo && !so) return static_cast<int>(cudaErrorInvalidValue);
   wg::Args a = {};
   a.sx = cp<float>(sx);
   a.zx = cp<int>(zx);
@@ -1314,6 +1449,8 @@ extern "C" int w8a8_matmul_wgmma(const void* x, const void* w, const void* sx,
   a.out_kind = out_kind;
   a.ws = static_cast<int*>(ws);
   a.tickets = static_cast<int*>(tickets);
+  a.tel = static_cast<unsigned long long*>(tel);
+  a.flag = static_cast<int*>(flag);
   a.M = M;
   a.K = K;
   a.N = N;
@@ -1341,7 +1478,7 @@ extern "C" int w8a8_swiglu_matmul_wgmma(const void* x, const void* w, const void
                                         void* osx, void* os1, void* os2, void* part,
                                         int M, int K, int N, int col_tiles, int nks,
                                         int kc, int splits, int items, int grid,
-                                        void* ws, void* tickets, void* stamps,
+                                        void* ws, void* tickets, void* stamps, void* tel,
                                         void* stream) {
   if (M <= 0 || N <= 0) return 0;
   wg::Args a = {};
@@ -1360,6 +1497,7 @@ extern "C" int w8a8_swiglu_matmul_wgmma(const void* x, const void* w, const void
   a.ws = static_cast<int*>(ws);
   a.tickets = static_cast<int*>(tickets);
   a.stamps = static_cast<long long*>(stamps);
+  a.tel = static_cast<unsigned long long*>(tel);
   a.M = M;
   a.K = K;
   a.N = N;

@@ -1,19 +1,44 @@
-"""The JAX-free part of the reference's fault handling that the serving
-scheduler imports: failure bookkeeping, the straggler EMA, scheduler
-snapshots, and the no-op fault-injection hook set.
+"""Fault handling for serving (port of ``repro/distributed/fault.py``):
+failure bookkeeping, the straggler EMA, deadline watchdogs, scheduler
+snapshots, and the deterministic fault-injection harness.
 
-Copied from ``repro/distributed/fault.py`` (which also holds mesh
-resharding and needs JAX); the deterministic ``FaultPlan`` injector and the
-deadline watchdog arrive with the fault-handling slice.
+  * ``DeadlineWatchdog`` - a context manager arming a timer around any
+    blocking launch; on expiry it runs a callback (default: print a typed
+    ABORT line and ``os._exit(EXIT_DEADLINE)``) because a thread blocked
+    inside a C++ call cannot be interrupted from Python.
+  * ``save_snapshot`` / ``load_snapshot`` - the scheduler's pure-numpy
+    drain record (serve/core.SchedulerCore.snapshot) to/from a file, so a
+    preempted server can requeue in-flight work after a restart.
+  * ``FaultPlan`` / ``FaultInjector`` - deterministic fault injection
+    threaded through the serving engines behind no-op-by-default hooks:
+    NaN a request's logits block, raise in a launch, inject virtual
+    straggler delay, preempt at a round, and the ingress faults of the
+    service (bursts, disconnects, stalled readers).  Everything keys off
+    round/sequence COUNTERS, never wall-clock, so replays are exact.  The
+    multi-process faults (kill, hang, corrupt a command header) are kept
+    with the plan's fields; only a multi-process engine calls
+    ``on_broadcast``, which waits for multi-GPU serving (ROADMAP.md Queue 1,
+    item 8).
+
+The reference's ``reshard_state`` (laying a restored state out on a new
+device mesh) waits for item 8 as well.
 """
 from __future__ import annotations
 
 import dataclasses
 import io
 import os
+import sys
+import threading
 import time
 
 import numpy as np
+
+# typed process exit codes: the launcher / test harness reads these to tell
+# an injected kill from a watchdog abort from an ordinary crash
+EXIT_DEADLINE = 87     # DeadlineWatchdog expired (hung collective / dead peer)
+EXIT_KILLED = 41       # FaultPlan kill_* injection
+
 
 @dataclasses.dataclass
 class StragglerWatchdog:
@@ -47,6 +72,60 @@ class FailureLog:
     def count(self, kind: str | None = None) -> int:
         return len([e for e in self.events if kind is None or e["kind"] == kind])
 
+
+# ---------------------------------------------------------------------------
+# Deadline watchdogs
+# ---------------------------------------------------------------------------
+
+
+def _default_deadline_abort(reason: str, seconds: float) -> None:
+    sys.stderr.write(
+        f"FATAL ABORT_DEADLINE: {reason} exceeded its {seconds:g}s deadline "
+        f"(hung collective or dead peer); exiting {EXIT_DEADLINE}\n")
+    sys.stderr.flush()
+    os._exit(EXIT_DEADLINE)
+
+
+class DeadlineWatchdog:
+    """Arm a timer around a blocking launch; fire ``on_timeout`` on expiry.
+
+    A Python thread blocked inside a gloo/XLA collective cannot be
+    interrupted, so the only way to bound a hung rendezvous is a SIDE
+    thread that declares the process dead: the default handler prints a
+    typed ``ABORT_DEADLINE`` line and ``os._exit``s with ``EXIT_DEADLINE``
+    so the launcher (launch/serve.py) tears the fleet down and reports
+    which process timed out.  A custom ``on_timeout(reason, seconds)`` can
+    first dump the scheduler snapshot (the coordinator does: host-side
+    scheduler state is consistent between result applications, so the
+    drain record is valid even while the main thread is stuck in a
+    collective).
+
+    ``seconds=None`` disarms (context manager becomes a no-op)."""
+
+    def __init__(self, seconds: float | None, *, reason: str = "collective",
+                 on_timeout=None):
+        self.seconds = seconds
+        self.reason = reason
+        self.on_timeout = on_timeout or _default_deadline_abort
+        self._timer: threading.Timer | None = None
+        self.fired = False
+
+    def _fire(self):
+        self.fired = True
+        self.on_timeout(self.reason, self.seconds)
+
+    def __enter__(self):
+        if self.seconds is not None:
+            self._timer = threading.Timer(self.seconds, self._fire)
+            self._timer.daemon = True
+            self._timer.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -145,3 +224,121 @@ class FaultInjector:
         stalled SSE reader: a tiny cap overflows after a few tokens and the
         service cancels with ``kind='slow_consumer'``).  None = default."""
         return None
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Declarative, deterministic fault schedule for one serving run.
+
+    All triggers are counters (scheduler round, protocol command seq),
+    never wall-clock.  JSON-serializable (``dataclasses.asdict``) so
+    subprocess test fixtures can ship one over argv.
+    """
+    # NaN a request's logits block: every launch of ``nan_kind`` whose
+    # batch carries ``nan_uid`` gets that row's logits poisoned.
+    nan_uid: int | None = None
+    nan_kind: str = "any"             # 'prefill' | 'decode' | 'any'
+    # raise RuntimeError right before a launch of this kind at this round
+    raise_kind: str | None = None
+    raise_round: int = 0
+    # virtual straggler delays: {round: extra_seconds} added to launch
+    # timings (never actually slept); ``delay_kind`` scopes them to one
+    # launch kind ('prefill' | 'chunked' | 'decode') so prefill- and
+    # decode-straggler EMAs can be exercised independently
+    delay_rounds: dict = dataclasses.field(default_factory=dict)
+    delay_kind: str = "any"
+    # coordinator preemption (SIGTERM stand-in): request a drain at round N
+    preempt_at_round: int | None = None
+    # multi-host process faults, gated on (process id, command seq):
+    kill_process: int | None = None   # os._exit(EXIT_KILLED) before seq
+    kill_at_seq: int = 0
+    hang_process: int | None = None   # sleep(hang_seconds) before seq
+    hang_at_seq: int = 0
+    hang_seconds: float = 3600.0
+    corrupt_header_at_seq: int | None = None   # coordinator ships opcode 99
+    # ingress faults (service front door):
+    # {round: [[prompt_len, max_new], ...]} - deterministic client burst
+    # submitted at the top of that round (prompts are derived from the
+    # round number, so replays are exact)
+    burst_rounds: dict = dataclasses.field(default_factory=dict)
+    disconnect_uid: int | None = None  # sever this client mid-stream ...
+    disconnect_after: int = 1          # ... once it has this many tokens
+    stall_uid: int | None = None       # stalled-reader stream: tiny buffer
+    stall_cap: int = 4
+
+    def injector(self) -> "PlanInjector":
+        return PlanInjector(self)
+
+
+class PlanInjector(FaultInjector):
+    """Executes a ``FaultPlan`` at the engine hook points."""
+
+    def __init__(self, plan: FaultPlan):
+        self.plan = plan
+
+    def on_round(self, rnd: int) -> None:
+        p = self.plan
+        if p.preempt_at_round is not None and rnd >= p.preempt_at_round:
+            self.engine.request_drain()
+
+    def on_exec(self, kind: str, rnd: int) -> None:
+        p = self.plan
+        if p.raise_kind == kind and rnd >= p.raise_round:
+            p.raise_kind = None       # one-shot: later launches succeed
+            raise RuntimeError(f"injected {kind} launch fault at round {rnd}")
+
+    def exec_delay(self, kind: str, rnd: int) -> float:
+        if self.plan.delay_kind not in (kind, "any"):
+            return 0.0
+        return float(self.plan.delay_rounds.get(rnd, 0.0))
+
+    def poison_rows(self, kind: str, plan) -> list[int]:
+        p = self.plan
+        if p.nan_uid is None or p.nan_kind not in (kind, "any"):
+            return []
+        uids, steps = plan.row_uids, plan.row_steps
+        live = getattr(plan, "live", None)
+        return [i for i, u in enumerate(uids)
+                if int(u) == p.nan_uid and (live is None or i in live)
+                and (steps[i] >= 0)]
+
+    def on_broadcast(self, seq: int, header: np.ndarray) -> np.ndarray:
+        p, eng = self.plan, self.engine
+        pid = getattr(eng, "process_id", 0)
+        if p.kill_process == pid and seq >= p.kill_at_seq:
+            sys.stderr.write(f"FAULT-INJECTION: killing process {pid} at "
+                             f"command seq {seq}\n")
+            sys.stderr.flush()
+            os._exit(EXIT_KILLED)
+        if p.hang_process == pid and seq >= p.hang_at_seq:
+            sys.stderr.write(f"FAULT-INJECTION: hanging process {pid} at "
+                             f"command seq {seq}\n")
+            sys.stderr.flush()
+            time.sleep(p.hang_seconds)
+        if (p.corrupt_header_at_seq is not None and pid == 0
+                and seq >= p.corrupt_header_at_seq):
+            p.corrupt_header_at_seq = None    # one-shot
+            header = np.array(header)
+            header[0] = 99                    # not a real opcode
+        return header
+
+    def ingress_burst(self, rnd: int) -> list:
+        spec = self.plan.burst_rounds.pop(rnd, None) if self.plan.burst_rounds \
+            else None
+        if not spec:
+            return []
+        vocab = int(getattr(self.engine.cfg, "vocab", 256))
+        out = []
+        for i, (plen, max_new) in enumerate(spec):
+            rng = np.random.default_rng(1000 * rnd + i)
+            prompt = rng.integers(0, vocab, size=int(plen)).astype(np.int32)
+            out.append((prompt, int(max_new)))
+        return out
+
+    def drop_stream(self, uid: int, n_tokens: int) -> bool:
+        p = self.plan
+        return p.disconnect_uid == uid and n_tokens >= p.disconnect_after
+
+    def stream_cap(self, uid: int) -> int | None:
+        p = self.plan
+        return p.stall_cap if p.stall_uid == uid else None

@@ -14,17 +14,23 @@ made.  On the card the two are equal on the main path; ``chip_smoke.py``
 reads them to show that the path went through the kernels.
 
 All ops take arbitrary leading batch dims.  Ragged shapes are masked in
-the kernels, so nothing is padded here.  Tensor parallelism, the guarded
-fp fallback and PDQ telemetry wait for later slices (ROADMAP.md Queue 1).
+the kernels, so nothing is padded here.  Tensor parallelism waits for a
+later slice (ROADMAP.md Queue 1, item 8).
+
+The guarded fp fallback (``pdq_guard``) and PDQ health (``pdq_telemetry``)
+are the reference's, with the counting and the finite check moved into the
+kernels: see the section below.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
 from . import act_stats as _as
+from . import fp_dequant as _fd
 from . import kv_cache as _kv
 from . import pdq_prologue as _pro
 from . import quantize as _qz
@@ -50,6 +56,7 @@ COUNTS = {
     "act_stats": _as.COUNT,
     "quantize": _qz.QUANTIZE_COUNT,
     "dequantize": _qz.DEQUANTIZE_COUNT,
+    "fp_dequant": _fd.COUNT,
 }
 
 
@@ -95,9 +102,10 @@ def persistent_buffers() -> list:
     tickets).  A module replaces one when a later call needs it larger and
     drops the old one; a captured graph keeps this list, so the buffers it
     launches on are never freed under it (each is zero at rest, so the
-    graph and eager calls may use different ones)."""
+    graph and eager calls may use different ones).  The guard's flag
+    (``fp_dequant.flag_buffer``) is one of them."""
     return [*_mm._WS.values(), *_mm._TICKETS.values(), *_kv._WS.values(),
-            *_kv._TICKETS.values()]
+            *_kv._TICKETS.values(), *_fd._FLAGS.values()]
 
 
 def counts() -> dict[str, dict[str, int]]:
@@ -123,6 +131,137 @@ def _rows(x) -> int:
     return math.prod(x.shape[:-1])
 
 
+# ---------------------------------------------------------------------------
+# Guarded PDQ fallback and PDQ health (the reference's ops.py:88-222)
+# ---------------------------------------------------------------------------
+#
+# With ``pdq_guard`` active, every PDQ fp-out projection checks its result
+# and, per projection and per launch, falls back to the plain fp-dequant
+# matmul ``x @ (q * scale)`` when any element is non-finite.  The check is
+# the W8A8 epilogue's (it sets the guard's flag where it stores a NaN or an
+# infinity) and the branch is the predicated fallback kernel
+# (``kernels/fp_dequant.py``), which reads the flag on the device: nothing
+# reads the host inside a projection, and a captured graph holds both.
+#
+# ``pdq_telemetry`` collects [fallbacks, clip_hits, clip_total] into ONE
+# int64 (3,) tensor on the projections' device: K2/K3 add their clip hits
+# and M x N in their epilogues and the fallback kernel its activation (the
+# plain versions do the same with tensor ops on the CPU).  Engines read it
+# in the copy that brings their tokens to the host.
+#
+# The switches are read when a projection runs: on the card, that is when
+# an engine captures its decode graph (the reference reads them when it
+# traces), on the CPU whenever the block runs.
+
+_PDQ_GUARD = False
+_PDQ_FAULT = False      # test hook: poison every guarded fast-path result
+_PDQ_TEL: "PdqTelemetryCollector | None" = None
+
+# the summary layout engines unpack: [fallbacks, clip_hits, clip_total]
+PDQ_TEL_WIDTH = 3
+
+
+@contextlib.contextmanager
+def pdq_guard(enable: bool = True):
+    """Enable the per-projection PDQ -> fp-dequant fallback for the
+    projections run inside."""
+    global _PDQ_GUARD
+    prev = _PDQ_GUARD
+    _PDQ_GUARD = bool(enable)
+    try:
+        yield
+    finally:
+        _PDQ_GUARD = prev
+
+
+class PdqTelemetryCollector:
+    """The PDQ health counters of the projections run while it is active:
+    ``counters``, int64 (3,) [fallbacks, clip_hits, clip_total] on their
+    device, made at the first projection unless given (an engine passes its
+    own, e.g. a captured graph's static buffer, to accumulate over a block).
+    ``summary()`` gives the reference's (3,) float32 layout."""
+
+    def __init__(self, counters=None):
+        self.counters = counters
+
+    def on(self, device) -> torch.Tensor:
+        if self.counters is None:
+            self.counters = torch.zeros((PDQ_TEL_WIDTH,), dtype=torch.int64,
+                                        device=device)
+        return self.counters
+
+    def summary(self) -> torch.Tensor:
+        if self.counters is None:
+            return torch.zeros((PDQ_TEL_WIDTH,), dtype=torch.float32)
+        return self.counters.float()
+
+
+@contextlib.contextmanager
+def pdq_telemetry(enable: bool = True, counters=None):
+    """Collect PDQ health from every projection run inside (nests with
+    ``pdq_guard``).  ``counters``: an int64 (3,) tensor to add into.
+    ``enable=False`` yields a collector that nothing counts into, whose
+    summary is zeros (the kernels get null counter pointers)."""
+    global _PDQ_TEL
+    col = PdqTelemetryCollector(counters)
+    prev = _PDQ_TEL
+    _PDQ_TEL = col if enable else None
+    try:
+        yield col
+    finally:
+        _PDQ_TEL = prev
+
+
+@contextlib.contextmanager
+def pdq_fault():
+    """Test-only: poison every guarded fast-path output with NaN, so the
+    fallback is forced to carry the computation."""
+    global _PDQ_FAULT
+    prev = _PDQ_FAULT
+    _PDQ_FAULT = True
+    try:
+        yield
+    finally:
+        _PDQ_FAULT = prev
+
+
+# the fallback's precision, under the reference's name; the plain versions
+# of the kernels' counting (its _tel_clip, _tel_clip_q) are ref.tel_clip and
+# ref.tel_clip_q
+_fp_dequant_matmul = ref.fp_dequant_matmul
+
+
+def _tel(device):
+    """The active collector's counters on ``device``, or None."""
+    return None if _PDQ_TEL is None else _PDQ_TEL.on(device)
+
+
+def _guard_flag(device):
+    """The guard's non-finite flag for a projection's epilogue, or None
+    when no guard is active."""
+    return _fd.flag_buffer(device) if _PDQ_GUARD else None
+
+
+def _guard_pdq(y, x, w_q, scale, flag):
+    """y, or - where the projection's epilogue flagged a non-finite value -
+    the fp-dequant fallback, written into y in place; a no-op without a
+    guard (``flag`` None).  Under ``pdq_fault`` y is poisoned first and the
+    flag taken from it, as the reference adds NaN before its check."""
+    if flag is None:
+        return y
+    N = y.shape[-1]
+    y2 = y.reshape(-1, N)
+    if _PDQ_FAULT:
+        y2.add_(float("nan"))
+        ref.flag_non_finite(y2, flag)
+    if not _mm.is_k_major(w_q):
+        w_q = k_major(w_q)
+    COUNTS["fp_dequant"].entries += 1
+    _fd.fp_dequant_fallback(y2, x.reshape(-1, x.shape[-1]).contiguous(), w_q,
+                            scale.float().contiguous(), flag, _tel(y.device))
+    return y
+
+
 def _norm_epi(a, M, cols, dtype, device):
     """Broadcast a scalar, (M,)-like or (M, 1 | cols) operand to a
     contiguous (M, cols).  A Python number is filled on the device (no
@@ -145,7 +284,8 @@ def _norm_row(a, M, dtype, device):
 
 
 def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
-                colsum=None, fp_range=None, out_dtype=torch.float32):
+                colsum=None, fp_range=None, out_dtype=torch.float32, tel=None,
+                flag=None):
     """y = s_x*s_w*(x_q @ w_q - z_x*colsum); requantized int8 iff s_out given.
 
     x_q: (..., K) int8; w_q: (K, N) int8, K-major as the weight records
@@ -155,6 +295,8 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
     hi)`` (exclusive with s_out) clamps in the epilogue and emits
     ``out_dtype``.  Epilogue operands are per row, or per (row, 128-column
     block) shaped (..., N // 128) - the grouped projections' layout.
+    ``tel`` / ``flag``: the PDQ health counters and the guard's flag the
+    epilogue writes (``kernels/w8a8_matmul.py``).
     """
     lead = x_q.shape[:-1]
     K, N = x_q.shape[-1], w_q.shape[-1]
@@ -192,7 +334,7 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
     y = _mm.w8a8_matmul(
         x_q.reshape(M, K).contiguous(), w_q, _norm_row(s_x, M, torch.float32, dev),
         z_x, _norm_epi(s_w, 1, N, torch.float32, dev), colsum, s_out, z_out, lo, hi,
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, tel=tel, flag=flag)
     return y.reshape(*lead, N)
 
 
@@ -226,11 +368,16 @@ def _blockwise(a, segs):
 
 
 def _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype):
-    """The fp-clamp W8A8 product of K1's (M, ...) outputs, shaped like x."""
+    """The fp-clamp W8A8 product of K1's (M, ...) outputs, shaped like x,
+    counted by an active collector and checked by an active guard (whose
+    fallback reads x)."""
+    flag = _guard_flag(x.device)
     y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], colsum=wrec["colsum"],
                     fp_range=(lo_g, hi_g),
-                    out_dtype=torch.float32 if out_dtype is None else out_dtype)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
+                    out_dtype=torch.float32 if out_dtype is None else out_dtype,
+                    tel=_tel(x.device), flag=flag)
+    y = y.reshape(*x.shape[:-1], y.shape[-1])
+    return _guard_pdq(y, x, wrec["q"], wrec["scale"], flag)
 
 
 def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
@@ -248,22 +395,28 @@ def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
         lo, hi, s_out, z_out = pdq_interval(wrec, s1, s2)
         z_out = z_out.to(torch.int32)
         y_q = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], s_out, z_out,
-                          colsum=wrec["colsum"])
+                          colsum=wrec["colsum"], tel=_tel(x.device))
         return y_q, s_out, z_out
     x_q, s_x, _, _, lo_g, hi_g = _prologue(x, wrec=wrec)
     return _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype)
 
 
 def pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec, *, out_dtype=None):
-    """``pdq_dense(out='fp')`` with the prologue already computed upstream
-    (``x`` is kept in the signature for the reference's guarded fallback,
-    which arrives with the fault-handling slice)."""
+    """``pdq_dense(out='fp')`` with the prologue already computed upstream.
+    The fp ``x`` is read only by an active guard's fallback, rounded to
+    ``out_dtype`` first: the reference's model hands its fp input over in
+    that dtype, the port's passes the attend kernel's f32 output and leaves
+    the rounding to the guard, which alone reads it."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     _, _, s_out, z_out = pdq_interval(wrec, s1, s2)
     lo_g, hi_g = _grid_extent(s_out, z_out)
-    return w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"],
-                       colsum=wrec["colsum"], fp_range=(lo_g, hi_g),
-                       out_dtype=out_dtype)
+    flag = _guard_flag(x_q.device)
+    y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"],
+                    colsum=wrec["colsum"], fp_range=(lo_g, hi_g),
+                    out_dtype=out_dtype, tel=_tel(x_q.device), flag=flag)
+    if flag is None:
+        return y
+    return _guard_pdq(y, x.to(out_dtype), wrec["q"], wrec["scale"], flag)
 
 
 def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
@@ -272,7 +425,9 @@ def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
     ``models.linops.group_quantize_weights``; every segment prices its own
     interval from the shared (s1, s2) and the matmul applies it per
     128-column block.  ``norm = (w, eps)``: x is the un-normed input and
-    the prologue's launch applies ``ref.rms_norm`` first.
+    the prologue's launch applies ``ref.rms_norm`` first (under a guard
+    plain torch applies it before the launch, so that the fallback reads the
+    normed x, as the reference's does).
 
     out='fp' returns a tuple of per-segment outputs (..., N_i) in
     ``out_dtype`` (default f32); out='int8' returns (tuple of per-segment
@@ -289,9 +444,11 @@ def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
         z_out = z_out.to(torch.int32)
         y_q = w8a8_matmul(x_q, grec["q"], s_x, 0, grec["scale"],
                           _blockwise(s_out, segs), _blockwise(z_out, segs),
-                          colsum=grec["colsum"]).reshape(*lead, -1)
+                          colsum=grec["colsum"], tel=_tel(x.device)).reshape(*lead, -1)
         return (tuple(y_q[..., o:o + n] for o, n in bounds),
                 s_out.reshape(*lead, -1), z_out.reshape(*lead, -1))
+    if _PDQ_GUARD and norm is not None:
+        x, norm = ref.rms_norm(x, *norm), None
     x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, grec, _blocks(segs))
     y = _fp_matmul(x, x_q, s_x, grec, lo_g, hi_g, out_dtype)
     return tuple(y[..., o:o + n] for o, n in bounds)
@@ -306,7 +463,10 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
     ``grec`` must be the two equal, 128-column padded segments
     ``group_quantize_weights((w_gate, w_up))`` makes.  The reference's
     unfused composition (``pdq_dense_grouped`` + silu + ``pdq_dense``)
-    agrees to float tolerance; the tests hold the two together.
+    agrees to float tolerance; the tests hold the two together.  Under an
+    active guard the MLP takes that composition, as the reference does (the
+    fallback needs the gate/up output), and K3 does not run.  A collector
+    counts K3's f32 gate/up values, as the reference's fused kernel's.
     """
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     segs = grec["segs"]
@@ -314,12 +474,18 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
             and segs.padded[0] % LANE == 0):
         raise ValueError(f"pdq_mlp needs two equal 128-padded segments, got "
                          f"{segs.padded}")
+    if _PDQ_GUARD:
+        g, u = pdq_dense_grouped(x, grec, out="fp", out_dtype=out_dtype, norm=norm)
+        return pdq_dense(torch.nn.functional.silu(g) * u, down_rec, out="fp",
+                         out_dtype=out_dtype)
     lead, K = x.shape[:-1], x.shape[-1]
     M, Nt = _rows(x), segs.total
     x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, grec, _blocks(segs))
     COUNTS["w8a8_swiglu_matmul"].entries += 1
+    tel = _tel(x.device)
     _hsw, hsw_q, sxo, s1o, s2o = _mm.w8a8_swiglu_matmul(
-        x_q, grec["q"], s_x, None, grec["scale"].reshape(1, Nt), None, lo_g, hi_g)
+        x_q, grec["q"], s_x, None, grec["scale"].reshape(1, Nt), None, lo_g, hi_g,
+        tel=tel)
     dff = down_rec["q"].shape[0]
     hq = hsw_q[:, :dff].reshape(*lead, dff)
     _, _, so2, zo2 = pdq_interval(down_rec, s1o.reshape(*lead, 1),
@@ -327,7 +493,7 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
     lo2, hi2 = _grid_extent(so2, zo2)
     return w8a8_matmul(hq, down_rec["q"], sxo.reshape(*lead, 1), 0,
                        down_rec["scale"], colsum=down_rec["colsum"],
-                       fp_range=(lo2, hi2), out_dtype=out_dtype)
+                       fp_range=(lo2, hi2), out_dtype=out_dtype, tel=tel)
 
 
 def pdq_dense_unfused(x, wrec):

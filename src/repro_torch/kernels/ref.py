@@ -137,6 +137,57 @@ def pdq_prologue_fused_ref(x, norm=None, interval=None, return_normed=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# PDQ health: the plain versions of what the W8A8 kernels count, and of the
+# guarded projection's fp-dequant fallback (kernels/fp_dequant.py).  The
+# counters are one int64 (3,) tensor [fallbacks, clip_hits, clip_total],
+# updated in place with tensor ops (no host read on any device).
+# ---------------------------------------------------------------------------
+
+
+def tel_clip(y, lo, hi, tel):
+    """Add the clip hits of a clamped output ``y`` (elements on or past
+    either edge of [lo, hi], compared in f32; a NaN is no hit) and its size
+    to ``tel``: the reference's ``ops._tel_clip``."""
+    y = y.float()
+    hits = ((y <= lo) | (y >= hi)).sum()
+    tel[1:].add_(torch.stack((hits, torch.full_like(hits, y.numel()))))
+
+
+def tel_clip_q(y_q, tel):
+    """``tel_clip`` of int8 codes: saturation is the grid's edge codes
+    -128 and 127 (the reference's ``ops._tel_clip_q``)."""
+    tel_clip(y_q, -128.0, 127.0, tel)
+
+
+def flag_non_finite(y, flag):
+    """Set ``flag`` (int32 (1,) or more) to 1 where ``y`` holds a NaN or an
+    infinity: the guard's finite check, which the kernels run in their
+    epilogue."""
+    flag[:1].bitwise_or_((~torch.isfinite(y).all()).to(flag.dtype))
+
+
+def fp_dequant_matmul(x, w_q, scale, out_dtype):
+    """The always-available fallback precision: the int8 weight
+    dequantized in f32 and the projection in f32, ``(x @ (q * scale))``
+    cast to ``out_dtype`` (the reference's ``ops._fp_dequant_matmul``)."""
+    w = w_q.float() * scale.float().reshape(1, -1)
+    return (x.float() @ w).to(out_dtype)
+
+
+def fp_dequant_fallback_ref(y, x, w_q, scale, flag, tel=None):
+    """Plain version of the predicated fallback kernel: when ``flag[0]`` is
+    set, overwrite ``y`` (M, N) with ``fp_dequant_matmul`` of x (M, K) and
+    add 1 to ``tel[0]``; either way put the flag back to 0.  Reads the flag
+    on the host, so it is for CPU tensors and for checks."""
+    if int(flag[0]):
+        y.copy_(fp_dequant_matmul(x, w_q, scale, y.dtype))
+        if tel is not None:
+            tel[0] += 1
+    flag[0] = 0
+    return y
+
+
 def act_stats_ref(x):
     """Row moments: s1 = sum x, s2 = sum x^2 over the last axis, in f32;
     x (..., K) -> two (...) tensors."""

@@ -22,6 +22,15 @@ int8 tensor cores; K a multiple of 16, 16-byte aligned bases) or
 ``generic`` (``__dp4a`` on the CUDA cores, any shape).  ``ROUTES`` counts
 the launches of each.  The plain versions compute the product in float64,
 which is exact (``ref.w8a8_matmul_ref``).
+
+PDQ health (``ops.pdq_telemetry``, ``ops.pdq_guard``): a call may pass
+``tel``, the collector's int64 [fallbacks, clip_hits, clip_total] on the
+call's device, and K2 ``flag``, the guard's int32 non-finite flag.  The
+kernels count in their epilogues (clip hits on the values as stored, the
+call's M x N) and set the flag where they store a non-finite value; the
+plain versions do the same with tensor ops (``ref.tel_clip``,
+``ref.tel_clip_q``, ``ref.flag_non_finite``).  K3 counts its f32 gate and
+up values.  Without them nothing is counted.
 """
 from __future__ import annotations
 
@@ -51,10 +60,10 @@ BAR = 4096          # tickets below BAR are per column tile; BAR, BAR + 1 the gr
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {
-    "w8a8_matmul": [_P] * 11 + [_I, _L, _I, _I, _I, _P],
-    "w8a8_swiglu_matmul": [_P] * 15 + [_L, _I, _I, _P],
-    "w8a8_matmul_wgmma": [_P] * 11 + [_I] * 11 + [_P] * 3,
-    "w8a8_swiglu_matmul_wgmma": [_P] * 14 + [_I] * 9 + [_P] * 4,
+    "w8a8_matmul": [_P] * 11 + [_I, _L, _I, _I, _I] + [_P] * 3,
+    "w8a8_swiglu_matmul": [_P] * 15 + [_L, _I, _I, _P, _P],
+    "w8a8_matmul_wgmma": [_P] * 11 + [_I] * 11 + [_P] * 5,
+    "w8a8_swiglu_matmul_wgmma": [_P] * 14 + [_I] * 9 + [_P] * 5,
 }
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _WS: dict = {}          # device -> split-K int32 workspace, zero at rest
@@ -175,18 +184,28 @@ def _pick_route(route, x_q, w_q, op):
 
 
 def w8a8_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
-                      lo=None, hi=None, *, out_dtype=torch.float32):
+                      lo=None, hi=None, *, out_dtype=torch.float32, tel=None, flag=None):
     """Plain version of K2 on the kernel's operands (``colsum`` is
-    recomputed from ``w_q`` by the oracle)."""
+    recomputed from ``w_q`` by the oracle), counting into ``tel`` and
+    ``flag`` as the kernel does."""
     N = w_q.shape[1]
     z_x = 0 if z_x is None else z_x
     if s_out is not None:
-        return ref.w8a8_matmul_ref(x_q, w_q, s_x, z_x, s_w,
-                                   _per_column(s_out, N), _per_column(z_out, N))
+        y_q = ref.w8a8_matmul_ref(x_q, w_q, s_x, z_x, s_w,
+                                  _per_column(s_out, N), _per_column(z_out, N))
+        if tel is not None:
+            ref.tel_clip_q(y_q, tel)
+        return y_q
     y = ref.w8a8_matmul_ref(x_q, w_q, s_x, z_x, s_w)
     if lo is not None:
-        y = torch.minimum(torch.maximum(y, _per_column(lo, N)), _per_column(hi, N))
-    return y.to(out_dtype)
+        lo, hi = _per_column(lo, N), _per_column(hi, N)
+        y = torch.minimum(torch.maximum(y, lo), hi)
+    y = y.to(out_dtype)
+    if tel is not None:
+        ref.tel_clip(y, lo, hi, tel)
+    if flag is not None:
+        ref.flag_non_finite(y, flag)
+    return y
 
 
 def _check(x_q, w_q, s_x, z_x, s_w, colsum, epi):
@@ -210,19 +229,32 @@ def _check(x_q, w_q, s_x, z_x, s_w, colsum, epi):
     return M, K, N
 
 
+def _check_health(tel, flag, counted: bool, flagged: bool):
+    """``tel``: int64 (3,); ``flag``: int32 (>= 1,); each only where the
+    epilogue counts (a clamp or the requant grid) or flags (an fp out)."""
+    if tel is not None and (not counted or tel.dtype != torch.int64 or tel.numel() != 3
+                            or not tel.is_contiguous()):
+        raise ValueError("tel: a contiguous int64 (3,) tensor, with a clamp or requant "
+                         "epilogue")
+    if flag is not None and (not flagged or flag.dtype != torch.int32):
+        raise ValueError("flag: an int32 tensor, with the fp clamp epilogue")
+
+
 def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
-                     lo=None, hi=None, *, out_dtype=torch.float32, route=None):
+                     lo=None, hi=None, *, out_dtype=torch.float32, route=None,
+                     tel=None, flag=None):
     """Launch K2.  ``s_out``/``z_out`` select the requant epilogue (int8
     out), ``lo``/``hi`` the clamp of an fp out; ``z_x=None`` is a zero
     point of 0, and then ``colsum`` is not read.  Operands come as
     ``ops.w8a8_matmul`` makes them: w_q K-major, the rest contiguous.
     ``route`` (None: ``route_for``) forces a route, for the tests and
-    ``chip_smoke.py``."""
-    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out, z_out, lo, hi)
+    ``chip_smoke.py``.  ``tel``/``flag``: see the module note."""
+    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out, z_out, lo, hi, tel, flag)
     if (s_out is None) != (z_out is None) or (lo is None) != (hi is None):
         raise ValueError("s_out/z_out and lo/hi come in pairs")
     if s_out is not None and lo is not None:
         raise ValueError("the requant and fp clamp epilogues are exclusive")
+    _check_health(tel, flag, s_out is not None or lo is not None, lo is not None)
     M, N = x_q.shape[0], w_q.shape[1]
     E = 1 if s_out is None and lo is None else (s_out if lo is None else lo).shape[1]
     if E not in (1, N // LANE) or (E > 1 and N % LANE):
@@ -249,31 +281,36 @@ def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
         code = lib.w8a8_matmul_wgmma(
             *operands, out.data_ptr(), kind, M, K, N, E, p.col_tiles, p.nks, p.kc,
             p.splits, p.items, p.grid, _ptr(ws), _tickets(dev).data_ptr(),
-            _build.stream_ptr(dev))
+            _ptr(tel), _ptr(flag), _build.stream_ptr(dev))
     else:
         COUNT.launches += 1
         ROUTES["w8a8_matmul"][r] += 1
         code = lib.w8a8_matmul(*operands, out.data_ptr(), kind, M, K, N, E,
-                               _build.stream_ptr(dev))
+                               _ptr(tel), _ptr(flag), _build.stream_ptr(dev))
     _build.check(code, "w8a8_matmul")
     return out
 
 
-def w8a8_matmul(*args, out_dtype=torch.float32):
+def w8a8_matmul(*args, out_dtype=torch.float32, tel=None, flag=None):
     """K2 on its normalized operands: plain version for CPU tensors, the
     CUDA kernel otherwise."""
     fn = w8a8_matmul_plain if args[0].device.type == "cpu" else w8a8_matmul_cuda
-    return fn(*args, out_dtype=out_dtype)
+    return fn(*args, out_dtype=out_dtype, tel=tel, flag=flag)
 
 
-def w8a8_swiglu_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi):
-    """Plain version of K3 (``colsum`` is recomputed by the oracle)."""
-    return ref.w8a8_swiglu_ref(x_q, w_q, s_x, 0 if z_x is None else z_x, s_w,
-                               lo, hi)[1:]
+def w8a8_swiglu_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, tel=None):
+    """Plain version of K3 (``colsum`` is recomputed by the oracle),
+    counting its f32 gate/up values into ``tel`` as the kernel does."""
+    y, *out = ref.w8a8_swiglu_ref(x_q, w_q, s_x, 0 if z_x is None else z_x, s_w,
+                                  lo, hi)
+    if tel is not None:
+        N = y.shape[1]
+        ref.tel_clip(y, _per_column(lo, N), _per_column(hi, N), tel)
+    return tuple(out)
 
 
 def w8a8_swiglu_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, route=None,
-                            stamps=None):
+                            stamps=None, tel=None):
     """Launch K3: w_q (K, N), K-major, holds [gate | up], P = N/2 columns
     each, with P a multiple of 128; lo/hi (M, N/128); ``z_x=None`` as in
     K2; ``route`` as in K2.  Returns (hsw (M, P) f32, hsw_q (M, P) int8,
@@ -288,7 +325,8 @@ def w8a8_swiglu_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, route=No
     tensor of >= 2 entries per SM that receives each block's globaltimer
     (ns) at the end of phase 1 (the GEMM items) and of phase 2 (the
     quantize), to time the quantize tail."""
-    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi)
+    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, tel)
+    _check_health(tel, None, True, False)
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x_q.device
                                or stamps.numel() < 2 * _sms(x_q.device)):
         raise ValueError("stamps: an int64 tensor of 2 entries per SM on x_q's device")
@@ -316,7 +354,7 @@ def w8a8_swiglu_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, route=No
         ROUTES["w8a8_swiglu_matmul"][r] += 1
         code = lib.w8a8_swiglu_matmul_wgmma(
             *operands, part.data_ptr(), M, K, N, p.col_tiles, p.nks, p.kc, p.splits,
-            p.items, p.grid, _ptr(ws), tickets.data_ptr(), _ptr(stamps),
+            p.items, p.grid, _ptr(ws), tickets.data_ptr(), _ptr(stamps), _ptr(tel),
             _build.stream_ptr(dev))
     else:
         if stamps is not None:
@@ -329,13 +367,13 @@ def w8a8_swiglu_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, route=No
         SWIGLU_COUNT.launches += 1
         ROUTES["w8a8_swiglu_matmul"][r] += 1
         code = lib.w8a8_swiglu_matmul(*operands, part.data_ptr(), tickets.data_ptr(),
-                                      M, K, N, _build.stream_ptr(dev))
+                                      M, K, N, _ptr(tel), _build.stream_ptr(dev))
     _build.check(code, "w8a8_swiglu_matmul")
     return hsw, hsw_q, sx, s1, s2
 
 
-def w8a8_swiglu_matmul(*args):
+def w8a8_swiglu_matmul(*args, tel=None):
     """K3: plain version for CPU tensors, the CUDA kernel otherwise."""
     if args[0].device.type == "cpu":
-        return w8a8_swiglu_matmul_plain(*args)
-    return w8a8_swiglu_matmul_cuda(*args)
+        return w8a8_swiglu_matmul_plain(*args, tel=tel)
+    return w8a8_swiglu_matmul_cuda(*args, tel=tel)

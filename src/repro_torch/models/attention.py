@@ -178,7 +178,10 @@ def _cache_write(cache, k_new, v_new, positions):
         cache["k"][bidx, slots] = k_new.to(cache["k"].dtype)
         cache["v"][bidx, slots] = v_new.to(cache["v"].dtype)
     cache["pos"][bidx, slots] = positions.to(torch.int32)
-    cache["len"].copy_(torch.maximum(cache["len"], positions[:, -1] + 1))
+    # written by the elementwise kernel itself: a copy_ of the 4-byte-a-row
+    # result is a memcpy node in a captured graph, which the driver runs
+    # either as a kernel or on the copy engine (a stall between kernels)
+    torch.maximum(cache["len"], (positions[:, -1] + 1).to(torch.int32), out=cache["len"])
     return cache
 
 

@@ -2,13 +2,16 @@
 reference's jitted ``lax.scan`` block, ``repro/serve/engine.py``).
 
 ``DecodeGraph`` captures ``block(caches, tokens, positions, uids, steps,
-n_steps) -> (toks (B, N) int32, ok (B, N) bool)`` - ``engine.decode_scan``
-over the engine's N - once, over fixed buffers: the five (B,) inputs in one
-int32 device tensor, the cache tree the engine decodes in place (the
-slot-row pool, or the paged engine's persistent logical scratch), and the
-(2, B, N) int32 output.  A dispatch is then one host-to-device copy of the
-inputs from a pinned staging buffer, one ``replay()`` and one
-device-to-host copy of the output.
+n_steps, tel) -> (toks (B, N) int32, ok (B, N) bool)`` - the engine's
+``decode_scan`` over its N, under its guard - once, over fixed buffers: the
+five (B,) inputs in one int32 device tensor, the cache tree the engine
+decodes in place (the slot-row pool, or the paged engine's persistent
+logical scratch), the PDQ health counters ``tel`` (int64 (3,), zeroed at
+the block's start by the graph's first node) and the output: toks and ok
+as int32 and the counters' words, packed in one int32 tensor (``pack``).
+A dispatch is then one host-to-device copy of the inputs from a pinned
+staging buffer, one ``replay()`` and one device-to-host copy of the
+output, which brings the tokens and the health vector together.
 
 Before the capture the block runs once eagerly on a side stream over a
 scratch tree of the same shapes (``warm_caches``): that builds and loads
@@ -29,6 +32,7 @@ from __future__ import annotations
 import gc
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -81,11 +85,15 @@ class DecodeGraph:
         self.inputs = torch.zeros((len(INPUTS), rows), dtype=torch.int32, device=dev)
         self.staging = torch.zeros((len(INPUTS), rows), dtype=torch.int32,
                                    pin_memory=dev.type == "cuda")
+        self.tel = torch.zeros((ops.PDQ_TEL_WIDTH,), dtype=torch.int64, device=dev)
+        self.shape = None
 
         def body(c):
             tok, pos, uids, steps, n_steps = self.inputs.unbind(0)
-            toks, ok = block(c, tok[:, None], pos[:, None], uids, steps, n_steps)
-            return torch.stack((toks, ok.to(torch.int32)))
+            self.tel.zero_()
+            toks, ok = block(c, tok[:, None], pos[:, None], uids, steps, n_steps, self.tel)
+            self.shape = tuple(toks.shape)
+            return self.pack(toks, ok, self.tel)
 
         before = ops.count_state()
         _warm_up(body, warm_caches, dev)
@@ -96,17 +104,32 @@ class DecodeGraph:
         # the buffers the capture launched on stay alive with the graph
         self.buffers = ops.persistent_buffers()
 
+    @staticmethod
+    def pack(toks, ok, tel):
+        """toks (B, N) int32, ok (B, N) bool and the int64 (3,) counters as
+        ONE flat int32 tensor (the counters as their words), so one copy
+        brings all three to the host."""
+        return torch.cat((toks.flatten(), ok.to(torch.int32).flatten(),
+                          tel.view(torch.int32)))
+
+    @staticmethod
+    def unpack(out, shape):
+        """``pack``'s numpy copy -> (toks (B, N) int32, ok (B, N) bool,
+        health (3,) int64)."""
+        n = shape[0] * shape[1]
+        return (out[:n].reshape(shape), out[n:2 * n].reshape(shape).astype(bool),
+                out[2 * n:].view(np.int64))
+
     def __call__(self, tokens, positions, uids, steps, n_steps):
         """Replay the block on the plan's rows; returns numpy (toks (B, N)
-        int32, ok (B, N) bool)."""
+        int32, ok (B, N) bool, the block's PDQ health (3,) int64)."""
         stage = self.staging.numpy()
         for i, a in enumerate((tokens, positions, uids, steps, n_steps)):
             stage[i] = a
         self.inputs.copy_(self.staging, non_blocking=True)
         self.graph.replay()
         ops.add_counts(self.delta)
-        out = self.out.cpu().numpy()
-        return out[0], out[1].astype(bool)
+        return self.unpack(self.out.cpu().numpy(), self.shape)
 
 
 __all__ = ["DecodeGraph", "INPUTS"]

@@ -30,6 +30,16 @@ With ``quantize_weights=True`` every layer's projections run PDQ int8
 engine documents; the reference itself leaves its stacked blocks in fp
 (ROADMAP.md Queue 3).
 
+PDQ health and the guard (``kernels/ops.py``): every launch returns the
+reference's [fallbacks, clip_hits, clip_total] vector.  The kernels add
+into one int64 (3,) device tensor - the decode graph's own, zeroed at the
+block's start, or a fresh one for an eager prefill - and it leaves in the
+same device-to-host copy as the launch's tokens, so no other host read
+happens inside a launch; ``_observe_pdq`` folds it into ``stats`` and the
+metrics.  ``pdq_fallback=True`` builds every block under ``ops.pdq_guard``
+(the decode graph is captured under it).  With telemetry off the kernels
+get no counter pointer and the vector is zeros, as in the reference.
+
 Temperature sampling is Gumbel-max over a counter-based hash of (seed,
 uid, step, vocab index) (``sample``), so a request's stream depends only
 on (seed, uid, prompt, step) - not on the batch, N or the dispatch.  It
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.fault import FaultInjector
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
 from repro_torch.models import build_model
 from repro_torch.models.linops import quantize_param_tree
@@ -105,23 +116,35 @@ def decode_scan(step_fn, sample_fn, n_block: int):
     position with identical content, a bit-exact no-op) and emits
     ``DECODE_PAD`` with ok=True, so every row runs every step.
 
+    PDQ telemetry is collected around each step into ``tel`` (int64 (3,)),
+    so it holds the block's sum; ``tel=None`` collects nothing.
+    ``pdq_guard`` wraps the whole block at the call site.
+
     Returns ``run(caches, tokens (B, 1), positions (B, 1), uids, steps,
-    n_steps) -> (toks (B, N) int32, ok (B, N) bool)``; ``caches`` are
-    updated in place.
+    n_steps, tel=None) -> (toks (B, N) int32, ok (B, N) bool)``;
+    ``caches`` are updated in place.
     """
-    def run(caches, tokens, positions, uids, steps, n_steps):
+    def run(caches, tokens, positions, uids, steps, n_steps, tel=None):
         tok, pos, toks, oks = tokens, positions, [], []
         for t in range(n_block):
-            logits, caches = step_fn(caches, tok, pos)
+            with ops.pdq_telemetry(tel is not None, counters=tel):
+                logits, caches = step_fn(caches, tok, pos)
             nxt, okt = sample_fn(logits, uids, steps + t)
             act = t < n_steps
             toks.append(torch.where(act, nxt, DECODE_PAD))
             oks.append(okt | ~act)
             tok = torch.where(act, nxt, tok[:, 0]).to(tokens.dtype)[:, None]
             pos = torch.where(act, pos[:, 0] + 1, pos[:, 0])[:, None]
-        return torch.stack(toks, 1).to(torch.int32), torch.stack(oks, 1)
+        return _columns(toks).to(torch.int32), _columns(oks)
 
     return run
+
+
+def _columns(ts):
+    """(B,) tensors as the columns of a (B, N) one.  One column is a view:
+    stacking a single tensor is a ``copy_``, which a captured graph holds as
+    a memcpy node (PERF.md §6, PR 21)."""
+    return ts[0][:, None] if len(ts) == 1 else torch.stack(ts, 1)
 
 
 def _graphed(device: torch.device) -> bool:
@@ -156,8 +179,7 @@ class ServeEngine(SchedulerCore):
                  device="cuda"):
         for on, what, item in (
                 (not batch_prefill, "the per-request prefill baseline", "9"),
-                (chunked_prefill, "chunked prefill", "6"),
-                (pdq_fallback, "the guarded PDQ fallback", "5")):
+                (chunked_prefill, "chunked prefill", "6")):
             if on:
                 raise not_ported(what, item)
         self.cfg = cfg
@@ -167,6 +189,7 @@ class ServeEngine(SchedulerCore):
                        else params)
         self.temperature = float(temperature)
         self.seed = 0 if seed is None else int(seed)
+        self.pdq_fallback = bool(pdq_fallback)
         if tel is None:
             tel = tmod.Telemetry(enabled=telemetry, trace=trace)
         self._init_scheduler(
@@ -193,13 +216,10 @@ class ServeEngine(SchedulerCore):
                 self.caches, no_pages, np.zeros((self.slots,), np.int32))
         else:
             self.caches = self.bundle.init_caches(self.slots, self.max_len)
-        # the PDQ health vector [fallbacks, clip_hits, clip_total]: zeros
-        # until the telemetry slice ports the device-side counters
-        self._pdq_health = np.zeros((3,), np.float32)
         self._sample_fn = functools.partial(sample, temperature=self.temperature,
                                             seed=self.seed)
-        self._block = decode_scan(functools.partial(self.bundle.decode_step, self.params),
-                                  self._sample_fn, self.decode_steps)
+        self._scan = decode_scan(functools.partial(self.bundle.decode_step, self.params),
+                                 self._sample_fn, self.decode_steps)
         self._graph = None
         if _graphed(self.device):
             self._graph = DecodeGraph(
@@ -208,11 +228,32 @@ class ServeEngine(SchedulerCore):
                 self.device)
             self.stats["graph_replays"] = 0
 
+    def _block(self, caches, tokens, positions, uids, steps, n_steps, tel):
+        """The decode block as the engine runs it: under the guard when
+        ``pdq_fallback``, collecting into ``tel`` when telemetry is on."""
+        with ops.pdq_guard(self.pdq_fallback):
+            return self._scan(caches, tokens, positions, uids, steps, n_steps,
+                              tel if self.tel.enabled else None)
+
+    def bind_thread(self) -> None:
+        """Make the engine's card the current device of the calling thread
+        (``ServeService`` calls it first in its loop thread; a CUDA graph
+        replays on the current device's stream)."""
+        if self.device.type == "cuda":
+            # the caches' device carries the index a bare "cuda" leaves out
+            leaf = next(iter(self.caches["blocks"][0].values()))
+            torch.cuda.set_device(leaf.device)
+
+    def _tel_buffer(self):
+        """A zeroed int64 (3,) PDQ health vector on the engine's device."""
+        return torch.zeros((ops.PDQ_TEL_WIDTH,), dtype=torch.int64, device=self.device)
+
     # -------------------------------------------------------------- sampling
-    def _sample_rows(self, kind: str, plan, logits):
-        """Sample every batch row of a prefill launch, as numpy (B,); the
-        fault injector's logits poisoning applies first (a no-op outside
-        fault tests)."""
+    def _sample_rows(self, kind: str, plan, logits, tel):
+        """Sample every batch row of a prefill launch: numpy (toks (B,), ok
+        (B,)) and the launch's PDQ health vector ``tel``, in ONE
+        device-to-host copy; the fault injector's logits poisoning applies
+        first (a no-op outside fault tests)."""
         rows = self.fault.poison_rows(kind, plan)
         if rows:
             logits = logits.clone()
@@ -220,7 +261,9 @@ class ServeEngine(SchedulerCore):
         dev = logits.device
         toks, ok = self._sample_fn(logits, torch.as_tensor(plan.row_uids, device=dev),
                                    torch.as_tensor(plan.row_steps, device=dev))
-        return toks.cpu().numpy(), ok.cpu().numpy()
+        out = torch.cat((toks, ok.to(torch.int32), tel.view(torch.int32))).cpu().numpy()
+        B = toks.shape[0]
+        return out[:B], out[B:2 * B].astype(bool), out[2 * B:].view(np.int64)
 
     # ------------------------------------------------------------ exec hooks
     def _exec_prefill(self, plan: PrefillPlan, extras):
@@ -229,13 +272,16 @@ class ServeEngine(SchedulerCore):
         dev = self.device
         # prefill writes its pool in place, so every launch gets a fresh one
         sub = self.bundle.init_caches(self.slots, self.max_len)
-        logits, sub = self.bundle.prefill_many(
-            self.params, {"tokens": torch.as_tensor(plan.tokens, device=dev)},
-            sub, torch.as_tensor(plan.seq_lens, device=dev))
+        tel = self._tel_buffer()
+        with ops.pdq_guard(self.pdq_fallback), \
+                ops.pdq_telemetry(self.tel.enabled, counters=tel):
+            logits, sub = self.bundle.prefill_many(
+                self.params, {"tokens": torch.as_tensor(plan.tokens, device=dev)},
+                sub, torch.as_tensor(plan.seq_lens, device=dev))
         self._land_sub(plan, sub)
-        out = self._sample_rows("prefill", plan, logits)
-        self._observe_pdq(self._pdq_health)
-        return out
+        toks, ok, health = self._sample_rows("prefill", plan, logits, tel)
+        self._observe_pdq(health)       # rode the token copy
+        return toks, ok
 
     def _land_sub(self, plan, sub) -> None:
         """Land a finished prefill batch in the pool, in place (the
@@ -258,18 +304,20 @@ class ServeEngine(SchedulerCore):
             po.gather(self.caches, plan.page_tables, plan.positions[:, 0],
                       out=self._logical)
         if self._graph is not None:
-            toks, ok = self._graph(*rows)
+            toks, ok, health = self._graph(*rows)
             self.stats["graph_replays"] += 1
         else:
             t = [torch.as_tensor(np.asarray(a, np.int32), device=self.device)
                  for a in rows]
+            tel = self._tel_buffer()
             toks, ok = self._block(self._logical if self.paged else self.caches,
-                                   t[0][:, None], t[1][:, None], *t[2:])
-            toks, ok = toks.cpu().numpy(), ok.cpu().numpy()
+                                   t[0][:, None], t[1][:, None], *t[2:], tel)
+            toks, ok, health = DecodeGraph.unpack(
+                DecodeGraph.pack(toks, ok, tel).cpu().numpy(), toks.shape)
         if self.paged:
             po.writeback(self.caches, self._logical, plan.page_tables, plan.positions,
                          n_steps=plan.n_steps, max_steps=self.decode_steps)
-        self._observe_pdq(self._pdq_health)
+        self._observe_pdq(health)       # rode the token copy
         return toks, self._poison_ok("decode", plan, ok)
 
     # ------------------------------------------------------ paged-pool hooks

@@ -38,6 +38,17 @@ partial are back at 0 (the barrier's generation word moved on by two
 barriers a K3 launch); a replay after the kernels' workspaces grew (an
 eager Sp-4096 attend and a wider W8A8) repeats its bits; and the capture
 runs with Python's cycle collector off.
+PDQ health and the guard: NaN in an operand (a row's s_x, a weight scale,
+a clamp bound) or a row of x makes exactly the plain version's outputs
+non-finite, on both K2/K3 routes and in every K1 mode, and in K5's wo
+prologue; the epilogues' clip hits and M x N equal the plain version's
+counts (split K included) and the guard's flag is set like plain's; the
+predicated fallback leaves y alone with its flag clear and computes the
+fp-dequant product with it set (f32 within 1e-5; bf16 within one ulp, as
+two f32 sums in another order may round to neighbouring values), clearing
+it; the decode graph zeroes its counters each replay; a guarded engine
+under the fault hook falls back once a projection a launch; and
+ServeService's thread replays the graph to the batch run's streams.
 """
 import gc
 
@@ -959,5 +970,254 @@ def test_decode_graph_capture_runs_without_the_cycle_collector(card_model):
     assert gc.isenabled()
     g = dg.DecodeGraph(watched, eng.caches, eng.bundle.init_caches(4, 128), 4, "cuda")
     assert seen == [(False, True), (True, False)] and gc.isenabled()
-    toks, ok = g(*_replay_rows(eng, 40))
-    assert toks.shape == (4, 1) and bool(ok.all())
+    toks, ok, health = g(*_replay_rows(eng, 40))
+    assert toks.shape == (4, 1) and bool(ok.all()) and health.shape == (3,)
+
+
+# ---------------------------------------------------------------------------
+# NaN travels as in the reference (max.NaN / min.NaN in the clamps and the
+# row maxima), and the PDQ health the epilogues count
+# ---------------------------------------------------------------------------
+
+NAN = float("nan")
+
+
+def _same_nonfinite(k, p):
+    """The same elements are non-finite, at least one is, and the finite
+    ones agree bit for bit."""
+    kf, pf = torch.isfinite(k.float()), torch.isfinite(p.float())
+    assert torch.equal(kf, pf) and not bool(kf.all())
+    assert torch.equal(k[kf], p[pf])
+
+
+def _poison(where, s_x, s_w, lo, hi):
+    """A NaN in one row's s_x (a NaN in that row of x, through K1), one
+    column's weight scale, or one row's clamp bound."""
+    s_x, s_w, lo, hi = s_x.clone(), s_w.clone(), lo.clone(), hi.clone()
+    {"x_row": s_x, "scale_col": s_w, "lo_row": lo, "hi_row": hi}[where][
+        (0, 5) if where == "scale_col" else (3, 0)] = NAN
+    return s_x, s_w, lo, hi
+
+
+@pytest.mark.parametrize("where", ["x_row", "scale_col", "lo_row", "hi_row"])
+@pytest.mark.parametrize("route", ["wgmma", "generic"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 768), (130, 256, 384), (5, 5632, 256)])
+def test_w8a8_nan_operands_give_plain_nonfinite(gen, M, K, N, out, route, where):
+    x_q, w_q, s_x, _, s_w, _, _, _, lo, hi = _operands(gen, M, K, N, N // 128)
+    s_x, s_w, lo, hi = _poison(where, s_x, s_w, lo, hi)
+    args = (x_q, w_q, s_x, None, s_w, None, None, None, lo, hi)
+    _same_nonfinite(mm.w8a8_matmul_cuda(*args, out_dtype=out, route=route),
+                    mm.w8a8_matmul_plain(*args, out_dtype=out))
+
+
+@pytest.mark.parametrize("where", ["x_row", "scale_col", "lo_row"])
+@pytest.mark.parametrize("route", ["wgmma", "generic"])
+@pytest.mark.parametrize("M", [8, 130])
+def test_swiglu_nan_operands_give_plain_nonfinite(gen, M, route, where):
+    x_q, w_q, s_x, _, s_w, _, _, _, lo, hi = _operands(gen, M, 256, 512, 4)
+    s_x, s_w, lo, hi = _poison(where, s_x, s_w, lo, hi)
+    args = (x_q, w_q, s_x, None, s_w, None, lo, hi)
+    k = mm.w8a8_swiglu_matmul_cuda(*args, route=route)
+    p = mm.w8a8_swiglu_matmul_plain(*args)
+    for i in (0, 2, 3, 4):                  # hsw, s_x, s1, s2 (not the codes)
+        assert torch.equal(torch.isfinite(k[i]), torch.isfinite(p[i])), i
+    assert not bool(torch.isfinite(k[2]).all())
+
+
+@pytest.mark.parametrize("norm,n_seg", _PRO_MODES)
+@pytest.mark.parametrize("M,K", [(3, 77), (8, 2048), (70, 5632)])
+def test_pdq_prologue_nan_row_in_every_mode(gen, M, K, norm, n_seg):
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(torch.bfloat16)
+    x[1, K // 2] = NAN
+    w, interval = _prologue_operands(gen, K, torch.bfloat16, n_seg or 1)
+    args = (x, (w, 1e-5) if norm else None, interval if n_seg else None)
+    k, p = pro.pdq_prologue_cuda(*args), pro.pdq_prologue_plain(*args)
+    for a, b in zip(k[1:], p[1:]):          # s_x, s1, s2[, lo_g, hi_g]
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        assert not bool(torch.isfinite(a[1]).any()) and bool(torch.isfinite(a[0]).all())
+    assert torch.equal(k[0][0], p[0][0])    # the finite rows' codes
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_decode_attend_fused_nan_query_row(gen, split):
+    q, k_q, v_q, ks, vs, length = _attend_operands(gen, 4, 4, 2, 64, 256, (1, 57, 200, 256))
+    q = q.clone()
+    q[2, 3, 7] = NAN
+    fn = kv.decode_attend_i8kv_fused_cuda
+    got = fn(q, k_q, v_q, ks, vs, length, torch.bfloat16,
+             route="split" if split else "single")
+    want = kv.decode_attend_i8kv_fused_plain(q, k_q, v_q, ks, vs, length, torch.bfloat16)
+    # wo's prologue: a NaN in the row's o gives the row a NaN s_x, s1, s2
+    # (the softmax itself keeps fmaxf: a NaN cache or query is outside the
+    # contract there, so o is only required to carry the NaN somewhere)
+    assert not bool(torch.isfinite(got[0][2]).all())
+    for i in (2, 3, 4):
+        assert torch.equal(torch.isfinite(got[i]), torch.isfinite(want[i])), i
+    assert not bool(torch.isfinite(got[2][2]).any())
+
+
+def _wide_clamp(gen, M, E):
+    """Clamp bounds narrow enough that many outputs clip."""
+    f = lambda *s: torch.rand(s, generator=gen, device="cuda")      # noqa: E731
+    return -(0.5 + 3 * f(M, E)), 0.5 + 3 * f(M, E)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "generic"])
+@pytest.mark.parametrize("M,K,N,mode", [(8, 2048, 6144, "fp_clamp_bf16"),
+                                        (8, 5632, 2048, "fp32"),
+                                        (130, 256, 384, "fp_clamp_bf16"),
+                                        (5, 144, 200, "fp32"),
+                                        (8, 2048, 2048, "requant"),
+                                        (70, 128, 128, "requant")])
+def test_w8a8_counts_equal_plain(gen, M, K, N, mode, route):
+    """Clip hits and M x N from the epilogue (split K: counted once, in
+    the merge) equal the plain version's counts; the guard's flag stays
+    clear at finite outputs and is set, like plain's, by a NaN."""
+    E = N // 128 if N % 128 == 0 else 1
+    x_q, w_q, s_x, _, s_w, _, s_out, z_out, _, _ = _operands(gen, M, K, N, E)
+    lo, hi = _wide_clamp(gen, M, E)
+    if mode == "requant":             # a grid fine enough that codes saturate
+        args, kw = (x_q, w_q, s_x, None, s_w, None, 0.05 * s_out, z_out), {}
+    else:
+        args = (x_q, w_q, s_x, None, s_w, None, None, None, lo, hi)
+        kw = dict(out_dtype=torch.bfloat16 if mode == "fp_clamp_bf16" else torch.float32)
+    if route == "wgmma" and (M, K) == (8, 5632):
+        assert mm.wgmma_plan(M, K, N, False, mm._sms(x_q.device)).splits > 1
+    tk, tp = (torch.zeros(3, dtype=torch.int64, device="cuda") for _ in range(2))
+    y = mm.w8a8_matmul_cuda(*args, route=route, tel=tk, **kw)
+    assert torch.equal(y, mm.w8a8_matmul_plain(*args, tel=tp, **kw))
+    assert torch.equal(tk, tp) and 0 < int(tk[1]) < int(tk[2]) == M * N and int(tk[0]) == 0
+    if mode == "requant":
+        return
+    fk, fp = (torch.zeros(2, dtype=torch.int32, device="cuda") for _ in range(2))
+    mm.w8a8_matmul_cuda(*args, route=route, flag=fk, **kw)
+    assert fk.tolist() == [0, 0]
+    bad = (x_q, w_q, _poison("x_row", s_x, s_w, lo, hi)[0]) + args[3:]
+    mm.w8a8_matmul_cuda(*bad, route=route, flag=fk, **kw)
+    mm.w8a8_matmul_plain(*bad, flag=fp, **kw)
+    assert fk.tolist() == fp.tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "generic"])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 11264), (130, 256, 512), (5, 144, 768)])
+def test_swiglu_counts_equal_plain(gen, M, K, N, route):
+    """K3 counts its f32 gate and up values against their clamps, as the
+    plain version (and the reference's fused kernel) does."""
+    x_q, w_q, s_x, _, s_w, *_ = _operands(gen, M, K, N, N // 128)
+    lo, hi = _wide_clamp(gen, M, N // 128)
+    args = (x_q, w_q, s_x, None, s_w, None, lo, hi)
+    tk, tp = (torch.zeros(3, dtype=torch.int64, device="cuda") for _ in range(2))
+    mm.w8a8_swiglu_matmul_cuda(*args, route=route, tel=tk)
+    mm.w8a8_swiglu_matmul_plain(*args, tel=tp)
+    assert torch.equal(tk, tp) and 0 < int(tk[1]) < int(tk[2]) == M * N
+
+
+# ---------------------------------------------------------------------------
+# the predicated fp-dequant fallback
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 6144), (5, 100, 70), (130, 5632, 2048),
+                                   (17, 33, 129)])
+def test_fp_dequant_fallback_taken_and_not(gen, M, K, N, dtype):
+    from repro_torch.kernels import fp_dequant as fd
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    w_q = mm.k_major(torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda",
+                                   generator=gen))
+    scale = 0.001 + 0.01 * torch.rand((N,), generator=gen, device="cuda")
+    y0 = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
+    flag = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tel = torch.zeros(3, dtype=torch.int64, device="cuda")
+    y = y0.clone()
+    fd.fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel)
+    assert torch.equal(y, y0) and flag.tolist() == [0, 0] and tel.tolist() == [0, 0, 0]
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel)
+    assert flag.tolist() == [0, 0] and tel.tolist() == [1, 0, 0]
+    want = ref.fp_dequant_matmul(x, w_q, scale, torch.float32)
+    # f32 products summed in another order; bf16 out: the two f32 sums may
+    # round to neighbouring bf16 values, one ulp (2^-7 relative) apart
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert bool(((y.float() - want).abs() <= tol * want.abs() + 1e-5 * float(
+        want.abs().max())).all())
+    plain = y0.clone()
+    fd.fp_dequant_fallback_plain(plain, x, w_q, scale,
+                                 torch.ones(2, dtype=torch.int32, device="cuda"))
+    assert bool(((y.float() - plain.float()).abs() <= tol * plain.float().abs()
+                 + 1e-5 * float(want.abs().max())).all())
+
+
+# ---------------------------------------------------------------------------
+# PDQ health inside the decode graph, the guard, and the service thread
+# ---------------------------------------------------------------------------
+
+def test_decode_graph_zeroes_its_counters_every_replay(card_model):
+    """The graph zeroes its health vector at the block's start: 100
+    replays of the same step give the same vector, never a running sum;
+    with telemetry off it stays zeros."""
+    eng = _graph_engine(card_model)
+    _serve_card(eng)
+    rows = _replay_rows(eng, 70)
+    first = eng._graph(*rows)[2]
+    assert first[0] == 0 and first[2] > 0
+    for _ in range(100):
+        assert eng._graph(*rows)[2].tolist() == first.tolist()
+    off = _graph_engine(card_model, telemetry=False)
+    assert off._graph(*_replay_rows(off, 70))[2].tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_graph_counts_equal_eager_counts(card_model, monkeypatch, paged):
+    """A serving run's pdq stats are the same whether every decode
+    dispatch replays the graph or steps eagerly (the kernels count the
+    same values either way)."""
+    kw = dict(decode_steps=4, **(dict(paged=True, page_size=16) if paged else {}))
+    eng = _graph_engine(card_model, **kw)
+    _serve_card(eng)
+    monkeypatch.setattr(engine_mod, "_graphed", lambda device: False)
+    plain = _graph_engine(card_model, **kw)
+    _serve_card(plain)
+    keys = ("pdq_fallbacks", "pdq_clip_hits", "pdq_clip_total")
+    assert [eng.stats[k] for k in keys] == [plain.stats[k] for k in keys]
+    assert eng.stats["pdq_clip_total"] > 0
+
+
+def test_guarded_engine_under_fault_falls_back_every_projection(card_model):
+    """Built and run under pdq_fault (the capture reads it): every request
+    completes with finite logits, the fallback kernel runs once a guarded
+    projection a launch (4 a layer), each taken, and K3 never runs."""
+    with ops.pdq_fault():
+        eng = _graph_engine(card_model, pdq_fallback=True)
+        toks, _, counts = _serve_card(eng)
+    st, n = eng.stats, eng.cfg.n_layers
+    launches = st["prefill_batches"] + st["decode_steps"]
+    assert st["failed"] == 0 and st["pdq_fallbacks"] == 4 * n * launches
+    c = counts[0]
+    assert c["fp_dequant"]["launches"] == c["fp_dequant"]["entries"] == 4 * n * launches
+    assert c["w8a8_swiglu_matmul"]["launches"] == 0
+
+
+def test_guarded_graph_replay_equals_eager(card_model, monkeypatch):
+    """pdq_fallback without a fault: the guarded graph serves the eager
+    guarded engine's streams and counts, with no fallback taken."""
+    eng = _graph_engine(card_model, pdq_fallback=True)
+    got = _serve_card(eng)
+    monkeypatch.setattr(engine_mod, "_graphed", lambda device: False)
+    plain = _graph_engine(card_model, pdq_fallback=True)
+    want = _serve_card(plain)
+    assert got[0] == want[0] and got[2] == want[2]
+    assert eng.stats["pdq_fallbacks"] == 0
+
+
+def test_service_thread_replays_the_graph(card_model):
+    """ServeService's loop thread binds the card and replays the graph
+    captured on the main thread: the streams equal a batch run's."""
+    from repro_torch.serve import ServeService
+    want = _serve_card(_graph_engine(card_model))[0]
+    eng = _graph_engine(card_model)
+    svc = ServeService(eng, max_pending=16).start()
+    streams = [svc.submit(r.prompt, max_new=r.max_new) for r in _graph_reqs(eng.cfg)]
+    got = {s.uid: s.result(timeout=600)[0] for s in streams}
+    svc.stop()
+    assert got == want and eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0

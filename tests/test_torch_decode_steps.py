@@ -95,7 +95,7 @@ def test_nstep_engine_matches_jax_engine(weights, n, kind, int8_kv, paged):
 
     teng = build_engine(ServeConfig(slots=2, max_len=64, device="cpu", decode_steps=n,
                                     quantize_weights=kind == "pdq", int8_kv=int8_kv,
-                                    **kw),
+                                    telemetry=False, **kw),
                         cfg=t_reduced("stablelm-1.6b"), params=tp)
     treqs = [Request(uid=i, prompt=p, max_new=12) for i, p in enumerate(_prompts())]
     tops.reset_counts()

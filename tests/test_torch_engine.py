@@ -5,7 +5,9 @@ admissions queue), reduced stablelm-1.6b on the same bridged weights.
 fp weights on both sides; and PDQ: the port with quantize_weights=True
 (every layer quantized) against the JAX engine serving the
 vmap(quantize_param_tree) params with telemetry off (with it on, the
-reference leaks a tracer out of its scan; ROADMAP.md Queue 3).  Each with
+reference leaks a tracer out of its scan; ROADMAP.md Queue 3), and the port
+with telemetry off too, so that the PDQ health stats compare like with like
+(tests/test_torch_pdq_guard.py holds them on against JAX).  Each with
 an fp KV cache and with the int8 one (``int8_kv=True``; the JAX side's
 config gets ``quant_kv='dynamic'``).
 
@@ -75,7 +77,8 @@ def test_engine_matches_jax_engine(weights, kind, slots, int8_kv):
     jeng.run(jreqs)
 
     teng = build_engine(ServeConfig(slots=slots, max_len=64, device="cpu",
-                                    quantize_weights=kind == "pdq", int8_kv=int8_kv),
+                                    quantize_weights=kind == "pdq", int8_kv=int8_kv,
+                                    telemetry=False),
                         cfg=t_reduced("stablelm-1.6b"), params=tp)
     treqs = [Request(uid=i, prompt=p, max_new=8) for i, p in enumerate(_prompts())]
     tops.reset_counts()
@@ -113,8 +116,7 @@ def test_build_engine_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("chunked_prefill", True), ("pdq_fallback", True),
-    ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
+    ("chunked_prefill", True), ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
     ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})

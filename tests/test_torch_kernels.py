@@ -205,7 +205,7 @@ def test_ops_count_entries_on_cpu_and_never_launch():
         "pdq_prologue": 1, "w8a8_matmul": 1, "w8a8_swiglu_matmul": 0,
         "decode_attend_i8kv": 1, "decode_attend_i8kv_fused": 2,
         "cache_scatter": 1, "cache_scatter_pages": 1, "act_stats": 0,
-        "quantize": 0, "dequantize": 0}
+        "quantize": 0, "dequantize": 0, "fp_dequant": 0}
     assert all(v["launches"] == 0 for v in c.values())
 
 

@@ -150,7 +150,7 @@ def test_op_counts_per_decode_step_and_admission(models):
                  "w8a8_swiglu_matmul": n, "decode_attend_i8kv": 0,
                  "decode_attend_i8kv_fused": 0, "cache_scatter": 0,
                  "cache_scatter_pages": 0, "act_stats": 0, "quantize": 0,
-                 "dequantize": 0}
+                 "dequantize": 0, "fp_dequant": 0}
     tops.reset_counts()
     tb.cache_scatter(caches, tb.init_caches(4, 16), np.array([1, -1, 0, -1], np.int32))
     assert tops.counts()["cache_scatter"]["entries"] == 1

@@ -417,7 +417,7 @@ def test_paged_engine_matches_jax_paged_engine(weights, kind, int8_kv, max_len,
 
     teng = build_engine(ServeConfig(slots=2, max_len=max_len, device="cpu",
                                     quantize_weights=kind == "pdq", int8_kv=int8_kv,
-                                    **paged),
+                                    telemetry=False, **paged),
                         cfg=t_reduced("stablelm-1.6b"), params=tp)
     tseen = _record_plans(teng)
     treqs = [Request(uid=i, prompt=p, max_new=max_new) for i, p in enumerate(_prompts())]

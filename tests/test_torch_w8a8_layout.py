@@ -175,7 +175,7 @@ def test_engine_streams_on_k_major_records_match_jax():
     jreqs = [JRequest(uid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
     jeng.run(jreqs)
     teng = build_engine(ServeConfig(slots=2, max_len=64, device="cpu",
-                                    quantize_weights=True, int8_kv=True),
+                                    quantize_weights=True, int8_kv=True, telemetry=False),
                         cfg=t_reduced("stablelm-1.6b"), params=tp)
     for layer in teng.params["blocks"]:
         for rec in (layer["attn"]["wq"]["group"], layer["attn"]["wo"],
