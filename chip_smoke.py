@@ -41,6 +41,16 @@ device="cuda")), and one path of ops-level calls on its weights (E):
      K2's requant epilogue), ops.act_stats (also with the sampling stride
      gamma), ops.quantize (K9) and ops.dequantize (K10) of its output on its
      own grid, and the fused ops.pdq_dense (K1 + K2) beside it.
+  G  the paper's CNN track (repro_torch.core, models/cnn.py,
+     data/corruptions.py) at the widths of the repository's paper tables
+     (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
+     cls_mobilenet and seg_unet trained with the reference's Adam on the
+     card, calibrated (16 images), evaluated fp32 and static / dynamic / PDQ
+     x per tensor / per channel on 384 images in-domain and corrupted
+     (Tables 1-2), the surrogate's fidelity, PDQ at gamma 2 and 4 on
+     cls_resnet, then held against the port's plain CPU run with TF32
+     allowed for cuDNN globally; last Fig. 3's estimate / conv / range
+     times.  It reaches none of the ten kernels.
 
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
@@ -129,6 +139,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 within one step per row (the
                 reference's contract), both timed end to end, and three
                 unfused calls profiled.
+  7. cnn      - path G, last: counts zeroed before and read after (every
+                kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
+                accuracy in [0, 1]; parity with the CPU: unquantized logits
+                within G_LOGIT_RTOL of max |logit|, qstate within
+                G_QSTATE_RTOL, top-1 agreement >= G_TOP1_AGREE in every
+                quantized mode, every table entry within G_TABLE_TOL.
 
 It prints the card's name and power limit, one JSON line with every
 kernel's launches (on its path), error and times, and as its last line
@@ -1796,6 +1812,306 @@ def check_paged_run(path, run, ref_run):
         f"spills {st['spills']}, restores {st['spill_restores']}")
 
 
+# ------------------------------------------------------------------ path G
+# The paper's CNN track at the widths of the repository's paper tables
+# (benchmarks/_cnn_common.py:19-27, 44-58 and benchmarks/paper_tables.py:
+# 24-68, copied here): task -> (arch, training steps)
+G_TASKS = {"cls_resnet": ("mini_resnet", 250), "cls_mobilenet": ("mini_mobilenet", 250),
+           "seg_unet": ("mini_seg", 200)}
+G_WIDTH, G_RES, G_CLASSES = 24, 20, 16
+G_BATCH = 32               # training batch
+G_NOISE = 0.45             # the gratings' noise in every set
+G_CALIB = (16, 8, 5)       # calibration images, batch, seed
+G_EVAL = (384, 77)         # eval images and seed (Tables 1-2)
+G_OOD = (0, 3)             # corrupt_batch's rng seed (one rng over the tasks), max severity
+G_FIDELITY = 64            # images of the surrogate-fidelity tape
+G_GAMMAS = (2, 4)          # PDQ's sampling stride swept on cls_resnet (Fig. 4)
+G_EVAL_BATCH = 128
+G_FP32_FLOOR = 0.90        # cls_resnet's fp32 top-1 (the reference: 0.990 on a CPU)
+# card against the port's plain CPU run on the same weights, state and images:
+# logits in the unquantized modes as a share of max |logit| (convolutions
+# reduce in another order: ~1e-6); qstate relative (a static range's edges
+# to its width); top-1 agreement in each quantized mode (a pre-activation at
+# a .5 tie takes the neighbouring code); every table entry
+G_LOGIT_RTOL = 1e-4
+G_QSTATE_RTOL = 1e-4
+G_TOP1_AGREE = 0.99
+G_TABLE_TOL = 0.02
+G_COLUMNS = [("fp32", "none", False)] + [
+    (f"{name}_{'C' if pc else 'T'}", mode, pc)
+    for name, mode in (("ours", "pdq"), ("dynamic", "dynamic"), ("static", "static"))
+    for pc in (False, True)]
+# Fig. 3's shapes (benchmarks/fig3_latency.py:34-71): N 1, 32 x 32, 3 x 3
+G_FIG3_CIN = (4, 8, 16, 32, 64)      # C_out 3
+G_FIG3_COUT = (4, 8, 16, 32, 64)     # C_in 3
+G_FIG3_GAMMA = (1, 2, 4, 8)          # C_in 3, C_out 16
+
+
+def g_leaves(tree):
+    from repro_torch.models import cnn
+    return cnn._leaves(tree)
+
+
+def g_apply_fn(cfg):
+    from repro_torch.models import cnn
+
+    def apply_fn(params, batch, *, spec, qstate, tape=None):
+        return cnn.cnn_apply(params, batch, cfg=cfg, spec=spec, qstate=qstate, tape=tape)
+    return apply_fn
+
+
+def g_run(params, cfg, imgs, spec, qstate):
+    """Logits of every image, in G_EVAL_BATCH batches, on the params' device."""
+    import torch
+    from repro_torch.models import cnn
+    dev = g_leaves(params)[0].device
+    with torch.no_grad():
+        return torch.cat([cnn.cnn_apply(params, torch.from_numpy(imgs[i:i + G_EVAL_BATCH]).to(dev),
+                                        cfg=cfg, spec=spec, qstate=qstate)
+                          for i in range(0, len(imgs), G_EVAL_BATCH)])
+
+
+def g_calibrate(params, cfg, calib, per_channel, gamma=1):
+    import torch
+    from repro_torch.core import run_calibration, spec_for_mode
+    dev = g_leaves(params)[0].device
+    return run_calibration(g_apply_fn(cfg), params,
+                           [torch.from_numpy(c).to(dev) for c in calib],
+                           spec_for_mode("pdq", per_channel=per_channel, gamma=gamma))
+
+
+def g_evaluate(params, cfg, data, labels, qstates, gamma=1, columns=G_COLUMNS):
+    """Tables 1-2's row for each domain: {column: (accuracy, predictions)}."""
+    from repro_torch.core import spec_for_mode
+    rows = {}
+    for domain, imgs in data.items():
+        rows[domain] = {}
+        for col, mode, pc in columns:
+            pred = g_run(params, cfg, imgs, spec_for_mode(mode, per_channel=pc, gamma=gamma),
+                         qstates[pc] if mode != "none" else None).argmax(-1).cpu().numpy()
+            rows[domain][col] = (float((pred == labels).mean()), pred)
+    return rows
+
+
+def g_fidelity(params, cfg, imgs):
+    """paper_tables.py:45-68: over an observe tape (per channel), the
+    correlation of the surrogate's predicted means and stds with the
+    empirical moments of each layer's pre-activations."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spec_for_mode
+    from repro_torch.core.policy import as_observe
+    from repro_torch.core.surrogate import empirical_moments
+    tape = {}
+    dev = g_leaves(params)[0].device
+    with torch.no_grad():
+        g_apply_fn(cfg)(params, torch.from_numpy(imgs[:G_FIDELITY]).to(dev),
+                        spec=as_observe(spec_for_mode("pdq", per_channel=True)), qstate={},
+                        tape=tape)
+    mcorr, scorr = [], []
+    for rec in tape.values():
+        if rec["moments"] is None:
+            continue
+        emp = empirical_moments(rec["y"], per_channel=True)
+        pm, em = (a.cpu().numpy().ravel() for a in (rec["moments"].mean, emp.mean))
+        ps, es = (a.cpu().numpy().ravel() for a in (rec["moments"].std, emp.std))
+        if np.std(em) > 1e-6 and np.std(pm) > 1e-6:
+            mcorr.append(float(np.corrcoef(pm, em)[0, 1]))
+        if np.std(es) > 1e-6 and np.std(ps) > 1e-6:
+            scorr.append(float(np.corrcoef(ps, es)[0, 1]))
+    return {"mean_corr": float(np.mean(mcorr)), "std_corr": float(np.mean(scorr)),
+            "n_layers": len(tape)}
+
+
+def g_parity(task, params, cfg, data, labels, qstates, card_rows, calib):
+    """The card against the port's plain CPU run, with TF32 allowed for
+    cuDNN globally: the module pins its own convolutions to IEEE f32, so
+    the card's unquantized logits stay within G_LOGIT_RTOL of the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spec_for_mode
+    from repro_torch.models.cnn import _tree_map
+    cpu = _tree_map(lambda a: a.cpu(), params)
+    cpu_q = {pc: _tree_map(lambda a: a.cpu(), q) for pc, q in qstates.items()}
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        logit_err = {}
+        for mode in ("none", "observe"):
+            for domain, imgs in data.items():
+                spec = spec_for_mode(mode, per_channel=True)
+                a = g_run(params, cfg, imgs, spec, None).cpu()
+                b = g_run(cpu, cfg, imgs, spec, None)
+                err = max_abs(a, b) / float(b.abs().max())
+                need(err <= G_LOGIT_RTOL, f"G {task} {mode} {domain}: card logits "
+                     f"{err:.3g} of max|logit| from the CPU's")
+                logit_err[f"{mode}_{domain}"] = err
+        qstate_err, worst = 0.0, None
+        for pc in (False, True):
+            card_q = g_calibrate(params, cfg, calib, pc)
+            host_q = g_calibrate(cpu, cfg, calib, pc)
+            need(sorted(card_q) == sorted(host_q), f"G {task}: qstate layers")
+            for name, entry in host_q.items():
+                # a static range edge against its range's width (the grid it
+                # sets: 1e-4 of it is 0.03 of a code), alpha and beta against
+                # themselves
+                width = (entry["static_hi"] - entry["static_lo"]).clamp_min(1e-12)
+                for key, b in entry.items():
+                    a = card_q[name][key].cpu()
+                    scale = width if key.startswith("static") else b.abs()
+                    e = float(((a - b).abs() / scale).max())
+                    if e > qstate_err:
+                        qstate_err, worst = e, f"{name}.{key} (pc {pc})"
+                    need(e <= G_QSTATE_RTOL, f"G {task} {name}.{key} (pc {pc}): card "
+                         f"qstate {e:.3g} relative from the CPU's")
+        card_tf32 = g_evaluate(params, cfg, data, labels, qstates)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    host = g_evaluate(cpu, cfg, data, labels, cpu_q)
+    agree, table_err, tf32_moved = {}, 0.0, 0
+    for domain in data:
+        for col, mode, _ in G_COLUMNS:
+            a_acc, a_pred = card_tf32[domain][col]
+            b_acc, b_pred = host[domain][col]
+            tf32_moved += int((a_pred != card_rows[domain][col][1]).sum())
+            share = float((a_pred == b_pred).mean())
+            agree[f"{domain}/{col}"] = share
+            need(mode == "none" or share >= G_TOP1_AGREE,
+                 f"G {task} {domain} {col}: top-1 of the card and the CPU agree on "
+                 f"{share:.4f} of the images")
+            table_err = max(table_err, abs(a_acc - b_acc), abs(card_rows[domain][col][0] - b_acc))
+            need(abs(a_acc - b_acc) <= G_TABLE_TOL
+                 and abs(card_rows[domain][col][0] - b_acc) <= G_TABLE_TOL,
+                 f"G {task} {domain} {col}: card {a_acc:.4f} / {card_rows[domain][col][0]:.4f} "
+                 f"against the CPU's {b_acc:.4f}")
+    return {"logit_err": logit_err, "qstate_rel_err": qstate_err, "qstate_worst": worst,
+            "top1_agree_min": min(v for k, v in agree.items() if "fp32" not in k),
+            "top1_agree": agree, "table_max_diff": table_err,
+            "preds_moved_by_global_tf32": tf32_moved,
+            "cpu_table": {d: {c: host[d][c][0] for c, _, _ in G_COLUMNS} for d in data}}
+
+
+def g_fig3(flush):
+    """Fig. 3 on the card: the PDQ moment estimate (window sums and the
+    aggregation, weight stats precomputed) against the conv itself and
+    against the dynamic baseline's range reduction over the conv's
+    materialised output, per tensor, each `median_ms` (L2 flushed)."""
+    import torch
+    from repro_torch.core import qlinear, surrogate
+    from repro_torch.core.policy import QuantPolicy
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    none = QuantPolicy(mode="none")
+
+    def case(cin, cout, gamma=1):
+        x = torch.randn((1, 32, 32, cin), generator=gen, device="cuda")
+        k = 0.1 * torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+        ws = surrogate.weight_stats(k, (0, 1, 2), per_channel=False)
+        y = qlinear.conv2d(x, k, None, name="L", policy=none)
+        return {"cin": cin, "cout": cout, "gamma": gamma, "positions": (32 // gamma) ** 2,
+                "est_ms": median_ms(lambda: surrogate.conv_moments(
+                    x, ws, (3, 3), (1, 1), "SAME", False, gamma), flush=flush),
+                "conv_ms": median_ms(lambda: qlinear.conv2d(x, k, None, name="L", policy=none),
+                                     flush=flush),
+                "range_ms": median_ms(lambda: qlinear._example_range(y, False), flush=flush)}
+
+    return {"vs_cin": [case(c, 3) for c in G_FIG3_CIN],
+            "vs_cout": [case(3, c) for c in G_FIG3_COUT],
+            "vs_gamma": [case(3, 16, g) for g in G_FIG3_GAMMA]}
+
+
+def phase_cnn():
+    """Path G: the paper's protocol on the card (Tables 1-2, the surrogate's
+    fidelity, Fig. 4's stride on cls_resnet, Fig. 3's costs), each task
+    trained, calibrated and evaluated there, then held against the port's
+    plain CPU run.  It reaches none of the ten kernels: their counts are
+    zeroed before and must read 0 after."""
+    import numpy as np
+    import torch
+    from repro_torch.data.corruptions import corrupt_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    ops.reset_counts()
+    t_g = time.perf_counter()
+    rng = np.random.default_rng(G_OOD[0])
+    out = {"tasks": {}}
+    for task, (arch, steps) in G_TASKS.items():
+        seg = task.startswith("seg")
+        cfg = cnn.CNNConfig(arch=arch, width=G_WIDTH, res=G_RES, n_classes=G_CLASSES)
+        t0 = time.perf_counter()
+        params = cnn.train_cnn(cfg, steps=steps, batch=G_BATCH, segmentation=seg,
+                               device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        imgs, labels = cnn.make_gratings(G_EVAL[1], G_EVAL[0], res=G_RES,
+                                         n_classes=G_CLASSES, noise=G_NOISE)
+        if seg:
+            labels = cnn.seg_labels(labels, G_RES, G_CLASSES)
+        data = {"in_domain": imgs, "ood": corrupt_batch(imgs, rng, max_severity=G_OOD[1])}
+        c_imgs, _ = cnn.make_gratings(G_CALIB[2], G_CALIB[0], res=G_RES,
+                                      n_classes=G_CLASSES, noise=G_NOISE)
+        calib = [c_imgs[i:i + G_CALIB[1]] for i in range(0, G_CALIB[0], G_CALIB[1])]
+        t0 = time.perf_counter()
+        qstates = {pc: g_calibrate(params, cfg, calib, pc) for pc in (False, True)}
+        calib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = g_evaluate(params, cfg, data, labels, qstates)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        rec = {"train_s": train_s, "calibrate_s": calib_s, "eval_s": eval_s,
+               "n_params": sum(a.numel() for a in g_leaves(params)),
+               "table": {d: {c: rows[d][c][0] for c, _, _ in G_COLUMNS} for d in data},
+               "surrogate": g_fidelity(params, cfg, imgs)}
+        for v in g_leaves(rec["table"]):
+            need(0.0 <= v <= 1.0, f"G {task}: accuracy {v}")
+        if task == "cls_resnet":
+            need(rec["table"]["in_domain"]["fp32"] >= G_FP32_FLOOR,
+                 f"G {task}: fp32 top-1 {rec['table']['in_domain']['fp32']:.4f} < "
+                 f"{G_FP32_FLOOR}")
+            rec["gamma_sweep"] = []
+            for gamma in G_GAMMAS:
+                for pc in (False, True):
+                    q = g_calibrate(params, cfg, calib, pc, gamma)
+                    col = f"ours_{'C' if pc else 'T'}"
+                    r = g_evaluate(params, cfg, data, labels, {pc: q}, gamma,
+                                   [(col, "pdq", pc)])
+                    rec["gamma_sweep"].append({"gamma": gamma, "granularity": col[-1],
+                                               **{d: r[d][col][0] for d in data}})
+        t0 = time.perf_counter()
+        rec["parity"] = g_parity(task, params, cfg, data, labels, qstates, rows, calib)
+        rec["parity_s"] = time.perf_counter() - t0
+        out["tasks"][task] = rec
+        t, s = rec["table"], rec["surrogate"]
+        for d in data:
+            log(f"G {task} {d}: " + ", ".join(f"{c} {t[d][c]:.4f}" for c, _, _ in G_COLUMNS))
+        log(f"G {task}: {rec['n_params']} params, trained {steps} steps in {train_s:.1f} s, "
+            f"calibrated in {calib_s:.2f} s, evaluated in {eval_s:.2f} s; surrogate "
+            f"mean-corr {s['mean_corr']:.3f} std-corr {s['std_corr']:.3f} over "
+            f"{s['n_layers']} layers; parity (TF32 allowed globally) in "
+            f"{rec['parity_s']:.1f} s: logits {max(rec['parity']['logit_err'].values()):.3g} "
+            f"of max|logit|, qstate {rec['parity']['qstate_rel_err']:.3g} "
+            f"({rec['parity']['qstate_worst']}), top-1 agree >= "
+            f"{rec['parity']['top1_agree_min']:.4f}, tables within "
+            f"{rec['parity']['table_max_diff']:.4f}, predictions moved by the global TF32 "
+            f"{rec['parity']['preds_moved_by_global_tf32']}")
+        for r in rec.get("gamma_sweep", []):
+            log(f"G {task} gamma {r['gamma']} {r['granularity']}: in_domain "
+                f"{r['in_domain']:.4f} ood {r['ood']:.4f}")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    out["fig3"] = g_fig3(flush)
+    del flush
+    for part, rows in out["fig3"].items():
+        for r in rows:
+            log(f"G fig3 {part}: cin {r['cin']} cout {r['cout']} gamma {r['gamma']} "
+                f"positions {r['positions']}: estimate {r['est_ms'] * 1e3:.2f} us, conv "
+                f"{r['conv_ms'] * 1e3:.2f} us, dynamic range {r['range_ms'] * 1e3:.2f} us")
+    c = ops.counts()
+    need(all(v["launches"] == 0 and v["entries"] == 0 for v in c.values()),
+         f"G reached a kernel: {c}")
+    out["seconds"] = time.perf_counter() - t_g
+    log(f"G: the CNN track in {out['seconds']:.1f} s, K1-K10 entered and launched 0 times")
+    return out
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1888,6 +2204,8 @@ def main(argv=None) -> int:
     # path E: the unfused projection and the standalone quantization ops
     counts["E"], unfused = phase_unfused(recs)
     del recs
+    # path G: the CNN track, trained, calibrated and evaluated on the card
+    cnn_track = phase_cnn()
 
     replaces = {
         "act_stats": "src/repro/kernels/act_stats.py:33",
@@ -1947,7 +2265,8 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
-             parity_max_logit_diff=parity, unfused=unfused), indent=1, default=str))
+             parity_max_logit_diff=parity, unfused=unfused, cnn=cnn_track), indent=1,
+        default=str))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

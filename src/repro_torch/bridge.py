@@ -6,6 +6,7 @@ has already turned into numpy arrays (``jax.tree.map(np.asarray, params)``
 ``blocks`` leaves are split into one dict per layer.  Quantized records are
 not carried across: the port builds its own from the same fp weights with
 ``models.linops.quantize_param_tree``, and the tests compare the two.
+``cnn_params_from_numpy`` does the same for the CNN track's params.
 """
 from __future__ import annotations
 
@@ -45,3 +46,13 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         "blocks": [_map(lambda a, i=i: _tensor(a[i], device), stacked)
                    for i in range(n)],
     }
+
+
+def cnn_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's CNN params (``repro/models/cnn.py:82-124``
+    ``cnn_init``: a dict, nested one level for the MobileNet's blocks, of
+    HWIO conv kernels, the (d, h) ``fc`` and its ``fc_b``), with numpy
+    leaves, -> the port's tensors in the same layout on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    return _map(lambda a: _tensor(a, device), tree)
