@@ -4,8 +4,10 @@
     python3 chip_smoke.py            # from the repository root
 
 Serving paths of full-width stablelm-1.6b (24 layers, bf16, random weights
-from a seeded generator), each built with build_engine(ServeConfig(...,
-device="cuda")), and one path of ops-level calls on its weights (E):
+from a seeded generator) and of full-width gemma3-12b (H, HD, HB, HBW:
+chunked prefill and the local/global decoder), each built with
+build_engine(ServeConfig(..., device="cuda")), and one path of ops-level
+calls on stablelm's weights (E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
@@ -41,6 +43,23 @@ device="cuda")), and one path of ops-level calls on its weights (E):
      K2's requant epilogue), ops.act_stats (also with the sampling stride
      gamma), ops.quantize (K9) and ops.dequantize (K10) of its output on its
      own grid, and the fused ops.pdq_dense (K1 + K2) beside it.
+  H  gemma3-12b at full width (48 layers: 40 local over a 1024-position
+     ring, 8 global; d_model 3840, 16 x 256 heads over 8 kv heads, d_ff
+     15360, vocab 262144; seeded random bf16 weights, PDQ-int8 records
+     made by H's engine), int8 KV, slot rows, 8 slots, max_len 2048, the
+     default buckets with chunked_prefill=True: 8 requests of 32 new tokens
+     with prompts of 40-1900 tokens (H_PROMPTS; two behind one 128-token
+     system prompt), six of them chunked (the first chunk through
+     prefill_many, the rest through prefill_chunk), three past the ring;
+     K1, K2, K3, K5 (global layers only, the kernel's wide (2, 256)
+     instance; a local layer attends its ring in plain torch) and K6, one
+     launch landing all 36 leaves of a round;
+  HD H on a paged pool (page 64, every slot can hold max_len: nothing is
+     preempted) with prefix sharing: the ring leaves stay flat slot rows,
+     the global layers' page; its streams must equal H's;
+  HB, HBW  H with a bf16 KV cache, chunked (HB) and unchunked (HBW, the
+     capacity bucket of 2047 tokens): their streams must be equal, or
+     diverge where the token's top-2 margin is below H's LOGIT_TOL;
   G  the paper's CNN track (repro_torch.core, models/cnn.py,
      data/corruptions.py) at the widths of the repository's paper tables
      (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
@@ -87,9 +106,17 @@ Phases, each of which must pass (any failure exits non-zero):
                 beside a PyTorch kernel that moves the same bytes; K2 and
                 K3 also with the health counters (tel_ms), their counts
                 equal to plain's on both routes; the fallback at QKV's and
-                w_down's shapes, taken (flag set) and not taken;
+                w_down's shapes, taken (flag set) and not taken; before the
+                H paths, rows at gemma3-12b's shapes (tagged "H"): K4 and K5
+                at B 8, Hkv 8, G 2, Dh 256, Sp 2048 with lengths 1-2048
+                (the wide instance), K6 landing one of H's rounds (36
+                leaves, one launch) and K7 HD's decode gather; once H's
+                engine has made its PDQ records, K1, K2 and K3 on them at
+                decode and prefill rows, as A's above (QKV's three unequal
+                segments, wo at 4096, gate/up at 2 x 15360, w_down at
+                15360);
   3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
-                prompts of 20-250 tokens, the
+                H's of H_PROMPTS; otherwise prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
                 each, 8 slots, max_len 512); the kernels' counts are zeroed
                 just before and read just after each run (a replay adds what
@@ -97,7 +124,8 @@ Phases, each of which must pass (any failure exits non-zero):
                 graph replay, every kernel of
                 the path must have launched as often as its op was entered,
                 the census must hold exactly with N model steps a dispatch
-                (K1's launches per mode too:
+                and every chunk continuation a prefill launch (K1's
+                launches per mode too:
                 QKV and gate/up with norm and interval, wo with the interval
                 where K5 does not run its prologue), every K2/K3 launch must have
                 taken the wgmma route, every K4/K5 launch the split route
@@ -111,7 +139,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore; per-token decode time and tokens/s of each run;
-  4. step     - on A, B, C, D1 and F, one decode step of the full pool at
+  4. step     - on A, B, C, D1, F and H, one decode step of the full pool at
                 position 300 two ways on the same state, eager (ops
                 launched from the host) and a replay of the engine's
                 one-step graph, in five alternated pairs of three-step
@@ -119,8 +147,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 of each: device busy ms, kernels a step and idle share; on
                 A also a graph of the same block captured with telemetry
                 off, alternated with the two (the counting's cost);
-  5. parity   - on A, B, C, F and FF (F and FF under the guard, FF under
-                the fault), one request's first 8 greedy tokens through
+  5. parity   - on A, B, C, F, FF and H (F and FF under the guard, FF
+                under the fault; H's prompt of 1100 tokens prefilled in its
+                256-token chunks), one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
                 the path's LOGIT_TOL, and each step's argmax agrees or the
@@ -138,13 +167,17 @@ Phases, each of which must pass (any failure exits non-zero):
                 plain versions) within one int8 step, fused against unfused
                 within one step per row (the
                 reference's contract), both timed end to end, and three
-                unfused calls profiled.
+                unfused calls profiled.  Then the H paths: their kernel
+                rows, and phases 3-5 for H, HD, HB and HBW in turn (HD's
+                streams against H's, HBW's against HB's).
   7. cnn      - path G, last: counts zeroed before and read after (every
                 kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
                 accuracy in [0, 1]; parity with the CPU: unquantized logits
                 within G_LOGIT_RTOL of max |logit|, qstate within
                 G_QSTATE_RTOL, top-1 agreement >= G_TOP1_AGREE in every
                 quantized mode, every table entry within G_TABLE_TOL.
+
+The seconds of every phase are logged ("phase <name>: <s> s").
 
 It prints the card's name and power limit, one JSON line with every
 kernel's launches (on its path), error and times, and as its last line
@@ -175,7 +208,13 @@ F32_OPS = 67e12
 # plain einsum (o within ATTEND_TOL); that moves bf16 roundings and int8
 # codes at ties downstream, over 24 layers, and the logits are bf16 (one
 # ulp is 0.03125 at |logit| in [4, 8)): their bound is 8 such ulps.
-LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25}
+LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
+             # H (gemma3-12b): A's argument over twice the depth.  Its random
+             # logits (final norm, then d_model 3840 x N(0, 0.02) rows) reach
+             # |logit| ~6-8 across the 262144-token vocabulary: bf16 ulp
+             # 0.03125 in [4, 8), and 48 layers in place of 24 give 16 such
+             # ulps
+             "H": 0.5}
 # the parity phase's second health comparison: every record's alpha and
 # beta times this, so that outputs clip
 CLIP_SCALE = 0.25
@@ -191,7 +230,8 @@ CLIP_SCALE = 0.25
 # fallback's f32 product, summed in another order than plain's, so every
 # activation moves by ulps: measured 1.1e-4 (NVIDIA H100 80GB HBM3, 700 W,
 # PR 21).
-TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3}
+TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
+             "H": 1e-4}           # H: A's (K5's o and K3's sums move edges)
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -211,6 +251,17 @@ STEP_POS = 300            # phase 4: the position every row decodes at
 STEP_PAIRS = 5            # phase 4: alternated (eager, graph) pairs
 STEP_RUNS = 3             # phase 4: steps a timed or profiled window
 
+# paths H, HD, HB, HBW: gemma3-12b at full width (48 layers: 40 local with a
+# 1024-position ring, 8 global), 8 slots, max_len 2048, the default buckets
+# (32-256) with chunked prefill: 8 requests of 32 new tokens with prompts of
+# H_PROMPTS tokens, H_SHARED behind one 128-token system prompt
+H_ARCH = "gemma3-12b"
+H_MAX_LEN = 2048
+H_PROMPTS = (40, 200, 300, 700, 1000, 1100, 1500, 1900)
+H_SHARED = (1, 2)
+H_PARITY_LEN = 1100       # the parity prompt: 5 chunks, past the ring
+H_ATTEND_LENS = (2048, 1, 1900, 1025, 1024, 700, 129, 300)   # K4/K5 at H's cache
+
 # path: (int8_kv, quantize_weights, the kernels it must launch, the other
 # ServeConfig fields: paging, decode_steps, the guard)
 _A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
@@ -220,19 +271,28 @@ _F_KERNELS = ("pdq_prologue", "w8a8_matmul", "decode_attend_i8kv_fused",
               "cache_scatter", "fp_dequant")
 # a paged pool moves every leaf with K7, its slot-row ``len`` included
 _D_KERNELS = _A_KERNELS[:-1] + ("cache_scatter_pages",)
+_C_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul", "cache_scatter")
 _PAGED = dict(paged=True, spill=True, page_size=PAGE)
 PATHS = {
     "A": (True, True, _A_KERNELS, {}),
     "B": (True, False, ("decode_attend_i8kv", "cache_scatter"), {}),
-    "C": (False, True, ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
-                        "cache_scatter"), {}),
+    "C": (False, True, _C_KERNELS, {}),
     "D1": (True, True, _D_KERNELS, _PAGED),
     "D2": (True, True, _D_KERNELS, dict(_PAGED, pool_pages=D2_POOL_PAGES)),
     "A16": (True, True, _A_KERNELS, dict(decode_steps=N_BLOCK)),
     "D16": (True, True, _D_KERNELS, dict(_PAGED, decode_steps=N_BLOCK)),
     "F": (True, True, _F_KERNELS, dict(pdq_fallback=True)),
     "FF": (True, True, _F_KERNELS, dict(pdq_fallback=True)),
+    # gemma3-12b: H chunked on slot rows, HD H paged (page 64, a pool that
+    # never preempts), HB H with a bf16 KV cache, HBW HB unchunked (the
+    # capacity bucket, 2047 tokens)
+    "H": (True, True, _A_KERNELS, dict(chunked_prefill=True)),
+    "HD": (True, True, _D_KERNELS, dict(chunked_prefill=True, paged=True,
+                                        page_size=PAGE)),
+    "HB": (False, True, _C_KERNELS, dict(chunked_prefill=True)),
+    "HBW": (False, True, _C_KERNELS, {}),
 }
+H_PATHS = ("H", "HD", "HB", "HBW")
 FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
 GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
 
@@ -327,7 +387,8 @@ def phase_build():
 
 def kernel_inputs(eng, gen):
     """Main-path operands at full width, from layer 0's weight records and
-    random activations: decode M = slots rows."""
+    random activations: decode M = slots rows (``x`` at d_model; ``xo``,
+    wo's input, at H * Dh)."""
     import torch
     dev = eng.device
     M = eng.slots
@@ -337,7 +398,18 @@ def kernel_inputs(eng, gen):
     wo, down = p0["attn"]["wo"], p0["ffn"]["w_down"]
     d = eng.cfg.d_model
     x = torch.randn((M, d), generator=gen, device=dev).to(torch.bfloat16)
-    return dict(M=M, d=d, x=x, qkv=qkv, gu=gu, wo=wo, down=down)
+    return dict(M=M, d=d, x=x, xo=rows_for(x, wo, gen), qkv=qkv, gu=gu, wo=wo, down=down)
+
+
+def rows_for(x, rec, gen):
+    """``x``, or as many random bf16 rows at ``rec``'s input width where it
+    differs (wo's H * Dh: stablelm's equals d_model, gemma3-12b's 4096 does
+    not)."""
+    import torch
+    K = rec["q"].shape[0]
+    if x.shape[1] == K:
+        return x
+    return torch.randn((x.shape[0], K), generator=gen, device=x.device).to(torch.bfloat16)
 
 
 def epi_operands(rec, x, per_block):
@@ -353,6 +425,27 @@ def epi_operands(rec, x, per_block):
     return (x_q, rec["q"], s_x, None, rec["scale"].reshape(1, N), None), (lo, hi)
 
 
+def recorder(rows, detail, path=None):
+    """``record(name, shape, err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, primary, **extra)``: a kernel-phase row, logged and kept in
+    ``detail`` (tagged with ``path`` if given); a ``primary`` row is also
+    the kernel's row of the JSON line (``rows``)."""
+    def record(name, shape, err, k_ms, p_ms, b_ms, b_by, lib_ms, primary, **extra):
+        if path is not None:
+            extra = dict(path=path, **extra)
+        row = dict(name=name, shape=shape, max_abs_err=err, ms=k_ms,
+                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   **extra)
+        detail.append(row)
+        log(f"kernel {name} {shape}: err {err:.3g} kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            + "".join(f" {k} {v}" for k, v in extra.items()))
+        if primary:
+            rows[name] = row
+    return record
+
+
 def phase_kernels(eng):
     """Each kernel against its plain version at the shapes of path A's
     engine ``eng``; returns {kernel: row} for the JSON line plus per-shape
@@ -365,18 +458,7 @@ def phase_kernels(eng):
     d, x = t["d"], t["x"]
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=eng.device)
     rows, detail = {}, []
-
-    def record(name, shape, err, k_ms, p_ms, b_ms, b_by, lib_ms, primary, **extra):
-        row = dict(name=name, shape=shape, max_abs_err=err, ms=k_ms,
-                   plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                   **extra)
-        detail.append(row)
-        log(f"kernel {name} {shape}: err {err:.3g} kernel {k_ms:.4f} ms "
-            f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            + "".join(f" {k} {v}" for k, v in extra.items()))
-        if primary:
-            rows[name] = row
+    record = recorder(rows, detail)
 
     # prefill-shaped rows: 8 slots x the 256-token bucket
     x_pre = torch.randn((2048, d), generator=gen, device=eng.device).to(torch.bfloat16)
@@ -441,12 +523,14 @@ def check_prologue(x, norm, interval, label):
 
 
 def prologue_kernels(eng, t, gen, flush, record, x_pre):
-    """K1 at path A's shapes: the plain mode (``ops.pdq_prologue``, the
-    int8-out projections) at decode and prefill rows; the interval mode
-    (wo at prefill, E's fused projection: one column a row) at prefill
-    rows; and the main path's norm + prologue + interval launches: QKV (3
-    segments, 48 blocks) and gate/up (2 segments, 88 blocks) at decode, QKV
-    at prefill, on layer 0's records and a seeded nonzero norm weight.
+    """K1 at the shapes of ``eng``'s model (path A's, or H's): the plain
+    mode (``ops.pdq_prologue``, the int8-out projections) at decode and
+    prefill rows; the interval mode (wo: one column a row) at decode rows
+    (where K5 does not run wo's prologue: H's local layers) and at prefill
+    rows; and the main path's norm + prologue + interval launches: QKV
+    (stablelm: 3 segments, 48 blocks) and gate/up (2 segments, 88 blocks) at
+    decode, QKV at prefill, on layer 0's records and a seeded nonzero norm
+    weight.
     Bound: the bytes the op must move (h, the norm weight and the weight
     stats read once; x_q, s_x, s1, s2, lo_g and hi_g written once).
     ``same_bytes_ms``: ``x.to(torch.int8)`` on the same rows, a PyTorch
@@ -460,7 +544,8 @@ def prologue_kernels(eng, t, gen, flush, record, x_pre):
     w = (0.2 * torch.randn((d,), generator=gen, device=eng.device)).to(torch.bfloat16)
     norm = (w, eng.cfg.norm_eps)
     cases = [(x, None, None, False), (x_pre, None, None, False),
-             (x_pre, None, (t["wo"], None), False)]
+             (t["xo"], None, (t["wo"], None), False),
+             (rows_for(x_pre, t["wo"], gen), None, (t["wo"], None), False)]
     for rec, xm, primary in ((t["qkv"], x, True), (t["gu"], x, False),
                              (t["qkv"], x_pre, False)):
         cases.append((xm, norm, (rec, ops._blocks(rec["segs"])), primary))
@@ -524,7 +609,8 @@ def host_us(fn, n=100):
 
 
 def matmul_kernels(eng, t, gen, flush, record, x_pre):
-    """K2 and K3 at path A's shapes: each route against the plain version
+    """K2 and K3 at the shapes of ``eng``'s model (path A's, or H's), decode
+    and prefill rows: each route against the plain version
     and against each other (equal bits but for K3's s1/s2, summed in
     another order), timed beside the plain version, ``torch._int_mm`` on
     both weight layouts and the bound; the host time per call of each
@@ -534,9 +620,13 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
     M, x = t["M"], t["x"]
     h_in = torch.randn((M, eng.cfg.d_ff), generator=gen,
                        device=eng.device).to(torch.bfloat16)
-    cases = (("qkv", t["qkv"], x, True, True), ("wo", t["wo"], x, False, False),
+    h_pre = torch.randn((x_pre.shape[0], eng.cfg.d_ff), generator=gen,
+                        device=eng.device).to(torch.bfloat16)
+    cases = (("qkv", t["qkv"], x, True, True), ("wo", t["wo"], t["xo"], False, False),
              ("w_down", t["down"], h_in, False, False),
-             ("qkv prefill", t["qkv"], x_pre, True, False))
+             ("qkv prefill", t["qkv"], x_pre, True, False),
+             ("wo prefill", t["wo"], rows_for(x_pre, t["wo"], gen), False, False),
+             ("w_down prefill", t["down"], h_pre, False, False))
     for label, rec, xin, per_block, primary in cases:
         base, (lo, hi) = epi_operands(rec, xin, per_block)
         args = base + (None, None, lo, hi)
@@ -585,7 +675,7 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
                generic_host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, route="generic",
                                                                    **kw)))
 
-    # K3: gate/up (M, 2048) @ (2048, 11264), decode and prefill rows
+    # K3: gate/up (stablelm: (M, 2048) @ (2048, 11264)), decode and prefill rows
     gu = t["gu"]
     stamps = torch.zeros((2 * mm._sms(eng.device),), dtype=torch.int64, device=eng.device)
     for xin, primary in ((x, True), (x_pre, False)):
@@ -748,20 +838,24 @@ def attend_kernels(eng, gen, flush, record):
     """K4 and K5 against their plain versions at the full-width decode
     shapes (B = slots, Hkv, G, Dh of the model, Sp of path A's cache,
     ATTEND_LENS), and at a long cache (Sp 4096, ATTEND_LONG_LENS) for the
-    kernel table only; K5 with wo's prologue in bf16, as the main path
-    runs it.  Each on both routes: the split route (the one every path
-    takes) and the single route (the first design), both within
-    ATTEND_TOL of plain and of each other, the split route bit-equal over
-    two launches with its tickets back at 0, both timed in this call."""
+    kernel table only (``attend_rows``)."""
+    cfg = eng.cfg
+    Sp = eng.caches["blocks"][0]["k"].shape[3]
+    attend_rows(eng.device, eng.slots, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                cfg.hd, ((ATTEND_LENS, Sp, True), (ATTEND_LONG_LENS, ATTEND_LONG_SP, False)),
+                gen, flush, record)
+
+
+def attend_rows(dev, B, Hkv, G, Dh, cases, gen, flush, record):
+    """K4 and K5 at (B, Hkv, G, Dh) for each (lengths, Sp, primary) of
+    ``cases``; K5 with wo's prologue in bf16, as the main path runs it.
+    Each on both routes: the split route (the one every path takes) and the
+    single route (the first design), both within ATTEND_TOL of plain and of
+    each other, the split route bit-equal over two launches with its
+    tickets back at 0, both timed in this call."""
     import torch
     from repro_torch.kernels import kv_cache as kv
-    cfg = eng.cfg
-    B, Hkv, Dh = eng.slots, cfg.n_kv_heads, cfg.hd
-    G = cfg.n_heads // Hkv
-    Sp = eng.caches["blocks"][0]["k"].shape[3]
-    dev = eng.device
-    for lens, sp, primary in ((ATTEND_LENS, Sp, True),
-                              (ATTEND_LONG_LENS, ATTEND_LONG_SP, False)):
+    for lens, sp, primary in cases:
         need(len(lens) == B and max(lens) <= sp,
              f"attend lengths {lens} do not fit B {B}, Sp {sp}")
         i8 = dict(dtype=torch.int8, device=dev, generator=gen)
@@ -773,7 +867,8 @@ def attend_kernels(eng, gen, flush, record):
                 torch.tensor(lens, dtype=torch.int32, device=dev))
         plan = kv.attend_plan(B, Hkv, G, sp, Dh)
         shape = (f"B {B} Hkv {Hkv} G {G} Dh {Dh} Sp {sp}, lengths {list(lens)} "
-                 f"(sum {sum(lens)}); split plan {plan.splits} splits of {plan.chunk}")
+                 f"(sum {sum(lens)}); split plan {plan.splits} splits of {plan.chunk}, "
+                 f"instance {kv.attend_instance(G, Dh)}")
         valid = sum(lens) * Hkv
         qo_bytes = 2 * B * Hkv * G * Dh * 4 + 4 * B        # q in, o out, length
         kv_bytes = valid * (2 * Dh + 8)                    # valid K/V rows + scales
@@ -1020,6 +1115,168 @@ def slot_row_kernels(eng, gen, flush, record):
     torch.cuda.empty_cache()
 
 
+def h_kernels(cfg, detail):
+    """The kernel phase at gemma3-12b's shapes (rows tagged "H", kept in
+    ``detail``, none the JSON line's primary row): K4 and K5 at its global
+    layers' cache (B 8, Hkv 8, G 2, Dh 256, Sp H_MAX_LEN, H_ATTEND_LENS: the
+    wide instance); K6 landing one of H's rounds, 4 of 8 slots, all 36
+    leaves of the int8 pool's six kinds in one launch; K7 HD's decode
+    gather (the global layers' five paged leaves, page 64) at the frontiers
+    of H's prompts 16 tokens into decode.  Library: ``index_copy_`` of
+    every leaf's moved rows (K6/K7)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(cfg, quant_kv="dynamic")
+    bundle = build_model(cfg, "cuda")
+    dev, B = bundle.device, 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    record = recorder({}, detail, path="H")
+    attend_rows(dev, B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                ((H_ATTEND_LENS, H_MAX_LEN, False),), gen, flush, record)
+
+    def randomize(tree):
+        for d in tree["blocks"]:
+            for leaf in d.values():
+                leaf.view(torch.uint8).copy_(torch.randint(
+                    0, 256, leaf.view(torch.uint8).shape, generator=gen, device=dev,
+                    dtype=torch.uint8))
+
+    pool, sub = bundle.init_caches(B, H_MAX_LEN), bundle.init_caches(B, H_MAX_LEN)
+    randomize(sub)
+    smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)
+    moves = ops.device_moves([kv.Move(c[k], s_[k], batch_axis=1, host_map=smap)
+                              for c, s_ in zip(pool["blocks"], sub["blocks"]) for k in c])
+    need(len(moves) == 6 * len(cfg.pattern), f"H's pool has {len(moves)} leaves")
+    time_movement(f"H: one round's landing, {len(moves)} leaves ({len(cfg.pattern)} "
+                  f"kinds), 4 of 8 slots", moves, kv.COUNT, flush, record, False,
+                  "cache_scatter", index_copies(moves, lambda x, mv: x))
+    del pool, sub, moves
+    torch.cuda.empty_cache()
+    po = bundle.paged_cache(B, H_MAX_LEN, PAGE)
+    n_pp = H_MAX_LEN // PAGE
+    pool = po.init(B * n_pp + 1)
+    randomize(pool)
+    pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
+    lens = np.asarray(H_PROMPTS, np.int32) + 16
+
+    def rows_of(x, mv):
+        if mv.seq_axis is None or x.shape[mv.seq_axis] == PAGE:
+            return x
+        return ref.to_page_rows(x, mv.seq_axis, PAGE, batch_axis=mv.batch_axis).contiguous()
+
+    _, moves = po.gather_moves(pool, pt, lens)
+    gather = ops.device_moves(moves)
+    time_movement(f"HD gather at frontiers {tuple(int(x) for x in lens)}", gather,
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                  index_copies(gather, rows_of), poison=True)
+    del pool, moves, gather
+    torch.cuda.empty_cache()
+
+
+def h_dense_kernels(eng, detail):
+    """K1, K2 and K3 at gemma3-12b's shapes, on H's own PDQ records (layer
+    0's) at decode rows (8 slots) and prefill rows (8 x the 256-token
+    chunk): QKV (3840 -> 8192 in three unequal segments, 4096/2048/2048),
+    wo (4096 -> 3840; K1's interval mode at 4096 as H's local layers run
+    it), gate/up + SwiGLU (3840 -> 2 x 15360, whose epilogue runs w_down's
+    prologue over the 15360-wide row) and w_down (15360 -> 3840), each held
+    against its plain version with A's tolerances (``prologue_kernels``,
+    ``matmul_kernels``); rows tagged "H"."""
+    import torch
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(2468)
+    t = kernel_inputs(eng, gen)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=eng.device)
+    record = recorder({}, detail, path="H")
+    x_pre = torch.randn((eng.slots * 256, t["d"]), generator=gen,
+                        device=eng.device).to(torch.bfloat16)
+    prologue_kernels(eng, t, gen, flush, record, x_pre)
+    matmul_kernels(eng, t, gen, flush, record, x_pre)
+    del t, x_pre, flush
+    torch.cuda.empty_cache()
+
+
+def phase_gemma3(detail):
+    """Paths H, HD, HB and HBW: gemma3-12b at full width on seeded random
+    bf16 weights, its kernel rows (``h_kernels``) first and K1-K3's on H's
+    records once H's engine has made them (``h_dense_kernels``).  H's engine
+    quantizes them (PDQ-int8 in every layer) and the bf16 tree is dropped;
+    HD, HB and HBW serve H's records.  Returns (counts, serve runs,
+    parity)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, build_engine
+    cfg = get_config(H_ARCH)
+    t0 = time.perf_counter()
+    weights = {"bf16": build_model(cfg, "cuda").init(0)}
+    torch.cuda.synchronize()
+    log(f"model H: {cfg.name} {cfg.n_layers} layers (pattern {cfg.pattern}, window "
+        f"{cfg.window}) d_model {cfg.d_model} {cfg.n_heads} x {cfg.hd} heads, "
+        f"{cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: random "
+        f"bf16 weights in {time.perf_counter() - t0:.1f} s")
+    with timed("kernels H"):
+        h_kernels(cfg, detail)
+    counts, serve, parity = {}, {}, {}
+    for path in H_PATHS:
+        int8_kv, pdq, _, extra = PATHS[path]
+        need(pdq, f"{path}: the H paths serve PDQ records")
+        t0 = time.perf_counter()
+        quantize = "pdq" not in weights
+        eng = build_engine(ServeConfig(arch=H_ARCH, reduced=False, slots=8,
+                                       max_len=H_MAX_LEN, int8_kv=int8_kv,
+                                       quantize_weights=quantize, device="cuda", **extra),
+                           cfg=cfg, params=weights["bf16" if quantize else "pdq"])
+        if quantize:                   # the later engines serve H's records
+            weights = {"pdq": eng.params}
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        log(f"model {path}: {cfg.name}, PDQ-int8 weights "
+            f"({'quantized by this engine' if quantize else 'the records of H'}), "
+            f"{'int8' if int8_kv else 'bf16'} KV cache, "
+            f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
+            f"buckets {eng.buckets}{' chunked' if eng.chunked_prefill else ''}, built in "
+            f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
+            f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB); "
+            f"card memory allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        if path == "H":
+            with timed("kernels H dense"):
+                h_dense_kernels(eng, detail)
+        with timed(f"serve {path}"):
+            counts[path], run = phase_serve(eng, path)
+        if path == "H":
+            with timed("step H"):
+                run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
+            with timed("parity H"):
+                parity[path], run["parity_pdq"] = phase_parity(eng, path)
+        if path == "HD":
+            check_paged_run(path, run, serve["H"][0], ref="H")
+        if path == "HBW":
+            run["twin"] = check_chunked_twin(eng, run, serve["HB"][0])
+        serve[path] = [run]
+        del eng
+        torch.cuda.empty_cache()
+    return counts, serve, parity
+
+
+PHASE_S: dict = {}        # seconds of each phase, for chip_smoke.json
+
+
+@contextlib.contextmanager
+def timed(label):
+    """Log the seconds a phase takes (and keep them in PHASE_S)."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[label] = time.perf_counter() - t0
+    log(f"phase {label}: {PHASE_S[label]:.1f} s")
+
+
 def quant_kernels(eng, gen, flush, record):
     """K8, K9 and K10 against their plain versions at path E's shapes (8
     and 2048 rows of d_model): K8 on f32 (what the unfused projection
@@ -1158,57 +1415,87 @@ def make_requests(cfg, n=8, seed=0):
     return [Request(uid=i, prompt=p, max_new=32) for i, p in enumerate(prompts)]
 
 
-def census(path, n, pre, dec, restores=0):
-    """Op entries a serving run of ``path`` makes with ``n`` layers, ``pre``
-    prefill launches, ``dec`` decode dispatches of N = ``block_of(path)``
-    model steps each (every row runs every step of a block) and
-    ``restores`` spill restores.  Per layer: prefill runs the prologue 3x,
-    W8A8 3x and SwiGLU once with PDQ weights; a decode step the same,
-    except that with int8 KV and PDQ the fused attend (once) takes the
-    place of wo's prologue (7 launches: tools/check_census.py's
-    decode_int8kv).  Every pool movement is one launch over all its leaves:
-    a slot-row pool lands a round with one K6; a paged pool lands a round,
-    gathers and writes back a dispatch's block, and restores with one K7
-    each (its flat ``len`` rides in the landing's and the restore's).
-    Under the guard (F, FF) the MLP is unfused: per layer and launch four
-    K2 and four fallbacks, no K3, and K1 for QKV, gate/up and w_down (and
-    wo at prefill; at decode K5 runs wo's prologue)."""
+def h_requests(cfg, seed=0):
+    """H's requests: 8 of 32 new tokens with prompts of H_PROMPTS tokens;
+    requests H_SHARED begin with one seeded 128-token system prompt (two
+    full 64-token pages for HD to share).  Six prompts exceed the 256
+    bucket and are chunked, three of them past the 1024-position ring."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in H_PROMPTS]
+    system = np.random.default_rng(seed + 1).integers(0, cfg.vocab, size=128)
+    for i in H_SHARED:
+        prompts[i][:128] = system
+    return [Request(uid=i, prompt=p, max_new=32) for i, p in enumerate(prompts)]
+
+
+def layer_counts(cfg):
+    """(layers, local layers) of a config: a local layer attends over its
+    ring in plain torch at decode (no K4/K5), so wo's prologue is K1's."""
+    return cfg.n_layers, cfg.n_blocks * cfg.pattern.count("local")
+
+
+def census(path, cfg, st):
+    """Op entries a serving run of ``path`` makes, from its stats: ``pre``
+    prefill launches (rounds plus chunk continuations), ``rounds``
+    landings, ``dec`` decode dispatches of N = ``block_of(path)`` model
+    steps each (every row runs every step of a block) and the spill
+    restores.  Per layer: prefill runs the prologue 3x, W8A8 3x and
+    SwiGLU once with PDQ weights; a decode step the same, except that with
+    int8 KV and PDQ a global layer's fused attend (once) takes the place of
+    wo's prologue (7 launches: tools/check_census.py's decode_int8kv); a
+    local layer (gemma3) attends in plain torch and keeps the prologue (7
+    launches: K1 x 3, K2 x 3, K3).  Every pool movement is one launch over
+    all its leaves: a slot-row pool lands a round with one K6; a paged pool
+    lands a round, gathers and writes back a dispatch's block, and
+    restores with one K7 each (its flat leaves ride in the landing's and
+    the restore's).  Under the guard (F, FF) the MLP is unfused: per layer
+    and launch four K2 and four fallbacks, no K3, and K1 for QKV, gate/up
+    and w_down (and wo at prefill; at decode K5 runs wo's prologue)."""
     int8_kv, pdq = PATHS[path][:2]
+    n, n_local = layer_counts(cfg)
+    rounds = st["prefill_batches"]
+    pre = rounds + st["chunk_batches"]
     want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
                 decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
-                cache_scatter=pre, cache_scatter_pages=0,
+                cache_scatter=rounds, cache_scatter_pages=0,
                 act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
     if is_paged(path):
-        want.update(cache_scatter=0, cache_scatter_pages=pre + 2 * dec + restores)
-    dec *= block_of(path)
+        want.update(cache_scatter=0, cache_scatter_pages=(
+            rounds + 2 * st["decode_steps"] + st.get("spill_restores", 0)))
+    dec = st["decode_steps"] * block_of(path)
     if pdq and is_guarded(path):
         g = GUARDED_PER_LAYER
         want.update(pdq_prologue=n * (g * pre + (g - 1 if int8_kv else g) * dec),
                     w8a8_matmul=g * n * (pre + dec), fp_dequant=g * n * (pre + dec))
     elif pdq:
-        want.update(pdq_prologue=n * (3 * pre + (2 if int8_kv else 3) * dec),
+        want.update(pdq_prologue=3 * n * pre + (3 * n - (n - n_local if int8_kv else 0)) * dec,
                     w8a8_matmul=3 * n * (pre + dec), w8a8_swiglu_matmul=n * (pre + dec))
     if int8_kv:
-        want["decode_attend_i8kv_fused" if pdq else "decode_attend_i8kv"] = n * dec
+        want["decode_attend_i8kv_fused" if pdq else "decode_attend_i8kv"] = (n - n_local) * dec
     return want
 
 
-def prologue_mode_census(path, n, pre, dec):
+def prologue_mode_census(path, cfg, st):
     """K1's launches per mode in a serving run of ``path``: with PDQ
-    weights QKV and gate/up take norm + interval at every prefill and
+    weights QKV and gate/up take norm + interval at every prefill launch and
     decode step; wo takes the interval alone at prefill, and at decode too
-    with the fp KV cache (with int8 KV its prologue runs in K5).  Under
-    the guard the norm runs in plain torch first, so every K1 launch (QKV,
-    gate/up, w_down, wo at prefill) takes the interval alone."""
+    with the fp KV cache or in a local layer (with int8 KV a global layer's
+    prologue runs in K5).  Under the guard the norm runs in plain torch
+    first, so every K1 launch (QKV, gate/up, w_down, wo at prefill) takes
+    the interval alone."""
     int8_kv, pdq = PATHS[path][:2]
-    dec *= block_of(path)
+    n, n_local = layer_counts(cfg)
+    pre = st["prefill_batches"] + st["chunk_batches"]
+    dec = st["decode_steps"] * block_of(path)
     want = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
     if pdq and is_guarded(path):
         g = GUARDED_PER_LAYER
         want["interval"] = n * (g * pre + (g - 1 if int8_kv else g) * dec)
     elif pdq:
         want.update({"norm+interval": 2 * n * (pre + dec),
-                     "interval": n * (pre + (0 if int8_kv else dec))})
+                     "interval": n * pre + (n_local if int8_kv else n) * dec})
     return want
 
 
@@ -1328,7 +1615,8 @@ def pdq_health(st):
 def phase_serve(eng, path):
     import torch
     from repro_torch.kernels import ops
-    reqs = fault_requests(eng.cfg) if path == FAULT_PATH else make_requests(eng.cfg)
+    reqs = (fault_requests(eng.cfg) if path == FAULT_PATH else h_requests(eng.cfg)
+            if path in H_PATHS else make_requests(eng.cfg))
     drive = run_http if path == "F" else run_batch
     torch.cuda.synchronize()
     ops.reset_counts()
@@ -1351,22 +1639,25 @@ def phase_serve(eng, path):
     need(st["graph_replays"] == st["decode_steps"],
          f"{path}: {st['graph_replays']} graph replays, {st['decode_steps']} decode "
          f"dispatches")
-    want = census(path, eng.cfg.n_layers, st["prefill_batches"], st["decode_steps"],
-                  st.get("spill_restores", 0))
+    want = census(path, eng.cfg, st)
     got = {k: c["entries"] for k, c in counts.items()}
     need(got == want, f"{path}: op entries {got}, census {want}")
     modes = ops.prologue_modes()
-    want_modes = prologue_mode_census(path, eng.cfg.n_layers, st["prefill_batches"],
-                                      st["decode_steps"])
+    want_modes = prologue_mode_census(path, eng.cfg, st)
     log(f"{path}: K1 launches per mode {modes}")
     need(modes == want_modes, f"{path}: K1 launches per mode {modes}, census {want_modes}")
     need(st["completed"] == len(reqs) and st["failed"] == 0,
          f"not every request completed: {st}")
+    if eng.chunked_prefill:
+        chunked = sum(len(r.prompt) > eng.buckets[-1] for r in reqs)
+        need(st["chunked_requests"] == chunked and st["chunk_batches"] > 0,
+             f"{path}: {st['chunked_requests']} chunked requests, {chunked} expected")
     health = pdq_health(st)
     log(f"serve {path}: pdq {json.dumps(health)}")
     pdq = PATHS[path][1]
     need((st["pdq_clip_total"] > 0) == pdq, f"{path}: PDQ health {health}")
-    launches = st["prefill_batches"] + st["decode_steps"] * block_of(path)
+    launches = (st["prefill_batches"] + st["chunk_batches"]
+                + st["decode_steps"] * block_of(path))
     want_fb = GUARDED_PER_LAYER * eng.cfg.n_layers * launches if path == FAULT_PATH else 0
     need(st["pdq_fallbacks"] == want_fb,
          f"{path}: {st['pdq_fallbacks']} fallbacks, {want_fb} expected")
@@ -1387,7 +1678,8 @@ def phase_serve(eng, path):
     pre = [dt for dt, _ in eng.prefill_straggler.history]
     decode_tps = eng.stats["decode_tokens"] / sum(dec)
     steps = sorted(dec)
-    log(f"serve {path}: prefill launches {len(pre)} total {sum(pre):.3f} s "
+    log(f"serve {path}: prefill launch sets {len(pre)} ({st['chunk_batches']} chunk "
+        f"continuations) total {sum(pre):.3f} s "
         f"({eng.stats['prefill_tokens']} prompt tokens, "
         f"{eng.stats['prefill_padded_tokens']} padded); decode dispatches of "
         f"{block_of(path)} steps {len(dec)} median {steps[len(steps) // 2] * 1e3:.2f} ms, "
@@ -1395,6 +1687,7 @@ def phase_serve(eng, path):
         f"{eng.stats['decode_tokens']} tokens; graph captured in "
         f"{eng._graph.capture_s:.2f} s, pool {eng._graph.pool_bytes / 2**20:.1f} MiB")
     return counts, dict(wall_s=wall, prefill_s=sum(pre), prefill_launches=len(pre),
+                        prefill_s_per_round=pre, 
                         prologue_modes=modes, decode_steps_per_dispatch=block_of(path),
                         decode_step_median_ms=steps[len(steps) // 2] * 1e3,
                         decode_tokens_per_s=decode_tps,
@@ -1592,13 +1885,23 @@ def tel_agree(path, label, k_tel, p_tel):
 
 def phase_parity(eng, path, n_tokens=8):
     """Phase 5 on ``eng`` (its guard, and for FF the fault, active around
-    both runs).  Returns (max logit difference, the health comparisons)."""
+    both runs; on H a prompt of H_PARITY_LEN tokens prefilled in the
+    engine's chunks).  Returns (max logit difference, the health
+    comparisons)."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ops
     bundle, params = eng.bundle, eng.params
-    prompt = make_requests(eng.cfg, n=1, seed=7)[0].prompt
+    if path in H_PATHS:      # chunked: a prompt past the local layers' ring
+        prompt = np.random.default_rng(7).integers(0, eng.cfg.vocab, size=H_PARITY_LEN)
+    else:
+        prompt = make_requests(eng.cfg, n=1, seed=7)[0].prompt
     L = len(prompt)
-    tokens = torch.as_tensor(prompt, device=eng.device)[None]
+    tokens = torch.as_tensor(np.asarray(prompt, np.int32), device=eng.device)[None]
+    C = eng.buckets[-1] if eng.chunked_prefill else L
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=eng.device)
 
     def run(teacher=None):
         tel = eng._tel_buffer()
@@ -1606,8 +1909,11 @@ def phase_parity(eng, path, n_tokens=8):
                 ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
             caches = bundle.init_caches(1, 64 + L)
             logits, caches = bundle.prefill_many(
-                params, {"tokens": tokens}, caches,
-                torch.tensor([L], dtype=torch.int32, device=eng.device))
+                params, {"tokens": tokens[:, :C]}, caches, i32(min(C, L)))
+            for s0 in range(C, L, C):          # the engine's chunks of C
+                n = min(C, L - s0)
+                logits, caches = bundle.prefill_chunk(
+                    params, {"tokens": tokens[:, s0:s0 + n]}, caches, i32(n), i32(s0))
             out, toks = [logits[0].float()], []
             for i in range(n_tokens - 1):
                 tok = int(out[-1].argmax()) if teacher is None else teacher[i]
@@ -1786,30 +2092,62 @@ def phase_unfused(recs):
     return counts, rows
 
 
-def check_streams(path, run, ref_run):
-    """A run's greedy streams equal A's first run's, request for request
-    (prefill runs at (slots, bucket) whatever the pool or the block, and
-    every decode op is row-independent, so neither the pool's layout nor
-    the steps a dispatch may move a token)."""
+def check_streams(path, run, ref_run, ref="A"):
+    """A run's greedy streams equal ``ref``'s first run's, request for
+    request (prefill runs at (slots, bucket) whatever the pool or the block,
+    and every decode op is row-independent, so neither the pool's layout
+    nor the steps a dispatch may move a token)."""
     for uid, toks in ref_run["streams"].items():
         need(run["streams"][uid] == toks,
-             f"{path}: request {uid} stream {run['streams'][uid]} differs from A's {toks}")
-    log(f"serve {path}: streams equal A's")
+             f"{path}: request {uid} stream {run['streams'][uid]} differs from "
+             f"{ref}'s {toks}")
+    log(f"serve {path}: streams equal {ref}'s")
 
 
-def check_paged_run(path, run, ref_run):
-    """D1/D2/D16 against A's first run: the same greedy streams
-    (``check_streams``); each shares the system prompt's pages, D2
+def check_paged_run(path, run, ref_run, ref="A"):
+    """D1/D2/D16 against A's first run, HD against H's: the same greedy
+    streams (``check_streams``); each shares the system prompt's pages, D2
     preempts, spills every victim to host memory and restores it."""
     st = run["stats"]
-    check_streams(path, run, ref_run)
+    check_streams(path, run, ref_run, ref)
     need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
     if path == "D2":
         need(st["preemptions"] >= 1 and st["spill_restores"] >= 1,
              f"D2: pool of {D2_POOL_PAGES} pages did not preempt and restore: {st}")
-    log(f"serve {path}: streams equal A's; prefix hits {st['prefix_hits']} "
+    if path == "HD":
+        need(st["preemptions"] == 0, f"HD: the pool preempted: {st}")
+    log(f"serve {path}: streams equal {ref}'s; prefix hits {st['prefix_hits']} "
         f"({st['prefix_shared_pages']} pages), preemptions {st['preemptions']}, "
         f"spills {st['spills']}, restores {st['spill_restores']}")
+
+
+def check_chunked_twin(eng, run, chunked_run):
+    """HBW (unchunked, the capacity bucket) against HB (chunked), both with
+    a bf16 KV cache: the same greedy streams, or, at a request's first
+    divergent step, HB's top-2 logit margin for that token (HBW's bundle,
+    the prompt and the tokens before it in one unpadded prefill) below H's
+    LOGIT_TOL.  Returns {uid: (step, margin)} of the divergences."""
+    import numpy as np
+    import torch
+    out = {}
+    for uid, toks in chunked_run["streams"].items():
+        got = run["streams"][uid]
+        if got == toks:
+            continue
+        i = next(k for k, (a, b) in enumerate(zip(got, toks)) if a != b)
+        prompt = h_requests(eng.cfg)[uid].prompt
+        seq = np.concatenate([prompt, np.asarray(toks[:i], np.int32)])[None]
+        logits, _ = eng.bundle.prefill(eng.params, {"tokens": torch.as_tensor(
+            seq, device=eng.device)}, eng.bundle.init_caches(1, seq.shape[1] + 1))
+        top2 = logits[0].float().topk(2).values
+        margin = float(top2[0] - top2[1])
+        log(f"serve HBW: request {uid} diverges from HB's at step {i}, top-2 "
+            f"margin {margin:.4g}")
+        need(margin < LOGIT_TOL["H"], f"HBW: request {uid} diverges from HB's at step "
+             f"{i} with a top-2 margin of {margin} >= {LOGIT_TOL['H']}")
+        out[uid] = (i, margin)
+    log(f"serve HBW: streams equal HB's but at {out or 'none'}")
+    return out
 
 
 # ------------------------------------------------------------------ path G
@@ -2135,7 +2473,8 @@ def main(argv=None) -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    phase_build()
+    with timed("build"):
+        phase_build()
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -2174,15 +2513,19 @@ def main(argv=None) -> int:
     for path in ("A", "B", "C", "C", "F", "A", "D1", "D2", "A16", "D16", "FF"):
         eng = engine(path)
         if path == "A" and not serve:
-            rows, detail = phase_kernels(eng)
+            with timed("kernels"):
+                rows, detail = phase_kernels(eng)
             recs = e_records(eng)
-        c, run = phase_serve(eng, path)
+        with timed(f"serve {path}"):
+            c, run = phase_serve(eng, path)
         if path not in counts:
             counts[path] = c
             if path in ("A", "B", "C", "D1", "F"):
-                run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
+                with timed(f"step {path}"):
+                    run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
             if path in ("A", "B", "C", "F", "FF"):
-                parity[path], run["parity_pdq"] = phase_parity(eng, path)
+                with timed(f"parity {path}"):
+                    parity[path], run["parity_pdq"] = phase_parity(eng, path)
         if path in ("D1", "D2", "D16"):
             check_paged_run(path, run, serve["A"][0])
         if path == "A16":
@@ -2202,10 +2545,18 @@ def main(argv=None) -> int:
         f"A {serve['A'][0]['step']['graph']['wall_ms_median']:.3f} ms, "
         f"F {serve['F'][0]['step']['graph']['wall_ms_median']:.3f} ms")
     # path E: the unfused projection and the standalone quantization ops
-    counts["E"], unfused = phase_unfused(recs)
-    del recs
+    with timed("unfused E"):
+        counts["E"], unfused = phase_unfused(recs)
+    del recs, params
+    torch.cuda.empty_cache()
+    # paths H, HD, HB, HBW: gemma3-12b at full width with chunked prefill
+    h_counts, h_serve, h_parity = phase_gemma3(detail)
+    counts.update(h_counts)
+    serve.update(h_serve)
+    parity.update(h_parity)
     # path G: the CNN track, trained, calibrated and evaluated on the card
-    cnn_track = phase_cnn()
+    with timed("cnn G"):
+        cnn_track = phase_cnn()
 
     replaces = {
         "act_stats": "src/repro/kernels/act_stats.py:33",
@@ -2247,6 +2598,13 @@ def main(argv=None) -> int:
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"], shape=row["shape"],
+                            launches_by_path={p: c_[name]["launches"]
+                                              for p, c_ in counts.items()},
+                            shapes_H=[{k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                                         "plain_ms", "bound_ms", "bound_by",
+                                                         "library_ms")}
+                                      for r in detail if r["name"] == name
+                                      and r.get("path") == "H"],
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one
@@ -2258,14 +2616,15 @@ def main(argv=None) -> int:
                 modes=[{k: r[k] for k in ("mode", "shape", "max_abs_err",
                                           "ms", "plain_ms", "bound_ms", "bound_by",
                                           "same_bytes_ms", "host_us")}
-                       for r in detail if r["name"] == name])
+                       for r in detail if r["name"] == name and "path" not in r])
     need(sorted(k["name"] for k in kernels) == sorted(replaces),
          f"kernel rows {[k['name'] for k in kernels]}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
-             parity_max_logit_diff=parity, unfused=unfused, cnn=cnn_track), indent=1,
+             parity_max_logit_diff=parity, unfused=unfused, cnn=cnn_track,
+             phase_s=PHASE_S), indent=1,
         default=str))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes a reference param tree whose leaves the caller
 has already turned into numpy arrays (``jax.tree.map(np.asarray, params)``
 - the port never imports JAX) and returns the port's params: the stacked
-``blocks`` leaves are split into one dict per layer.  Quantized records are
+``blocks`` leaves - one stacked dict per pattern kind - are split into one
+dict per layer, in layer order (block i's kind j is layer i * P + j).  Quantized records are
 not carried across: the port builds its own from the same fp weights with
 ``models.linops.quantize_param_tree``, and the tests compare the two.
 ``cnn_params_from_numpy`` does the same for the CNN track's params.
@@ -34,17 +35,17 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     the card unless the caller asks for the CPU, and an error where CUDA is
     absent (``models.api.resolve_device``)."""
     device = resolve_device(device)
-    if tree.get("head") or tree.get("tail") or len(tree["blocks"]) != 1:
+    if tree.get("head") or tree.get("tail") or tree.get("shared_block"):
         raise NotImplementedError(
-            "the port runs the single-kind ('global',) pattern without "
-            "head/tail layers")
-    stacked = tree["blocks"][0]
-    n = len(stacked["attn_norm"])
+            "the port runs repeated pattern blocks without head/tail or shared "
+            "layers (ROADMAP.md Queue 1, item 6)")
+    kinds = tuple(tree["blocks"])
+    n = len(kinds[0]["attn_norm"])
     return {
         "embed": _map(lambda a: _tensor(a, device), tree["embed"]),
         "final_norm": _tensor(tree["final_norm"], device),
         "blocks": [_map(lambda a, i=i: _tensor(a[i], device), stacked)
-                   for i in range(n)],
+                   for i in range(n) for stacked in kinds],
     }
 
 

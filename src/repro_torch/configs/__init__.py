@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config('<arch-id>')``.
 
-Only the families the port runs are registered; the others join with their
+Only the families the port runs are registered: the dense GQA decoders,
+with or without local (sliding-window) layers.  The others join with their
 slice (ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
@@ -8,7 +9,10 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "gemma3-12b": "gemma3_12b",
     "stablelm-1.6b": "stablelm_1p6b",
+    "yi-6b": "yi_6b",
+    "gemma2-2b": "gemma2_2b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

@@ -71,6 +71,14 @@
 //
 // Both routes: expf and IEEE arithmetic, no fast math; reductions in fixed
 // shuffle trees and fixed orders across warps and splits.
+//
+// Shapes: Dh a multiple of 16, and G <= 8 at Dh <= 128 (the (8, 128)
+// instance; the main path's (1, 64) has a lean one on the split route) or
+// G <= 2 at Dh <= 256 (the wide instance, gemma3-12b's global layers: G 2,
+// Dh 256).  The wide instance's split block holds 128 K rows and 128 V rows
+// of 256 bytes (~70 KB of shared memory, dynamic) and a lane two 4-byte
+// words of a V row in P.V; its merge, tickets and K5's prologue over the
+// H * Dh row are the same code as at Dh 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,20 +89,43 @@ namespace {
 constexpr int THREADS = 128;            // one position of a tile per thread
 constexpr int TILE = THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int GMAX = 8;                 // query heads per kv head
-constexpr int DMAX = 128;               // head dim, a multiple of 16
-constexpr int KWORDS = DMAX / 4 + 1;    // padded K row: odd stride in words
-constexpr int ACC = GMAX * DMAX / THREADS;
+// The two register and shared-memory plans, both routes: up to GMAX query
+// heads per kv head at a head dim up to DMAX, or up to GWIDE heads at a
+// head dim up to DWIDE (G * Dh <= 512 either way: gemma3-12b's G 2, Dh
+// 256).  Dh is a multiple of 16.  Each instance's shared memory is
+// dynamic (the wide one needs ~70 KB, past the 48 KB of a static array),
+// its limit raised once per device, at the first launch there (set_smem).
+constexpr int GMAX = 8, DMAX = 128;
+constexpr int GWIDE = 2, DWIDE = 256;
 
+template <int GM, int DM>
 struct Smem {
-  int kt[TILE][KWORDS];                 // K tile, 4 int8 a word
-  int4 vt[TILE][DMAX / 16];             // V tile
-  float q[GMAX][DMAX];
-  float p[GMAX][TILE];
+  int kt[TILE][DM / 4 + 1];             // K tile, 4 int8 a word; odd stride in words
+  int4 vt[TILE][DM / 16];               // V tile
+  float q[GM][DM];
+  float p[GM][TILE];
   float ks[TILE], vs[TILE];
-  float wmax[GMAX][WARPS], wsum[GMAX][WARPS];
-  float m[GMAX], l[GMAX], corr[GMAX];
+  float wmax[GM][WARPS], wsum[GM][WARPS];
+  float m[GM], l[GM], corr[GM];
 };
+
+// Raise ``kernel``'s dynamic shared memory limit to ``bytes`` once per
+// device (the attribute is the current device's), ``done`` being the
+// instance's own flags (the first launch of each instance on a device,
+// outside any graph capture: the decode graph warms its block up first).
+// Past MAX_DEVICES a device raises it at every launch.
+constexpr int MAX_DEVICES = 64;
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = dev >= 0 && dev < MAX_DEVICES;
+  if (kept && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && kept) done[dev] = true;
+  return e;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -170,7 +201,7 @@ __device__ void row_prologue(const float* __restrict__ orow, int n, bool pro_bf1
   }
 }
 
-template <bool FUSED>
+template <int GM, int DM, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
               const int8_t* __restrict__ vq, const float* __restrict__ ksc,
@@ -179,7 +210,9 @@ attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
               bool pro_bf16, int8_t* __restrict__ oq, float* __restrict__ osx,
               float* __restrict__ os1, float* __restrict__ os2,
               int* __restrict__ tickets) {
-  __shared__ Smem sm;
+  constexpr int ACC = GM * DM / THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<GM, DM>& sm = *reinterpret_cast<Smem<GM, DM>*>(smem_raw);
   __shared__ int is_last;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -222,9 +255,9 @@ attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
     __syncthreads();
 
     // logits of position tid for every query head of the group
-    float lg[GMAX];
+    float lg[GM];
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) lg[g] = 0.f;
+    for (int g = 0; g < GM; ++g) lg[g] = 0.f;
     if (tid < nt) {
       const float kscale = sm.ks[tid];
       for (int w = 0; w < Dh / 4; ++w) {
@@ -233,13 +266,13 @@ attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
         for (int j = 0; j < 4; ++j) {
           const float kf = static_cast<float>(static_cast<int8_t>(word >> (8 * j))) * kscale;
 #pragma unroll
-          for (int g = 0; g < GMAX; ++g)
+          for (int g = 0; g < GM; ++g)
             if (g < G) lg[g] += sm.q[g][4 * w + j] * kf;
         }
       }
     }
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       lg[g] = tid < nt ? lg[g] * scale : -INFINITY;
       const float mx = warp_max(lg[g]);
@@ -255,7 +288,7 @@ attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
     }
     __syncthreads();
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       const float p = tid < nt ? expf(lg[g] - sm.m[g]) : 0.f;
       sm.p[g][tid] = p;
@@ -304,16 +337,18 @@ attend_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
   if (tid == 0) tickets[b] = 0;
 }
 
-template <bool FUSED>
-int launch(const void* q, const void* kq, const void* vq, const void* ks,
-           const void* vs, const void* length, void* o, int B, int Hkv, int G,
-           int Sp, int Dh, bool pro_bf16, void* oq, void* sx, void* s1, void* s2,
-           void* tickets, void* stream) {
-  if (B <= 0 || Hkv <= 0) return 0;
-  if (G < 1 || G > GMAX || Dh < 16 || Dh > DMAX || Dh % 16 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int GM, int DM, bool FUSED>
+int launch_single(const void* q, const void* kq, const void* vq, const void* ks,
+                  const void* vs, const void* length, void* o, int B, int Hkv, int G,
+                  int Sp, int Dh, bool pro_bf16, void* oq, void* sx, void* s1, void* s2,
+                  void* tickets, void* stream) {
+  auto kernel = attend_kernel<GM, DM, FUSED>;
+  constexpr int SMEM = sizeof(Smem<GM, DM>);
+  static bool smem_set[MAX_DEVICES] = {};
+  const cudaError_t e = set_smem(kernel, SMEM, smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(Hkv), static_cast<unsigned>(B));
-  attend_kernel<FUSED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kq),
       static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(length),
@@ -321,6 +356,40 @@ int launch(const void* q, const void* kq, const void* vq, const void* ks,
       pro_bf16, static_cast<int8_t*>(oq), static_cast<float*>(sx),
       static_cast<float*>(s1), static_cast<float*>(s2), static_cast<int*>(tickets));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Which plan takes (G, Dh): 0 the (GMAX, DMAX) one, 1 the wide one, -1 none.
+int plan_for(int G, int Dh) {
+  if (G < 1 || Dh < 16 || Dh % 16) return -1;
+  if (G <= GMAX && Dh <= DMAX) return 0;
+  if (G <= GWIDE && Dh <= DWIDE) return 1;
+  return -1;
+}
+
+// The split route's instance for (G, Dh): 0 the lean (LEAN_G, LEAN_D) one
+// (the main path's G 1, Dh 64), 1 the (GMAX, DMAX) one, 2 the wide one, -1
+// none.
+constexpr int LEAN_G = 1, LEAN_D = 64;
+int split_instance(int G, int Dh) {
+  const int plan = plan_for(G, Dh);
+  if (plan < 0) return -1;
+  return G <= LEAN_G && Dh <= LEAN_D ? 0 : plan + 1;
+}
+
+template <bool FUSED>
+int launch(const void* q, const void* kq, const void* vq, const void* ks,
+           const void* vs, const void* length, void* o, int B, int Hkv, int G,
+           int Sp, int Dh, bool pro_bf16, void* oq, void* sx, void* s1, void* s2,
+           void* tickets, void* stream) {
+  if (B <= 0 || Hkv <= 0) return 0;
+  const int plan = plan_for(G, Dh);
+  if (plan < 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return plan == 0
+             ? launch_single<GMAX, DMAX, FUSED>(q, kq, vq, ks, vs, length, o, B, Hkv, G, Sp,
+                                                Dh, pro_bf16, oq, sx, s1, s2, tickets, stream)
+             : launch_single<GWIDE, DWIDE, FUSED>(q, kq, vq, ks, vs, length, o, B, Hkv, G,
+                                                  Sp, Dh, pro_bf16, oq, sx, s1, s2, tickets,
+                                                  stream);
 }
 
 // ------------------------------------------------------------ split route
@@ -380,7 +449,8 @@ __device__ __forceinline__ bool take_ticket(int* ticket, int count, int* is_last
 }
 
 // GM query heads per kv head and DM head dim at most; the main path (G 1,
-// Dh 64) gets a lean instance, every other shape the (8, 128) one.
+// Dh 64) gets a lean instance, every other shape the (8, 128) one up to Dh
+// 128, and the wide (2, 256) one past it (gemma3-12b's global layers).
 template <int GM, int DM>
 struct SplitSmem {
   union {
@@ -404,7 +474,8 @@ split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
              float scale, float* __restrict__ ws, int rec, int* __restrict__ tickets,
              bool pro_bf16, int8_t* __restrict__ oq, float* __restrict__ osx,
              float* __restrict__ os1, float* __restrict__ os2) {
-  __shared__ SplitSmem<GM, DM> sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SplitSmem<GM, DM>& sm = *reinterpret_cast<SplitSmem<GM, DM>*>(smem_raw);
   __shared__ int is_last;
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -489,36 +560,47 @@ split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
     sm.pw[warp][g][lane] = pr * vs;
   }
 
-  // P.V: a lane group of LG lanes covers one V row in 4-byte words; the
-  // 32 / LG groups take alternate positions of the warp's valid ones, four
-  // at a time so that their shared-memory reads are in flight together.
-  // Rows past the valid ones are read too (finite int8 codes) and weighed 0.
+  // P.V: a lane group of LG lanes covers one V row in 4-byte words (a lane
+  // WM of them, WM = 2 past Dh 128, where a row has more words than a warp
+  // has lanes); the 32 / LG groups take alternate positions of the warp's
+  // valid ones, four at a time so that their shared-memory reads are in
+  // flight together.  Rows past the valid ones are read too (finite int8
+  // codes) and weighed 0.
   cp_async_wait<0>();
   __syncthreads();                      // every V row (and p * vs) in place
+  constexpr int WM = (DM / 4 + 31) / 32;
   const int LG = wr > 16 ? 32 : wr > 8 ? 16 : wr > 4 ? 8 : 4;
-  const int groups = 32 / LG, grp = lane / LG, wi = min(lane % LG, wr - 1);
+  const int groups = 32 / LG, grp = lane / LG;
+  int wi[WM];
+#pragma unroll
+  for (int k = 0; k < WM; ++k) wi[k] = min(lane % LG + k * LG, wr - 1);
   const int nv = min(max(n - (s * CHUNK + 32 * warp), 0), 32);
   const int* vw = reinterpret_cast<const int*>(sm.vt) + warp * 32 * wr;
-  float acc[GM][4];
+  float acc[GM][4 * WM];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < 4 * WM; ++e) acc[g][e] = 0.f;
   for (int j0 = grp; j0 < nv; j0 += 4 * groups) {
-    int word[4];
+    int word[4][WM];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) word[r] = vw[min(j0 + r * groups, 31) * wr + wi];
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int k = 0; k < WM; ++k) word[r][k] = vw[min(j0 + r * groups, 31) * wr + wi[k]];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int j = j0 + r * groups;
-      float vf[4];
-      i8x4_to_f32(word[r], vf);
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g >= G) break;
-        const float w = j < nv ? sm.pw[warp][g][min(j, 31)] : 0.f;
+      for (int k = 0; k < WM; ++k) {
+        float vf[4];
+        i8x4_to_f32(word[r][k], vf);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(w, vf[e], acc[g][e]);
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+          const float w = j < nv ? sm.pw[warp][g][min(j, 31)] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][4 * k + e] = fmaf(w, vf[e], acc[g][4 * k + e]);
+        }
       }
     }
   }
@@ -526,7 +608,8 @@ split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+      for (int e = 0; e < 4 * WM; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
 
   // the 4 warps' partials merge in warp order (the K rows' space is reused)
   __syncthreads();
@@ -537,12 +620,16 @@ split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
         sm.u.red.m[warp][g] = mw[g];
         sm.u.red.l[warp][g] = lw[g];
       }
-  if (lane < wr)
 #pragma unroll
-    for (int g = 0; g < GM; ++g)
-      if (g < G)
+  for (int k = 0; k < WM; ++k) {
+    const int w = lane + k * LG;        // lanes of group 0 hold the sums
+    if (lane < LG && w < wr)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sm.u.red.acc[warp][g * Dh + 4 * lane + e] = acc[g][e];
+      for (int g = 0; g < GM; ++g)
+        if (g < G)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sm.u.red.acc[warp][g * Dh + 4 * w + e] = acc[g][4 * k + e];
+  }
   __syncthreads();
 
   float* ob = o + (static_cast<long long>(b) * H + static_cast<long long>(h) * G) * Dh;
@@ -598,11 +685,17 @@ split_kernel(const float* __restrict__ q, const int8_t* __restrict__ kq,
 }
 
 template <int GM, int DM, bool FUSED>
-void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kq,
-                  const void* vq, const void* ks, const void* vs, const void* length,
-                  void* o, int B, int Hkv, int G, int Sp, int Dh, void* ws, int rec,
-                  void* tickets, bool pro_bf16, void* oq, void* sx, void* s1, void* s2) {
-  split_kernel<GM, DM, FUSED><<<grid, CHUNK, 0, st>>>(
+cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kq,
+                         const void* vq, const void* ks, const void* vs,
+                         const void* length, void* o, int B, int Hkv, int G, int Sp,
+                         int Dh, void* ws, int rec, void* tickets, bool pro_bf16, void* oq,
+                         void* sx, void* s1, void* s2) {
+  auto kernel = split_kernel<GM, DM, FUSED>;
+  constexpr int SMEM = sizeof(SplitSmem<GM, DM>);
+  static bool smem_set[MAX_DEVICES] = {};
+  const cudaError_t e = set_smem(kernel, SMEM, smem_set);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, CHUNK, SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kq),
       static_cast<const int8_t*>(vq), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(length),
@@ -610,6 +703,7 @@ void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kq,
       1.0f / sqrtf(static_cast<float>(Dh)), static_cast<float*>(ws), rec,
       static_cast<int*>(tickets), pro_bf16, static_cast<int8_t*>(oq),
       static_cast<float*>(sx), static_cast<float*>(s1), static_cast<float*>(s2));
+  return cudaSuccess;
 }
 
 }  // namespace split
@@ -618,7 +712,8 @@ void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* kq,
 
 // q (B, Hkv * G, Dh) f32; kq/vq (B, Hkv, Sp, Dh) int8, 16-byte aligned;
 // ks/vs (B, Hkv, Sp) f32; length (B,) int32; o (B, Hkv * G, Dh) f32 out.
-// G <= 8, Dh a multiple of 16 up to 128, B <= 65535.
+// Dh a multiple of 16, with G <= 8 up to Dh 128 or G <= 2 up to Dh 256;
+// B <= 65535.
 extern "C" int decode_attend_i8kv(const void* q, const void* kq, const void* vq,
                                   const void* ks, const void* vs, const void* length,
                                   void* o, int B, int Hkv, int G, int Sp, int Dh,
@@ -640,6 +735,17 @@ extern "C" int decode_attend_i8kv_fused(const void* q, const void* kq, const voi
                       oq, sx, s1, s2, tickets, stream);
 }
 
+// The split route's instance for (G, Dh), the one decode_attend_i8kv_split
+// launches: its (max G, max Dh) in *gm, *dm.  Returns 0, or
+// cudaErrorInvalidValue where no instance takes the shape.
+extern "C" int decode_attend_split_instance(int G, int Dh, int* gm, int* dm) {
+  const int inst = split_instance(G, Dh);
+  if (inst < 0) return static_cast<int>(cudaErrorInvalidValue);
+  *gm = inst == 0 ? LEAN_G : inst == 1 ? GMAX : GWIDE;
+  *dm = inst == 0 ? LEAN_D : inst == 1 ? DMAX : DWIDE;
+  return 0;
+}
+
 // The split route of both kernels: q, kq, vq, ks, vs, length and o as
 // decode_attend_i8kv; fused != 0 adds oq, sx, s1, s2 as
 // decode_attend_i8kv_fused (otherwise they may be null).  splits = ceil(Sp /
@@ -654,27 +760,22 @@ extern "C" int decode_attend_i8kv_split(const void* q, const void* kq, const voi
                                         int Dh, int splits, int rec, int fused,
                                         int pro_bf16, void* stream) {
   if (B <= 0 || Hkv <= 0) return 0;
-  if (G < 1 || G > GMAX || Dh < 16 || Dh > DMAX || Dh % 16 || B > 65535 ||
-      Hkv > 65535 || splits < 1 ||
+  const int plan = plan_for(G, Dh);
+  if (plan < 0 || B > 65535 || Hkv > 65535 || splits < 1 ||
       static_cast<long long>(splits) * split::CHUNK < Sp || rec < G * (Dh + 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(Hkv),
                   static_cast<unsigned>(B));
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool lean = G == 1 && Dh <= 64;
+  const int inst = split_instance(G, Dh);
   const bool pb = pro_bf16 != 0;
-  if (fused && lean)
-    split::launch_split<1, 64, true>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv, G,
-                                     Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
-  else if (fused)
-    split::launch_split<GMAX, DMAX, true>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv,
-                                          G, Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
-  else if (lean)
-    split::launch_split<1, 64, false>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv, G,
-                                      Sp, Dh, ws, rec, tickets, pb, oq, sx, s1, s2);
-  else
-    split::launch_split<GMAX, DMAX, false>(grid, st, q, kq, vq, ks, vs, length, o, B,
-                                           Hkv, G, Sp, Dh, ws, rec, tickets, pb, oq, sx,
-                                           s1, s2);
-  return static_cast<int>(cudaGetLastError());
+#define SPLIT(GM, DM, F)                                                                  \
+  split::launch_split<GM, DM, F>(grid, st, q, kq, vq, ks, vs, length, o, B, Hkv, G, Sp, Dh, \
+                                 ws, rec, tickets, pb, oq, sx, s1, s2)
+  const cudaError_t e =
+      inst == 0   ? (fused ? SPLIT(LEAN_G, LEAN_D, true) : SPLIT(LEAN_G, LEAN_D, false))
+      : inst == 1 ? (fused ? SPLIT(GMAX, DMAX, true) : SPLIT(GMAX, DMAX, false))
+                  : (fused ? SPLIT(GWIDE, DWIDE, true) : SPLIT(GWIDE, DWIDE, false));
+#undef SPLIT
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

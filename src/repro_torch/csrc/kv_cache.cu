@@ -8,7 +8,16 @@
 //   out[p] = src[map[p]] if map[p] >= 0 else dst[p], bit-exact, any dtype.
 //
 // A leaf is described by a Leaf record (below); a movement passes up to
-// MAX_LEAVES of them as one kernel parameter.  Page row r (counted over
+// MAX_LEAVES of them as one kernel parameter.  64 leaves hold gemma3-12b's
+// int8-KV cache (6 pattern kinds x k, v, k_scale, v_scale, pos, len = 36).
+// A table of 64 records (12.8 KB) is past the 4 KB that kernel parameters
+// had before CUDA 12.1; since 12.1, sm_70 and later take up to 32 764 bytes
+// of parameters, so the table stays ONE __grid_constant__ parameter.  The
+// other way, a table in device memory written before the launch, would put
+// a host-to-device copy in front of every movement - a memcpy node inside
+// the captured decode graph, which the engine keeps free of them - and a
+// buffer whose contents must outlive the launch; the parameter is copied
+// into the launch (and into a graph node) by value.  Page row r (counted over
 // the whole stack) of a side starts at
 //   (r / rows_per_outer) * outer_stride + (r % rows_per_outer) * page_stride
 // and is the concatenation of chunks of chunk_bytes, chunk_stride apart: a
@@ -47,7 +56,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int VEC = 16;
 constexpr int UNROLL = 8;
 constexpr unsigned PIECE = 32u * VEC * UNROLL;   // 4 KiB: one pass of a warp
-constexpr int MAX_LEAVES = 16;
+constexpr int MAX_LEAVES = 64;        // kernels/kv_cache.py MAX_LEAVES
 constexpr long long FILL = 1, VECTOR = 2;
 
 // One leaf of a movement, every field 64-bit, in the order the wrapper
@@ -69,7 +78,8 @@ struct Table {
   Leaf leaf[MAX_LEAVES];
   long long n, items;
 };
-static_assert(sizeof(Table) <= 4096, "the table fits the kernel parameter space");
+static_assert(sizeof(Table) <= 32764,
+              "the table fits the kernel parameter space (CUDA 12.1+, sm_70+)");
 
 __device__ __forceinline__ long long row_start(unsigned r, long long rpo, long long outer,
                                                long long page) {
@@ -90,8 +100,14 @@ __global__ void __launch_bounds__(THREADS) move_pages(const __grid_constant__ Ta
   const long long step = static_cast<long long>(gridDim.x) * WARPS;
   for (long long item = static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
        item < t.items; item += step) {
-    int l = 0;                               // the leaf this warp item lies in
-    while (l + 1 < t.n && item >= t.leaf[l + 1].item_begin) ++l;
+    int l = 0, hi = static_cast<int>(t.n) - 1;   // the leaf this warp item lies
+    while (l < hi) {                             // in: the last that begins at
+      const int mid = (l + hi + 1) >> 1;         // or before it
+      if (item >= t.leaf[mid].item_begin)
+        l = mid;
+      else
+        hi = mid - 1;
+    }
     const Leaf& f = t.leaf[l];
     const unsigned lg = static_cast<unsigned>(f.lanes_log2);
     const unsigned L = 1u << lg;

@@ -50,18 +50,21 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"cache_move": [_P, _L, _L, _P]}
 _ATTEND_SIG = {"decode_attend_i8kv": [_P] * 7 + [_I] * 5 + [_P],
                "decode_attend_i8kv_fused": [_P] * 12 + [_I] * 6 + [_P],
-               "decode_attend_i8kv_split": [_P] * 13 + [_I] * 9 + [_P]}
+               "decode_attend_i8kv_split": [_P] * 13 + [_I] * 9 + [_P],
+               "decode_attend_split_instance": [_I, _I] + [ctypes.POINTER(_I)] * 2}
 # K4/K5 launches per route, beside ATTEND_COUNT / FUSED_COUNT
 ROUTES = {"decode_attend_i8kv": {"split": 0, "single": 0},
           "decode_attend_i8kv_fused": {"split": 0, "single": 0}}
 MAX_ROWS = 65535                       # the attend kernels' grid y/z extent
 MAX_ROW_BYTES = 2 ** 31 - 1            # a page row's offsets are 32-bit
 MAX_UNITS = 2 ** 31 - 1                # a leaf's units and stacked rows, 32-bit
-MAX_LEAVES = 16                        # leaves a movement (csrc MAX_LEAVES)
+MAX_LEAVES = 64                        # leaves a movement (csrc MAX_LEAVES)
 PIECE = 4096                           # bytes of a unit of work (csrc PIECE)
 VEC = 16                               # the vector path's bytes a load
 _FILL, _VECTOR = 1, 2                  # a leaf's flags (csrc FILL, VECTOR)
-MAX_GROUP, MAX_HEAD_DIM = 8, 128       # the attend kernel's register/smem plan
+# the attend kernels' register and shared-memory plans (csrc GMAX/DMAX,
+# GWIDE/DWIDE): (max G, max Dh) pairs, Dh a multiple of 16
+ATTEND_PLANS = ((8, 128), (2, 256))
 CHUNK = 128                            # split route: positions a block owns
 _PRO_BF16 = {None: 0, torch.float32: 0, torch.bfloat16: 1}
 _TICKETS: dict = {}                    # per device; the kernels leave them zero
@@ -385,18 +388,25 @@ decode_attend_i8kv_plain = ref.decode_attend_i8kv_ref
 decode_attend_i8kv_fused_plain = ref.decode_attend_i8kv_fused_ref
 
 
+def attend_plan_of(G: int, Dh: int) -> int | None:
+    """The index in ``ATTEND_PLANS`` of the built instance that takes (G,
+    Dh) (the first that fits), or None."""
+    if G < 1 or Dh < 16 or Dh % 16:
+        return None
+    return next((i for i, (gm, dm) in enumerate(ATTEND_PLANS) if G <= gm and Dh <= dm),
+                None)
+
+
 def attend_limits(B: int, H: int, Hkv: int, Dh: int) -> int:
     """The attend kernels' shape limits (both routes); returns G = H /
-    Hkv.  B and Hkv are grid extents; G and Dh size the registers and
-    shared memory."""
+    Hkv.  B and Hkv are grid extents; G and Dh pick one of the built
+    register and shared-memory plans (``ATTEND_PLANS``)."""
     G = H // Hkv if Hkv > 0 else 0
-    if (Hkv <= 0 or H % Hkv or not 1 <= G <= MAX_GROUP or Dh % 16
-            or not 16 <= Dh <= MAX_HEAD_DIM or not 0 <= B <= MAX_ROWS
-            or Hkv > MAX_ROWS):
-        raise ValueError(f"decode_attend_i8kv takes H = G * Hkv with G <= "
-                         f"{MAX_GROUP}, Dh a multiple of 16 up to {MAX_HEAD_DIM} "
-                         f"and B, Hkv <= {MAX_ROWS}; got B {B}, H {H}, Hkv {Hkv}, "
-                         f"Dh {Dh}")
+    if (Hkv <= 0 or H % Hkv or attend_plan_of(G, Dh) is None
+            or not 0 <= B <= MAX_ROWS or Hkv > MAX_ROWS):
+        raise ValueError(f"decode_attend_i8kv takes H = G * Hkv and Dh a multiple of "
+                         f"16 with (G, Dh) at most one of {list(ATTEND_PLANS)}, and "
+                         f"B, Hkv <= {MAX_ROWS}; got B {B}, H {H}, Hkv {Hkv}, Dh {Dh}")
     return G
 
 
@@ -428,6 +438,19 @@ def attend_plan(B: int, Hkv: int, G: int, Sp: int, Dh: int) -> AttendPlan:
     record = -(-G * (Dh + 2) // 4) * 4
     return AttendPlan(CHUNK, splits, (splits, Hkv, B), record,
                       B * Hkv * splits * record * 4, B * Hkv + B)
+
+
+def attend_instance(G: int, Dh: int) -> tuple:
+    """The (max G, max Dh) of the kernel instance the split route launches
+    for (G, Dh), as the library itself chooses it (csrc
+    ``decode_attend_split_instance``): the lean (1, 64) at G 1 and Dh <= 64,
+    else the first of ``ATTEND_PLANS`` that fits.  Builds the library if
+    needed."""
+    lib = _build.library("decode_attend", _ATTEND_SIG)
+    gm, dm = ctypes.c_int(), ctypes.c_int()
+    if lib.decode_attend_split_instance(G, Dh, ctypes.byref(gm), ctypes.byref(dm)):
+        raise ValueError(f"no decode_attend_i8kv instance takes G {G}, Dh {Dh}")
+    return gm.value, dm.value
 
 
 def _attend_check(q, k_q, v_q, k_scale, v_scale, length):

@@ -6,6 +6,11 @@ with the PDQ-int8 path, on the card unless ``--device cpu``.
         --requests 8 --max-new 16 [--int8] [--int8-kv] [--paged] \
         [--decode-steps 4] [--pdq-fallback] [--no-telemetry] [--device cpu]
 
+``--arch`` picks a registered model (stablelm-1.6b, gemma3-12b, gemma2-2b,
+yi-6b); ``--chunked-prefill`` splits prompts longer than the largest bucket
+into chunks of that bucket's length (``--prompt-len`` sets the longest
+canned prompt).
+
 ``--http PORT`` serves the streaming front door instead of a canned trace
 (``ServeService`` + ``HttpFrontend``: ``POST /v1/completions`` with SSE,
 ``GET /healthz``, ``/v1/stats``, ``/metrics``, ``/v1/events``; 0 picks a
@@ -13,9 +18,9 @@ free port, printed on startup).  SIGTERM/SIGINT drain, snapshot
 (``--snapshot``) and exit cleanly.
 
 Multi-GPU serving (``--mesh``, ``--num-processes``, ``--slots-per-replica``,
-``--launch-timeout``) is ROADMAP.md Queue 1 item 8, chunked prefill item 6
-and the per-request prefill baseline (``--legacy-prefill``) item 9: each
-raises naming its item.
+``--launch-timeout``) is ROADMAP.md Queue 1 item 8 and the per-request
+prefill baseline (``--legacy-prefill``) item 9: each raises naming its
+item.
 """
 from __future__ import annotations
 
@@ -83,6 +88,8 @@ def build_args(argv=None):
     ap.add_argument("--no-telemetry", action="store_true",
                     help="disable the metrics registry, lifecycle timing and "
                          "the PDQ health counters (/metrics then renders empty)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="split prompts longer than the largest bucket into chunks")
     ap.add_argument("--device", default="cuda",
                     help="the engine's device: the card unless 'cpu'")
     # not ported yet: each raises naming its ROADMAP.md item
@@ -90,7 +97,6 @@ def build_args(argv=None):
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--slots-per-replica", type=int, default=None)
     ap.add_argument("--launch-timeout", type=float, default=None)
-    ap.add_argument("--chunked-prefill", action="store_true")
     ap.add_argument("--legacy-prefill", action="store_true")
     return ap.parse_args(argv)
 
@@ -190,8 +196,6 @@ def main(argv=None):
     if (args.mesh or args.num_processes > 1 or args.slots_per_replica is not None
             or args.launch_timeout is not None):
         raise not_ported("multi-GPU serving (--mesh, --num-processes)", "8")
-    if args.chunked_prefill:
-        raise not_ported("chunked prefill", "6")
     if args.legacy_prefill:
         raise not_ported("the per-request prefill baseline", "9")
 
@@ -200,6 +204,7 @@ def main(argv=None):
         slots=args.slots, max_len=args.max_len,
         quantize_weights=args.int8, temperature=args.temperature,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
+        chunked_prefill=args.chunked_prefill,
         decode_steps=args.decode_steps, pdq_fallback=args.pdq_fallback,
         snapshot_path=args.snapshot, paged=args.paged,
         page_size=args.page_size, pool_pages=args.pool_pages,
@@ -211,7 +216,8 @@ def main(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     cfg = eng.cfg
-    mode = "bucketed" + (f" paged/{args.page_size}" if args.paged else "")
+    mode = ("bucketed" + (f" paged/{args.page_size}" if args.paged else "")
+            + (" chunked" if args.chunked_prefill else ""))
 
     if args.http is not None:
         return serve_http(args, eng)

@@ -41,6 +41,7 @@ class ModelBundle:
     init_caches: Callable[..., Any]
     prefill: Callable[..., Any]
     prefill_many: Callable[..., Any]
+    prefill_chunk: Callable[..., Any]
     decode_step: Callable[..., Any]
     cache_scatter: Callable[..., Any]
     paged_cache: Callable[..., Any]
@@ -156,6 +157,26 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         h, caches = lm_apply(params, cfg, tokens=tokens,
                              positions=_positions(B, L), mode="prefill",
                              caches=caches, seq_lens=sl)
+        last = torch.clamp_min(sl - 1, 0).long()
+        h_last = h[torch.arange(B, device=dev), last]
+        return lm_logits(params, cfg, h_last), caches
+
+    @torch.no_grad()
+    def prefill_chunk(params, batch, caches, seq_lens, start_lens):
+        """Continue a chunked prefill: row b of ``caches`` already holds
+        ``start_lens[b]`` landed tokens; this call appends the next chunk
+        (``seq_lens[b]`` real tokens, right-padded to the chunk's bucket)
+        at absolute positions and attends the whole cache buffer, so
+        queries see both the landed prefix and the chunk.  Returns (logits
+        (B, vocab) of each row's last real token, caches); the last
+        chunk's logits seed decoding as ``prefill_many``'s do."""
+        tokens = batch["tokens"]
+        B, L = tokens.shape
+        start = start_lens.to(device=dev, dtype=torch.int32)
+        pos = start[:, None] + _positions(B, L)
+        sl = seq_lens.to(device=dev, dtype=torch.int32)
+        h, caches = lm_apply(params, cfg, tokens=tokens, positions=pos,
+                             mode="prefill", caches=caches, seq_lens=sl, chunked=True)
         last = torch.clamp_min(sl - 1, 0).long()
         h_last = h[torch.arange(B, device=dev), last]
         return lm_logits(params, cfg, h_last), caches
@@ -420,5 +441,5 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
 
     return ModelBundle(cfg=cfg, device=dev, init=init, init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,
-                       decode_step=decode_step, cache_scatter=cache_scatter,
-                       paged_cache=paged_cache)
+                       prefill_chunk=prefill_chunk, decode_step=decode_step,
+                       cache_scatter=cache_scatter, paged_cache=paged_cache)

@@ -48,25 +48,29 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     """Online-softmax attention over (q_chunk x kv_chunk) score tiles.
 
     q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh), q_pos (B, Sq), k_pos (B, Sk);
-    returns (B, Sq, H, Dv) in q's dtype.
+    returns (B, Sq, H, Dv) in q's dtype.  Where the reference needs Sq and
+    Sk to be multiples of their chunks, the port also takes a shorter last
+    chunk (an engine's capacity bucket, max_len - 1 tokens, past 512): the
+    chunks before it, and so every result at lengths the reference takes,
+    are the same.
     """
     B, Sq, H, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = H // Hkv
     q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
-    nq, nk = Sq // q_chunk, Sk // kv_chunk
     qs = q * torch.tensor(Dh ** -0.5, dtype=q.dtype)      # scale in q.dtype
     outs = []
-    for i in range(nq):
-        qi = qs[:, i * q_chunk:(i + 1) * q_chunk]               # (B, qc, H, Dh)
-        qi = qi.reshape(B, q_chunk, Hkv, G, Dh).permute(0, 2, 3, 1, 4).float()
-        qpi = q_pos[:, i * q_chunk:(i + 1) * q_chunk]
-        m = torch.full((B, Hkv, G, q_chunk), NEG, device=q.device)
-        l = torch.zeros((B, Hkv, G, q_chunk), device=q.device)
-        acc = torch.zeros((B, Hkv, G, q_chunk, Dv), device=q.device)
-        for j in range(nk):
-            sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+    for i0 in range(0, Sq, q_chunk):
+        qc = min(q_chunk, Sq - i0)
+        qi = qs[:, i0:i0 + qc]                                  # (B, qc, H, Dh)
+        qi = qi.reshape(B, qc, Hkv, G, Dh).permute(0, 2, 3, 1, 4).float()
+        qpi = q_pos[:, i0:i0 + qc]
+        m = torch.full((B, Hkv, G, qc), NEG, device=q.device)
+        l = torch.zeros((B, Hkv, G, qc), device=q.device)
+        acc = torch.zeros((B, Hkv, G, qc, Dv), device=q.device)
+        for j0 in range(0, Sk, kv_chunk):
+            sl = slice(j0, j0 + kv_chunk)
             kj = k[:, sl].permute(0, 2, 1, 3).float()           # (B, Hkv, kc, Dh)
             vj = v[:, sl].permute(0, 2, 1, 3)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj)
@@ -87,7 +91,7 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                 "bhgqk,bhkd->bhgqd", p.to(vj.dtype).float(), vj.float())
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(o.reshape(B, H, q_chunk, Dv).transpose(1, 2))
+        outs.append(o.reshape(B, H, qc, Dv).transpose(1, 2))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
@@ -185,13 +189,20 @@ def _cache_write(cache, k_new, v_new, positions):
     return cache
 
 
-def _clamp_padded(vals, positions, seq_lens):
-    """Redirect right-pad entries of a prefill write onto the row's LAST
-    REAL token (values and positions), so duplicate writes carry identical
-    data and pad tokens never reach the cache."""
+def _clamp_padded(vals, positions, seq_lens, ring: int | None = None):
+    """Redirect the entries of a prefill write that must not land onto the
+    row's LAST REAL token (values and positions), so that duplicate writes
+    carry identical data: right-pad entries (index >= seq_lens), and with a
+    ``ring`` of W slots every real entry but the row's last W, whose slot
+    (pos % W) a later real entry of the same write takes.  The winner of
+    each slot is then explicit - the scatter order of duplicate indices,
+    which CUDA leaves open, cannot matter - and the cache equals the
+    reference's, whose CPU scatter lets the last write win, bit for bit."""
     B, S = positions.shape
     idx = torch.arange(S, device=positions.device)[None, :]
     valid = idx < seq_lens[:, None]
+    if ring is not None and S > ring:
+        valid &= idx >= seq_lens[:, None] - ring
     last = torch.clamp_min(seq_lens - 1, 0).long()
     bidx = torch.arange(B, device=positions.device)
     out = []
@@ -201,6 +212,20 @@ def _clamp_padded(vals, positions, seq_lens):
         out.append(torch.where(mask, v, v_last))
     pos = torch.where(valid, positions, positions[bidx, last][:, None])
     return out, pos
+
+
+def _prefill_write(cache, k, v, positions, seq_lens):
+    """A prefill's cache write: right-pad entries (``seq_lens``) and, when
+    the write is longer than the cache's ring, the real entries a later
+    one overwrites are redirected first (``_clamp_padded``)."""
+    B, S = positions.shape
+    W = cache["pos"].shape[1]
+    if seq_lens is None and S > W:
+        seq_lens = torch.full((B,), S, dtype=torch.int32, device=positions.device)
+    if seq_lens is None:
+        return _cache_write(cache, k, v, positions)
+    (kc, vc), pos_c = _clamp_padded((k, v), positions, seq_lens, ring=W)
+    return _cache_write(cache, kc, vc, pos_c)
 
 
 def _cache_kv_float(cache, dtype):
@@ -216,11 +241,19 @@ def _cache_kv_float(cache, dtype):
     return tuple(out)
 
 
+def _valid_k_pos(cache_pos):
+    """Cache slot positions with empty slots (-1) pushed beyond every real
+    query position, so that the causal mask of ``chunked_attention`` (which
+    has no validity mask of its own) excludes them: rel = q_pos - 2^30 < 0."""
+    return torch.where(cache_pos >= 0, cache_pos, 2 ** 30)
+
+
 def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
-              causal: bool = True, seq_lens=None, norm=None):
+              causal: bool = True, seq_lens=None, norm=None, chunked: bool = False):
     """mode 'prefill' (S tokens, optional right-padding ``seq_lens``) or
     'decode' (S == 1); returns (y (B, S, d), cache).  ``norm = (w, eps)``:
-    attend over rms_norm(x, w, eps)."""
+    attend over rms_norm(x, w, eps).  ``chunked``: a chunked-prefill
+    continuation, whose cache rows already hold the earlier chunks."""
     B, S, _ = x.shape
     H, Hkv, Dh = dims.n_heads, dims.n_kv_heads, dims.head_dim
     # Q/K/V read the same normed input: quantized params run ONE prologue
@@ -232,12 +265,29 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
     v = v.reshape(B, S, Hkv, Dh)
     if cache is None:
         raise ValueError("serving attention needs a cache")
-    if mode == "prefill":
+    if mode == "prefill" and chunked:
+        # the reference's continuation: attend the cache as it stands
+        # BEFORE the write (the landed prefix; empty slots pushed out of
+        # causal range) concatenated with the chunk's own k/v, and only
+        # then write the chunk.  The order matters for a local layer, whose
+        # ring holds exactly the last W positions: writing first would
+        # evict keys still inside earlier in-chunk queries' windows.  An
+        # int8 cache contributes its dequantized prefix (what decode would
+        # read), as the reference documents.
         if seq_lens is None:
-            _cache_write(cache, k, v, positions)
-        else:
-            (kc, vc), pos_c = _clamp_padded((k, v), positions, seq_lens)
-            _cache_write(cache, kc, vc, pos_c)
+            raise ValueError("a chunked-prefill continuation needs seq_lens")
+        kf, vf = _cache_kv_float(cache, x.dtype)
+        k_all = torch.cat([kf, k.to(kf.dtype)], dim=1)
+        v_all = torch.cat([vf, v.to(vf.dtype)], dim=1)
+        pos_all = torch.cat([_valid_k_pos(cache["pos"]), positions.to(torch.int32)],
+                            dim=1)
+        o = chunked_attention(q, k_all, v_all, positions, pos_all, causal=causal,
+                              window=dims.window, attn_softcap=dims.attn_softcap,
+                              q_chunk=S, kv_chunk=k_all.shape[1])
+        _prefill_write(cache, k, v, positions, seq_lens)
+        return lin(o.reshape(B, S, H * Dh), p["wo"]), cache
+    if mode == "prefill":
+        _prefill_write(cache, k, v, positions, seq_lens)
         o = chunked_attention(q, k, v, positions, positions, causal=causal,
                               window=dims.window, attn_softcap=dims.attn_softcap)
         return lin(o.reshape(B, S, H * Dh), p["wo"]), cache

@@ -1,10 +1,12 @@
 """Architecture configuration schema (port of ``repro/models/config.py``).
 
-The port carries the fields its slice runs: a decoder-only GQA LM whose
-layers are ``n_blocks`` repeats of ``pattern`` (the reference scans the
-stacked blocks; the port loops over a per-layer list).  The MoE, MLA, SSM,
-encoder-decoder and frontend fields arrive with the model families that
-use them (ROADMAP.md Queue 1).
+The port carries the fields its families run: a decoder-only GQA LM whose
+layers are ``n_blocks`` repeats of ``pattern``, each kind ``global`` (full
+attention) or ``local`` (sliding-window attention over a ring of ``window``
+positions), with gemma's softcaps and embedding scale (the reference scans
+the stacked blocks; the port loops over a per-layer list).  The MoE, MLA,
+SSM, encoder-decoder and frontend fields arrive with the model families
+that use them (ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
 

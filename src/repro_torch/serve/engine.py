@@ -8,6 +8,10 @@ its plans to the port's model bundle on one device:
   * ``_exec_prefill``: one ``prefill_many`` over a fresh prefill pool, then
     ``_land_sub`` lands the rows into the serving pool in place (one
     ``cache_scatter`` launch for every cache leaf);
+  * ``_exec_chunked`` (``chunked_prefill=True``, prompts longer than the
+    largest bucket): the first chunk through ``prefill_many`` on a fresh
+    pool, the later ones through ``prefill_chunk`` on the same pool, then
+    one landing;
   * ``_exec_decode``: one block of ``decode_steps`` (N) model steps over the
     whole pool, in place (``decode_scan``), sampling on the device inside
     each step.  On the card the block is a CUDA graph captured once per
@@ -60,7 +64,8 @@ from repro_torch.models import build_model
 from repro_torch.models.linops import quantize_param_tree
 
 from . import telemetry as tmod
-from .core import DEFAULT_BUCKETS, DecodePlan, PrefillPlan, Request, SchedulerCore
+from .core import (DEFAULT_BUCKETS, ChunkedPlan, DecodePlan, PrefillPlan, Request,
+                   SchedulerCore)
 from .decode_graph import DecodeGraph
 from .pages import SpillRecord
 
@@ -177,11 +182,8 @@ class ServeEngine(SchedulerCore):
                  trace: bool = False,
                  tel: "tmod.Telemetry | None" = None,
                  device="cuda"):
-        for on, what, item in (
-                (not batch_prefill, "the per-request prefill baseline", "9"),
-                (chunked_prefill, "chunked prefill", "6")):
-            if on:
-                raise not_ported(what, item)
+        if not batch_prefill:
+            raise not_ported("the per-request prefill baseline", "9")
         self.cfg = cfg
         self.bundle = build_model(cfg, device)
         self.device = self.bundle.device
@@ -194,7 +196,7 @@ class ServeEngine(SchedulerCore):
             tel = tmod.Telemetry(enabled=telemetry, trace=trace)
         self._init_scheduler(
             slots=slots, n_replicas=1, max_len=max_len, patch_tokens=0,
-            buckets=buckets, batch_prefill=True, chunked_prefill=False,
+            buckets=buckets, batch_prefill=True, chunked_prefill=chunked_prefill,
             decode_steps=decode_steps, fault=fault, tel=tel)
         if paged:
             self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size)
@@ -267,19 +269,39 @@ class ServeEngine(SchedulerCore):
 
     # ------------------------------------------------------------ exec hooks
     def _exec_prefill(self, plan: PrefillPlan, extras):
+        return self._run_prefill("prefill", plan, (plan.tokens, plan.seq_lens), (), extras)
+
+    def _exec_chunked(self, plan: ChunkedPlan, extras):
+        """The first chunk through ``prefill_many`` on a fresh pool, each
+        later chunk through ``prefill_chunk`` on the same pool, then one
+        landing of the finished rows (the reference's ``_exec_chunked``)."""
+        return self._run_prefill("chunked", plan, plan.first[1:], plan.chunks, extras)
+
+    def _run_prefill(self, kind: str, plan, first, chunks, extras):
+        """One prefill launch set: ``first`` = (tokens, seq_lens) through
+        ``prefill_many`` over a fresh pool (prefill writes it in place),
+        ``chunks`` = (bucket, tokens, seq_lens, start_lens) continuations
+        through ``prefill_chunk`` on the same pool, then the rows land in
+        the serving pool.  Every launch adds its PDQ health into one device
+        vector, which rides the one token copy."""
         if extras:
             raise not_ported("prefill extras (patches, encoder frames)", "6")
         dev = self.device
-        # prefill writes its pool in place, so every launch gets a fresh one
         sub = self.bundle.init_caches(self.slots, self.max_len)
         tel = self._tel_buffer()
+
+        def t(a):
+            return torch.as_tensor(a, device=dev)
+
         with ops.pdq_guard(self.pdq_fallback), \
                 ops.pdq_telemetry(self.tel.enabled, counters=tel):
             logits, sub = self.bundle.prefill_many(
-                self.params, {"tokens": torch.as_tensor(plan.tokens, device=dev)},
-                sub, torch.as_tensor(plan.seq_lens, device=dev))
+                self.params, {"tokens": t(first[0])}, sub, t(first[1]))
+            for _, tokens, seq_lens, start_lens in chunks:
+                logits, sub = self.bundle.prefill_chunk(
+                    self.params, {"tokens": t(tokens)}, sub, t(seq_lens), t(start_lens))
         self._land_sub(plan, sub)
-        toks, ok, health = self._sample_rows("prefill", plan, logits, tel)
+        toks, ok, health = self._sample_rows(kind, plan, logits, tel)
         self._observe_pdq(health)       # rode the token copy
         return toks, ok
 

@@ -2,8 +2,9 @@
 (``repro_torch/kernels/kv_cache.py`` ``attend_plan``), on the CPU: the
 chunks cover the cache's sequence axis exactly, the grid comes from the
 cache's shape and never from the lengths, the workspace and ticket sizes
-are the documented ones, and shapes past the kernels' limits raise
-``ValueError`` before anything is launched.  The kernels themselves run
+are the documented ones, each shape takes the register plan sized for it
+(the (8, 128) or the wide (2, 256) one), and shapes past
+the kernels' limits raise ``ValueError`` before anything is launched.  The kernels themselves run
 in tests/test_torch_cuda.py on the card.
 """
 import pytest
@@ -15,10 +16,12 @@ from repro_torch.kernels import ops
 torch.set_num_threads(1)
 
 # (B, Hkv, G, Sp, Dh): chip_smoke.py's two kernel-table shapes, the path A
-# cache, and ragged ones around the chunk
+# cache, ragged ones around the chunk, and the wide instance's: gemma3-12b's
+# global layers (path H's cache, G 2, Dh 256) and a ragged one past Dh 128
 SHAPES = [(8, 32, 1, 512, 64), (8, 32, 1, 4096, 64), (8, 32, 1, 128, 64),
           (9, 3, 8, 4096, 128), (1, 1, 1, 1, 16), (3, 2, 4, 127, 48),
-          (3, 2, 4, 129, 32), (2, 5, 2, 300, 80), (4, 1, 1, 0, 64)]
+          (3, 2, 4, 129, 32), (2, 5, 2, 300, 80), (4, 1, 1, 0, 64),
+          (8, 8, 2, 2048, 256), (3, 2, 2, 300, 144)]
 
 
 @pytest.mark.parametrize("B,Hkv,G,Sp,Dh", SHAPES)
@@ -71,9 +74,24 @@ def test_main_path_plan_numbers():
     assert (long.splits, long.workspace_bytes) == (32, 2228224)
 
 
+def test_wide_instance_plan_numbers():
+    """Path H's global-layer cache (B 8, Hkv 8, G 2, Dh 256, Sp 2048): 16
+    splits, 1024 blocks, 516-float records (2 x (256 + 2)), 16.9 MB of
+    workspace; the built plans take (8, 128) first, then the wide (2, 256)
+    one (which instance a launch takes is the library's own choice,
+    ``kv.attend_instance``, held on the card in tests/test_torch_cuda.py)."""
+    h = kv.attend_plan(8, 8, 2, 2048, 256)
+    assert (h.splits, h.grid, h.record, h.workspace_bytes, h.tickets) == (
+        16, (16, 8, 8), 516, 8 * 8 * 16 * 516 * 4, 72)
+    assert kv.ATTEND_PLANS == ((8, 128), (2, 256))
+    assert [kv.attend_plan_of(G, Dh) for G, Dh in ((2, 256), (8, 128), (1, 64), (1, 144))] == [
+        1, 0, 0, 1]
+
+
 @pytest.mark.parametrize("B,Hkv,G,Dh", [(65536, 1, 1, 64), (2, 65536, 1, 64),
-                                        (2, 4, 9, 64), (2, 4, 1, 144), (2, 4, 1, 40),
-                                        (2, 4, 1, 8), (2, 4, 0, 64), (2, 0, 1, 64)])
+                                        (2, 4, 9, 64), (2, 4, 1, 272), (2, 4, 1, 40),
+                                        (2, 4, 1, 8), (2, 4, 0, 64), (2, 0, 1, 64),
+                                        (2, 4, 3, 256), (2, 4, 4, 256), (2, 4, 3, 144)])
 def test_over_limit_shapes_raise_value_error(B, Hkv, G, Dh):
     with pytest.raises(ValueError, match="decode_attend_i8kv takes"):
         kv.attend_plan(B, Hkv, G, 256, Dh)
@@ -87,6 +105,11 @@ def test_limits_hold_for_the_operands_too():
     with pytest.raises(ValueError, match="H = G \\* Hkv"):
         kv.attend_limits(2, 36, 4, 64)
     assert kv.attend_limits(8, 32, 32, 64) == 1 and kv.attend_limits(2, 32, 4, 128) == 8
+    # the wide instance: G 2 at Dh 256 (G * Dh 512), and no further
+    assert kv.attend_limits(8, 16, 8, 256) == 2
+    for H, Hkv, Dh in ((24, 8, 256), (16, 8, 272), (32, 8, 160)):
+        with pytest.raises(ValueError, match="H = G \\* Hkv"):
+            kv.attend_limits(8, H, Hkv, Dh)
 
 
 def test_routes_are_counted_and_checked():

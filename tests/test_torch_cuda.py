@@ -573,7 +573,16 @@ _ATTEND_CASES = [(1, 64, 130, [1, 127, 128, 129, 130, 0, 64]),
                  (8, 128, 4096, [4096, 1, 0, 3968, 255]),
                  (2, 48, 260, [260, 129, 0, 1, 128, 256, 5]),
                  (4, 16, 384, [383, 384, 0, 1, 129, 256]),
-                 (1, 96, 300, [300, 128, 1, 0, 257])]
+                 (1, 96, 300, [300, 128, 1, 0, 257]),
+                 # the wide instance: gemma3-12b's global layers (G 2, Dh
+                 # 256) at path H's Sp 2048 with lengths 1-2048, and ragged
+                 # head dims past 128 (a lane holding two V words, the
+                 # second idle for some lanes)
+                 (2, 256, 2048, [2048, 1, 1024, 1025, 129, 1900, 0, 640]),
+                 (2, 256, 130, [130, 1, 128, 129, 0]),
+                 (1, 256, 300, [300, 129, 1, 257]),
+                 (2, 144, 260, [260, 1, 0, 129, 200]),
+                 (1, 208, 129, [129, 128, 1])]
 
 
 def _tickets_at_rest(device):
@@ -1055,6 +1064,84 @@ def test_decode_attend_fused_nan_query_row(gen, split):
     for i in (2, 3, 4):
         assert torch.equal(torch.isfinite(got[i]), torch.isfinite(want[i])), i
     assert not bool(torch.isfinite(got[2][2]).any())
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_decode_attend_fused_nan_query_row_wide_instance(gen, split):
+    """The NaN case above on the wide instance (G 2, Dh 256)."""
+    q, k_q, v_q, ks, vs, length = _attend_operands(gen, 4, 2, 2, 256, 384,
+                                                   (1, 129, 300, 384))
+    q = q.clone()
+    q[2, 1, 200] = NAN
+    got = kv.decode_attend_i8kv_fused_cuda(q, k_q, v_q, ks, vs, length, torch.bfloat16,
+                                           route="split" if split else "single")
+    want = kv.decode_attend_i8kv_fused_plain(q, k_q, v_q, ks, vs, length, torch.bfloat16)
+    assert not bool(torch.isfinite(got[0][2]).all())
+    for i in (2, 3, 4):
+        assert torch.equal(torch.isfinite(got[i]), torch.isfinite(want[i])), i
+    assert not bool(torch.isfinite(got[2][2]).any())
+    for r in (0, 1, 3):
+        assert bool(torch.isclose(got[0][r], want[0][r], rtol=2e-4, atol=2e-4).all())
+
+
+@pytest.mark.parametrize("G,Dh", [(1, 272), (4, 256), (3, 256), (4, 160)])
+def test_decode_attend_refuses_shapes_past_the_built_plans(gen, G, Dh):
+    """Dh 272, and G * Dh > 512 past Dh 128, raise before any launch, on
+    both routes (``attend_limits``)."""
+    args = _attend_operands(gen, 2, 2, G, Dh, 128, (1, 128))
+    for route in ("split", "single"):
+        with pytest.raises(ValueError, match="decode_attend_i8kv takes"):
+            kv.decode_attend_i8kv_cuda(*args, route=route)
+        with pytest.raises(ValueError, match="decode_attend_i8kv takes"):
+            kv.decode_attend_i8kv_fused_cuda(*args, torch.bfloat16, route=route)
+
+
+@pytest.mark.parametrize("G,Dh,want", [(1, 64, (1, 64)), (1, 48, (1, 64)),
+                                       (2, 64, (8, 128)), (1, 80, (8, 128)),
+                                       (8, 128, (8, 128)), (1, 144, (2, 256)),
+                                       (2, 256, (2, 256)), (3, 256, None), (1, 272, None)])
+def test_split_route_instance_is_the_library_choice(gen, G, Dh, want):
+    """The split route's kernel instance, as the library chooses it
+    (``kv.attend_instance``): the lean (1, 64) at G 1 up to Dh 64, the (8,
+    128) one up to Dh 128, the wide (2, 256) past it, none past the plans."""
+    if want is None:
+        with pytest.raises(ValueError, match="no decode_attend_i8kv instance"):
+            kv.attend_instance(G, Dh)
+    else:
+        assert kv.attend_instance(G, Dh) == want
+
+
+_MANY_DTYPES = (torch.int8, torch.float32, torch.int32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_leaves", [36, 64])
+def test_cache_move_of_many_leaves_in_one_launch(gen, n_leaves):
+    """A movement of 36 leaves (gemma3-12b's int8-KV landing: 6 kinds of k,
+    v, k_scale, v_scale, pos, len) and of 64 (MAX_LEAVES) in ONE launch:
+    slot-row landings of mixed dtypes, and page gathers with fills, bit-equal
+    to plain."""
+    assert kv.MAX_LEAVES == 64
+    smap = torch.tensor([3, -1, 0, -1, 1], dtype=torch.int32, device="cuda")
+    land, gather = [], []
+    for i in range(n_leaves):
+        dt = _MANY_DTYPES[i % 4]
+        row = ((2, 8, 16), (7,), (3, 40), (5, 16))[i % 4]
+        land.append(kv.Move(_rand_leaf(gen, (2, 5) + row, dt),
+                            _rand_leaf(gen, (2, 4) + row, dt), smap, batch_axis=1))
+        pool = _rand_leaf(gen, (2, 6, 2, 16, 8), dt)
+        gmap = torch.tensor([5, -1, 2, 1, -1, 4, 0, 3], dtype=torch.int32, device="cuda")
+        gather.append(kv.Move(torch.empty((2, 2, 2, 64, 8), dtype=dt, device="cuda"),
+                              pool, gmap, 3, 16, 1, fill=_fill_of(gen, dt)))
+    for moves, count in ((land, kv.COUNT), (gather, kv.PAGES_COUNT)):
+        want = _plain_of(moves)
+        before = count.launches
+        kv.cache_move_cuda(moves, count)
+        torch.cuda.synchronize()
+        assert count.launches == before + 1
+        for mv, w in zip(moves, want):
+            assert _same_bits(mv.dst, w), (tuple(mv.dst.shape), mv.dst.dtype)
+    with pytest.raises(ValueError, match="1 to 64 leaves"):
+        kv.cache_move_cuda(land + land[:64 - n_leaves + 1], kv.COUNT)
 
 
 def _wide_clamp(gen, M, E):

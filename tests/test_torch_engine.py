@@ -116,12 +116,27 @@ def test_build_engine_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("chunked_prefill", True), ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
+    ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
     ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
         build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+
+
+def test_chunked_prefill_builds_and_serves_on_the_cpu(weights):
+    """``chunked_prefill=True`` builds (it raised ``not_ported`` before it
+    was ported) and serves: prompts past the largest bucket are split into
+    chunks of that bucket, and every request completes."""
+    eng = build_engine(ServeConfig(device="cpu", slots=2, max_len=64, buckets=(8, 16),
+                                   chunked_prefill=True, quantize_weights=True),
+                       cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+    assert eng.buckets == (8, 16)
+    reqs = [Request(uid=i, prompt=p, max_new=4) for i, p in enumerate(_prompts())]
+    eng.run(reqs)
+    assert all(r.done and r.error is None and len(r.generated) == 4 for r in reqs)
+    assert eng.stats["chunked_requests"] == sum(n > 16 for n in LENS)
+    assert eng.stats["chunk_batches"] >= 2
 
 
 @pytest.mark.parametrize("fields,match", [
@@ -146,14 +161,17 @@ def test_multihost_with_a_mesh_names_item_8(weights):
 
 def test_other_model_families_name_item_6():
     """Model families the port does not run yet point at Queue 1 item 6,
-    from the registry and from build_model."""
+    from the registry and from build_model: an unregistered arch, and a
+    pattern with a layer kind other than global and local (here mamba), or
+    with head layers."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(KeyError, match="item 6"):
-        get_config("gemma2-2b")
-    cfg = dataclasses.replace(t_reduced("stablelm-1.6b"), pattern=("local", "global"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-        build_model(cfg, "cpu").init(0)
+        get_config("mamba2-2.7b")
+    for fields in (dict(pattern=("mamba", "global")), dict(head=("global",), n_layers=3)):
+        cfg = dataclasses.replace(t_reduced("stablelm-1.6b"), **fields)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
+            build_model(cfg, "cpu").init(0)
 
 
 def test_temperature_streams_depend_only_on_seed_uid_step(weights):

@@ -237,6 +237,35 @@ def test_meta_matches_jax(int8_kv, max_len):
         assert tm["blocks"][0]["k_scale"].n_leaf == (0 if max_len == 64 else 8)
 
 
+@pytest.mark.parametrize("int8_kv", [False, True])
+@pytest.mark.parametrize("max_len", [16, 64, 128])
+def test_meta_of_a_pattern_cache_matches_jax(int8_kv, max_len):
+    """gemma3-12b's six kinds (window 16): leaf for leaf as JAX classifies
+    them.  A local layer's ring holds min(max_len, window) positions, the
+    same at max_len and 2 * max_len once max_len >= window, so every ring
+    leaf stays a flat slot row beside the global layers' paged ones (the
+    global layers' int8 K/V page from max_len 128 on, as stablelm's do)."""
+    jcfg, tcfg = j_reduced("gemma3-12b"), t_reduced("gemma3-12b")
+    if int8_kv:
+        jcfg = dataclasses.replace(jcfg, quant_kv="dynamic")
+        tcfg = dataclasses.replace(tcfg, quant_kv="dynamic")
+    jm = j_build(jcfg).paged_cache(3, max_len, 0, 16).meta
+    tm = t_build(tcfg, "cpu").paged_cache(3, max_len, 16).meta
+    assert len(jm["blocks"]) == len(tm["blocks"]) == len(tcfg.pattern)
+    for kind, jd, td in zip(tcfg.pattern, jm["blocks"], tm["blocks"]):
+        assert sorted(jd) == sorted(td)
+        for name in jd:
+            j, t = jd[name], td[name]
+            assert (t.kind, t.seq_axis, t.n_leaf, t.shape) == (
+                j.kind, j.seq_axis, j.n_leaf, tuple(j.shape)), (kind, name)
+        if kind == "local":
+            assert all(m.kind == "flat" for m in td.values()), max_len
+        else:
+            assert td["pos"].kind == "seq" and td["len"].kind == "flat"
+            if int8_kv:
+                assert td["k"].kind == ("seq" if max_len > 64 else "flat")
+
+
 def _random_pool(rng, jpo, n_pages):
     return jax.tree.map(lambda a: _rand(rng, a.shape, a.dtype), jpo.init(n_pages))
 
