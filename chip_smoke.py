@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # from the repository root
 
 Serving paths of full-width stablelm-1.6b (24 layers, bf16, random weights
-from a seeded generator) and of full-width gemma3-12b (H, HD, HB, HBW:
-chunked prefill and the local/global decoder), each built with
-build_engine(ServeConfig(..., device="cuda")), and one path of ops-level
-calls on stablelm's weights (E):
+from a seeded generator), of full-width gemma3-12b (H, HD, HB, HBW:
+chunked prefill and the local/global decoder) and of the MoE families at
+full width, cut in depth (DS, DSD: deepseek-v2-236b; AR: arctic-480b),
+each built with build_engine(ServeConfig(..., device="cuda")), and one
+path of ops-level calls on stablelm's weights (E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
@@ -60,6 +61,26 @@ calls on stablelm's weights (E):
   HB, HBW  H with a bf16 KV cache, chunked (HB) and unchunked (HBW, the
      capacity bucket of 2047 tokens): their streams must be equal, or
      diverge where the token's top-2 margin is below H's LOGIT_TOL;
+  DS deepseek-v2-236b at full width (d_model 5120, 128 heads, MLA with
+     q_lora 1536 and kv_lora 512, 160 experts top-6 of 1536, 2 shared
+     experts as one MLP of 12288, vocab 102400) cut to 4 layers: layer 0
+     dense (global_dense, a head layer), 3 MoE layers whose experts stay
+     bf16 (26.4 GB of seeded random bf16 weights; PDQ-int8 records of
+     every 2-D projection made by DS's engine); a bf16 MLA cache (ckv,
+     krope), slot rows, 8 slots, max_len 2048, chunked prefill, H's
+     requests: K1 (the (wq_a, wkv_a) group with the attention norm, wq_b
+     with q_norm, wo's and wk_b / wv_b's intervals, the shared and dense
+     MLPs), K2, K3 and K6 (one launch landing the head layer's and the
+     blocks' 8 leaves); 9 launches a layer and decode step.  The routed
+     experts (dense-masked at decode, capacity buckets at prefill) and the
+     absorbed MLA decode are plain torch, as in the reference;
+  DSD DS on a paged pool (page 64, prefix sharing), K7 in K6's place; its
+     streams must equal DS's;
+  AR arctic-480b at full width (d_model 7168, 56 heads over 8 kv heads,
+     128 experts top-2 of 4864 beside a dense residual MLP of 4864) cut to
+     2 MoE layers (~55 GB of bf16 weights), PDQ-int8 projections, int8
+     KV, slot rows, 8 slots, max_len 512, A's requests: K1, K2, K3, K5 (G
+     7, the (8, 128) instance) and K6; A's 7 launches a layer;
   G  the paper's CNN track (repro_torch.core, models/cnn.py,
      data/corruptions.py) at the widths of the repository's paper tables
      (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
@@ -115,6 +136,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 decode and prefill rows, as A's above (QKV's three unequal
                 segments, wo at 4096, gate/up at 2 x 15360, w_down at
                 15360);
+                The MoE paths' rows (tagged DS, DSD, AR) run on each
+                engine's own records before it serves (``moe_kernels``):
+                K1, K2 and K3 at MLA's, the shared experts' and arctic's
+                shapes (a chunk continuation's wk_b over 16384 rows), K4/K5
+                at G 7, K6 landing a round over every leaf, K7 DSD's
+                gather;
   3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
                 H's of H_PROMPTS; otherwise prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
@@ -169,7 +196,14 @@ Phases, each of which must pass (any failure exits non-zero):
                 reference's contract), both timed end to end, and three
                 unfused calls profiled.  Then the H paths: their kernel
                 rows, and phases 3-5 for H, HD, HB and HBW in turn (HD's
-                streams against H's, HBW's against HB's).
+                streams against H's, HBW's against HB's).  Then the MoE
+                paths DS, DSD and AR (each engine freed before the next):
+                their kernel rows and phases 3-5, phase 4 also split a
+                step's device time between the routed experts, the
+                attention and the hand kernels (``step_split``), phase 5
+                logging every router decision the kernel and plain runs
+                took apart (ROUTER_EPS) and not binding the logits after
+                one; DSD's streams against DS's.
   7. cnn      - path G, last: counts zeroed before and read after (every
                 kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
                 accuracy in [0, 1]; parity with the CPU: unquantized logits
@@ -214,7 +248,12 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
              # |logit| ~6-8 across the 262144-token vocabulary: bf16 ulp
              # 0.03125 in [4, 8), and 48 layers in place of 24 give 16 such
              # ulps
-             "H": 0.5}
+             "H": 0.5,
+             # DS, DSD: C's argument (a bf16 cache: K1-K3 give plain's bits
+             # but for sums in another order) over 4 layers; AR: A's
+             # (int8 KV) over 2.  Steps after a router decision the two
+             # runs took apart (within ROUTER_EPS) are reported, not bound
+             "DS": 0.05, "DSD": 0.05, "AR": 0.25}
 # the parity phase's second health comparison: every record's alpha and
 # beta times this, so that outputs clip
 CLIP_SCALE = 0.25
@@ -231,7 +270,8 @@ CLIP_SCALE = 0.25
 # activation moves by ulps: measured 1.1e-4 (NVIDIA H100 80GB HBM3, 700 W,
 # PR 21).
 TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
-             "H": 1e-4}           # H: A's (K5's o and K3's sums move edges)
+             "H": 1e-4,           # H: A's (K5's o and K3's sums move edges)
+             "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4}    # C's and A's
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -262,6 +302,27 @@ H_SHARED = (1, 2)
 H_PARITY_LEN = 1100       # the parity prompt: 5 chunks, past the ring
 H_ATTEND_LENS = (2048, 1, 1900, 1025, 1024, 700, 129, 300)   # K4/K5 at H's cache
 
+# paths DS, DSD, AR: the MoE families at full width, cut in depth only.
+# DS: deepseek-v2-236b cut to 4 layers (layer 0 dense, then 3 MoE layers of
+# 160 bf16 experts top-6 beside 2 shared experts as one int8 MLP of 12288),
+# MLA (128 heads, kv_lora 512) over a bf16 cache, H's serving shape (8
+# slots, max_len 2048, chunked prefill, H's prompts); DSD: DS paged (page
+# 64, prefix sharing); AR: arctic-480b cut to 2 MoE layers (128 bf16
+# experts top-2 beside a dense int8 MLP of 4864), int8 KV, A's serving
+# shape (8 slots, max_len 512, A's prompts)
+DS_ARCH, DS_LAYERS, DS_MAX_LEN = "deepseek-v2-236b", 4, 2048
+AR_ARCH, AR_LAYERS, AR_MAX_LEN = "arctic-480b", 2, 512
+AR_ATTEND_LENS = (512, 1, 250, 129, 128, 57, 300, 511)   # K5 at AR's cache
+# a router decision the kernel and plain runs may take apart: the plain
+# run's margin between the k-th and (k+1)-th expert probability at that
+# token is below this (the two runs' activations differ by int8 codes at
+# clamp edges, which move a router logit by ~1e-3 at most)
+ROUTER_EPS = 1e-3
+# K1-K3 and the attend kernels, by their CUDA function names
+HAND_KERNEL = r"\b(prologue_kernel|w8a8_kernel|swiglu_kernel|gemm_kernel|split_kernel|" \
+              r"attend_kernel|move_pages|act_stats_kernel|quantize_kernel|" \
+              r"dequantize_kernel|fallback_kernel)\b"
+
 # path: (int8_kv, quantize_weights, the kernels it must launch, the other
 # ServeConfig fields: paging, decode_steps, the guard)
 _A_KERNELS = ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul",
@@ -291,8 +352,16 @@ PATHS = {
                                         page_size=PAGE)),
     "HB": (False, True, _C_KERNELS, dict(chunked_prefill=True)),
     "HBW": (False, True, _C_KERNELS, {}),
+    # the MoE families: DS chunked on slot rows with a bf16 MLA cache, DSD
+    # DS paged (page 64, prefix sharing), AR with int8 KV on slot rows
+    "DS": (False, True, _C_KERNELS, dict(chunked_prefill=True)),
+    "DSD": (False, True, _C_KERNELS[:-1] + ("cache_scatter_pages",),
+            dict(chunked_prefill=True, paged=True, page_size=PAGE)),
+    "AR": (True, True, _A_KERNELS, {}),
 }
 H_PATHS = ("H", "HD", "HB", "HBW")
+MOE_PATHS = ("DS", "DSD", "AR")
+LONG_PATHS = H_PATHS + ("DS", "DSD")      # H's prompts, max_len 2048
 FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
 GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
 
@@ -539,7 +608,6 @@ def prologue_kernels(eng, t, gen, flush, record, x_pre):
     its launch)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels import pdq_prologue as pro
     d, x = t["d"], t["x"]
     w = (0.2 * torch.randn((d,), generator=gen, device=eng.device)).to(torch.bfloat16)
     norm = (w, eng.cfg.norm_eps)
@@ -550,21 +618,30 @@ def prologue_kernels(eng, t, gen, flush, record, x_pre):
                              (t["qkv"], x_pre, False)):
         cases.append((xm, norm, (rec, ops._blocks(rec["segs"])), primary))
     for xm, nrm, iv, primary in cases:
-        Mx, K = xm.shape
-        err = check_prologue(xm, nrm, iv, f"({Mx}, {K})")
-        blocks = () if iv is None else iv[1] or (1,)
-        n_seg, cols = len(blocks), sum(blocks)
-        b_ms, b_by = bound_ms(Mx * K * 3 + Mx * 12 + (0 if nrm is None else 2 * K)
-                              + 8 * Mx * cols + 16 * n_seg,
-                              (6 + (5 if nrm else 0)) * Mx * K, F32_OPS)
-        mode = pro.mode_of(nrm, iv)
-        record("pdq_prologue", f"{mode}: x ({Mx}, {K}) bf16"
-               + (f", {n_seg} segments, {cols} blocks" if iv else ""), err,
-               median_ms(lambda: pro.pdq_prologue_cuda(xm, nrm, iv), flush=flush),
-               median_ms(lambda: pro.pdq_prologue_plain(xm, nrm, iv), flush=flush),
-               b_ms, b_by, None, primary, mode=mode,
-               same_bytes_ms=median_ms(lambda: xm.to(torch.int8), flush=flush),
-               host_us=host_us(lambda: pro.pdq_prologue_cuda(xm, nrm, iv)))
+        k1_row(xm, nrm, iv, primary, flush, record)
+
+
+def k1_row(xm, nrm, iv, primary, flush, record, label=""):
+    """One K1 row: ``check_prologue`` on x ``xm`` with the norm ``nrm`` and
+    the interval ``iv`` (or None), timed beside the plain version and a
+    same-bytes PyTorch kernel, with the host's time per call."""
+    import torch
+    from repro_torch.kernels import pdq_prologue as pro
+    Mx, K = xm.shape
+    err = check_prologue(xm, nrm, iv, f"{label}({Mx}, {K})")
+    blocks = () if iv is None else iv[1] or (1,)
+    n_seg, cols = len(blocks), sum(blocks)
+    b_ms, b_by = bound_ms(Mx * K * 3 + Mx * 12 + (0 if nrm is None else 2 * K)
+                          + 8 * Mx * cols + 16 * n_seg,
+                          (6 + (5 if nrm else 0)) * Mx * K, F32_OPS)
+    mode = pro.mode_of(nrm, iv)
+    record("pdq_prologue", f"{label}{mode}: x ({Mx}, {K}) bf16"
+           + (f", {n_seg} segments, {cols} blocks" if iv else ""), err,
+           median_ms(lambda: pro.pdq_prologue_cuda(xm, nrm, iv), flush=flush),
+           median_ms(lambda: pro.pdq_prologue_plain(xm, nrm, iv), flush=flush),
+           b_ms, b_by, None, primary, mode=mode,
+           same_bytes_ms=median_ms(lambda: xm.to(torch.int8), flush=flush),
+           host_us=host_us(lambda: pro.pdq_prologue_cuda(xm, nrm, iv)))
 
 
 def int_mm_rows(x_q):
@@ -608,6 +685,126 @@ def host_us(fn, n=100):
     return dt / n * 1e6
 
 
+def k2_row(dev, label, rec, xin, per_block, primary, flush, record):
+    """One K2 row: record ``rec`` on rows ``xin`` (per-128-column clamps
+    if ``per_block``), each route against plain and each other, the
+    requant codes, the health counters, and the times (``matmul_kernels``)."""
+    import torch
+    from repro_torch.kernels import w8a8_matmul as mm
+    base, (lo, hi) = epi_operands(rec, xin, per_block)
+    args = base + (None, None, lo, hi)
+    kw = dict(out_dtype=torch.bfloat16)
+    need(mm.route_for(base[0], base[1]) == "wgmma", f"K2 {label} takes the generic route")
+    yk = mm.w8a8_matmul_cuda(*args, **kw)
+    yg = mm.w8a8_matmul_cuda(*args, route="generic", **kw)
+    yp = mm.w8a8_matmul_plain(*args, **kw)
+    err = max_abs(yk, yp)
+    need(err <= 1e-6 * float(yp.float().abs().max()) + 1e-6,
+         f"K2 {label} fp_clamp output differs from plain by {err}")
+    need(torch.equal(yk, yg), f"K2 {label}: the wgmma and generic routes differ")
+    # the requant epilogue on the same product: int8 codes equal
+    qargs = base + (torch.full_like(lo, 0.05), torch.zeros_like(lo, dtype=torch.int32))
+    qp = mm.w8a8_matmul_plain(*qargs)
+    for route in ("wgmma", "generic"):
+        need(torch.equal(mm.w8a8_matmul_cuda(*qargs, route=route), qp),
+             f"K2 {label} requant codes of the {route} route differ from plain")
+    # the health counters: the epilogue's counts equal plain's, both routes
+    tels = [torch.zeros(3, dtype=torch.int64, device=dev) for _ in range(3)]
+    yt = mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw)
+    mm.w8a8_matmul_cuda(*args, route="generic", tel=tels[1], **kw)
+    mm.w8a8_matmul_plain(*args, tel=tels[2], **kw)
+    need(torch.equal(yt, yk) and torch.equal(tels[0], tels[2])
+         and torch.equal(tels[1], tels[2]),
+         f"K2 {label}: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
+    Mx, K = base[0].shape
+    N = rec["q"].shape[1]
+    E = lo.shape[1]
+    # x_q, w_q, bf16 out, s_w, and per row s_x plus E (lo, hi) pairs
+    b_ms, b_by = bound_ms(Mx * K + K * N + Mx * N * 2 + N * 4 + Mx * (4 + 8 * E),
+                          2 * Mx * K * N, INT8_OPS)
+    lib_ms, row_ms, note = library_int_mm(base[0], rec["q"], flush)
+    record("w8a8_matmul", f"{label}: x ({Mx}, {K}) @ w ({K}, {N}), epilogue "
+           f"({Mx}, {E}); plan {mm.wgmma_plan(Mx, K, N, False, mm._sms(dev))}"
+           f"{'; ' + note if note else ''}", err,
+           median_ms(lambda: mm.w8a8_matmul_cuda(*args, **kw), flush=flush),
+           median_ms(lambda: mm.w8a8_matmul_plain(*args, **kw), flush=flush),
+           b_ms, b_by, lib_ms, primary,
+           generic_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, route="generic", **kw),
+                                flush=flush),
+           library_rowmajor_ms=row_ms,
+           tel_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw),
+                            flush=flush),
+           host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, **kw)),
+           generic_host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, route="generic",
+                                                               **kw)))
+
+
+def k3_row(dev, gu, xin, primary, flush, record, stamps, label=""):
+    """One K3 row: the gate/up record ``gu`` on rows ``xin``, each route
+    against plain, the counters, the quantize tail and the times
+    (``matmul_kernels``)."""
+    import torch
+    from repro_torch.kernels import w8a8_matmul as mm
+    base, (lo, hi) = epi_operands(gu, xin, True)
+    sargs = base + (lo, hi)
+    need(mm.route_for(base[0], base[1]) == "wgmma", "K3 takes the generic route")
+    ko = mm.w8a8_swiglu_matmul_cuda(*sargs)      # (hsw, hsw_q, s_x, s1, s2)
+    go = mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic")
+    po = mm.w8a8_swiglu_matmul_plain(*sargs)
+    hsw_err = max_abs(ko[0], po[0])
+    need(hsw_err <= 1e-6 * float(po[0].abs().max()) + 1e-30,
+         f"K3 hsw differs from plain by {hsw_err}")
+    same = ko[0] == po[0]
+    dq = (ko[1].int() - po[1].int()).abs()
+    need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
+         "K3 hsw_q differs from plain where hsw agrees, or by > 1 code")
+    need(torch.equal(ko[2], po[2]), "K3 s_x differs from plain")
+    absh = po[0].abs().sum(-1, keepdim=True)
+    need(bool(((ko[3] - po[3]).abs() <= SUM_RTOL * absh).all()), "K3 s1 outside tolerance")
+    need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K3 s2 outside tolerance")
+    need(all(torch.equal(u, v) for u, v in zip(ko[:3], go[:3])),
+         "K3: the wgmma and generic routes differ in hsw, hsw_q or s_x")
+    tels = [torch.zeros(3, dtype=torch.int64, device=dev) for _ in range(3)]
+    mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0])
+    mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic", tel=tels[1])
+    mm.w8a8_swiglu_matmul_plain(*sargs, tel=tels[2])
+    need(torch.equal(tels[0], tels[2]) and torch.equal(tels[1], tels[2]),
+         f"K3: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
+    err = max(max_abs(u, v) for u, v in zip(ko, po))
+    Mx, K = base[0].shape
+    N = gu["q"].shape[1]
+    P = N // 2
+    # what pdq_mlp reads and keeps: x_q, w_q, s_w, s_x, the (lo, hi)
+    # pairs, hsw_q and its three row values (hsw is the kernel's scratch)
+    b_ms, b_by = bound_ms(Mx * K + K * N + N * 4 + Mx * (4 + 8 * N // 128)
+                          + Mx * P + 12 * Mx, 2 * Mx * K * N, INT8_OPS)
+    # the quantize tail (phase 2): from the end of the last block's GEMM
+    # items to the end of the last block's quantize, median of 10 launches
+    tails = []
+    for _ in range(10):
+        flush.zero_()
+        mm.w8a8_swiglu_matmul_cuda(*sargs, stamps=stamps)
+        st = stamps.view(-1, 2)[:mm.wgmma_plan(Mx, K, N, True, mm._sms(dev)).grid]
+        tails.append(float(st[:, 1].max() - st[:, 0].max()) / 1e6)
+    tails.sort()
+    lib_ms, row_ms, note = library_int_mm(base[0], gu["q"], flush)
+    record("w8a8_swiglu_matmul", f"{label}x ({Mx}, {K}) @ w ({K}, {N}); plan "
+           f"{mm.wgmma_plan(Mx, K, N, True, mm._sms(dev))}; hsw code "
+           f"mismatches {int((dq > 0).sum())}{'; ' + note if note else ''}", err,
+           median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs), flush=flush),
+           median_ms(lambda: mm.w8a8_swiglu_matmul_plain(*sargs), flush=flush),
+           b_ms, b_by, lib_ms, primary,
+           generic_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs,
+                                                                   route="generic"),
+                                flush=flush),
+           library_rowmajor_ms=row_ms, tail_ms=tails[len(tails) // 2],
+           tel_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0]),
+                            flush=flush),
+           host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs)),
+           generic_host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(
+               *sargs, route="generic")))
+
+
 def matmul_kernels(eng, t, gen, flush, record, x_pre):
     """K2 and K3 at the shapes of ``eng``'s model (path A's, or H's), decode
     and prefill rows: each route against the plain version
@@ -628,115 +825,13 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
              ("wo prefill", t["wo"], rows_for(x_pre, t["wo"], gen), False, False),
              ("w_down prefill", t["down"], h_pre, False, False))
     for label, rec, xin, per_block, primary in cases:
-        base, (lo, hi) = epi_operands(rec, xin, per_block)
-        args = base + (None, None, lo, hi)
-        kw = dict(out_dtype=torch.bfloat16)
-        need(mm.route_for(base[0], base[1]) == "wgmma", f"K2 {label} takes the generic route")
-        yk = mm.w8a8_matmul_cuda(*args, **kw)
-        yg = mm.w8a8_matmul_cuda(*args, route="generic", **kw)
-        yp = mm.w8a8_matmul_plain(*args, **kw)
-        err = max_abs(yk, yp)
-        need(err <= 1e-6 * float(yp.float().abs().max()) + 1e-6,
-             f"K2 {label} fp_clamp output differs from plain by {err}")
-        need(torch.equal(yk, yg), f"K2 {label}: the wgmma and generic routes differ")
-        # the requant epilogue on the same product: int8 codes equal
-        qargs = base + (torch.full_like(lo, 0.05), torch.zeros_like(lo, dtype=torch.int32))
-        qp = mm.w8a8_matmul_plain(*qargs)
-        for route in ("wgmma", "generic"):
-            need(torch.equal(mm.w8a8_matmul_cuda(*qargs, route=route), qp),
-                 f"K2 {label} requant codes of the {route} route differ from plain")
-        # the health counters: the epilogue's counts equal plain's, both routes
-        tels = [torch.zeros(3, dtype=torch.int64, device=eng.device) for _ in range(3)]
-        yt = mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw)
-        mm.w8a8_matmul_cuda(*args, route="generic", tel=tels[1], **kw)
-        mm.w8a8_matmul_plain(*args, tel=tels[2], **kw)
-        need(torch.equal(yt, yk) and torch.equal(tels[0], tels[2])
-             and torch.equal(tels[1], tels[2]),
-             f"K2 {label}: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
-        Mx, K = base[0].shape
-        N = rec["q"].shape[1]
-        E = lo.shape[1]
-        # x_q, w_q, bf16 out, s_w, and per row s_x plus E (lo, hi) pairs
-        b_ms, b_by = bound_ms(Mx * K + K * N + Mx * N * 2 + N * 4 + Mx * (4 + 8 * E),
-                              2 * Mx * K * N, INT8_OPS)
-        lib_ms, row_ms, note = library_int_mm(base[0], rec["q"], flush)
-        record("w8a8_matmul", f"{label}: x ({Mx}, {K}) @ w ({K}, {N}), epilogue "
-               f"({Mx}, {E}); plan {mm.wgmma_plan(Mx, K, N, False, mm._sms(eng.device))}"
-               f"{'; ' + note if note else ''}", err,
-               median_ms(lambda: mm.w8a8_matmul_cuda(*args, **kw), flush=flush),
-               median_ms(lambda: mm.w8a8_matmul_plain(*args, **kw), flush=flush),
-               b_ms, b_by, lib_ms, primary,
-               generic_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, route="generic", **kw),
-                                    flush=flush),
-               library_rowmajor_ms=row_ms,
-               tel_ms=median_ms(lambda: mm.w8a8_matmul_cuda(*args, tel=tels[0], **kw),
-                                flush=flush),
-               host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, **kw)),
-               generic_host_us=host_us(lambda: mm.w8a8_matmul_cuda(*args, route="generic",
-                                                                   **kw)))
+        k2_row(eng.device, label, rec, xin, per_block, primary, flush, record)
 
     # K3: gate/up (stablelm: (M, 2048) @ (2048, 11264)), decode and prefill rows
     gu = t["gu"]
     stamps = torch.zeros((2 * mm._sms(eng.device),), dtype=torch.int64, device=eng.device)
     for xin, primary in ((x, True), (x_pre, False)):
-        base, (lo, hi) = epi_operands(gu, xin, True)
-        sargs = base + (lo, hi)
-        need(mm.route_for(base[0], base[1]) == "wgmma", "K3 takes the generic route")
-        ko = mm.w8a8_swiglu_matmul_cuda(*sargs)      # (hsw, hsw_q, s_x, s1, s2)
-        go = mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic")
-        po = mm.w8a8_swiglu_matmul_plain(*sargs)
-        hsw_err = max_abs(ko[0], po[0])
-        need(hsw_err <= 1e-6 * float(po[0].abs().max()) + 1e-30,
-             f"K3 hsw differs from plain by {hsw_err}")
-        same = ko[0] == po[0]
-        dq = (ko[1].int() - po[1].int()).abs()
-        need(bool((dq[same] == 0).all()) and int(dq.max()) <= 1,
-             "K3 hsw_q differs from plain where hsw agrees, or by > 1 code")
-        need(torch.equal(ko[2], po[2]), "K3 s_x differs from plain")
-        absh = po[0].abs().sum(-1, keepdim=True)
-        need(bool(((ko[3] - po[3]).abs() <= SUM_RTOL * absh).all()), "K3 s1 outside tolerance")
-        need(bool(((ko[4] - po[4]).abs() <= SUM_RTOL * po[4]).all()), "K3 s2 outside tolerance")
-        need(all(torch.equal(u, v) for u, v in zip(ko[:3], go[:3])),
-             "K3: the wgmma and generic routes differ in hsw, hsw_q or s_x")
-        tels = [torch.zeros(3, dtype=torch.int64, device=eng.device) for _ in range(3)]
-        mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0])
-        mm.w8a8_swiglu_matmul_cuda(*sargs, route="generic", tel=tels[1])
-        mm.w8a8_swiglu_matmul_plain(*sargs, tel=tels[2])
-        need(torch.equal(tels[0], tels[2]) and torch.equal(tels[1], tels[2]),
-             f"K3: counts {[t.tolist() for t in tels]} (wgmma, generic, plain)")
-        err = max(max_abs(u, v) for u, v in zip(ko, po))
-        Mx, K = base[0].shape
-        N = gu["q"].shape[1]
-        P = N // 2
-        # what pdq_mlp reads and keeps: x_q, w_q, s_w, s_x, the (lo, hi)
-        # pairs, hsw_q and its three row values (hsw is the kernel's scratch)
-        b_ms, b_by = bound_ms(Mx * K + K * N + N * 4 + Mx * (4 + 8 * N // 128)
-                              + Mx * P + 12 * Mx, 2 * Mx * K * N, INT8_OPS)
-        # the quantize tail (phase 2): from the end of the last block's GEMM
-        # items to the end of the last block's quantize, median of 10 launches
-        tails = []
-        for _ in range(10):
-            flush.zero_()
-            mm.w8a8_swiglu_matmul_cuda(*sargs, stamps=stamps)
-            st = stamps.view(-1, 2)[:mm.wgmma_plan(Mx, K, N, True, mm._sms(eng.device)).grid]
-            tails.append(float(st[:, 1].max() - st[:, 0].max()) / 1e6)
-        tails.sort()
-        lib_ms, row_ms, note = library_int_mm(base[0], gu["q"], flush)
-        record("w8a8_swiglu_matmul", f"x ({Mx}, {K}) @ w ({K}, {N}); plan "
-               f"{mm.wgmma_plan(Mx, K, N, True, mm._sms(eng.device))}; hsw code "
-               f"mismatches {int((dq > 0).sum())}{'; ' + note if note else ''}", err,
-               median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs), flush=flush),
-               median_ms(lambda: mm.w8a8_swiglu_matmul_plain(*sargs), flush=flush),
-               b_ms, b_by, lib_ms, primary,
-               generic_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs,
-                                                                       route="generic"),
-                                    flush=flush),
-               library_rowmajor_ms=row_ms, tail_ms=tails[len(tails) // 2],
-               tel_ms=median_ms(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs, tel=tels[0]),
-                                flush=flush),
-               host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(*sargs)),
-               generic_host_us=host_us(lambda: mm.w8a8_swiglu_matmul_cuda(
-                   *sargs, route="generic")))
+        k3_row(eng.device, gu, xin, primary, flush, record, stamps)
 
     # K3 where the GEMM is trivial (K = 16) and the quantize tail is most of
     # the launch: 64 rows, one generic row tile, whose last block quantizes
@@ -1000,18 +1095,19 @@ def time_movement(label, moves, count, flush, record, primary, name, lib_calls,
 
 def index_copies(moves, to_rows):
     """The library yardstick of a movement's scatter part: per leaf,
-    ``index_copy_`` of the moved page rows (selected beforehand) into dst's
-    page rows (``to_rows`` lays a side out as page rows, a copy for a
-    logical leaf)."""
+    ``index_copy_`` along its batch axis of the moved page rows (selected
+    beforehand) into dst's page rows (``to_rows`` lays a side out as page
+    rows, a copy for a logical leaf)."""
     import torch
     calls = []
     for mv in moves:
         d_pr = to_rows(mv.dst, mv)
         m = mv.map
         d_rows = torch.nonzero(m >= 0).flatten()
-        sel = to_rows(mv.src, mv).index_select(1, m[d_rows].long())
-        calls.append(lambda d_pr=d_pr, d_rows=d_rows, sel=sel:
-                     d_pr.index_copy_(1, d_rows, sel))
+        ax = mv.batch_axis
+        sel = to_rows(mv.src, mv).index_select(ax, m[d_rows].long())
+        calls.append(lambda d_pr=d_pr, d_rows=d_rows, sel=sel, ax=ax:
+                     d_pr.index_copy_(ax, d_rows, sel))
     return calls
 
 
@@ -1265,6 +1361,248 @@ def phase_gemma3(detail):
     return counts, serve, parity
 
 
+def landing_moves(bundle, B, max_len, gen, smap):
+    """A round's landing into a fresh slot-row pool of ``bundle``'s model
+    from a random sub pool, every leaf of every section (head and tail
+    layers at batch axis 0, the stacked blocks at 1), as device moves."""
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops
+    pool, sub = bundle.init_caches(B, max_len), bundle.init_caches(B, max_len)
+    moves = []
+    for sec, ba in (("head", 0), ("tail", 0), ("blocks", 1)):
+        for c, s_ in zip(pool[sec], sub[sec]):
+            for k in c:
+                s_[k].view(torch.uint8).copy_(torch.randint(
+                    0, 256, s_[k].view(torch.uint8).shape, generator=gen,
+                    device=s_[k].device, dtype=torch.uint8))
+                moves.append(kv.Move(c[k], s_[k], batch_axis=ba, host_map=smap))
+    return ops.device_moves(moves)
+
+
+def moe_kernels(eng, path, detail):
+    """Phase 2 at a MoE path's shapes (rows tagged with ``path``), on the
+    engine's own PDQ records (its first MoE layer's; deepseek's layer 0 has
+    the same MLA shapes) at decode rows (8 slots) and prefill rows (8 x
+    the 256 bucket).  DS: K1 on MLA's grouped (wq_a, wkv_a) (5120 -> 1536 |
+    576, padded to 640) with the attention norm, wq_b with q_norm (1536),
+    wo's interval over the 16384-wide row, wk_b's interval on ckv (512
+    wide) at prefill and over a chunk continuation's whole buffer (8 x
+    2048 rows), the shared experts' gate/up (2 x 12288); K2 on each of
+    those records, wk_b at the continuation's 16384 rows, the shared
+    w_down (12288 -> 5120); K3 the shared gate/up + SwiGLU; K6 a round's
+    landing over the head layer's and the blocks' MLA leaves (8, one
+    launch).  DSD: K7 its decode gather at H's frontiers + 16.  AR: K1 on
+    QKV (7168 -> 7168 | 1024 | 1024) with the norm and the dense MLP's
+    gate/up (2 x 4864); K2 QKV, wo (7168), w_down (4864 -> 7168); K3 the
+    dense gate/up; K4 and K5 at G 7, Dh 128, Sp 512 (the (8, 128)
+    instance); K6 a round's six leaves.  Each against its plain version as
+    A's rows are (``k1_row``, ``k2_row``, ``k3_row``, ``attend_rows``,
+    ``time_movement``); library: ``torch._int_mm``, ``index_copy_``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import w8a8_matmul as mm
+    dev, cfg, M = eng.device, eng.cfg, eng.slots
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    record = recorder({}, detail, path=path)
+    stamps = torch.zeros((2 * mm._sms(dev),), dtype=torch.int64, device=dev)
+
+    def rows(n, k):
+        return torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+
+    def norm(k):
+        w = (0.2 * torch.randn((k,), generator=gen, device=dev)).to(torch.bfloat16)
+        return (w, cfg.norm_eps)
+
+    def grouped(rec):
+        return (rec, ops._blocks(rec["segs"]))
+
+    layer = eng.params["blocks"][0]
+    att = layer["attn"]
+    mlp = layer["ffn"]["shared" if cfg.moe.n_shared else "dense"]
+    gu, down = mlp["w_gate"]["group"], mlp["w_down"]
+    tag = "shared" if cfg.moe.n_shared else "dense"
+    x, x_pre = rows(M, cfg.d_model), rows(M * 256, cfg.d_model)
+    if path == "DSD":
+        po = eng._paged_ops
+        n_pp = eng.max_len // PAGE
+        pool = po.init(M * n_pp + 1)
+        for _, _, leaf in _pool_leaves(pool):
+            leaf.view(torch.uint8).copy_(torch.randint(
+                0, 256, leaf.view(torch.uint8).shape, generator=gen, device=dev,
+                dtype=torch.uint8))
+        pt = (1 + np.arange(M * n_pp, dtype=np.int32)).reshape(M, n_pp)
+        lens = np.asarray(H_PROMPTS, np.int32) + 16
+
+        def rows_of(t, mv):
+            if mv.seq_axis is None or t.shape[mv.seq_axis] == PAGE:
+                return t
+            return ref.to_page_rows(t, mv.seq_axis, PAGE,
+                                    batch_axis=mv.batch_axis).contiguous()
+
+        _, moves = po.gather_moves(pool, pt, lens)
+        gather = ops.device_moves(moves)
+        time_movement(f"DSD gather at frontiers {tuple(int(v) for v in lens)}", gather,
+                      kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                      index_copies(gather, rows_of), poison=True)
+        del pool, moves, gather
+        torch.cuda.empty_cache()
+        return
+    if cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        grp = att["wq_a"]["group"]
+        qa, xo = rows(M, m.q_lora), rows(M, H * m.v_head)
+        xo_pre, ckv_pre = rows(M * 256, H * m.v_head), rows(M * 256, m.kv_lora)
+        ckv_buf = rows(M * eng.max_len, m.kv_lora)
+        for xm, nrm, iv, label in ((x, norm(cfg.d_model), grouped(grp), "MLA q_a|kv_a "),
+                                   (x_pre, norm(cfg.d_model), grouped(grp),
+                                    "MLA q_a|kv_a prefill "),
+                                   (qa, norm(m.q_lora), (att["wq_b"], None), "wq_b "),
+                                   (xo, None, (att["wo"], None), "wo "),
+                                   (xo_pre, None, (att["wo"], None), "wo prefill "),
+                                   (ckv_pre, None, (att["wk_b"], None), "wk_b on ckv "),
+                                   (ckv_buf, None, (att["wk_b"], None),
+                                    "wk_b on a continuation's buffer "),
+                                   (x, None, grouped(gu), f"{tag} gate/up ")):
+            k1_row(xm, nrm, iv, False, flush, record, label=label)
+        k2_cases = (("MLA q_a|kv_a", grp, x, True), ("MLA q_a|kv_a prefill", grp, x_pre, True),
+                    ("wq_b", att["wq_b"], qa, False), ("wo", att["wo"], xo, False),
+                    ("wo prefill", att["wo"], xo_pre, False),
+                    ("wk_b on a continuation's buffer", att["wk_b"], ckv_buf, False))
+        del ckv_pre
+    else:
+        qkv = att["wq"]["group"]
+        xo = rows(M, cfg.n_heads * cfg.hd)
+        for xm, nrm, iv, label in ((x, norm(cfg.d_model), grouped(qkv), "QKV "),
+                                   (x_pre, norm(cfg.d_model), grouped(qkv), "QKV prefill "),
+                                   (x, None, grouped(gu), f"{tag} gate/up ")):
+            k1_row(xm, nrm, iv, False, flush, record, label=label)
+        k2_cases = (("QKV", qkv, x, True), ("QKV prefill", qkv, x_pre, True),
+                    ("wo", att["wo"], xo, False))
+    h_in = rows(M, down["q"].shape[0])
+    for label, rec, xin, per_block in k2_cases + ((f"{tag} w_down", down, h_in, False),):
+        k2_row(dev, label, rec, xin, per_block, False, flush, record)
+    for xin in (x, x_pre):
+        k3_row(dev, gu, xin, False, flush, record, stamps, label=f"{tag} gate/up: ")
+    del x, x_pre, h_in
+    torch.cuda.empty_cache()
+    if cfg.mla is None:
+        Sp = eng.caches["blocks"][0]["k"].shape[3]
+        attend_rows(dev, M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                    ((AR_ATTEND_LENS, Sp, False),), gen, flush, record)
+    smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)[:M]
+    moves = landing_moves(eng.bundle, M, eng.max_len, gen, smap)
+    time_movement(f"{path}: one round's landing, 4 of {M} slots", moves, kv.COUNT, flush,
+                  record, False, "cache_scatter", index_copies(moves, lambda t, mv: t))
+    del moves
+    torch.cuda.empty_cache()
+
+
+def _pool_leaves(tree):
+    """(section, index, leaf) over a cache-shaped tree."""
+    for sec in ("head", "tail", "blocks"):
+        for i, d in enumerate(tree[sec]):
+            for leaf in d.values():
+                yield sec, i, leaf
+
+
+def param_bytes(tree) -> int:
+    """The bytes of every tensor in a param tree, each counted once."""
+    import torch
+    seen, stack = {}, [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif torch.is_tensor(t):
+            seen[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def phase_moe(detail, models=(DS_ARCH, AR_ARCH)):
+    """Paths DS and DSD (deepseek-v2-236b cut to DS_LAYERS layers) and AR
+    (arctic-480b cut to AR_LAYERS): full width on seeded random bf16
+    weights; the first engine of a model quantizes them (PDQ-int8 in every
+    2-D projection; the expert stacks stay bf16, as in the reference) and
+    the bf16 tree is dropped; DSD serves DS's records.  Each path: its
+    kernel rows (``moe_kernels``), phase 3 (serve, census), phase 4
+    (step, with ``step_split``) and phase 5 (parity, with the expert flips
+    reported); DSD's streams must equal DS's.  Returns (counts, serve
+    runs, parity)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, build_engine
+    counts, serve, parity = {}, {}, {}
+    for arch, n_layers, max_len, paths in ((DS_ARCH, DS_LAYERS, DS_MAX_LEN, ("DS", "DSD")),
+                                           (AR_ARCH, AR_LAYERS, AR_MAX_LEN, ("AR",))):
+        if arch not in models:
+            continue
+        # engines sit in reference cycles: collect the earlier paths' ones
+        # before this model's weights (arctic's take ~55 GB)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers).validate()
+        t0 = time.perf_counter()
+        weights = {"bf16": build_model(cfg, "cuda").init(0)}
+        torch.cuda.synchronize()
+        log(f"model {arch}: {cfg.n_layers} of its published layers (head {cfg.head}, "
+            f"pattern {cfg.pattern} x {cfg.n_blocks}), d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads, MoE {cfg.moe}, MLA {cfg.mla}, vocab {cfg.vocab}: random "
+            f"bf16 weights, {param_bytes(weights['bf16']) / 1e9:.2f} GB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path in paths:
+            int8_kv, pdq, _, extra = PATHS[path]
+            t0 = time.perf_counter()
+            quantize = "pdq" not in weights
+            eng = build_engine(ServeConfig(arch=arch, reduced=False, slots=8, max_len=max_len,
+                                           int8_kv=int8_kv, quantize_weights=quantize,
+                                           device="cuda", **extra),
+                               cfg=cfg, params=weights["bf16" if quantize else "pdq"])
+            if quantize:                   # DSD serves DS's records
+                weights = {"pdq": eng.params}
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            log(f"model {path}: {cfg.name} cut to {cfg.n_layers} layers, PDQ-int8 "
+                f"projections ({param_bytes(eng.params) / 1e9:.2f} GB of params, the "
+                f"experts bf16), {'int8' if int8_kv else 'bf16'} "
+                f"{'MLA ' if cfg.mla else ''}KV cache, "
+                f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
+                f"buckets {eng.buckets}{' chunked' if eng.chunked_prefill else ''}, built in "
+                f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
+                f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB); "
+                f"card memory allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            with timed(f"kernels {path}"):
+                moe_kernels(eng, path, detail)
+            with timed(f"serve {path}"):
+                counts[path], run = phase_serve(eng, path)
+            with timed(f"step {path}"):
+                run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
+            with timed(f"parity {path}"):
+                parity[path], run["parity_pdq"] = phase_parity(eng, path)
+            if path == "DSD":
+                check_paged_run(path, run, serve["DS"][0], ref="DS")
+            run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            serve[path] = [run]
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return counts, serve, parity
+
+
 PHASE_S: dict = {}        # seconds of each phase, for chip_smoke.json
 
 
@@ -1453,6 +1791,8 @@ def census(path, cfg, st):
     the restore's).  Under the guard (F, FF) the MLP is unfused: per layer
     and launch four K2 and four fallbacks, no K3, and K1 for QKV, gate/up
     and w_down (and wo at prefill; at decode K5 runs wo's prologue)."""
+    if path in MOE_PATHS:
+        return moe_census(path, cfg, st)[0]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     rounds = st["prefill_batches"]
@@ -1485,6 +1825,8 @@ def prologue_mode_census(path, cfg, st):
     prologue runs in K5).  Under the guard the norm runs in plain torch
     first, so every K1 launch (QKV, gate/up, w_down, wo at prefill) takes
     the interval alone."""
+    if path in MOE_PATHS:
+        return moe_census(path, cfg, st)[1]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     pre = st["prefill_batches"] + st["chunk_batches"]
@@ -1497,6 +1839,62 @@ def prologue_mode_census(path, cfg, st):
         want.update({"norm+interval": 2 * n * (pre + dec),
                      "interval": n * pre + (n_local if int8_kv else n) * dec})
     return want
+
+
+def moe_layer_ops(cfg, kind, int8_kv):
+    """((ops, K1 modes) of a prefill launch, (ops, K1 modes) of a decode
+    step) of one PDQ layer of a MoE config.  MLA (deepseek): the grouped
+    (wq_a, wkv_a) with the attention norm and wq_b with q_norm take K1's
+    norm + interval, K2 each; the expanded prefill's wk_b and wv_b on ckv
+    (a continuation's on the whole buffer) and wo take the interval alone,
+    K2 each (K1 x 6, K2 x 6 at prefill); the absorbed decode dequantizes
+    wk_b / wv_b in plain torch (K1 x 4, K2 x 4).  GQA (arctic): A's layer,
+    QKV with the norm.  The FFN: a MoE layer's router and experts are
+    plain torch and its shared / dense MLP (K1, K3, K2) reads the norm run
+    in plain torch, so its K1 takes the interval alone; a ``global_dense``
+    layer's MLP takes the norm inside K1."""
+    if cfg.mla is not None:
+        pre = dict(pdq_prologue=6, w8a8_matmul=6, w8a8_swiglu_matmul=1)
+        dec = dict(pdq_prologue=4, w8a8_matmul=4, w8a8_swiglu_matmul=1)
+        pre_m, dec_m = {"norm+interval": 2, "interval": 3}, {"norm+interval": 2, "interval": 1}
+    else:
+        pre = dict(pdq_prologue=3, w8a8_matmul=3, w8a8_swiglu_matmul=1)
+        dec = dict(pdq_prologue=3 - int(int8_kv), w8a8_matmul=3, w8a8_swiglu_matmul=1,
+                   decode_attend_i8kv_fused=int(int8_kv))
+        pre_m = {"norm+interval": 1, "interval": 1}
+        dec_m = {"norm+interval": 1, "interval": 0 if int8_kv else 1}
+    ffn = "norm+interval" if kind == "global_dense" else "interval"
+    pre_m[ffn] += 1
+    dec_m[ffn] += 1
+    return (pre, pre_m), (dec, dec_m)
+
+
+def moe_census(path, cfg, st):
+    """(op entries, K1 launches per mode) of a serving run of a MoE path:
+    ``moe_layer_ops`` over every layer (head and blocks) times the prefill
+    launches and the decode steps, and the pool movements as ``census``
+    counts them (a round's landing moves the head layer's leaves with the
+    blocks' in its one launch)."""
+    int8_kv, pdq = PATHS[path][:2]
+    need(pdq, f"{path}: the MoE paths serve PDQ records")
+    rounds = st["prefill_batches"]
+    pre = rounds + st["chunk_batches"]
+    dec = st["decode_steps"] * block_of(path)
+    want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0,
+                decode_attend_i8kv=0, decode_attend_i8kv_fused=0,
+                cache_scatter=rounds, cache_scatter_pages=0,
+                act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
+    if is_paged(path):
+        want.update(cache_scatter=0, cache_scatter_pages=(
+            rounds + 2 * st["decode_steps"] + st.get("spill_restores", 0)))
+    modes = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
+    for kind in cfg.head + cfg.pattern * cfg.n_blocks + cfg.tail:
+        for (ops_, modes_), n in zip(moe_layer_ops(cfg, kind, int8_kv), (pre, dec)):
+            for k, v in ops_.items():
+                want[k] += v * n
+            for k, v in modes_.items():
+                modes[k] += v * n
+    return want, modes
 
 
 # the route every launch of a serving or ops-level run must take
@@ -1616,7 +2014,7 @@ def phase_serve(eng, path):
     import torch
     from repro_torch.kernels import ops
     reqs = (fault_requests(eng.cfg) if path == FAULT_PATH else h_requests(eng.cfg)
-            if path in H_PATHS else make_requests(eng.cfg))
+            if path in LONG_PATHS else make_requests(eng.cfg))
     drive = run_http if path == "F" else run_batch
     torch.cuda.synchronize()
     ops.reset_counts()
@@ -1800,6 +2198,8 @@ def phase_step(eng, path, serve_step_ms):
                                       for ms, k, n, _ in rows_[:8]],
                          all_device_rows=[dict(kernel=k[:120], ms=ms, launches=n,
                                                recorded=c) for ms, k, n, c in rows_])
+    if path in MOE_PATHS:
+        out["split"] = step_split(path, variants["eager"])
     g, e = out["graph"], out["eager"]
     out["speedup"] = e["wall_ms_median"] / g["wall_ms_median"]
     if "graph_tel_off" in out:
@@ -1818,6 +2218,66 @@ def phase_step(eng, path, serve_step_ms):
         "serve_step_idle_share": out.get("serve_step_idle_share"),
         "tel_cost_wall": out.get("tel_cost_wall"),
         "tel_cost_busy": out.get("tel_cost_busy")}))
+    return out
+
+
+def step_split(path, eager):
+    """A MoE path's eager step, profiled with a range around each layer's
+    routed experts (``moe_ffn_dense_masked``: the router, the E x 3 expert
+    products and the gated sum, all plain torch) and around its attention
+    (``mla_apply`` / ``gqa_apply``, its projections' K1 and K2 included):
+    device ms a step in each range, in the hand kernels (K1-K10 by their
+    CUDA names, ``HAND_KERNEL``) and in all.  The ranges are this script's
+    (the module's names wrapped for the window); a range the profiler
+    gives no device time reads null."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import transformer as tr
+    names = ("moe_ffn_dense_masked", "mla_apply", "gqa_apply")
+    saved = {n: getattr(tr, n) for n in names}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"smoke.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    try:
+        for n, fn in saved.items():
+            setattr(tr, n, ranged(n, fn))
+        eager()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_RUNS):
+                eager()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(tr, n, fn)
+    from torch.autograd import DeviceType
+    # the ranges' own rows on the device timeline are spans (gaps included)
+    rows = [r for r in device_rows(prof, STEP_RUNS) if not r[1].startswith("smoke.")]
+    hand = re.compile(HAND_KERNEL)
+    ranges = {}
+    for ev in prof.events():
+        # a range's host event sums the device time of the kernels its ops
+        # launched
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("smoke."):
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            ranges[ev.name[6:]] = ranges.get(ev.name[6:], 0.0) + us
+    ranges = {k: us / STEP_RUNS / 1e3 if us else None for k, us in ranges.items()}
+    out = dict(device_busy_ms=sum(r[0] for r in rows),
+               hand_kernels_ms=sum(r[0] for r in rows if hand.search(r[1])),
+               routed_experts_ms=ranges.get("moe_ffn_dense_masked"),
+               attention_ms=ranges.get("mla_apply") or ranges.get("gqa_apply"),
+               hand_kernel_rows=[dict(kernel=k[:120], ms=ms, launches=n)
+                                 for ms, k, n, _ in rows if hand.search(k)])
+    log(f"step {path} split (eager, device ms a step): busy {out['device_busy_ms']:.3f}, "
+        f"routed experts {out['routed_experts_ms']}, attention {out['attention_ms']}, "
+        f"hand kernels {out['hand_kernels_ms']:.3f}")
     return out
 
 
@@ -1892,7 +2352,7 @@ def phase_parity(eng, path, n_tokens=8):
     import torch
     from repro_torch.kernels import ops
     bundle, params = eng.bundle, eng.params
-    if path in H_PATHS:      # chunked: a prompt past the local layers' ring
+    if path in LONG_PATHS:   # chunked: a prompt past gemma3's ring, in 5 chunks
         prompt = np.random.default_rng(7).integers(0, eng.cfg.vocab, size=H_PARITY_LEN)
     else:
         prompt = make_requests(eng.cfg, n=1, seed=7)[0].prompt
@@ -1903,11 +2363,14 @@ def phase_parity(eng, path, n_tokens=8):
     def i32(v):
         return torch.tensor([v], dtype=torch.int32, device=eng.device)
 
+    step = [0]                # the output step the model calls feed (routing log)
+
     def run(teacher=None):
         tel = eng._tel_buffer()
         with ops.pdq_guard(is_guarded(path)), ops.pdq_telemetry(counters=tel), \
                 ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
             caches = bundle.init_caches(1, 64 + L)
+            step[0] = 0
             logits, caches = bundle.prefill_many(
                 params, {"tokens": tokens[:, :C]}, caches, i32(min(C, L)))
             for s0 in range(C, L, C):          # the engine's chunks of C
@@ -1918,6 +2381,7 @@ def phase_parity(eng, path, n_tokens=8):
             for i in range(n_tokens - 1):
                 tok = int(out[-1].argmax()) if teacher is None else teacher[i]
                 toks.append(tok)
+                step[0] = i + 1
                 logits, caches = bundle.decode_step(
                     params, caches,
                     torch.tensor([[tok]], dtype=torch.int32, device=eng.device),
@@ -1926,9 +2390,12 @@ def phase_parity(eng, path, n_tokens=8):
         toks.append(int(out[-1].argmax()) if teacher is None else -1)
         return out, toks, tel
 
-    k_logits, k_toks, k_tel = run()
-    with plain_kernels():
+    k_routes, p_routes = [], []
+    with route_log(k_routes, step):
+        k_logits, k_toks, k_tel = run()
+    with plain_kernels(), route_log(p_routes, step):
         p_logits, _, p_tel = run(teacher=k_toks)
+    flips = expert_flips(path, k_routes, p_routes)
     health = [tel_agree(path, "records' alpha, beta", k_tel, p_tel)]
     # the same with outputs clipping: every record's alpha and beta scaled
     # (this engine serves nothing after its parity phase)
@@ -1942,11 +2409,18 @@ def phase_parity(eng, path, n_tokens=8):
          f"parity {path}: no output clipped at alpha, beta x {CLIP_SCALE}")
     tol = LOGIT_TOL[path]
     diffs = []
+    first_flip = min(flips) if flips else None
     for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
         d = float((kl - pl).abs().max())
         diffs.append(d)
         need(torch.isfinite(kl).all(), f"parity {path} step {i}: non-finite logits")
-        need(d <= tol, f"parity {path} step {i}: logits differ by {d} > {tol}")
+        if first_flip is not None and i >= first_flip:
+            # a router decision taken apart (within ROUTER_EPS) at or before
+            # this step moves the logits by an expert's contribution
+            log(f"parity {path} step {i}: logits differ by {d} after the expert "
+                f"flips of step {first_flip} (tolerance {tol} not applied)")
+        else:
+            need(d <= tol, f"parity {path} step {i}: logits differ by {d} > {tol}")
         if int(kl.argmax()) != int(pl.argmax()):
             top2 = pl.topk(2).values
             margin = float(top2[0] - top2[1])
@@ -1957,7 +2431,55 @@ def phase_parity(eng, path, n_tokens=8):
     log(f"parity {path}: {n_tokens} greedy tokens {k_toks}; max |logits diff| "
         f"per step {diffs} (tolerance {tol}); max |logit| "
         f"{float(max(kl.abs().max() for kl in k_logits)):.4g}")
+    if path in MOE_PATHS:
+        health.append(dict(expert_flips=flips, logit_diff_per_step=diffs))
     return max(diffs), health
+
+
+@contextlib.contextmanager
+def route_log(out, step):
+    """Record every MoE router call (``models.moe.route``, which both MoE
+    FFNs call through the module) as (output step ``step[0]``, ids sorted
+    per token, the k-th less the (k+1)-th expert probability per token)."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def traced(x, wr, cfg, token_mask=None):
+        gates, ids, aux = orig(x, wr, cfg, token_mask)
+        top = torch.softmax(x.float() @ wr, dim=-1).topk(cfg.top_k + 1, dim=-1).values
+        out.append((step[0], ids.sort(-1).values.cpu(),
+                    (top[:, -2] - top[:, -1]).cpu()))
+        return gates, ids, aux
+
+    moe.route = traced
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def expert_flips(path, k_routes, p_routes):
+    """The router decisions the kernel and plain runs took apart: {output
+    step: [the plain run's top-k margin at each token whose expert set
+    differs]}, every margin below ROUTER_EPS."""
+    need(len(k_routes) == len(p_routes), f"parity {path}: router calls "
+         f"{len(k_routes)} (kernels) and {len(p_routes)} (plain)")
+    flips = {}
+    for (sk, ik, _), (sp, ip, mp) in zip(k_routes, p_routes):
+        need(sk == sp and ik.shape == ip.shape, f"parity {path}: router calls disagree")
+        apart = (ik != ip).any(-1)
+        if bool(apart.any()):
+            flips.setdefault(sk, []).extend(float(m) for m in mp[apart])
+    for st, margins in sorted(flips.items()):
+        log(f"parity {path}: step {st}: {len(margins)} tokens routed apart, plain "
+            f"top-k margins {[f'{m:.3g}' for m in margins]}")
+        need(max(margins) < ROUTER_EPS, f"parity {path}: step {st}: an expert flip "
+             f"with a router margin {max(margins)} >= {ROUTER_EPS}")
+    if k_routes and not flips:
+        log(f"parity {path}: every one of {len(k_routes)} router calls took the same "
+            f"experts in both runs")
+    return flips
 
 
 def e_records(eng):
@@ -2554,6 +3076,11 @@ def main(argv=None) -> int:
     counts.update(h_counts)
     serve.update(h_serve)
     parity.update(h_parity)
+    # paths DS, DSD, AR: deepseek-v2-236b and arctic-480b at full width
+    m_counts, m_serve, m_parity = phase_moe(detail)
+    counts.update(m_counts)
+    serve.update(m_serve)
+    parity.update(m_parity)
     # path G: the CNN track, trained, calibrated and evaluated on the card
     with timed("cnn G"):
         cnn_track = phase_cnn()
@@ -2600,11 +3127,11 @@ def main(argv=None) -> int:
                             library_ms=row["library_ms"], shape=row["shape"],
                             launches_by_path={p: c_[name]["launches"]
                                               for p, c_ in counts.items()},
-                            shapes_H=[{k: r[k] for k in ("shape", "max_abs_err", "ms",
-                                                         "plain_ms", "bound_ms", "bound_by",
-                                                         "library_ms")}
-                                      for r in detail if r["name"] == name
-                                      and r.get("path") == "H"],
+                            **{f"shapes_{tag}": [
+                                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}
+                                for r in detail if r["name"] == name and r.get("path") == tag]
+                               for tag in ("H",) + MOE_PATHS},
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one

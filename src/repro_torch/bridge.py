@@ -2,9 +2,10 @@
 
 ``params_from_numpy`` takes a reference param tree whose leaves the caller
 has already turned into numpy arrays (``jax.tree.map(np.asarray, params)``
-- the port never imports JAX) and returns the port's params: the stacked
-``blocks`` leaves - one stacked dict per pattern kind - are split into one
-dict per layer, in layer order (block i's kind j is layer i * P + j).  Quantized records are
+- the port never imports JAX) and returns the port's params: the head and
+tail layers as lists, and the stacked ``blocks`` leaves - one stacked dict
+per pattern kind - split into one dict per layer, in layer order (block
+i's kind j is layer i * P + j).  Quantized records are
 not carried across: the port builds its own from the same fp weights with
 ``models.linops.quantize_param_tree``, and the tests compare the two.
 ``cnn_params_from_numpy`` does the same for the CNN track's params.
@@ -33,17 +34,26 @@ def _map(fn, tree):
 def params_from_numpy(tree: dict, device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on ``device``:
     the card unless the caller asks for the CPU, and an error where CUDA is
-    absent (``models.api.resolve_device``)."""
+    absent (``models.api.resolve_device``).  Head and tail layers (a tuple
+    of layer dicts each) map one to one; every leaf of a stacked block,
+    the MoE layers' (E, ...) expert stacks and router included, is split
+    per block."""
     device = resolve_device(device)
-    if tree.get("head") or tree.get("tail") or tree.get("shared_block"):
+    if tree.get("shared_block") or tree.get("enc_blocks"):
         raise NotImplementedError(
-            "the port runs repeated pattern blocks without head/tail or shared "
-            "layers (ROADMAP.md Queue 1, item 6)")
+            "the port runs no shared (zamba2) or encoder layers "
+            "(ROADMAP.md Queue 1, item 6)")
+
+    def t(a):
+        return _tensor(a, device)
+
     kinds = tuple(tree["blocks"])
     n = len(kinds[0]["attn_norm"])
     return {
-        "embed": _map(lambda a: _tensor(a, device), tree["embed"]),
-        "final_norm": _tensor(tree["final_norm"], device),
+        "embed": _map(t, tree["embed"]),
+        "final_norm": t(tree["final_norm"]),
+        "head": [_map(t, layer) for layer in tree.get("head", ())],
+        "tail": [_map(t, layer) for layer in tree.get("tail", ())],
         "blocks": [_map(lambda a, i=i: _tensor(a[i], device), stacked)
                    for i in range(n) for stacked in kinds],
     }

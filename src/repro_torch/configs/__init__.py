@@ -1,14 +1,17 @@
 """Architecture registry: ``get_config('<arch-id>')``.
 
-Only the families the port runs are registered: the dense GQA decoders,
-with or without local (sliding-window) layers.  The others join with their
-slice (ROADMAP.md Queue 1, item 6).
+Only the families the port runs are registered: the GQA decoders with or
+without local (sliding-window) layers, and the MoE decoders (deepseek-v2
+with MLA, arctic with a dense residual).  The others join with their slice
+(ROADMAP.md Queue 1, item 6: mamba2, zamba2, seamless, phi-3-vision).
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "arctic-480b": "arctic_480b",
     "gemma3-12b": "gemma3_12b",
     "stablelm-1.6b": "stablelm_1p6b",
     "yi-6b": "yi_6b",

@@ -380,16 +380,21 @@ def _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype):
     return _guard_pdq(y, x, wrec["q"], wrec["scale"], flag)
 
 
-def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
+def pdq_dense(x, wrec, *, out="fp", out_dtype=None, norm=None):
     """The fused PDQ dense layer: one prologue + one W8A8 matmul.
 
     ``wrec`` is a record from ``models.linops.quantize_weight``.  out='fp'
     returns y (..., N) in ``out_dtype`` (default f32) with the interval
-    clamp in the epilogue, priced in the prologue's launch; out='int8'
-    returns (y_q (..., N) int8, s_out (..., 1) f32, z_out (..., 1) i32).
+    clamp in the epilogue, priced in the prologue's launch; ``norm = (w,
+    eps)``: x is the un-normed input and the prologue's launch applies
+    ``ref.rms_norm`` first (under a guard plain torch applies it before the
+    launch, as in ``pdq_dense_grouped``).  out='int8' returns (y_q (..., N)
+    int8, s_out (..., 1) f32, z_out (..., 1) i32).
     """
     if out not in ("fp", "int8"):
         raise ValueError(out)
+    if norm is not None and (out == "int8" or _PDQ_GUARD):
+        x, norm = ref.rms_norm(x, *norm), None
     if out == "int8":
         x_q, s_x, s1, s2 = pdq_prologue(x)
         lo, hi, s_out, z_out = pdq_interval(wrec, s1, s2)
@@ -397,7 +402,7 @@ def pdq_dense(x, wrec, *, out="fp", out_dtype=None):
         y_q = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], s_out, z_out,
                           colsum=wrec["colsum"], tel=_tel(x.device))
         return y_q, s_out, z_out
-    x_q, s_x, _, _, lo_g, hi_g = _prologue(x, wrec=wrec)
+    x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, wrec)
     return _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype)
 
 

@@ -191,12 +191,14 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
 
     def cache_scatter(caches, sub, src_map):
         """Pool slot s takes sub batch row src_map[s]; -1 keeps the slot.
-        One kernel launch for every cache leaf (K6), in place on
-        ``caches``."""
+        One kernel launch for every cache leaf of every section (K6): the
+        head and tail layers' (batch axis 0) and the stacked blocks' (batch
+        axis 1), in place on ``caches``."""
         m = np.asarray(src_map, np.int32)
-        kernel_ops.cache_move([Move(c[name], s[name], batch_axis=1, host_map=m)
-                               for c, s in zip(caches["blocks"], sub["blocks"])
-                               for name in c], "cache_scatter")
+        kernel_ops.cache_move([Move(c, s, batch_axis=ba, host_map=m)
+                               for (ba, _, c), (_, _, s) in zip(_leaves(caches),
+                                                                _leaves(sub))],
+                              "cache_scatter")
         return caches
 
     def paged_cache(batch: int, max_len: int, page: int = 64) -> PagedCacheOps:

@@ -1,5 +1,5 @@
-"""GQA attention with an fp or int8 KV cache (port of the GQA half of
-``repro/models/attention.py``).
+"""GQA attention with an fp or int8 KV cache, and DeepSeek's MLA (port of
+``repro/models/attention.py`` but its cross-attention).
 
 The reference's fp attention is plain jnp, not Pallas, so this port is
 plain torch: a masked-softmax transcription of ``chunked_attention`` (same
@@ -13,6 +13,11 @@ With ``quant_kv='dynamic'`` the cache is int8 in KERNEL layout, ``{'k',
 quantized per (token, head) as it is written, prefill still attends its
 fresh fp k/v, and decode attends the cache through the flash-decode
 kernels (``ops.decode_attend_i8kv``).
+
+MLA keeps the compressed stream in its cache, ``{'ckv': (B, S, kv_lora),
+'krope': (B, S, qk_rope), 'pos', 'len'}`` in the model dtype; prefill
+expands per-head k/v from it (a chunk continuation re-expands the whole
+buffer) and decode attends in the compressed space (the absorbed form).
 """
 from __future__ import annotations
 
@@ -23,8 +28,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
 
-from .layers import apply_rope, dense_init, softcap
-from .linops import is_quantized, is_segment_view, lin, lin_grouped
+from .layers import apply_rope, dense_init, rms_norm, softcap
+from .linops import dense_weight, is_quantized, is_segment_view, lin, lin_grouped
 
 NEG = -2.0e30
 
@@ -314,3 +319,155 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
         o = decode_attention(q1, kf, vf, positions[:, 0], cache["pos"],
                              window=dims.window, attn_softcap=dims.attn_softcap)
     return lin(o.reshape(B, 1, H * Dh), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank q/kv with a compressed KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    d_model: int
+    n_heads: int
+    q_lora: int
+    kv_lora: int
+    qk_nope: int
+    qk_rope: int
+    v_head: int
+    rope_theta: float = 10_000.0
+
+
+def mla_init(m: MLADims, dtype, gen) -> dict:
+    H = m.n_heads
+    zeros = dict(dtype=dtype, device=gen.device)
+    return {
+        "wq_a": dense_init(m.d_model, m.q_lora, dtype, gen),
+        "q_norm": torch.zeros((m.q_lora,), **zeros),
+        "wq_b": dense_init(m.q_lora, H * (m.qk_nope + m.qk_rope), dtype, gen),
+        "wkv_a": dense_init(m.d_model, m.kv_lora + m.qk_rope, dtype, gen),
+        "kv_norm": torch.zeros((m.kv_lora,), **zeros),
+        "wk_b": dense_init(m.kv_lora, H * m.qk_nope, dtype, gen),
+        "wv_b": dense_init(m.kv_lora, H * m.v_head, dtype, gen),
+        "wo": dense_init(H * m.v_head, m.d_model, dtype, gen),
+    }
+
+
+def mla_init_cache(m: MLADims, batch: int, max_len: int, dtype, device) -> dict:
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope), dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _mla_qkv(p, m: MLADims, x, positions, norm=None):
+    """(q_nope, q_rope, ckv, krope) of x; ``norm = (w, eps)``: of
+    rms_norm(x, w, eps).  The two input-side projections share x: ONE
+    grouped prologue (the attention norm inside it) and ONE matmul for a
+    grouped record; ``wq_b``'s prologue applies ``q_norm`` in its launch."""
+    B, S, _ = x.shape
+    H = m.n_heads
+    qa, kv = lin_grouped(x, (p["wq_a"], p["wkv_a"]), norm=norm)
+    q = lin(qa, p["wq_b"], norm=(p["q_norm"], 1e-6))
+    q = q.reshape(B, S, H, m.qk_nope + m.qk_rope)
+    q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    q_rope = apply_rope(q_rope, positions, m.rope_theta)
+    ckv = rms_norm(kv[..., :m.kv_lora], p["kv_norm"])
+    krope = apply_rope(kv[..., None, m.kv_lora:], positions, m.rope_theta)[..., 0, :]
+    return q_nope, q_rope, ckv, krope
+
+
+def _mla_write(cache, ckv, krope, positions):
+    """Write S_new tokens' compressed entries at their positions, in place
+    (duplicate positions carry identical data: ``_clamp_padded``)."""
+    B = positions.shape[0]
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    pos = positions.long()
+    cache["ckv"][bidx, pos] = ckv.to(cache["ckv"].dtype)
+    cache["krope"][bidx, pos] = krope.to(cache["krope"].dtype)
+    cache["pos"][bidx, pos] = positions.to(torch.int32)
+    torch.maximum(cache["len"], (positions[:, -1] + 1).to(torch.int32), out=cache["len"])
+    return cache
+
+
+def _expanded(p, m: MLADims, ckv, krope):
+    """Per-head k (B, S, H, qk_nope + qk_rope) and v (B, S, H, v_head) of a
+    compressed stream: ``wk_b`` / ``wv_b`` expand ckv, krope is shared by
+    every head."""
+    B, S, _ = ckv.shape
+    H = m.n_heads
+    k_nope = lin(ckv, p["wk_b"]).reshape(B, S, H, m.qk_nope)
+    v = lin(ckv, p["wv_b"]).reshape(B, S, H, m.v_head)
+    k = torch.cat([k_nope, krope[:, :, None].expand(B, S, H, m.qk_rope)], -1)
+    return k, v
+
+
+def _promoted(a, b):
+    """a and b in their promoted dtype (JAX's einsum promotes bf16 x f32
+    to f32; torch's refuses mixed operands)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def mla_apply(p, m: MLADims, x, positions, *, mode: str, cache=None, seq_lens=None,
+              norm=None, chunked: bool = False):
+    """mode 'prefill' (expanded; ``chunked``: a continuation against the
+    whole buffer) or 'decode' (absorbed); returns (y (B, S, d), cache),
+    the cache updated in place.  ``norm = (w, eps)``: attend over
+    rms_norm(x, w, eps)."""
+    B, S, _ = x.shape
+    H = m.n_heads
+    if cache is None:
+        raise ValueError("serving attention needs a cache")
+    q_nope, q_rope, ckv, krope = _mla_qkv(p, m, x, positions, norm)
+    q = torch.cat([q_nope, q_rope], -1)
+    if mode == "prefill" and chunked:
+        # the reference's continuation: land the chunk's compressed stream,
+        # then re-expand the WHOLE buffer through wk_b / wv_b - it holds the
+        # values an unchunked prefill computed, so the per-head k/v match
+        # that path's (the absorbed form would associate the products
+        # differently) - and attend it, empty slots out of causal range
+        if seq_lens is None:
+            raise ValueError("a chunked-prefill continuation needs seq_lens")
+        (ckv_c, krope_c), pos_c = _clamp_padded((ckv, krope), positions, seq_lens)
+        _mla_write(cache, ckv_c, krope_c, pos_c)
+        Sb = cache["ckv"].shape[1]
+        k, v = _expanded(p, m, cache["ckv"], cache["krope"])
+        o = chunked_attention(q, k, v, positions, _valid_k_pos(cache["pos"]),
+                              causal=True, q_chunk=S, kv_chunk=Sb)
+        return lin(o.reshape(B, S, H * m.v_head), p["wo"]), cache
+    if mode == "prefill":
+        k, v = _expanded(p, m, ckv, krope)
+        o = chunked_attention(q, k, v, positions, positions, causal=True)
+        y = lin(o.reshape(B, S, H * m.v_head), p["wo"])
+        pos_c = positions
+        if seq_lens is not None:    # bucketed prefill: no pad entries land
+            (ckv, krope), pos_c = _clamp_padded((ckv, krope), positions, seq_lens)
+        _mla_write(cache, ckv, krope, pos_c)
+        return y, cache
+    if mode != "decode":
+        raise ValueError(f"mode {mode!r}: the port serves 'prefill'/'decode'")
+    # decode (absorbed): attention runs in the compressed space; a
+    # quantized wk_b / wv_b is read as its f32 values q * scale, as the
+    # reference reads it
+    _mla_write(cache, ckv, krope, positions)
+    r = m.kv_lora
+    wk_b = dense_weight(p["wk_b"]).reshape(r, H, m.qk_nope)
+    q_eff = torch.einsum("bhn,rhn->bhr", *_promoted(q_nope[:, 0], wk_b))   # (B, H, r)
+    ckv_f = cache["ckv"].float()
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+    s = (torch.einsum("bhr,bsr->bhs", q_eff.float(), ckv_f)
+         + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
+                        cache["krope"].float())) * scale
+    ok = (cache["pos"] <= positions[:, :1]) & (cache["pos"] >= 0)
+    s = torch.where(ok[:, None, :], s, NEG)
+    prob = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", prob.to(cache["ckv"].dtype).float(), ckv_f)
+    wv_b = dense_weight(p["wv_b"]).reshape(r, H, m.v_head)
+    o = torch.einsum("bhr,rhv->bhv", *_promoted(ctx.to(x.dtype), wv_b))
+    # the reference hands a quantized wv_b's f32 o to wo and so turns the
+    # residual stream f32 in a bf16 model; the port rounds o to the model
+    # dtype, as the prefill's (and an fp wv_b's) o is (equal in f32 models)
+    return lin(o.to(x.dtype).reshape(B, 1, H * m.v_head), p["wo"]), cache

@@ -1,16 +1,29 @@
 """Architecture configuration schema (port of ``repro/models/config.py``).
 
-The port carries the fields its families run: a decoder-only GQA LM whose
-layers are ``n_blocks`` repeats of ``pattern``, each kind ``global`` (full
-attention) or ``local`` (sliding-window attention over a ring of ``window``
+The port carries the fields its families run: a decoder-only LM whose
+layers are ``head`` (unrolled) + ``n_blocks`` repeats of ``pattern`` +
+``tail``, each kind ``global`` (full attention, GQA or MLA; MoE FFN if
+``moe``), ``global_dense`` (``global`` with a dense FFN always: DeepSeek's
+layer 0) or ``local`` (sliding-window attention over a ring of ``window``
 positions), with gemma's softcaps and embedding scale (the reference scans
-the stacked blocks; the port loops over a per-layer list).  The MoE, MLA,
-SSM, encoder-decoder and frontend fields arrive with the model families
-that use them (ROADMAP.md Queue 1, item 6).
+the stacked blocks; the port loops over a per-layer list).  The SSM,
+encoder-decoder and frontend fields arrive with the model families that
+use them (ROADMAP.md Queue 1, item 6).
 """
 from __future__ import annotations
 
 import dataclasses
+
+from .moe import MoEConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora: int
+    kv_lora: int
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +45,8 @@ class ArchConfig:
     logit_softcap: float | None = None
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
@@ -67,5 +82,12 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         window=min(cfg.window, 16) if cfg.window else None,
         dtype="float32",
     )
+    if cfg.moe:
+        base["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff_expert=32,
+            d_ff_dense=64 if (cfg.moe.n_shared or cfg.moe.dense_residual) else 0,
+            capacity_factor=8.0)  # avoid capacity drops in tiny smoke tests
+    if cfg.mla:
+        base["mla"] = MLAConfig(q_lora=32, kv_lora=32, qk_nope=16, qk_rope=8, v_head=16)
     base.update(overrides)
     return dataclasses.replace(cfg, **base).validate()

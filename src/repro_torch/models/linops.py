@@ -141,13 +141,26 @@ def is_segment_view(w) -> bool:
     return isinstance(w, dict) and "group" in w
 
 
-def lin(x: torch.Tensor, w) -> torch.Tensor:
-    """y = x @ w, fp or PDQ-int8 depending on the weight leaf."""
+def lin(x: torch.Tensor, w, norm=None) -> torch.Tensor:
+    """y = x @ w, fp or PDQ-int8 depending on the weight leaf; with ``norm
+    = (w, eps)`` of rms_norm(x, w, eps), applied inside the prologue's
+    launch for a quantized record and in plain torch first otherwise."""
     if not is_quantized(w):
-        return x @ w
+        return (x if norm is None else rms_norm(x, *norm)) @ w
     if is_segment_view(w):
         w = segment_record(w)
-    return ops.pdq_dense(x, w, out="fp", out_dtype=x.dtype)
+    return ops.pdq_dense(x, w, out="fp", out_dtype=x.dtype, norm=norm)
+
+
+def dense_weight(w) -> torch.Tensor:
+    """An fp weight as it is, a quantized record dequantized to its f32 (K,
+    N) values, ``q * scale`` (the reference's absorbed MLA decode reads its
+    records so)."""
+    if not is_quantized(w):
+        return w
+    if is_segment_view(w):
+        w = segment_record(w)
+    return w["q"].float() * w["scale"][None, :]
 
 
 def _common_group(ws) -> dict | None:
@@ -178,8 +191,9 @@ def lin_grouped(x: torch.Tensor, ws, norm=None) -> tuple:
     return tuple(lin(x, w) for w in ws)
 
 
-# same-input sibling sets that share one prologue
-GROUP_SIBLING_SETS = (("wq", "wk", "wv"), ("w_gate", "w_up"))
+# same-input sibling sets that share one prologue: Q/K/V off the attention
+# norm, gate/up off the ffn norm, MLA's two input-side projections
+GROUP_SIBLING_SETS = (("wq", "wk", "wv"), ("w_gate", "w_up"), ("wq_a", "wkv_a"))
 
 
 def _default_pred(name: str, leaf) -> bool:

@@ -1,32 +1,46 @@
 """Decoder-only LM assembly (port of ``repro/models/transformer.py``).
 
-The reference scans stacked block params with ``lax.scan``; the port keeps
-one param dict per layer in ``params["blocks"]``, a single list in LAYER
-order (block i's kind j is layer ``i * len(pattern) + j``), and loops over
-it.  Caches keep the reference's stacked layout: ``caches["blocks"]`` is a
-tuple with one cache per pattern kind, each holding (n_blocks, B, ...)
-tensors, and each layer works on its own slice in place.  A ``local`` kind
-attends over a sliding window and its cache is a ring of ``min(max_len,
-window)`` positions.
+Layer layout: ``head`` layers (unrolled in the reference too), ``n_blocks``
+repeats of ``pattern`` (the reference scans their stacked params with
+``lax.scan``), ``tail`` layers.  The port keeps one param dict per layer:
+``params["head"]`` and ``params["tail"]`` lists, and ``params["blocks"]``,
+a single list in LAYER order (block i's kind j is layer ``i * len(pattern)
++ j``); it loops over them.  Caches keep the reference's layout:
+``caches["head"]`` / ``["tail"]`` hold one cache per layer, and
+``caches["blocks"]`` is a tuple with one cache per pattern kind, each
+holding (n_blocks, B, ...) tensors; each layer works on its own slice in
+place.  A ``local`` kind attends over a sliding window and its cache is a
+ring of ``min(max_len, window)`` positions.
+
+With ``cfg.mla`` a ``global`` / ``global_dense`` layer attends with MLA
+(``attention.mla_apply``); with ``cfg.moe`` a ``global`` or ``local``
+layer's FFN is the mixture of experts (``moe.py``: capacity-bucketed at
+prefill, dense-masked at decode) plus DeepSeek's shared experts or
+Arctic's dense residual MLP, and a ``global_dense`` layer's is a dense MLP
+of ``moe.d_ff_dense``.  The MoE FFN's router, experts and shared / dense
+MLP read one rms_norm(h), run in plain torch (the MLP's prologue then takes
+the interval alone); a dense FFN's norm runs inside its prologue.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import AttnDims, gqa_apply, gqa_init, init_cache
+from .attention import (AttnDims, MLADims, gqa_apply, gqa_init, init_cache, mla_apply,
+                        mla_init, mla_init_cache)
 from .config import ArchConfig
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
+from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
 
-KINDS = ("global", "local")
+KINDS = ("global", "global_dense", "local")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if (cfg.family != "lm" or cfg.head or cfg.tail
-            or not set(cfg.pattern) <= set(KINDS)):
+    kinds = set(cfg.head) | set(cfg.pattern) | set(cfg.tail)
+    if cfg.family != "lm" or not kinds <= set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA decoders of global and local "
-            f"layers only (no head/tail layers, MoE, MLA, SSM, encoder-decoder "
-            f"or frontend); the other families are ROADMAP.md Queue 1, item 6")
+            f"{cfg.name}: the port runs decoders of global, global_dense and local "
+            f"layers (GQA or MLA, dense or MoE FFN); mamba, shared, encoder-decoder "
+            f"and frontend configs are ROADMAP.md Queue 1, item 6")
 
 
 def attn_dims(cfg: ArchConfig, kind: str = "global") -> AttnDims:
@@ -38,16 +52,36 @@ def attn_dims(cfg: ArchConfig, kind: str = "global") -> AttnDims:
                     quant_kv=cfg.quant_kv)
 
 
+def mla_dims(cfg: ArchConfig) -> MLADims:
+    m = cfg.mla
+    return MLADims(d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora=m.q_lora,
+                   kv_lora=m.kv_lora, qk_nope=m.qk_nope, qk_rope=m.qk_rope,
+                   v_head=m.v_head, rope_theta=cfg.rope_theta)
+
+
+def _is_mla(cfg: ArchConfig, kind: str) -> bool:
+    return cfg.mla is not None and kind in ("global", "global_dense")
+
+
+def _is_moe(cfg: ArchConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind != "global_dense"
+
+
 def model_dtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def layer_init(cfg: ArchConfig, kind: str, dtype, gen: torch.Generator) -> dict:
     zeros = dict(dtype=dtype, device=gen.device)
-    return {"attn_norm": torch.zeros((cfg.d_model,), **zeros),
-            "attn": gqa_init(attn_dims(cfg, kind), dtype, gen),
-            "ffn_norm": torch.zeros((cfg.d_model,), **zeros),
-            "ffn": mlp_init(cfg.d_model, cfg.d_ff, dtype, gen)}
+    attn = (mla_init(mla_dims(cfg), dtype, gen) if _is_mla(cfg, kind)
+            else gqa_init(attn_dims(cfg, kind), dtype, gen))
+    if _is_moe(cfg, kind):
+        ffn = moe_init(cfg.d_model, cfg.moe, dtype, gen)
+    else:
+        d_ff = cfg.moe.d_ff_dense if cfg.moe and kind == "global_dense" else cfg.d_ff
+        ffn = mlp_init(cfg.d_model, d_ff or cfg.d_ff, dtype, gen)
+    return {"attn_norm": torch.zeros((cfg.d_model,), **zeros), "attn": attn,
+            "ffn_norm": torch.zeros((cfg.d_model,), **zeros), "ffn": ffn}
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -58,17 +92,67 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     dtype = model_dtype(cfg)
     return {"embed": embed_init(cfg.vocab, cfg.d_model, dtype, gen),
             "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device),
+            "head": [layer_init(cfg, kind, dtype, gen) for kind in cfg.head],
+            "tail": [layer_init(cfg, kind, dtype, gen) for kind in cfg.tail],
             "blocks": [layer_init(cfg, kind, dtype, gen)
                        for _ in range(cfg.n_blocks) for kind in cfg.pattern]}
 
 
+def layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device) -> dict:
+    if _is_mla(cfg, kind):
+        return mla_init_cache(mla_dims(cfg), batch, max_len, model_dtype(cfg), device)
+    return init_cache(attn_dims(cfg, kind), batch, max_len, model_dtype(cfg), device)
+
+
 def lm_init_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    """{'head': (), 'tail': (), 'blocks': (one stacked cache per pattern
-    kind,)} with leaves (n_blocks, batch, ...), the reference's layout."""
+    """{'head': (one cache per head layer,), 'tail': (...), 'blocks': (one
+    stacked cache per pattern kind,)}, block leaves (n_blocks, batch, ...):
+    the reference's layout."""
     def stacked(kind):
-        c = init_cache(attn_dims(cfg, kind), batch, max_len, model_dtype(cfg), device)
+        c = layer_cache(cfg, kind, batch, max_len, device)
         return {k: v.expand(cfg.n_blocks, *v.shape).contiguous() for k, v in c.items()}
-    return {"head": (), "tail": (), "blocks": tuple(stacked(k) for k in cfg.pattern)}
+    return {"head": tuple(layer_cache(cfg, k, batch, max_len, device) for k in cfg.head),
+            "tail": tuple(layer_cache(cfg, k, batch, max_len, device) for k in cfg.tail),
+            "blocks": tuple(stacked(k) for k in cfg.pattern)}
+
+
+def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=None):
+    """The FFN of rms_norm(h, *norm).  ``seq_lens`` (B,) marks the valid
+    prefix of right-padded prefill rows: pad tokens are masked out of MoE
+    routing, so they claim no expert capacity."""
+    if not _is_moe(cfg, kind):
+        return mlp_apply(p_ffn, h, norm=norm)
+    xn = rms_norm(h, *norm)
+    B, S, d = xn.shape
+    mask = None
+    if seq_lens is not None:
+        mask = (torch.arange(S, device=h.device)[None] < seq_lens[:, None]).reshape(B * S)
+    fn = moe_ffn_tokens if mode == "prefill" else moe_ffn_dense_masked
+    y, _ = fn(p_ffn, xn.reshape(B * S, d), cfg.moe, token_mask=mask)
+    y = y.reshape(B, S, d)
+    if cfg.moe.n_shared:
+        y = y + mlp_apply(p_ffn["shared"], xn)
+    if cfg.moe.dense_residual:
+        y = y + mlp_apply(p_ffn["dense"], xn)
+    return y
+
+
+def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache,
+                seq_lens=None, chunked: bool = False):
+    """One layer on h (B, S, d), its cache updated in place."""
+    eps = cfg.norm_eps
+    # each norm runs inside the prologue that reads its output (one K1
+    # launch) wherever that input feeds one PDQ group
+    if _is_mla(cfg, kind):
+        a, _ = mla_apply(p["attn"], mla_dims(cfg), h, positions, mode=mode, cache=cache,
+                         seq_lens=seq_lens, norm=(p["attn_norm"], eps), chunked=chunked)
+    else:
+        a, _ = gqa_apply(p["attn"], attn_dims(cfg, kind), h, positions, mode=mode,
+                         cache=cache, seq_lens=seq_lens, norm=(p["attn_norm"], eps),
+                         chunked=chunked)
+    h = h + a
+    return h + _apply_ffn(p["ffn"], cfg, kind, h, mode, (p["ffn_norm"], eps),
+                          seq_lens if mode == "prefill" else None)
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
@@ -90,22 +174,21 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
     ``seq_lens`` (B,) marks the valid prefix of right-padded prefill rows;
     ``chunked`` marks a chunked-prefill continuation (``positions`` are
     absolute and attention also reads the rows the caches already hold)."""
-    eps = cfg.norm_eps
     h = embed_tokens(params, cfg, tokens)
+    kw = dict(mode=mode, seq_lens=seq_lens, chunked=chunked)
+    for i, kind in enumerate(cfg.head):
+        h = layer_apply(params["head"][i], cfg, kind, h, positions,
+                        cache=caches["head"][i], **kw)
     P = len(cfg.pattern)
-    dims = [attn_dims(cfg, kind) for kind in cfg.pattern]
     for i in range(cfg.n_blocks):
-        for j in range(P):
-            p = params["blocks"][i * P + j]
+        for j, kind in enumerate(cfg.pattern):
             cache = {k: v[i] for k, v in caches["blocks"][j].items()}
-            # each block's norm runs inside the prologue that reads its
-            # output (one K1 launch) wherever that input feeds one PDQ group
-            a, _ = gqa_apply(p["attn"], dims[j], h, positions, mode=mode, cache=cache,
-                             seq_lens=seq_lens, norm=(p["attn_norm"], eps),
-                             chunked=chunked)
-            h = h + a
-            h = h + mlp_apply(p["ffn"], h, norm=(p["ffn_norm"], eps))
-    return rms_norm(h, params["final_norm"], eps), caches
+            h = layer_apply(params["blocks"][i * P + j], cfg, kind, h, positions,
+                            cache=cache, **kw)
+    for i, kind in enumerate(cfg.tail):
+        h = layer_apply(params["tail"][i], cfg, kind, h, positions,
+                        cache=caches["tail"][i], **kw)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
 
 
 def lm_logits(params, cfg: ArchConfig, h):

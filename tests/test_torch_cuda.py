@@ -174,6 +174,19 @@ def test_pdq_prologue_long_rows(gen, M, K, dtype):
     _prologue_modes_case(x, None, None)
 
 
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("K,norm", [(16384, False), (1536, True), (512, False),
+                                    (7168, False)])
+def test_pdq_prologue_moe_mla_rows(gen, M, K, norm):
+    """deepseek-v2's and arctic's rows at decode and prefill: MLA's wo
+    interval over the 16384-wide (128 heads x 128) row, wq_b's q_norm +
+    interval at q_lora 1536, wk_b / wv_b's interval on ckv (kv_lora 512),
+    and arctic's dense MLP over d_model 7168 (one segment each here)."""
+    x = (3 * torch.randn((M, K), generator=gen, device="cuda")).to(torch.bfloat16)
+    w, interval = _prologue_operands(gen, K, torch.bfloat16, 1)
+    _prologue_modes_case(x, (w, 1e-6) if norm else None, interval)
+
+
 def test_pdq_prologue_c_entry_is_the_plain_mode(gen):
     """The C entry ``pdq_prologue`` (the prologue alone, its signature
     unchanged) launches the fused entry's plain mode."""
@@ -278,6 +291,29 @@ def test_w8a8_wgmma_route_main_path_shapes(gen, M, K, N):
     got = mm.w8a8_matmul_cuda(*args, **kw)
     assert torch.equal(got, mm.w8a8_matmul_plain(*args, **kw))
     assert torch.equal(mm.w8a8_matmul_cuda(*args, **kw), got)
+    assert torch.equal(mm.w8a8_matmul_cuda(*args, route="generic", **kw), got)
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+def test_w8a8_grouped_mla_record(gen, M):
+    """MLA's grouped (wq_a, wkv_a) record at deepseek-v2's width: 5120 ->
+    1536 | 576, the second segment padded to 640 (zero codes, scale 1), so
+    the epilogue's per-128-column clamps cover 12 + 5 blocks; wgmma equals
+    plain and the generic route bit for bit, bf16 out."""
+    from repro_torch.models.linops import group_quantize_weights
+    ws = [0.02 * torch.randn((5120, n), generator=gen, device="cuda") for n in (1536, 576)]
+    grec = group_quantize_weights(ws, names=("wq_a", "wkv_a"))
+    assert grec["segs"].padded == (1536, 640)
+    x = torch.randn((M, 5120), generator=gen, device="cuda").to(torch.bfloat16)
+    blocks = tuple(p // 128 for p in grec["segs"].padded)
+    x_q, s_x, _, _, lo, hi = pro.pdq_prologue_plain(x, None, (grec, blocks))
+    N = grec["q"].shape[1]
+    args = (x_q, grec["q"], s_x, None, grec["scale"].reshape(1, N), None, None, None,
+            lo, hi)
+    assert mm.route_for(x_q, grec["q"]) == "wgmma"
+    kw = dict(out_dtype=torch.bfloat16)
+    got = mm.w8a8_matmul_cuda(*args, **kw)
+    assert torch.equal(got, mm.w8a8_matmul_plain(*args, **kw))
     assert torch.equal(mm.w8a8_matmul_cuda(*args, route="generic", **kw), got)
 
 
@@ -582,7 +618,10 @@ _ATTEND_CASES = [(1, 64, 130, [1, 127, 128, 129, 130, 0, 64]),
                  (2, 256, 130, [130, 1, 128, 129, 0]),
                  (1, 256, 300, [300, 129, 1, 257]),
                  (2, 144, 260, [260, 1, 0, 129, 200]),
-                 (1, 208, 129, [129, 128, 1])]
+                 (1, 208, 129, [129, 128, 1]),
+                 # arctic-480b: 56 heads over 8 kv heads, G 7 (the first
+                 # odd G, through the (8, 128) instance) at path AR's Sp 512
+                 (7, 128, 512, [512, 1, 0, 127, 128, 129, 250, 511])]
 
 
 def _tickets_at_rest(device):
