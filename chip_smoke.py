@@ -6,8 +6,9 @@
 Serving paths of full-width stablelm-1.6b (24 layers, bf16, random weights
 from a seeded generator), of full-width gemma3-12b (H, HD, HB, HBW:
 chunked prefill and the local/global decoder) and of the MoE families at
-full width, cut in depth (DS, DSD: deepseek-v2-236b; AR: arctic-480b),
-each built with build_engine(ServeConfig(..., device="cuda")), and one
+full width, cut in depth (DS, DSD: deepseek-v2-236b; AR: arctic-480b)
+and of the SSD families at full width and full depth (M: mamba2-2.7b; Z,
+ZD: zamba2-7b), each built with build_engine(ServeConfig(..., device="cuda")), and one
 path of ops-level calls on stablelm's weights (E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
@@ -81,6 +82,25 @@ path of ops-level calls on stablelm's weights (E):
      2 MoE layers (~55 GB of bf16 weights), PDQ-int8 projections, int8
      KV, slot rows, 8 slots, max_len 512, A's requests: K1, K2, K3, K5 (G
      7, the (8, 128) instance) and K6; A's 7 launches a layer;
+  M  mamba2-2.7b at full width and full depth (64 mamba layers, d_model
+     2560, 80 SSD heads of 64, state 128, vocab 50280; seeded random bf16
+     weights, PDQ-int8 in_proj / out_proj records made by M's engine),
+     slot rows, H's serving shape and requests (8 slots, max_len 2048,
+     chunked prefill in chunks of 256): K1 (in_proj with the layer's
+     RMSNorm, out_proj with the gated RMSNorm, both with the interval), K2
+     and K6 (a round's landing of every layer's conv window and f32 state:
+     2 leaves); 4 launches a layer and step.  The conv, the SSD scan and
+     the decode update are plain torch, as the reference's are plain jnp;
+  Z  zamba2-7b at full width and full depth (81 layers: 13 x (5 mamba + one
+     occurrence of the shared attention + MLP block) + 3 mamba; d_model
+     3584, 112 SSD heads of 64, state 64; the shared block's 32 x 112
+     heads over 32 kv heads, d_ff 14336; vocab 32000), int8 KV, slot rows,
+     A's serving shape and requests: the mamba layers as M's, the shared
+     occurrences A's layer (K1, K2, K3, K5 at G 1, Dh 112: the (8, 128)
+     instance), K6 landing a round's 22 leaves;
+  ZD Z on a paged pool (page 64, prefix sharing, a pool that never
+     preempts): the SSD leaves flat slot rows, the shared occurrences' K/V
+     pages, K7 in K6's place; its streams must equal Z's;
   G  the paper's CNN track (repro_torch.core, models/cnn.py,
      data/corruptions.py) at the widths of the repository's paper tables
      (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
@@ -141,7 +161,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 K1, K2 and K3 at MLA's, the shared experts' and arctic's
                 shapes (a chunk continuation's wk_b over 16384 rows), K4/K5
                 at G 7, K6 landing a round over every leaf, K7 DSD's
-                gather;
+                gather.  The SSD paths' rows (tagged M, Z, ZD;
+                ``ssm_kernels``): K1 and K2 at in_proj's and out_proj's
+                shapes (ragged N 10576 and 14576), Z's shared QKV, wo,
+                gate/up (K3) and w_down, K4/K5 at G 1, Dh 112, Sp 512, K6
+                a round's landing with every conv and state leaf, K7 ZD's
+                landing (slot rows and pages in one launch) and gather;
   3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
                 H's of H_PROMPTS; otherwise prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
@@ -166,17 +191,18 @@ Phases, each of which must pass (any failure exits non-zero):
                 streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore; per-token decode time and tokens/s of each run;
-  4. step     - on A, B, C, D1, F and H, one decode step of the full pool at
-                position 300 two ways on the same state, eager (ops
+  4. step     - on A, B, C, D1, F, H, DS, DSD, AR, M and Z, one decode
+                step of the full pool at position 300 two ways on the
+                same state, eager (ops
                 launched from the host) and a replay of the engine's
                 one-step graph, in five alternated pairs of three-step
                 windows: wall ms a step; then torch.profiler over a window
                 of each: device busy ms, kernels a step and idle share; on
                 A also a graph of the same block captured with telemetry
                 off, alternated with the two (the counting's cost);
-  5. parity   - on A, B, C, F, FF and H (F and FF under the guard, FF
-                under the fault; H's prompt of 1100 tokens prefilled in its
-                256-token chunks), one request's first 8 greedy tokens through
+  5. parity   - on A, B, C, F, FF, H, DS, DSD, AR, M and Z (F and FF
+                under the guard, FF under the fault; H's and M's prompt of
+                1100 tokens prefilled in its 256-token chunks), one request's first 8 greedy tokens through
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
                 the path's LOGIT_TOL, and each step's argmax agrees or the
@@ -203,7 +229,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 attention and the hand kernels (``step_split``), phase 5
                 logging every router decision the kernel and plain runs
                 took apart (ROUTER_EPS) and not binding the logits after
-                one; DSD's streams against DS's.
+                one; DSD's streams against DS's.  Then the SSD paths M, Z
+                and ZD (``phase_ssm``): their kernel rows, phases 3-5 for
+                M and Z (phase 4's ``step_split`` puts the SSD blocks
+                beside the attention and the hand kernels), ZD's phase 3
+                and its streams against Z's.
   7. cnn      - path G, last: counts zeroed before and read after (every
                 kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
                 accuracy in [0, 1]; parity with the CPU: unquantized logits
@@ -253,7 +283,16 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
              # but for sums in another order) over 4 layers; AR: A's
              # (int8 KV) over 2.  Steps after a router decision the two
              # runs took apart (within ROUTER_EPS) are reported, not bound
-             "DS": 0.05, "DSD": 0.05, "AR": 0.25}
+             "DS": 0.05, "DSD": 0.05, "AR": 0.25,
+             # M (mamba2): C's argument (no KV cache; K1/K2 give plain's bits
+             # but for sums in another order, and the SSD is the same torch
+             # code in both runs).  Z (zamba2): A's argument (its 13 shared
+             # occurrences attend the int8 KV cache through K5), up to the
+             # first step whose K5 gave wo's prologue a code one apart from
+             # plain's (``code_flips``): the SSD state carries that code
+             # into every later token and layer, where A's cache keeps it
+             # to one token, so later steps are reported, not bound
+             "M": 0.05, "Z": 0.25}
 # the parity phase's second health comparison: every record's alpha and
 # beta times this, so that outputs clip
 CLIP_SCALE = 0.25
@@ -271,7 +310,8 @@ CLIP_SCALE = 0.25
 # PR 21).
 TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
              "H": 1e-4,           # H: A's (K5's o and K3's sums move edges)
-             "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4}    # C's and A's
+             "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4,    # C's and A's
+             "M": 1e-4, "Z": 1e-4}
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -318,6 +358,19 @@ AR_ATTEND_LENS = (512, 1, 250, 129, 128, 57, 300, 511)   # K5 at AR's cache
 # token is below this (the two runs' activations differ by int8 codes at
 # clamp edges, which move a router logit by ~1e-3 at most)
 ROUTER_EPS = 1e-3
+
+# paths M, Z, ZD: the SSD families at full width and full depth.  M:
+# mamba2-2.7b (64 mamba layers, d_model 2560, 80 SSD heads of 64, state 128)
+# on H's serving shape (8 slots, max_len 2048, chunked prefill in chunks of
+# 256, H's prompts: the long prompts an attention-free model is chosen
+# for); Z: zamba2-7b (81 layers: 68 mamba of d_model 3584, 112 heads of 64,
+# state 64, and one shared attention + MLP block, 32 x 112 heads, at 13
+# occurrences) with int8 KV on A's serving shape (8 slots, max_len 512, A's
+# prompts); ZD: Z paged (page 64, prefix sharing, a pool that never
+# preempts)
+M_ARCH, M_MAX_LEN = "mamba2-2.7b", 2048
+Z_ARCH, Z_MAX_LEN = "zamba2-7b", 512
+Z_ATTEND_LENS = AR_ATTEND_LENS    # K5 at Z's cache (max_len 512, as AR's)
 # K1-K3 and the attend kernels, by their CUDA function names
 HAND_KERNEL = r"\b(prologue_kernel|w8a8_kernel|swiglu_kernel|gemm_kernel|split_kernel|" \
               r"attend_kernel|move_pages|act_stats_kernel|quantize_kernel|" \
@@ -358,10 +411,17 @@ PATHS = {
     "DSD": (False, True, _C_KERNELS[:-1] + ("cache_scatter_pages",),
             dict(chunked_prefill=True, paged=True, page_size=PAGE)),
     "AR": (True, True, _A_KERNELS, {}),
+    # the SSD families: M chunked on slot rows (no KV cache: K1, K2 and K6),
+    # Z with int8 KV on slot rows (its shared block A's kernels), ZD Z paged
+    "M": (False, True, ("pdq_prologue", "w8a8_matmul", "cache_scatter"),
+          dict(chunked_prefill=True)),
+    "Z": (True, True, _A_KERNELS, {}),
+    "ZD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
 }
 H_PATHS = ("H", "HD", "HB", "HBW")
 MOE_PATHS = ("DS", "DSD", "AR")
-LONG_PATHS = H_PATHS + ("DS", "DSD")      # H's prompts, max_len 2048
+SSM_PATHS = ("M", "Z", "ZD")
+LONG_PATHS = H_PATHS + ("DS", "DSD", "M")      # H's prompts, max_len 2048
 FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
 GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
 
@@ -1111,6 +1171,15 @@ def index_copies(moves, to_rows):
     return calls
 
 
+def page_rows(x, mv):
+    """A side of page movement ``mv`` laid out as page rows: the pool's own
+    leaf (or a flat leaf) as it is, a logical one as a contiguous copy."""
+    from repro_torch.kernels import ref
+    if mv.seq_axis is None or x.shape[mv.seq_axis] == PAGE:
+        return x
+    return ref.to_page_rows(x, mv.seq_axis, PAGE, batch_axis=mv.batch_axis).contiguous()
+
+
 def page_kernels(eng, gen, flush, record):
     """K7, one launch per movement, against its plain version (each leaf's
     init fill, then the reference's composition through page rows) at path
@@ -1126,7 +1195,7 @@ def page_kernels(eng, gen, flush, record):
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     B, n_pp = eng.slots, eng.max_len // PAGE
     N = B * n_pp + 1
     po = eng.bundle.paged_cache(B, eng.max_len, PAGE)
@@ -1139,24 +1208,19 @@ def page_kernels(eng, gen, flush, record):
     pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
     at300 = np.full((B,), 300, np.int32)
 
-    def rows_of(x, mv):
-        if mv.seq_axis is None or x.shape[mv.seq_axis] == PAGE:
-            return x                           # page rows already (the pool)
-        return ref.to_page_rows(x, mv.seq_axis, PAGE, batch_axis=mv.batch_axis).contiguous()
-
     logical, moves = po.gather_moves(pool, pt, at300)
     gather = ops.device_moves(moves)
     time_movement("D1 gather at position 300", gather, kv.PAGES_COUNT, flush, record,
-                  True, "cache_scatter_pages", index_copies(gather, rows_of), poison=True)
+                  True, "cache_scatter_pages", index_copies(gather, page_rows), poison=True)
     for mv in gather:
         mv.dst.copy_(torch.randint(-100, 100, mv.dst.shape, generator=gen,
                                    device=eng.device).to(mv.dst.dtype))
     wb = ops.device_moves(po.writeback_moves(pool, logical, pt, at300[:, None]))
     time_movement("D1 write-back at position 300", wb, kv.PAGES_COUNT, flush, record,
-                  False, "cache_scatter_pages", index_copies(wb, rows_of))
+                  False, "cache_scatter_pages", index_copies(wb, page_rows))
     k_alone = [next(mv for mv in gather if mv.dst.dim() == 5)]
     time_movement("k gather alone", k_alone, kv.PAGES_COUNT, flush, record, False,
-                  "cache_scatter_pages", index_copies(k_alone, rows_of), poison=True)
+                  "cache_scatter_pages", index_copies(k_alone, page_rows), poison=True)
     del logical, moves, gather, wb
     torch.cuda.empty_cache()
     lens = np.asarray(ATTEND_LENS)
@@ -1166,7 +1230,7 @@ def page_kernels(eng, gen, flush, record):
     ragged = ops.device_moves(moves)
     time_movement(f"gather at ragged frontiers {tuple(int(x) for x in lens)}", ragged,
                   kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
-                  index_copies(ragged, rows_of), poison=True)
+                  index_copies(ragged, page_rows), poison=True)
     del ragged
     del moves
     cmap = np.full((N,), -1, np.int32)
@@ -1176,7 +1240,7 @@ def page_kernels(eng, gen, flush, record):
             if po.meta["blocks"][0][k].kind == "seq"]
     copy = ops.device_moves(copy)
     time_movement("COW copy of 8 pages", copy, kv.PAGES_COUNT, flush, record, False,
-                  "cache_scatter_pages", index_copies(copy, rows_of))
+                  "cache_scatter_pages", index_copies(copy, page_rows))
     del pool, copy
     torch.cuda.empty_cache()
 
@@ -1224,7 +1288,7 @@ def h_kernels(cfg, detail):
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     cfg = dataclasses.replace(cfg, quant_kv="dynamic")
     bundle = build_model(cfg, "cuda")
@@ -1261,16 +1325,11 @@ def h_kernels(cfg, detail):
     pt = (1 + np.arange(B * n_pp, dtype=np.int32)).reshape(B, n_pp)
     lens = np.asarray(H_PROMPTS, np.int32) + 16
 
-    def rows_of(x, mv):
-        if mv.seq_axis is None or x.shape[mv.seq_axis] == PAGE:
-            return x
-        return ref.to_page_rows(x, mv.seq_axis, PAGE, batch_axis=mv.batch_axis).contiguous()
-
     _, moves = po.gather_moves(pool, pt, lens)
     gather = ops.device_moves(moves)
     time_movement(f"HD gather at frontiers {tuple(int(x) for x in lens)}", gather,
                   kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
-                  index_copies(gather, rows_of), poison=True)
+                  index_copies(gather, page_rows), poison=True)
     del pool, moves, gather
     torch.cuda.empty_cache()
 
@@ -1402,7 +1461,7 @@ def moe_kernels(eng, path, detail):
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels import w8a8_matmul as mm
     dev, cfg, M = eng.device, eng.cfg, eng.slots
     gen = torch.Generator(device=dev)
@@ -1438,17 +1497,11 @@ def moe_kernels(eng, path, detail):
         pt = (1 + np.arange(M * n_pp, dtype=np.int32)).reshape(M, n_pp)
         lens = np.asarray(H_PROMPTS, np.int32) + 16
 
-        def rows_of(t, mv):
-            if mv.seq_axis is None or t.shape[mv.seq_axis] == PAGE:
-                return t
-            return ref.to_page_rows(t, mv.seq_axis, PAGE,
-                                    batch_axis=mv.batch_axis).contiguous()
-
         _, moves = po.gather_moves(pool, pt, lens)
         gather = ops.device_moves(moves)
         time_movement(f"DSD gather at frontiers {tuple(int(v) for v in lens)}", gather,
                       kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
-                      index_copies(gather, rows_of), poison=True)
+                      index_copies(gather, page_rows), poison=True)
         del pool, moves, gather
         torch.cuda.empty_cache()
         return
@@ -1591,6 +1644,186 @@ def phase_moe(detail, models=(DS_ARCH, AR_ARCH)):
                 parity[path], run["parity_pdq"] = phase_parity(eng, path)
             if path == "DSD":
                 check_paged_run(path, run, serve["DS"][0], ref="DS")
+            run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            serve[path] = [run]
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return counts, serve, parity
+
+
+def ssm_kernels(eng, path, detail):
+    """Phase 2 at an SSD path's shapes (rows tagged with ``path``), on the
+    engine's own PDQ records (its first mamba layer's; zamba2's shared
+    block) at decode rows (8 slots) and prefill rows (8 x the 256 bucket).
+    M: K1 on ``in_proj`` with the layer's RMSNorm (2560 -> 10576: 82
+    column tiles and 80 columns) and on ``out_proj`` with the gated RMSNorm
+    (5120 -> 2560); K2 on both; K6 a round's landing of the 64 layers'
+    conv and f32 state (2 leaves).  Z: the same at 3584 -> 14576 (113 tiles
+    and 112 columns) and 7168 -> 3584, the shared block's QKV (3 x 3584,
+    with its norm), wo, gate/up (2 x 14336) and w_down; K3 on the shared
+    gate/up; K4 and K5 at G 1, Dh 112, Sp 512 (the (8, 128) instance); K6 a
+    round's 22 leaves.  ZD: K7 a round's landing (the conv and state leaves
+    as slot rows beside the shared occurrences' pages, one launch) and its
+    decode gather at A's frontiers + 16.  Each against its plain version as
+    A's rows are; library: ``torch._int_mm``, ``index_copy_``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import w8a8_matmul as mm
+    dev, cfg, M = eng.device, eng.cfg, eng.slots
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    record = recorder({}, detail, path=path)
+
+    def rows(n, k):
+        return torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+
+    def randomize(tree):
+        for _, _, leaf in _pool_leaves(tree):
+            leaf.view(torch.uint8).copy_(torch.randint(
+                0, 256, leaf.view(torch.uint8).shape, generator=gen, device=dev,
+                dtype=torch.uint8))
+        return tree
+
+    smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)[:M]
+    if path == "ZD":
+        po = eng._paged_ops
+        N = M * po.n_pp + 1
+        pool = randomize(po.init(N))
+        sub = randomize(eng.bundle.init_caches(M, eng.max_len))
+        land_rows, land_js = np.full((N,), -1, np.int32), np.full((N,), -1, np.int32)
+        land_rows[1:1 + 4 * po.n_pp] = np.repeat(np.arange(4), po.n_pp)
+        land_js[1:1 + 4 * po.n_pp] = np.tile(np.arange(po.n_pp), 4)
+        land = ops.device_moves(po.land_moves(pool, sub, smap, land_rows, land_js))
+        time_movement(f"ZD: one round's landing, 4 of {M} slots, every page", land,
+                      kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                      index_copies(land, page_rows))
+        del land, sub
+        pt = (1 + np.arange(M * po.n_pp, dtype=np.int32)).reshape(M, po.n_pp)
+        lens = np.asarray([int(len(r.prompt)) + 16 for r in make_requests(cfg)], np.int32)
+        _, moves = po.gather_moves(pool, pt, lens)
+        gather = ops.device_moves(moves)
+        time_movement(f"ZD gather at frontiers {tuple(int(v) for v in lens)}", gather,
+                      kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                      index_copies(gather, page_rows), poison=True)
+        del pool, moves, gather
+        torch.cuda.empty_cache()
+        return
+    stamps = torch.zeros((2 * mm._sms(dev),), dtype=torch.int64, device=dev)
+    d, di = cfg.d_model, cfg.ssm.d_inner
+    layer = eng.params["blocks"][cfg.pattern.index("mamba")]
+    inp, outp = layer["ssm"]["in_proj"], layer["ssm"]["out_proj"]
+
+    def norm(k):
+        w = (0.2 * torch.randn((k,), generator=gen, device=dev)).to(torch.bfloat16)
+        return (w, cfg.norm_eps)
+
+    x, x_pre = rows(M, d), rows(M * 256, d)
+    y, y_pre = rows(M, di), rows(M * 256, di)
+    k1 = [(x, norm(d), (inp, None), "in_proj "), (x_pre, norm(d), (inp, None),
+                                                  "in_proj prefill "),
+          (y, norm(di), (outp, None), "out_proj "), (y_pre, norm(di), (outp, None),
+                                                      "out_proj prefill ")]
+    k2 = [("in_proj", inp, x, False), ("in_proj prefill", inp, x_pre, False),
+          ("out_proj", outp, y, False), ("out_proj prefill", outp, y_pre, False)]
+    shared = eng.params.get("shared_block")
+    if shared is not None:
+        qkv, gu = shared["attn"]["wq"]["group"], shared["ffn"]["w_gate"]["group"]
+        wo, down = shared["attn"]["wo"], shared["ffn"]["w_down"]
+        k1 += [(x, norm(d), (qkv, ops._blocks(qkv["segs"])), "shared QKV "),
+               (x, norm(d), (gu, ops._blocks(gu["segs"])), "shared gate/up ")]
+        k2 += [("shared QKV", qkv, x, True), ("shared wo", wo, rows(M, wo["q"].shape[0]),
+                                              False),
+               ("shared w_down", down, rows(M, down["q"].shape[0]), False)]
+    for xm, nrm, iv, label in k1:
+        k1_row(xm, nrm, iv, False, flush, record, label=label)
+    for label, rec, xin, per_block in k2:
+        k2_row(dev, label, rec, xin, per_block, False, flush, record)
+    del x_pre, y_pre
+    if shared is not None:
+        for xin in (x, rows(M * 256, d)):
+            k3_row(dev, gu, xin, False, flush, record, stamps, label="shared gate/up: ")
+        j = cfg.pattern.index("shared")
+        Sp = eng.caches["blocks"][j]["k"].shape[3]
+        attend_rows(dev, M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                    ((Z_ATTEND_LENS, Sp, False),), gen, flush, record)
+    torch.cuda.empty_cache()
+    moves = landing_moves(eng.bundle, M, eng.max_len, gen, smap)
+    time_movement(f"{path}: one round's landing, 4 of {M} slots", moves, kv.COUNT, flush,
+                  record, False, "cache_scatter", index_copies(moves, lambda t, mv: t))
+    del moves
+    torch.cuda.empty_cache()
+
+
+def phase_ssm(detail):
+    """Paths M (mamba2-2.7b) and Z, ZD (zamba2-7b): full width and full
+    depth on seeded random bf16 weights; the first engine of a model
+    quantizes them (PDQ-int8 in every in_proj / out_proj and the shared
+    block's projections; the conv, A, D, dt_bias and the norms stay fp, as
+    in the reference) and the bf16 tree is dropped; ZD serves Z's records.
+    Each path: its kernel rows (``ssm_kernels``), phase 3 (serve, census);
+    M and Z also phase 4 (step, with ``step_split``: the SSD blocks against
+    the hand kernels) and phase 5 (parity); ZD's streams must equal Z's.
+    Returns (counts, serve runs, parity)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, build_engine
+    counts, serve, parity = {}, {}, {}
+    for arch, max_len, paths in ((M_ARCH, M_MAX_LEN, ("M",)),
+                                 (Z_ARCH, Z_MAX_LEN, ("Z", "ZD"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        weights = {"bf16": build_model(cfg, "cuda").init(0)}
+        torch.cuda.synchronize()
+        log(f"model {arch}: {cfg.n_layers} layers (head {cfg.head}, pattern {cfg.pattern} "
+            f"x {cfg.n_blocks}, tail {cfg.tail}), d_model {cfg.d_model}, SSM {cfg.ssm} "
+            f"({cfg.ssm.n_heads} heads), {cfg.n_heads} x {cfg.hd} attention heads, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}: random bf16 weights, "
+            f"{param_bytes(weights['bf16']) / 1e9:.2f} GB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path in paths:
+            int8_kv, pdq, _, extra = PATHS[path]
+            t0 = time.perf_counter()
+            quantize = "pdq" not in weights
+            eng = build_engine(ServeConfig(arch=arch, reduced=False, slots=8, max_len=max_len,
+                                           int8_kv=int8_kv, quantize_weights=quantize,
+                                           device="cuda", **extra),
+                               cfg=cfg, params=weights["bf16" if quantize else "pdq"])
+            if quantize:                   # ZD serves Z's records
+                weights = {"pdq": eng.params}
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            log(f"model {path}: {cfg.name}, {cfg.n_layers} layers, PDQ-int8 projections "
+                f"({param_bytes(eng.params) / 1e9:.2f} GB of params), "
+                f"{'int8 KV cache, ' if int8_kv and 'shared' in cfg.pattern else ''}"
+                f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
+                f"buckets {eng.buckets}{' chunked' if eng.chunked_prefill else ''}, built in "
+                f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
+                f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB); "
+                f"card memory allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            with timed(f"kernels {path}"):
+                ssm_kernels(eng, path, detail)
+            with timed(f"serve {path}"):
+                counts[path], run = phase_serve(eng, path)
+            if path != "ZD":
+                with timed(f"step {path}"):
+                    run["step"] = phase_step(eng, path, run["decode_step_median_ms"])
+                with timed(f"parity {path}"):
+                    parity[path], run["parity_pdq"] = phase_parity(eng, path)
+            else:
+                check_paged_run(path, run, serve["Z"][0], ref="Z")
             run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
             serve[path] = [run]
             del eng
@@ -1793,6 +2026,8 @@ def census(path, cfg, st):
     and w_down (and wo at prefill; at decode K5 runs wo's prologue)."""
     if path in MOE_PATHS:
         return moe_census(path, cfg, st)[0]
+    if path in SSM_PATHS:
+        return ssm_census(path, cfg, st)[0]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     rounds = st["prefill_batches"]
@@ -1827,6 +2062,8 @@ def prologue_mode_census(path, cfg, st):
     the interval alone."""
     if path in MOE_PATHS:
         return moe_census(path, cfg, st)[1]
+    if path in SSM_PATHS:
+        return ssm_census(path, cfg, st)[1]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     pre = st["prefill_batches"] + st["chunk_batches"]
@@ -1894,6 +2131,40 @@ def moe_census(path, cfg, st):
                 want[k] += v * n
             for k, v in modes_.items():
                 modes[k] += v * n
+    return want, modes
+
+
+def ssm_census(path, cfg, st):
+    """(op entries, K1 launches per mode) of a serving run of an SSD path.
+    A mamba layer at every prefill launch and decode step: ``in_proj`` with
+    the layer's RMSNorm and ``out_proj`` with the gated RMSNorm, each one
+    K1 (norm + interval) and one K2; the conv, the scan and the decode
+    update are plain torch.  A ``shared`` occurrence is A's layer (QKV and
+    gate/up with their norms, wo's interval at prefill and at decode in K5
+    with int8 KV; K2 x 3, K3).  The pool movements as ``census`` counts
+    them (a round's landing carries every conv and state leaf)."""
+    int8_kv, pdq = PATHS[path][:2]
+    need(pdq, f"{path}: the SSD paths serve PDQ records")
+    rounds = st["prefill_batches"]
+    pre = rounds + st["chunk_batches"]
+    dec = st["decode_steps"] * block_of(path)
+    kinds = cfg.head + cfg.pattern * cfg.n_blocks + cfg.tail
+    n_mamba, n_shared = kinds.count("mamba"), kinds.count("shared")
+    need(n_mamba + n_shared == cfg.n_layers, f"{path}: layer kinds {set(kinds)}")
+    want = dict(pdq_prologue=2 * n_mamba * (pre + dec)
+                + n_shared * (3 * pre + (3 - int(int8_kv)) * dec),
+                w8a8_matmul=2 * n_mamba * (pre + dec) + 3 * n_shared * (pre + dec),
+                w8a8_swiglu_matmul=n_shared * (pre + dec),
+                decode_attend_i8kv=0,
+                decode_attend_i8kv_fused=n_shared * dec if int8_kv else 0,
+                cache_scatter=rounds, cache_scatter_pages=0,
+                act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
+    if is_paged(path):
+        want.update(cache_scatter=0, cache_scatter_pages=(
+            rounds + 2 * st["decode_steps"] + st.get("spill_restores", 0)))
+    modes = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
+    modes["norm+interval"] = 2 * (n_mamba + n_shared) * (pre + dec)
+    modes["interval"] = n_shared * (pre + (0 if int8_kv else dec))
     return want, modes
 
 
@@ -2198,7 +2469,7 @@ def phase_step(eng, path, serve_step_ms):
                                       for ms, k, n, _ in rows_[:8]],
                          all_device_rows=[dict(kernel=k[:120], ms=ms, launches=n,
                                                recorded=c) for ms, k, n, c in rows_])
-    if path in MOE_PATHS:
+    if path in MOE_PATHS + SSM_PATHS:
         out["split"] = step_split(path, variants["eager"])
     g, e = out["graph"], out["eager"]
     out["speedup"] = e["wall_ms_median"] / g["wall_ms_median"]
@@ -2222,10 +2493,12 @@ def phase_step(eng, path, serve_step_ms):
 
 
 def step_split(path, eager):
-    """A MoE path's eager step, profiled with a range around each layer's
-    routed experts (``moe_ffn_dense_masked``: the router, the E x 3 expert
-    products and the gated sum, all plain torch) and around its attention
-    (``mla_apply`` / ``gqa_apply``, its projections' K1 and K2 included):
+    """A MoE or SSD path's eager step, profiled with a range around each
+    layer's routed experts (``moe_ffn_dense_masked``: the router, the E x 3
+    expert products and the gated sum, all plain torch), around its
+    attention (``mla_apply`` / ``gqa_apply``, its projections' K1 and K2
+    included) and around its SSD block (``ssm_apply``: in_proj's and
+    out_proj's K1 and K2, the conv, the state update and the gated norm):
     device ms a step in each range, in the hand kernels (K1-K10 by their
     CUDA names, ``HAND_KERNEL``) and in all.  The ranges are this script's
     (the module's names wrapped for the window); a range the profiler
@@ -2234,7 +2507,7 @@ def step_split(path, eager):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import transformer as tr
-    names = ("moe_ffn_dense_masked", "mla_apply", "gqa_apply")
+    names = ("moe_ffn_dense_masked", "mla_apply", "gqa_apply", "ssm_apply")
     saved = {n: getattr(tr, n) for n in names}
 
     def ranged(name, fn):
@@ -2273,11 +2546,12 @@ def step_split(path, eager):
                hand_kernels_ms=sum(r[0] for r in rows if hand.search(r[1])),
                routed_experts_ms=ranges.get("moe_ffn_dense_masked"),
                attention_ms=ranges.get("mla_apply") or ranges.get("gqa_apply"),
+               ssd_ms=ranges.get("ssm_apply"),
                hand_kernel_rows=[dict(kernel=k[:120], ms=ms, launches=n)
                                  for ms, k, n, _ in rows if hand.search(k)])
     log(f"step {path} split (eager, device ms a step): busy {out['device_busy_ms']:.3f}, "
         f"routed experts {out['routed_experts_ms']}, attention {out['attention_ms']}, "
-        f"hand kernels {out['hand_kernels_ms']:.3f}")
+        f"SSD blocks {out['ssd_ms']}, hand kernels {out['hand_kernels_ms']:.3f}")
     return out
 
 
@@ -2390,12 +2664,15 @@ def phase_parity(eng, path, n_tokens=8):
         toks.append(int(out[-1].argmax()) if teacher is None else -1)
         return out, toks, tel
 
-    k_routes, p_routes = [], []
-    with route_log(k_routes, step):
+    k_routes, p_routes, k_att, p_att = [], [], [], []
+    with route_log(k_routes, step), attend_log(k_att, step):
         k_logits, k_toks, k_tel = run()
-    with plain_kernels(), route_log(p_routes, step):
+    with plain_kernels(), route_log(p_routes, step), attend_log(p_att, step):
         p_logits, _, p_tel = run(teacher=k_toks)
     flips = expert_flips(path, k_routes, p_routes)
+    # SSD paths: the first K5 code a tolerance apart from plain's, and the
+    # step it fed (None: the runs' K5 codes never parted)
+    code_flip = code_flips(path, k_att, p_att) if path in SSM_PATHS else None
     health = [tel_agree(path, "records' alpha, beta", k_tel, p_tel)]
     # the same with outputs clipping: every record's alpha and beta scaled
     # (this engine serves nothing after its parity phase)
@@ -2408,17 +2685,21 @@ def phase_parity(eng, path, n_tokens=8):
     need(not PATHS[path][1] or health[-1]["kernel"][1] > 0,
          f"parity {path}: no output clipped at alpha, beta x {CLIP_SCALE}")
     tol = LOGIT_TOL[path]
-    diffs = []
+    diffs = [float((kl - pl).abs().max()) for kl, pl in zip(k_logits, p_logits)]
+    log(f"parity {path}: max |logits diff| per step {diffs} (tolerance {tol})")
     first_flip = min(flips) if flips else None
     for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
-        d = float((kl - pl).abs().max())
-        diffs.append(d)
+        d = diffs[i]
         need(torch.isfinite(kl).all(), f"parity {path} step {i}: non-finite logits")
         if first_flip is not None and i >= first_flip:
             # a router decision taken apart (within ROUTER_EPS) at or before
             # this step moves the logits by an expert's contribution
             log(f"parity {path} step {i}: logits differ by {d} after the expert "
                 f"flips of step {first_flip} (tolerance {tol} not applied)")
+        elif code_flip is not None and i >= code_flip:
+            log(f"parity {path} step {i}: logits differ by {d} after K5's code flip "
+                f"at step {code_flip} (tolerance {tol} not applied)")
+            continue
         else:
             need(d <= tol, f"parity {path} step {i}: logits differ by {d} > {tol}")
         if int(kl.argmax()) != int(pl.argmax()):
@@ -2433,7 +2714,58 @@ def phase_parity(eng, path, n_tokens=8):
         f"{float(max(kl.abs().max() for kl in k_logits)):.4g}")
     if path in MOE_PATHS:
         health.append(dict(expert_flips=flips, logit_diff_per_step=diffs))
+    if path in SSM_PATHS:
+        health.append(dict(code_flip_step=code_flip, logit_diff_per_step=diffs))
     return max(diffs), health
+
+
+@contextlib.contextmanager
+def attend_log(out, step):
+    """Record every K5 call (``kv.decode_attend_i8kv_fused``, the op
+    layer's entry, whichever version it runs) as (output step ``step[0]``,
+    o, o_q, s_x), on the host."""
+    from repro_torch.kernels import kv_cache as kv
+    orig = kv.decode_attend_i8kv_fused
+
+    def traced(*args):
+        res = orig(*args)
+        out.append((step[0],) + tuple(t.cpu() for t in res[:3]))
+        return res
+
+    kv.decode_attend_i8kv_fused = traced
+    try:
+        yield
+    finally:
+        kv.decode_attend_i8kv_fused = orig
+
+
+def code_flips(path, k_att, p_att):
+    """The output step at which the kernel run's K5 first gave wo's
+    prologue other int8 codes than the plain run's, or None.  That first
+    call ran on equal inputs, so it must hold K5's contract (the kernel
+    phase's check): o within ATTEND_TOL, s_x within rtol 1e-5, codes one
+    apart at most and only where o (rounded to bf16) or s_x differ; later
+    calls run on inputs the flip moved and are not compared."""
+    import torch
+    need(len(k_att) == len(p_att), f"parity {path}: K5 calls {len(k_att)} (kernels) "
+         f"and {len(p_att)} (plain)")
+    for (sk, ok, qk, xk), (sp, op, qp, xp) in zip(k_att, p_att):
+        need(sk == sp, f"parity {path}: K5 calls disagree on the step")
+        if torch.equal(qk, qp):
+            continue
+        B = qk.shape[0]
+        same = ((ok.reshape(B, -1).to(torch.bfloat16) == op.reshape(B, -1).to(torch.bfloat16))
+                & (xk == xp))
+        dq = (qk.int() - qp.int()).abs()
+        need(bool(torch.isclose(ok, op, rtol=ATTEND_TOL, atol=ATTEND_TOL).all())
+             and bool(torch.isclose(xk, xp, rtol=1e-5, atol=0).all())
+             and int(dq.max()) <= 1 and bool((dq[same] == 0).all()),
+             f"parity {path}: step {sk}: K5's codes part from plain's outside its "
+             f"contract (max code difference {int(dq.max())})")
+        log(f"parity {path}: step {sk}: K5 gave {int((dq > 0).sum())} codes one apart "
+            f"from plain's (o within {ATTEND_TOL}); later steps reported, not bound")
+        return sk
+    return None
 
 
 @contextlib.contextmanager
@@ -2627,17 +2959,18 @@ def check_streams(path, run, ref_run, ref="A"):
 
 
 def check_paged_run(path, run, ref_run, ref="A"):
-    """D1/D2/D16 against A's first run, HD against H's: the same greedy
-    streams (``check_streams``); each shares the system prompt's pages, D2
-    preempts, spills every victim to host memory and restores it."""
+    """D1/D2/D16 against A's first run, HD against H's, ZD against Z's: the
+    same greedy streams (``check_streams``); each shares the system
+    prompt's pages, D2 preempts, spills every victim to host memory and
+    restores it, HD and ZD never preempt."""
     st = run["stats"]
     check_streams(path, run, ref_run, ref)
     need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
     if path == "D2":
         need(st["preemptions"] >= 1 and st["spill_restores"] >= 1,
              f"D2: pool of {D2_POOL_PAGES} pages did not preempt and restore: {st}")
-    if path == "HD":
-        need(st["preemptions"] == 0, f"HD: the pool preempted: {st}")
+    if path in ("HD", "ZD"):
+        need(st["preemptions"] == 0, f"{path}: the pool preempted: {st}")
     log(f"serve {path}: streams equal {ref}'s; prefix hits {st['prefix_hits']} "
         f"({st['prefix_shared_pages']} pages), preemptions {st['preemptions']}, "
         f"spills {st['spills']}, restores {st['spill_restores']}")
@@ -3081,6 +3414,11 @@ def main(argv=None) -> int:
     counts.update(m_counts)
     serve.update(m_serve)
     parity.update(m_parity)
+    # paths M, Z, ZD: mamba2-2.7b and zamba2-7b at full width and depth
+    s_counts, s_serve, s_parity = phase_ssm(detail)
+    counts.update(s_counts)
+    serve.update(s_serve)
+    parity.update(s_parity)
     # path G: the CNN track, trained, calibrated and evaluated on the card
     with timed("cnn G"):
         cnn_track = phase_cnn()
@@ -3131,7 +3469,7 @@ def main(argv=None) -> int:
                                 {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms")}
                                 for r in detail if r["name"] == name and r.get("path") == tag]
-                               for tag in ("H",) + MOE_PATHS},
+                               for tag in ("H",) + MOE_PATHS + SSM_PATHS},
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one

@@ -35,21 +35,24 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     """Reference params (numpy leaves) -> the port's params on ``device``:
     the card unless the caller asks for the CPU, and an error where CUDA is
     absent (``models.api.resolve_device``).  Head and tail layers (a tuple
-    of layer dicts each) map one to one; every leaf of a stacked block,
-    the MoE layers' (E, ...) expert stacks and router included, is split
-    per block."""
+    of layer dicts each) and zamba2's ``shared_block`` map one to one;
+    every leaf of a stacked block, the MoE layers' (E, ...) expert stacks
+    and router and a mamba layer's nested ``ssm`` dict included, is split
+    per block (a ``shared`` kind's stacked ``{}`` gives an empty dict a
+    block)."""
     device = resolve_device(device)
-    if tree.get("shared_block") or tree.get("enc_blocks"):
+    if tree.get("enc_blocks"):
         raise NotImplementedError(
-            "the port runs no shared (zamba2) or encoder layers "
-            "(ROADMAP.md Queue 1, item 6)")
+            "the port runs no encoder layers (ROADMAP.md Queue 1, item 6)")
 
     def t(a):
         return _tensor(a, device)
 
     kinds = tuple(tree["blocks"])
-    n = len(kinds[0]["attn_norm"])
-    return {
+    # the block count: any leaf's leading extent, of the first kind that
+    # has leaves (a ``shared`` kind's stacked params are an empty dict)
+    n = len(_first_leaf(next(k for k in kinds if k)))
+    out = {
         "embed": _map(t, tree["embed"]),
         "final_norm": t(tree["final_norm"]),
         "head": [_map(t, layer) for layer in tree.get("head", ())],
@@ -57,6 +60,15 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         "blocks": [_map(lambda a, i=i: _tensor(a[i], device), stacked)
                    for i in range(n) for stacked in kinds],
     }
+    if tree.get("shared_block"):
+        out["shared_block"] = _map(t, tree["shared_block"])
+    return out
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def cnn_params_from_numpy(tree: dict, device="cuda") -> dict:

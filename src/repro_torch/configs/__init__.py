@@ -1,9 +1,11 @@
 """Architecture registry: ``get_config('<arch-id>')``.
 
 Only the families the port runs are registered: the GQA decoders with or
-without local (sliding-window) layers, and the MoE decoders (deepseek-v2
-with MLA, arctic with a dense residual).  The others join with their slice
-(ROADMAP.md Queue 1, item 6: mamba2, zamba2, seamless, phi-3-vision).
+without local (sliding-window) layers, the MoE decoders (deepseek-v2 with
+MLA, arctic with a dense residual), the attention-free Mamba2 SSD decoder
+(mamba2) and the hybrid of SSD layers and one shared attention block
+(zamba2).  The others join with their slice (ROADMAP.md Queue 1, item 6:
+seamless, phi-3-vision).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ _MODULES = {
     "stablelm-1.6b": "stablelm_1p6b",
     "yi-6b": "yi_6b",
     "gemma2-2b": "gemma2_2b",
+    "mamba2-2.7b": "mamba2_2p7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ALL_ARCHS = tuple(_MODULES)

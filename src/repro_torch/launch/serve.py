@@ -7,7 +7,8 @@ with the PDQ-int8 path, on the card unless ``--device cpu``.
         [--decode-steps 4] [--pdq-fallback] [--no-telemetry] [--device cpu]
 
 ``--arch`` picks a registered model (stablelm-1.6b, gemma3-12b, gemma2-2b,
-yi-6b, deepseek-v2-236b, arctic-480b); ``--chunked-prefill`` splits
+yi-6b, deepseek-v2-236b, arctic-480b, mamba2-2.7b, zamba2-7b);
+``--chunked-prefill`` splits
 prompts longer than the largest bucket into chunks of that bucket's length
 (``--prompt-len`` sets the longest canned prompt).
 

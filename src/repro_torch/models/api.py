@@ -69,9 +69,12 @@ class PagedCacheOps:
     arrays and sent to the device once per movement.
 
     Unlike the reference's functions they update ``pool`` in place.  Leaves
-    whose shape does not grow with ``max_len`` (the flat ``len`` leaf, and
-    int8 K/V leaves whose 128-rounded extent is the same at ``max_len`` and
-    ``2 * max_len``) classify 'flat' and keep per-slot rows in the pool.
+    whose shape does not grow with ``max_len`` (the flat ``len`` leaf, a
+    mamba layer's conv window and f32 SSD state, and int8 K/V leaves whose
+    128-rounded extent is the same at ``max_len`` and ``2 * max_len``)
+    classify 'flat' and keep per-slot rows in the pool: they land, spill
+    and restore as whole slot rows in the same launch as the pages, start
+    at zero, and the decode step updates them in the pool itself.
     """
     page: int
     n_pp: int            # page-table width: max_len // page
@@ -85,6 +88,7 @@ class PagedCacheOps:
     restore: Callable[..., Any]    # (pool, rec, pmap, src_map) -> pool
     gather_moves: Callable[..., Any]     # (pool, pt, lengths, out=None) -> (logical, moves)
     writeback_moves: Callable[..., Any]  # (pool, logical, pt, positions, ...) -> moves
+    land_moves: Callable[..., Any]       # (pool, sub, src_map, rows, js) -> moves
 
 
 _SECTIONS = (("head", 0), ("tail", 0), ("blocks", 1))
@@ -364,12 +368,11 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
             _tree_map(flat, meta, pool, logical)
             return pool
 
-        def land(pool, sub, src_map, land_rows, land_js):
-            """Land a bucketed prefill batch in one launch: flat leaves take
-            whole slot rows through ``src_map``; paged leaves take pages -
-            pool page p takes page ``land_js[p]`` of scratch row
-            ``land_rows[p]`` (-1 keeps; the planner leaves shared prefix
-            pages out)."""
+        def land_moves(pool, sub, src_map, land_rows, land_js):
+            """The landing's moves, one a leaf: flat leaves take whole slot
+            rows through ``src_map``; paged leaves take pages - pool page p
+            takes page ``land_js[p]`` of scratch row ``land_rows[p]`` (-1
+            keeps; the planner leaves shared prefix pages out)."""
             rows = np.asarray(land_rows, np.int32)
             js = np.asarray(land_js, np.int32)
             maps = {nl: np.where(rows >= 0, rows * nl + js, -1).astype(np.int32)
@@ -381,9 +384,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                 moves.append(Move(pool_leaf, s, None, m.seq_axis, page, ba,
                                   host_map=maps[m.n_leaf]) if paged(m) else
                              Move(pool_leaf, s, batch_axis=ba, host_map=slots))
-                return pool_leaf
             _tree_map(one, meta, pool, sub)
-            kernel_ops.cache_move(moves)
+            return moves
+
+        def land(pool, sub, src_map, land_rows, land_js):
+            """Land a bucketed prefill batch in one launch (``land_moves``)."""
+            kernel_ops.cache_move(land_moves(pool, sub, src_map, land_rows, land_js))
             return pool
 
         def copy(pool, copy_map):
@@ -439,7 +445,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                              gather=gather, writeback=writeback, land=land,
                              copy=copy, capture=capture, restore=restore,
                              gather_moves=gather_moves,
-                             writeback_moves=writeback_moves)
+                             writeback_moves=writeback_moves, land_moves=land_moves)
 
     return ModelBundle(cfg=cfg, device=dev, init=init, init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,

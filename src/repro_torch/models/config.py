@@ -4,17 +4,22 @@ The port carries the fields its families run: a decoder-only LM whose
 layers are ``head`` (unrolled) + ``n_blocks`` repeats of ``pattern`` +
 ``tail``, each kind ``global`` (full attention, GQA or MLA; MoE FFN if
 ``moe``), ``global_dense`` (``global`` with a dense FFN always: DeepSeek's
-layer 0) or ``local`` (sliding-window attention over a ring of ``window``
-positions), with gemma's softcaps and embedding scale (the reference scans
-the stacked blocks; the port loops over a per-layer list).  The SSM,
-encoder-decoder and frontend fields arrive with the model families that
-use them (ROADMAP.md Queue 1, item 6).
+layer 0), ``local`` (sliding-window attention over a ring of ``window``
+positions), ``mamba`` (a Mamba2 SSD block, ``ssm``) or ``shared`` (zamba2's
+shared block: one ``global`` layer's params reused at every occurrence,
+each occurrence with its own KV cache), with gemma's softcaps and
+embedding scale (the reference scans the stacked blocks; the port loops
+over a per-layer list).  ``family`` and ``frontend`` name the
+encoder-decoder and frontend configs, which the port refuses until their
+fields arrive with the model families that use them (ROADMAP.md Queue 1,
+item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from .moe import MoEConfig
+from .ssm import SSMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +52,8 @@ class ArchConfig:
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
+    ssm: SSMConfig | None = None
+    frontend: str | None = None            # 'audio' | 'vision': refused (item 6)
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
@@ -89,5 +96,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
             capacity_factor=8.0)  # avoid capacity drops in tiny smoke tests
     if cfg.mla:
         base["mla"] = MLAConfig(q_lora=32, kv_lora=32, qk_nope=16, qk_rope=8, v_head=16)
+    if cfg.ssm:
+        base["ssm"] = SSMConfig(d_model=64, d_state=16, head_dim=16, expand=2,
+                                d_conv=4, chunk=16)
     base.update(overrides)
     return dataclasses.replace(cfg, **base).validate()

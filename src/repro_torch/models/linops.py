@@ -212,6 +212,10 @@ def quantize_param_tree(params, alpha: float = 6.0, beta: float = 6.0):
     ``jax.vmap(repro.models.linops.quantize_param_tree)`` makes for each
     layer of the reference's stacked blocks (the reference's own
     ``quantize_param_tree`` skips the 3-D stacks; ROADMAP.md Queue 3).
+    zamba2's ``shared_block`` is quantized like a layer, as the reference
+    quantizes its 2-D top-level leaves; a mamba layer's ``in_proj`` and
+    ``out_proj`` are records, its ``conv_w`` (2-D, but not a ``w*`` /
+    ``*_proj`` name), ``A_log``, ``D``, ``dt_bias`` and norms stay fp.
     """
     def rec(node, name):
         if isinstance(node, dict):

@@ -20,6 +20,13 @@ Arctic's dense residual MLP, and a ``global_dense`` layer's is a dense MLP
 of ``moe.d_ff_dense``.  The MoE FFN's router, experts and shared / dense
 MLP read one rms_norm(h), run in plain torch (the MLP's prologue then takes
 the interval alone); a dense FFN's norm runs inside its prologue.
+
+A ``mamba`` layer is h + the SSD block of rms_norm(h) (``ssm.py``; the norm
+runs inside ``in_proj``'s prologue), its cache the conv window and the
+state.  A ``shared`` entry of the pattern (zamba2) runs
+``params["shared_block"]``, ONE ``global`` layer's params, over its own
+occurrence's ``global`` cache; ``params["blocks"]`` keeps an empty dict at
+each ``shared`` position, as the reference's stacked ``{}`` does.
 """
 from __future__ import annotations
 
@@ -30,17 +37,18 @@ from .attention import (AttnDims, MLADims, gqa_apply, gqa_init, init_cache, mla_
 from .config import ArchConfig
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
 from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
+from .ssm import ssm_apply, ssm_init, ssm_init_cache
 
-KINDS = ("global", "global_dense", "local")
+KINDS = ("global", "global_dense", "local", "mamba", "shared")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.head) | set(cfg.pattern) | set(cfg.tail)
-    if cfg.family != "lm" or not kinds <= set(KINDS):
+    if cfg.family != "lm" or cfg.frontend is not None or not kinds <= set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders of global, global_dense and local "
-            f"layers (GQA or MLA, dense or MoE FFN); mamba, shared, encoder-decoder "
-            f"and frontend configs are ROADMAP.md Queue 1, item 6")
+            f"{cfg.name}: the port runs decoders of global, global_dense, local, "
+            f"mamba and shared layers (GQA or MLA, dense or MoE FFN, Mamba2 SSD); "
+            f"encoder-decoder and frontend configs are ROADMAP.md Queue 1, item 6")
 
 
 def attn_dims(cfg: ArchConfig, kind: str = "global") -> AttnDims:
@@ -73,6 +81,9 @@ def model_dtype(cfg: ArchConfig):
 
 def layer_init(cfg: ArchConfig, kind: str, dtype, gen: torch.Generator) -> dict:
     zeros = dict(dtype=dtype, device=gen.device)
+    if kind == "mamba":
+        return {"norm": torch.zeros((cfg.d_model,), **zeros),
+                "ssm": ssm_init(cfg.ssm, dtype, gen)}
     attn = (mla_init(mla_dims(cfg), dtype, gen) if _is_mla(cfg, kind)
             else gqa_init(attn_dims(cfg, kind), dtype, gen))
     if _is_moe(cfg, kind):
@@ -90,15 +101,23 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     zero norms.  The numbers differ from JAX's draws."""
     _check_supported(cfg)
     dtype = model_dtype(cfg)
-    return {"embed": embed_init(cfg.vocab, cfg.d_model, dtype, gen),
-            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device),
-            "head": [layer_init(cfg, kind, dtype, gen) for kind in cfg.head],
-            "tail": [layer_init(cfg, kind, dtype, gen) for kind in cfg.tail],
-            "blocks": [layer_init(cfg, kind, dtype, gen)
-                       for _ in range(cfg.n_blocks) for kind in cfg.pattern]}
+    params = {"embed": embed_init(cfg.vocab, cfg.d_model, dtype, gen),
+              "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device),
+              "head": [layer_init(cfg, kind, dtype, gen) for kind in cfg.head],
+              "tail": [layer_init(cfg, kind, dtype, gen) for kind in cfg.tail],
+              "blocks": [layer_init(cfg, kind, dtype, gen) if kind != "shared" else {}
+                         for _ in range(cfg.n_blocks) for kind in cfg.pattern]}
+    if "shared" in cfg.head + cfg.pattern + cfg.tail:
+        params["shared_block"] = layer_init(cfg, "global", dtype, gen)
+    return params
 
 
 def layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device) -> dict:
+    """A layer's cache; a ``shared`` occurrence's is a ``global`` layer's."""
+    if kind == "mamba":
+        return ssm_init_cache(cfg.ssm, batch, model_dtype(cfg), device)
+    if kind == "shared":
+        kind = "global"
     if _is_mla(cfg, kind):
         return mla_init_cache(mla_dims(cfg), batch, max_len, model_dtype(cfg), device)
     return init_cache(attn_dims(cfg, kind), batch, max_len, model_dtype(cfg), device)
@@ -141,6 +160,9 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
                 seq_lens=None, chunked: bool = False):
     """One layer on h (B, S, d), its cache updated in place."""
     eps = cfg.norm_eps
+    if kind == "mamba":
+        return h + ssm_apply(p["ssm"], cfg.ssm, h, mode=mode, cache=cache,
+                             seq_lens=seq_lens, norm=(p["norm"], eps))
     # each norm runs inside the prologue that reads its output (one K1
     # launch) wherever that input feeds one PDQ group
     if _is_mla(cfg, kind):
@@ -183,8 +205,11 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
     for i in range(cfg.n_blocks):
         for j, kind in enumerate(cfg.pattern):
             cache = {k: v[i] for k, v in caches["blocks"][j].items()}
-            h = layer_apply(params["blocks"][i * P + j], cfg, kind, h, positions,
-                            cache=cache, **kw)
+            if kind == "shared":
+                p, kind = params["shared_block"], "global"
+            else:
+                p = params["blocks"][i * P + j]
+            h = layer_apply(p, cfg, kind, h, positions, cache=cache, **kw)
     for i, kind in enumerate(cfg.tail):
         h = layer_apply(params["tail"][i], cfg, kind, h, positions,
                         cache=caches["tail"][i], **kw)

@@ -38,6 +38,12 @@ partial are back at 0 (the barrier's generation word moved on by two
 barriers a K3 launch); a replay after the kernels' workspaces grew (an
 eager Sp-4096 attend and a wider W8A8) repeats its bits; and the capture
 runs with Python's cycle collector off.
+The SSD families: K2 at the SSD projections' full widths (ragged N of
+10576 and 14576), K4/K5 at zamba2's G 1, Dh 112, Sp 512, K6 and K7 moving
+zamba2-7b's f32 state and bf16 conv leaves (flat slot rows) with the
+shared occurrences' K/V in one launch a movement, bit-equal to plain; and
+a reduced zamba2 engine whose replayed decode graph serves the eager
+engine's streams, pool bits (conv and state included) and counts.
 PDQ health and the guard: NaN in an operand (a row's s_x, a weight scale,
 a clamp bound) or a row of x makes exactly the plain version's outputs
 non-finite, on both K2/K3 routes and in every K1 mode, and in K5's wo
@@ -288,6 +294,24 @@ def test_w8a8_wgmma_route_main_path_shapes(gen, M, K, N):
     ops = _zero_point(_operands(gen, M, K, N, N // 128), True)
     args = ops[:6] + (None, None) + ops[8:]
     kw = dict(out_dtype=torch.bfloat16)
+    got = mm.w8a8_matmul_cuda(*args, **kw)
+    assert torch.equal(got, mm.w8a8_matmul_plain(*args, **kw))
+    assert torch.equal(mm.w8a8_matmul_cuda(*args, **kw), got)
+    assert torch.equal(mm.w8a8_matmul_cuda(*args, route="generic", **kw), got)
+
+
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("K,N", [(2560, 10576), (5120, 2560), (3584, 14576), (7168, 3584)])
+def test_w8a8_ssd_projection_shapes(gen, M, K, N):
+    """The SSD layers' in_proj and out_proj at full width: mamba2-2.7b's
+    (2560 -> 10576, 82 column tiles and 80 columns; 5120 -> 2560) and
+    zamba2-7b's (3584 -> 14576, 113 tiles and 112 columns; 7168 -> 3584),
+    one record each (one clamp a row), bf16 out; both routes bit-equal to
+    plain and the wgmma route to itself on a second launch."""
+    ops = _zero_point(_operands(gen, M, K, N, 1), True)
+    args = ops[:6] + (None, None) + ops[8:]
+    kw = dict(out_dtype=torch.bfloat16)
+    assert mm.route_for(args[0], args[1]) == "wgmma"
     got = mm.w8a8_matmul_cuda(*args, **kw)
     assert torch.equal(got, mm.w8a8_matmul_plain(*args, **kw))
     assert torch.equal(mm.w8a8_matmul_cuda(*args, **kw), got)
@@ -621,7 +645,11 @@ _ATTEND_CASES = [(1, 64, 130, [1, 127, 128, 129, 130, 0, 64]),
                  (1, 208, 129, [129, 128, 1]),
                  # arctic-480b: 56 heads over 8 kv heads, G 7 (the first
                  # odd G, through the (8, 128) instance) at path AR's Sp 512
-                 (7, 128, 512, [512, 1, 0, 127, 128, 129, 250, 511])]
+                 (7, 128, 512, [512, 1, 0, 127, 128, 129, 250, 511]),
+                 # zamba2-7b's shared block: 32 heads over 32 kv heads of
+                 # 112, G 1 at path Z's Sp 512 (the (8, 128) instance below
+                 # its head dim)
+                 (1, 112, 512, [512, 1, 0, 127, 128, 129, 250, 511])]
 
 
 def _tickets_at_rest(device):
@@ -1347,3 +1375,144 @@ def test_service_thread_replays_the_graph(card_model):
     got = {s.uid: s.result(timeout=600)[0] for s in streams}
     svc.stop()
     assert got == want and eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the SSD families: landings with f32 state leaves, the decode graph
+# ---------------------------------------------------------------------------
+
+def _zamba2_cfg():
+    """zamba2-7b at full width with the int8 KV cache (paths Z and ZD)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2-7b"), quant_kv="dynamic")
+
+
+def _zamba2_pool(batch, max_len):
+    """zamba2-7b's slot-row caches at full width (68 mamba layers' conv and
+    f32 state, 13 shared occurrences' int8 K/V)."""
+    from repro_torch.models.transformer import lm_init_caches
+    return lm_init_caches(_zamba2_cfg(), batch, max_len, "cuda")
+
+
+def _ssd_leaves(tree):
+    return [v for sec in ("blocks", "tail") for d in tree[sec] for _, v in sorted(d.items())]
+
+
+def test_slot_row_landing_with_ssd_state_leaves(gen):
+    """K6 landing a round into zamba2-7b's pool at full width (22 leaves:
+    five mamba kinds' conv and 14.7 MB a layer of f32 state, the shared
+    kind's k, v, k_scale, v_scale, pos, len, three tail layers') in one
+    launch, bit-equal to
+    plain; the untouched slots keep their bytes."""
+    pool, sub = _zamba2_pool(8, 512), _zamba2_pool(8, 512)
+    moves = []
+    for sec, ba in (("blocks", 1), ("tail", 0)):
+        for c, s_ in zip(pool[sec], sub[sec]):
+            for k in c:
+                s_[k].copy_(_rand_leaf(gen, s_[k].shape, s_[k].dtype))
+                c[k].copy_(_rand_leaf(gen, c[k].shape, c[k].dtype))
+                moves.append(kv.Move(c[k], s_[k], batch_axis=ba, host_map=np.array(
+                    [2, -1, 0, 1, -1, 3, -1, -1], np.int32)))
+    assert len(moves) == 22
+    assert any(mv.dst.dtype == torch.float32 and mv.dst.dim() == 5 for mv in moves)
+    moves = ops.device_moves(moves)
+    want = _plain_of(moves)
+    before = kv.COUNT.launches
+    kv.cache_move_cuda(moves, kv.COUNT)
+    torch.cuda.synchronize()
+    assert kv.COUNT.launches == before + 1
+    for mv, w in zip(moves, want):
+        assert _same_bits(mv.dst, w), tuple(mv.dst.shape)
+
+
+def test_paged_movements_with_ssd_state_leaves(gen, monkeypatch):
+    """K7 on zamba2-7b's paged pool at full width (int8 KV, page 64): the conv and
+    state leaves classify flat and move as slot rows in the same launch as
+    the shared occurrences' pages, in a landing, a spill's restore and a
+    decode gather; each bit-equal to the plain version's movement."""
+    cfg = _zamba2_cfg()
+    b = build_model(cfg, "cuda")
+    po = b.paged_cache(8, 512, 64)
+    kinds = {m.kind for d in po.meta["blocks"] + po.meta["tail"] for m in d.values()}
+    assert kinds == {"flat", "seq"}
+    for j, kind in enumerate(cfg.pattern):
+        for name, m in po.meta["blocks"][j].items():
+            assert m.kind == ("seq" if kind == "shared" and name != "len" else "flat")
+    N = 8 * po.n_pp + 1
+    sub = b.init_caches(8, 512)
+    for v in _ssd_leaves(sub):
+        v.copy_(_rand_leaf(gen, v.shape, v.dtype))
+    rows = np.full((N,), -1, np.int32)
+    js = np.full((N,), -1, np.int32)
+    rows[1:9], js[1:9] = np.repeat([0, 2], 4), np.tile(np.arange(4), 2)
+    smap = np.array([0, -1, 2, -1, -1, -1, -1, -1], np.int32)
+    rec_pmap = np.full((N,), -1, np.int32)
+    rec_pmap[9:13] = np.arange(4)
+    rsmap = np.array([-1, 0, -1, -1, -1, -1, -1, -1], np.int32)
+    pt = np.full((8, po.n_pp), -1, np.int32)
+    pt[0, :4], pt[2, :4], pt[1, :4] = np.arange(1, 5), np.arange(5, 9), np.arange(9, 13)
+
+    def run():
+        pool = po.init(N)
+        po.land(pool, sub, smap, rows, js)
+        rec = po.capture(pool, 0, np.arange(1, 5))
+        po.restore(pool, rec, rec_pmap, rsmap)
+        logical = po.gather(pool, pt, np.array([200, 150, 256, 0, 0, 0, 0, 0]))
+        return _ssd_leaves(pool), _ssd_leaves(logical)
+
+    before = kv.PAGES_COUNT.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kv.PAGES_COUNT.launches == before + 3
+    monkeypatch.setattr(kv, "cache_move_cuda", kv.cache_move_plain)
+    want = run()
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert _same_bits(g, w), tuple(g.shape)
+
+
+@pytest.fixture(scope="module")
+def ssd_card_model():
+    """zamba2-7b reduced to one pattern block and its tail (9 layers) at
+    d_model 256, bf16, int8 KV; the SSM at d_inner 512 (32 heads of 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card")
+    from repro_torch.models.ssm import SSMConfig
+    cfg = reduced_config("zamba2-7b", n_layers=9, d_model=256, d_ff=512, head_dim=64,
+                         vocab=1024, dtype="bfloat16", quant_kv="dynamic",
+                         ssm=SSMConfig(d_model=256, d_state=16, head_dim=16, expand=2,
+                                       d_conv=4, chunk=16))
+    return cfg, build_model(cfg, "cuda").init(0)
+
+
+def _serve_ssd(eng):
+    reqs = _graph_reqs(eng.cfg)
+    ops.reset_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    assert all(r.done and r.error is None for r in reqs)
+    return ({r.uid: r.generated for r in reqs}, [v.clone() for v in _ssd_leaves(eng.caches)],
+            (ops.counts(), ops.route_counts(), ops.prologue_modes()))
+
+
+@pytest.mark.parametrize("n,paged", [(1, False), (4, False), (1, True), (4, True)])
+def test_ssd_decode_graph_replay_equals_eager(ssd_card_model, monkeypatch, n, paged):
+    """The SSD decode step writes the conv window and the state in place, so
+    a replay of the captured block serves the streams of the same engine
+    stepping eagerly, leaves the same pool bits (conv and state included)
+    and counts the same launches; slot rows and paged (page 16)."""
+    kw = dict(slots=4, max_len=128, buckets=(16, 32, 64), quantize_weights=True,
+              device="cuda", decode_steps=n)
+    if paged:
+        kw.update(paged=True, page_size=16)
+    cfg, params = ssd_card_model
+    eng = build_engine(ServeConfig(**kw), cfg=cfg, params=params)
+    got = _serve_ssd(eng)
+    assert eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0
+    monkeypatch.setattr(engine_mod, "_graphed", lambda device: False)
+    plain = build_engine(ServeConfig(**kw), cfg=cfg, params=params)
+    assert plain._graph is None
+    want = _serve_ssd(plain)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert got[2] == want[2]

@@ -161,14 +161,14 @@ def test_multihost_with_a_mesh_names_item_8(weights):
 
 def test_other_model_families_name_item_6():
     """Model families the port does not run yet point at Queue 1 item 6,
-    from the registry and from build_model: an unregistered arch, and a
-    pattern with a layer kind other than global, global_dense and local
-    (here mamba), or a head layer of such a kind (zamba2's shared block)."""
+    from the registry and from build_model: an unregistered arch
+    (seamless), an encoder-decoder config and a config with a frontend
+    (phi-3-vision's patches)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     with pytest.raises(KeyError, match="item 6"):
-        get_config("mamba2-2.7b")
-    for fields in (dict(pattern=("mamba", "global")), dict(head=("shared",), n_layers=3)):
+        get_config("seamless-m4t-medium")
+    for fields in (dict(family="encdec"), dict(frontend="vision")):
         cfg = dataclasses.replace(t_reduced("stablelm-1.6b"), **fields)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
             build_model(cfg, "cpu").init(0)
