@@ -8,8 +8,10 @@ from a seeded generator), of full-width gemma3-12b (H, HD, HB, HBW:
 chunked prefill and the local/global decoder) and of the MoE families at
 full width, cut in depth (DS, DSD: deepseek-v2-236b; AR: arctic-480b)
 and of the SSD families at full width and full depth (M: mamba2-2.7b; Z,
-ZD: zamba2-7b), each built with build_engine(ServeConfig(..., device="cuda")), and one
-path of ops-level calls on stablelm's weights (E):
+ZD: zamba2-7b) and of the prefill extras' families at full width and full
+depth (V, VD: phi-3-vision-4.2b; S, SD: seamless-m4t-medium), each built
+with build_engine(ServeConfig(..., device="cuda")), and one path of
+ops-level calls on stablelm's weights (E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
@@ -101,6 +103,26 @@ path of ops-level calls on stablelm's weights (E):
   ZD Z on a paged pool (page 64, prefix sharing, a pool that never
      preempts): the SSD leaves flat slot rows, the shared occurrences' K/V
      pages, K7 in K6's place; its streams must equal Z's;
+  V  phi-3-vision-4.2b at full width and full depth (32 layers, d_model
+     3072, 32 x 96 heads over 32 kv heads, d_ff 8192, vocab 32064; seeded
+     random bf16 weights, PDQ-int8 records made by V's engine) with its
+     1024 stub patch embeddings (models/frontend.py, seeded) prepended to
+     every prompt, int8 KV, slot rows, A's requests on 8 slots, max_len
+     1536: K1, K2, K3, K5 (G 1, Dh 96: the (8, 128) instance) and K6; A's 7
+     launches a layer and step;
+  VD V on a paged pool (page 64; a run's extras turn prefix sharing off):
+     K7 in K6's place; its streams must equal V's;
+  S  seamless-m4t-medium at full width and full depth (12 encoder and 12
+     decoder layers, d_model 1024, 16 x 64 heads, d_ff 4096, vocab 256206)
+     over 8 stub frame embeddings (the engine's mem_len), int8 KV, slot
+     rows, A's serving shape: every prefill runs the bidirectional encoder
+     (A's prefill layer each) and each decoder layer's cross block, whose
+     (wk, wv) group projects the encoder's output once into the layer's
+     cross K/V leaves; a decode step's layer is K1 x 4 (QKV, cross wq with
+     its norm, cross wo's interval, gate/up), K2 x 5, K3 and K5; the
+     cross-attention itself is plain torch, as the reference's is jnp;
+  SD S on a paged pool: the cross K/V leaves flat slot rows beside the
+     pages, moved in the same K7 launch; its streams must equal S's;
   G  the paper's CNN track (repro_torch.core, models/cnn.py,
      data/corruptions.py) at the widths of the repository's paper tables
      (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
@@ -166,7 +188,15 @@ Phases, each of which must pass (any failure exits non-zero):
                 shapes (ragged N 10576 and 14576), Z's shared QKV, wo,
                 gate/up (K3) and w_down, K4/K5 at G 1, Dh 112, Sp 512, K6
                 a round's landing with every conv and state leaf, K7 ZD's
-                landing (slot rows and pages in one launch) and gather;
+                landing (slot rows and pages in one launch) and gather.
+                The extras paths' rows (tagged V, VD, S, SD;
+                ``extras_kernels``): K1-K3 at V's QKV (3072 -> 3 x 3072,
+                also at 8 x (1024 + 256) prefill rows), wo, gate/up (2 x
+                8192) and w_down, and at S's QKV, cross wq, the cross
+                (wk, wv) group over 8 x 8 memory rows, cross wo, gate/up and
+                w_down; K4/K5 at V's G 1, Dh 96, Sp 1536 and S's Hkv 16,
+                Dh 64, Sp 512; K6 a round's landing (S's with the cross
+                leaves); K7 VD's and SD's landing and gather;
   3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
                 H's of H_PROMPTS; otherwise prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
@@ -191,8 +221,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore; per-token decode time and tokens/s of each run;
-  4. step     - on A, B, C, D1, F, H, DS, DSD, AR, M and Z, one decode
-                step of the full pool at position 300 two ways on the
+  4. step     - on A, B, C, D1, F, H, DS, DSD, AR, M, Z, V and S, one
+                decode step of the full pool at position 300 (V's behind
+                its 1024 patches) two ways on the
                 same state, eager (ops
                 launched from the host) and a replay of the engine's
                 one-step graph, in five alternated pairs of three-step
@@ -200,9 +231,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 of each: device busy ms, kernels a step and idle share; on
                 A also a graph of the same block captured with telemetry
                 off, alternated with the two (the counting's cost);
-  5. parity   - on A, B, C, F, FF, H, DS, DSD, AR, M and Z (F and FF
-                under the guard, FF under the fault; H's and M's prompt of
-                1100 tokens prefilled in its 256-token chunks), one request's first 8 greedy tokens through
+  5. parity   - on A, B, C, F, FF, H, DS, DSD, AR, M, Z, V and S (F and
+                FF under the guard, FF under the fault; H's and M's prompt
+                of 1100 tokens prefilled in its 256-token chunks; V's and
+                S's with the path's extras), one request's first 8 greedy
+                tokens through
                 the kernels and through the plain versions on the card
                 (teacher-forced on the kernel path's tokens): logits within
                 the path's LOGIT_TOL, and each step's argmax agrees or the
@@ -210,7 +243,14 @@ Phases, each of which must pass (any failure exits non-zero):
                 vector of the kernel run equals the plain run's, also with
                 every record's alpha and beta scaled by CLIP_SCALE so that
                 outputs clip (then within TEL_SLACK: the clamp edges are
-                priced from sums in another order than plain's);
+                priced from sums in another order than plain's).  On M and
+                Z also one step at a time: each decode step again from a
+                copy of the kernel run's caches as they stood before it,
+                with every kernel plain, and with every kernel plain but
+                K5: the latter within LOGIT_TOL at every step (argmax-margin
+                check included), the former too but at a step whose K5
+                parted codes from plain's within its contract
+                (``code_flips``), where that step's own move is reported;
   6. unfused  - path E, after the serving runs: counts zeroed before and read
                 after, an exact census (each unfused call one K8 and one K2,
                 no K1; every K2 on the wgmma route, every K8 and K9 on the
@@ -233,7 +273,10 @@ Phases, each of which must pass (any failure exits non-zero):
                 and ZD (``phase_ssm``): their kernel rows, phases 3-5 for
                 M and Z (phase 4's ``step_split`` puts the SSD blocks
                 beside the attention and the hand kernels), ZD's phase 3
-                and its streams against Z's.
+                and its streams against Z's.  Then the extras paths V, VD,
+                S and SD (``phase_extras``): their kernel rows, phases 3-5
+                for V and S with the paths' extras, VD's and SD's phase 3
+                and their streams against V's and S's (no prefix hit).
   7. cnn      - path G, last: counts zeroed before and read after (every
                 kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
                 accuracy in [0, 1]; parity with the CPU: unquantized logits
@@ -291,8 +334,18 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
              # first step whose K5 gave wo's prologue a code one apart from
              # plain's (``code_flips``): the SSD state carries that code
              # into every later token and layer, where A's cache keeps it
-             # to one token, so later steps are reported, not bound
-             "M": 0.05, "Z": 0.25}
+             # to one token, so from there the bound holds the ONE-STEP
+             # difference (each decode step run plain from the kernel
+             # run's own caches as they stood before it) and the
+             # teacher-forced difference is reported
+             "M": 0.05, "Z": 0.25,
+             # V (phi-3-vision): A's argument over 32 layers in place of 24,
+             # 8 x 32 / 24 -> 11 bf16 ulps of 0.03125 (its random logits:
+             # final norm, then d_model 3072 x N(0, 0.02) rows, reach
+             # |logit| ~4-6 over 32064 tokens).  S (seamless): A's argument
+             # (int8 KV through K5) over its 12 decoder and 12 encoder
+             # layers, 24 as A's; its logits (d_model 1024) stay below 4
+             "V": 0.34375, "S": 0.25}
 # the parity phase's second health comparison: every record's alpha and
 # beta times this, so that outputs clip
 CLIP_SCALE = 0.25
@@ -311,7 +364,7 @@ CLIP_SCALE = 0.25
 TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
              "H": 1e-4,           # H: A's (K5's o and K3's sums move edges)
              "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4,    # C's and A's
-             "M": 1e-4, "Z": 1e-4}
+             "M": 1e-4, "Z": 1e-4, "V": 1e-4, "S": 1e-4}
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -371,6 +424,20 @@ ROUTER_EPS = 1e-3
 M_ARCH, M_MAX_LEN = "mamba2-2.7b", 2048
 Z_ARCH, Z_MAX_LEN = "zamba2-7b", 512
 Z_ATTEND_LENS = AR_ATTEND_LENS    # K5 at Z's cache (max_len 512, as AR's)
+# paths V, VD, S, SD: the prefill extras' families at full width and full
+# depth.  V: phi-3-vision-4.2b (32 layers, d_model 3072, 32 x 96 heads, d_ff
+# 8192) with its 1024 stub patch embeddings prepended to every prompt,
+# int8 KV, A's requests on 8 slots, max_len 1536 (1024 patches + a 250-token
+# prompt + 32 new tokens fit); VD: V paged (page 64; patches turn prefix
+# sharing off).  S: seamless-m4t-medium (12 encoder + 12 decoder layers,
+# d_model 1024, 16 x 64 heads, vocab 256206) over S_FRAMES stub frame
+# embeddings (the engine's mem_len), int8 KV, A's serving shape; SD: S
+# paged, the cross K/V leaves flat slot rows beside the pages
+V_ARCH, V_MAX_LEN = "phi-3-vision-4.2b", 1536
+S_ARCH, S_MAX_LEN = "seamless-m4t-medium", 512
+S_FRAMES = 8
+V_ATTEND_LENS = (1536, 1, 1044, 1153, 1024, 1025, 1280, 1306)   # K5 at V's cache
+S_ATTEND_LENS = AR_ATTEND_LENS    # K5 at S's cache (max_len 512, as AR's)
 # K1-K3 and the attend kernels, by their CUDA function names
 HAND_KERNEL = r"\b(prologue_kernel|w8a8_kernel|swiglu_kernel|gemm_kernel|split_kernel|" \
               r"attend_kernel|move_pages|act_stats_kernel|quantize_kernel|" \
@@ -417,10 +484,18 @@ PATHS = {
           dict(chunked_prefill=True)),
     "Z": (True, True, _A_KERNELS, {}),
     "ZD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
+    # the prefill extras' families: V (patches) and S (encoder frames) with
+    # int8 KV on slot rows (A's kernels), VD and SD paged
+    "V": (True, True, _A_KERNELS, {}),
+    "VD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
+    "S": (True, True, _A_KERNELS, {}),
+    "SD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
 }
 H_PATHS = ("H", "HD", "HB", "HBW")
 MOE_PATHS = ("DS", "DSD", "AR")
 SSM_PATHS = ("M", "Z", "ZD")
+EXTRAS_PATHS = ("V", "VD", "S", "SD")
+ENCDEC_PATHS = ("S", "SD")
 LONG_PATHS = H_PATHS + ("DS", "DSD", "M")      # H's prompts, max_len 2048
 FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
 GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
@@ -1420,14 +1495,16 @@ def phase_gemma3(detail):
     return counts, serve, parity
 
 
-def landing_moves(bundle, B, max_len, gen, smap):
+def landing_moves(bundle, B, max_len, gen, smap, mem_len=0):
     """A round's landing into a fresh slot-row pool of ``bundle``'s model
     from a random sub pool, every leaf of every section (head and tail
-    layers at batch axis 0, the stacked blocks at 1), as device moves."""
+    layers at batch axis 0, the stacked blocks at 1; an encoder-decoder's
+    ``mem_len`` rows of cross K/V included), as device moves."""
     import torch
     from repro_torch.kernels import kv_cache as kv
     from repro_torch.kernels import ops
-    pool, sub = bundle.init_caches(B, max_len), bundle.init_caches(B, max_len)
+    pool = bundle.init_caches(B, max_len, mem_len)
+    sub = bundle.init_caches(B, max_len, mem_len)
     moves = []
     for sec, ba in (("head", 0), ("tail", 0), ("blocks", 1)):
         for c, s_ in zip(pool[sec], sub[sec]):
@@ -1694,27 +1771,8 @@ def ssm_kernels(eng, path, detail):
 
     smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)[:M]
     if path == "ZD":
-        po = eng._paged_ops
-        N = M * po.n_pp + 1
-        pool = randomize(po.init(N))
-        sub = randomize(eng.bundle.init_caches(M, eng.max_len))
-        land_rows, land_js = np.full((N,), -1, np.int32), np.full((N,), -1, np.int32)
-        land_rows[1:1 + 4 * po.n_pp] = np.repeat(np.arange(4), po.n_pp)
-        land_js[1:1 + 4 * po.n_pp] = np.tile(np.arange(po.n_pp), 4)
-        land = ops.device_moves(po.land_moves(pool, sub, smap, land_rows, land_js))
-        time_movement(f"ZD: one round's landing, 4 of {M} slots, every page", land,
-                      kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
-                      index_copies(land, page_rows))
-        del land, sub
-        pt = (1 + np.arange(M * po.n_pp, dtype=np.int32)).reshape(M, po.n_pp)
-        lens = np.asarray([int(len(r.prompt)) + 16 for r in make_requests(cfg)], np.int32)
-        _, moves = po.gather_moves(pool, pt, lens)
-        gather = ops.device_moves(moves)
-        time_movement(f"ZD gather at frontiers {tuple(int(v) for v in lens)}", gather,
-                      kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
-                      index_copies(gather, page_rows), poison=True)
-        del pool, moves, gather
-        torch.cuda.empty_cache()
+        paged_kernel_rows(eng, path, gen, flush, record, randomize, smap,
+                          [len(r.prompt) + 16 for r in make_requests(cfg)])
         return
     stamps = torch.zeros((2 * mm._sms(dev),), dtype=torch.int64, device=dev)
     d, di = cfg.d_model, cfg.ssm.d_inner
@@ -1825,6 +1883,218 @@ def phase_ssm(detail):
             else:
                 check_paged_run(path, run, serve["Z"][0], ref="Z")
             run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            serve[path] = [run]
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return counts, serve, parity
+
+
+def path_extras(path, cfg):
+    """The prefill extras a V or S path serves with: the config's stub
+    patches or S_FRAMES frames (``models.frontend.stub_extras``), drawn in
+    the model dtype from a generator seeded 97 on the card; None
+    elsewhere."""
+    import torch
+    from repro_torch.models import frontend
+    if path not in EXTRAS_PATHS:
+        return None
+    need(frontend.N_FRAMES == S_FRAMES, f"the engine serves {frontend.N_FRAMES} frames")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(97)
+    return frontend.stub_extras(cfg, gen)
+
+
+def paged_kernel_rows(eng, path, gen, flush, record, randomize, smap, frontier):
+    """K7 on a paged path's pool: a round's landing (4 of the slots, every
+    page, the flat leaves as slot rows in the same launch) and a decode
+    gather at each row's ``frontier`` (tokens written), both bit-equal to
+    plain, beside ``index_copy_``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops
+    po, M = eng._paged_ops, eng.slots
+    N = M * po.n_pp + 1
+    pool = randomize(po.init(N))
+    sub = randomize(eng.bundle.init_caches(M, eng.max_len, eng.mem_len))
+    land_rows, land_js = np.full((N,), -1, np.int32), np.full((N,), -1, np.int32)
+    land_rows[1:1 + 4 * po.n_pp] = np.repeat(np.arange(4), po.n_pp)
+    land_js[1:1 + 4 * po.n_pp] = np.tile(np.arange(po.n_pp), 4)
+    land = ops.device_moves(po.land_moves(pool, sub, smap, land_rows, land_js))
+    time_movement(f"{path}: one round's landing, 4 of {M} slots, every page", land,
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                  index_copies(land, page_rows))
+    del land, sub
+    pt = (1 + np.arange(M * po.n_pp, dtype=np.int32)).reshape(M, po.n_pp)
+    lens = np.asarray(frontier, np.int32)
+    _, moves = po.gather_moves(pool, pt, lens)
+    gather = ops.device_moves(moves)
+    time_movement(f"{path} gather at frontiers {tuple(int(v) for v in lens)}", gather,
+                  kv.PAGES_COUNT, flush, record, False, "cache_scatter_pages",
+                  index_copies(gather, page_rows), poison=True)
+    del pool, moves, gather
+    torch.cuda.empty_cache()
+
+
+def extras_kernels(eng, path, detail):
+    """Phase 2 at the extras paths' shapes (rows tagged with ``path``), on
+    the engine's own PDQ records (decoder layer 0's) at decode rows (8
+    slots) and prefill rows.  V (phi-3-vision-4.2b): K1 on QKV (3072 -> 3 x
+    3072, with the norm) at decode rows and at 8 x (1024 patches + the 256
+    bucket) prefill rows, and on gate/up; K2 on QKV, wo and w_down
+    (8192 -> 3072) at decode, QKV at prefill; K3 on gate/up (3072 -> 2 x
+    8192) at both; K4/K5 at G 1, Dh 96, Sp 1536 (the (8, 128) instance); K6
+    a round's landing.  S (seamless-m4t-medium): K1 on QKV, the cross
+    block's wq with its cross_norm and its (wk, wv) group at the memory's
+    rows (8 slots x 8 frames; the interval alone), and gate/up; K2 on QKV,
+    cross (wk, wv) (1024 -> 2 x 1024), cross wq, cross wo and w_down at
+    decode, QKV at 8 x 256 prefill rows; K3 on gate/up (1024 -> 2 x 4096);
+    K4/K5 at Hkv 16, G 1, Dh 64, Sp 512; K6 a round's landing with the
+    cross leaves.  VD, SD: K7 a round's landing and a decode gather (SD's
+    cross leaves as slot rows beside the pages).  Each against its plain
+    version as A's rows are; library: ``torch._int_mm``, ``index_copy_``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import kv_cache as kv
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import w8a8_matmul as mm
+    dev, cfg, M = eng.device, eng.cfg, eng.slots
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    record = recorder({}, detail, path=path)
+    P = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+    def rows(n, k):
+        return torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+
+    def randomize(tree):
+        for _, _, leaf in _pool_leaves(tree):
+            leaf.view(torch.uint8).copy_(torch.randint(
+                0, 256, leaf.view(torch.uint8).shape, generator=gen, device=dev,
+                dtype=torch.uint8))
+        return tree
+
+    smap = np.array([2, -1, 0, 1, -1, 3, -1, -1], np.int32)[:M]
+    if eng.paged:
+        frontier = [P + len(r.prompt) + 16 for r in make_requests(cfg)]
+        paged_kernel_rows(eng, path, gen, flush, record, randomize, smap, frontier)
+        return
+    stamps = torch.zeros((2 * mm._sms(dev),), dtype=torch.int64, device=dev)
+    d = cfg.d_model
+    layer = eng.params["blocks"][0]
+    qkv, gu = layer["attn"]["wq"]["group"], layer["ffn"]["w_gate"]["group"]
+    wo, down = layer["attn"]["wo"], layer["ffn"]["w_down"]
+    w = (0.2 * torch.randn((d,), generator=gen, device=dev)).to(torch.bfloat16)
+    norm = (w, cfg.norm_eps)
+    x, x_pre = rows(M, d), rows(M * (P + 256), d)
+    k1 = [(x, norm, (qkv, ops._blocks(qkv["segs"])), "QKV "),
+          (x_pre, norm, (qkv, ops._blocks(qkv["segs"])), "QKV prefill "),
+          (x, norm, (gu, ops._blocks(gu["segs"])), "gate/up ")]
+    k2 = [("QKV", qkv, x, True), ("QKV prefill", qkv, x_pre, True),
+          ("wo", wo, rows(M, wo["q"].shape[0]), False),
+          ("w_down", down, rows(M, down["q"].shape[0]), False)]
+    if cfg.family == "encdec":
+        cross = layer["cross"]
+        ckv, cwq, cwo = cross["wk"]["group"], cross["wq"], cross["wo"]
+        mem = rows(M * S_FRAMES, d)
+        k1 += [(x, norm, (cwq, None), "cross wq "),
+               (mem, None, (ckv, ops._blocks(ckv["segs"])), "cross (wk, wv) memory ")]
+        k2 += [("cross (wk, wv) memory", ckv, mem, True), ("cross wq", cwq, x, False),
+               ("cross wo", cwo, rows(M, cwo["q"].shape[0]), False)]
+    for xm, nrm, iv, label in k1:
+        k1_row(xm, nrm, iv, False, flush, record, label=label)
+    for label, rec, xin, per_block in k2:
+        k2_row(dev, label, rec, xin, per_block, False, flush, record)
+    for xin in (x, x_pre):
+        k3_row(dev, gu, xin, False, flush, record, stamps, label="gate/up: ")
+    del x_pre
+    Sp = eng.caches["blocks"][0]["k"].shape[3]
+    attend_rows(dev, M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                ((V_ATTEND_LENS if P else S_ATTEND_LENS, Sp, False),), gen, flush, record)
+    torch.cuda.empty_cache()
+    moves = landing_moves(eng.bundle, M, eng.max_len, gen, smap, eng.mem_len)
+    time_movement(f"{path}: one round's landing, 4 of {M} slots", moves, kv.COUNT, flush,
+                  record, False, "cache_scatter", index_copies(moves, lambda t, mv: t))
+    del moves
+    torch.cuda.empty_cache()
+
+
+def phase_extras(detail):
+    """Paths V, VD (phi-3-vision-4.2b) and S, SD (seamless-m4t-medium):
+    full width and full depth on seeded random bf16 weights, served with
+    their stub extras (``path_extras``); the first engine of a model
+    quantizes them (PDQ-int8 in every 2-D projection, the encoder's and
+    the cross blocks' included) and the bf16 tree is dropped; VD and SD
+    serve V's and S's records.  Each path: its kernel rows
+    (``extras_kernels``) and phase 3 (serve, census); V and S also phase 4
+    (step, every row at the position of a 300-token prompt behind the
+    patches) and phase 5 (parity); VD's and SD's streams must equal V's and
+    S's, with no prefix hit (extras turn sharing off).  Returns (counts,
+    serve runs, parity)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, build_engine
+    counts, serve, parity = {}, {}, {}
+    for arch, max_len, paths in ((V_ARCH, V_MAX_LEN, ("V", "VD")),
+                                 (S_ARCH, S_MAX_LEN, ("S", "SD"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        weights = {"bf16": build_model(cfg, "cuda").init(0)}
+        torch.cuda.synchronize()
+        log(f"model {arch}: {cfg.n_layers} decoder layers"
+            f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} x {cfg.hd} heads over {cfg.n_kv_heads} kv heads, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, frontend {cfg.frontend} "
+            f"({cfg.frontend_tokens or S_FRAMES} stub embeddings): random bf16 weights, "
+            f"{param_bytes(weights['bf16']) / 1e9:.2f} GB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path in paths:
+            int8_kv, pdq, _, extra = PATHS[path]
+            t0 = time.perf_counter()
+            quantize = "pdq" not in weights
+            eng = build_engine(ServeConfig(arch=arch, reduced=False, slots=8, max_len=max_len,
+                                           int8_kv=int8_kv, quantize_weights=quantize,
+                                           device="cuda", **extra),
+                               cfg=cfg, params=weights["bf16" if quantize else "pdq"])
+            if quantize:                   # VD and SD serve V's and S's records
+                weights = {"pdq": eng.params}
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            log(f"model {path}: {cfg.name}, PDQ-int8 projections "
+                f"({param_bytes(eng.params) / 1e9:.2f} GB of params), "
+                f"{'int8' if int8_kv else 'bf16'} KV cache, "
+                f"{f'paged pool of {eng.pool_pages} pages of {PAGE}' if eng.paged else 'slot rows'}, "
+                f"patch tokens {eng.patch_tokens}, mem_len {eng.mem_len}, max_len "
+                f"{eng.max_len}, buckets {eng.buckets}, built in "
+                f"{time.perf_counter() - t0:.1f} s, its decode graph captured in "
+                f"{eng._graph.capture_s:.2f} s (pool {eng._graph.pool_bytes / 2**20:.1f} MiB); "
+                f"card memory allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            with timed(f"kernels {path}"):
+                extras_kernels(eng, path, detail)
+            with timed(f"serve {path}"):
+                counts[path], run = phase_serve(eng, path)
+            if not eng.paged:
+                with timed(f"step {path}"):
+                    run["step"] = phase_step(eng, path, run["decode_step_median_ms"],
+                                             pos=eng.patch_tokens + STEP_POS)
+                with timed(f"parity {path}"):
+                    parity[path], run["parity_pdq"] = phase_parity(eng, path)
+            else:
+                check_paged_run(path, run, serve[path[0]][0], ref=path[0])
+            run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"model {path}: peak card memory {run['memory_peak_gib']:.2f} GiB")
             serve[path] = [run]
             del eng
             gc.collect()
@@ -2028,6 +2298,8 @@ def census(path, cfg, st):
         return moe_census(path, cfg, st)[0]
     if path in SSM_PATHS:
         return ssm_census(path, cfg, st)[0]
+    if path in ENCDEC_PATHS:
+        return encdec_census(path, cfg, st)[0]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     rounds = st["prefill_batches"]
@@ -2064,6 +2336,8 @@ def prologue_mode_census(path, cfg, st):
         return moe_census(path, cfg, st)[1]
     if path in SSM_PATHS:
         return ssm_census(path, cfg, st)[1]
+    if path in ENCDEC_PATHS:
+        return encdec_census(path, cfg, st)[1]
     int8_kv, pdq = PATHS[path][:2]
     n, n_local = layer_counts(cfg)
     pre = st["prefill_batches"] + st["chunk_batches"]
@@ -2168,6 +2442,40 @@ def ssm_census(path, cfg, st):
     return want, modes
 
 
+def encdec_census(path, cfg, st):
+    """(op entries, K1 launches per mode) of a serving run of an
+    encoder-decoder path.  Every prefill launch runs the encoder: each of
+    its ``enc_layers`` layers is A's prefill layer (QKV and gate/up with
+    their norms, wo's interval; K2 x 3, K3).  A decoder layer at prefill:
+    A's layer plus the cross block, whose (wk, wv) group over the encoder's
+    output takes the interval alone, wq its cross_norm and the interval,
+    wo the interval (K1 x 6, K2 x 6, K3); at a decode step the cross K/V
+    come from the cache: QKV, cross wq and gate/up with their norms, cross
+    wo's interval, wo's prologue in K5 with int8 KV (K1 x 4, K2 x 5, K3,
+    K5: 11 launches).  The pool movements as ``census`` counts them (a
+    round's landing carries the cross leaves)."""
+    int8_kv, pdq = PATHS[path][:2]
+    need(pdq, f"{path}: the extras paths serve PDQ records")
+    rounds = st["prefill_batches"]
+    pre = rounds + st["chunk_batches"]
+    dec = st["decode_steps"] * block_of(path)
+    n, ne = cfg.n_layers, cfg.enc_layers
+    k5 = int(int8_kv)
+    want = dict(pdq_prologue=3 * ne * pre + 6 * n * pre + (5 - k5) * n * dec,
+                w8a8_matmul=3 * ne * pre + 6 * n * pre + 5 * n * dec,
+                w8a8_swiglu_matmul=ne * pre + n * (pre + dec),
+                decode_attend_i8kv=0, decode_attend_i8kv_fused=k5 * n * dec,
+                cache_scatter=rounds, cache_scatter_pages=0,
+                act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
+    if is_paged(path):
+        want.update(cache_scatter=0, cache_scatter_pages=(
+            rounds + 2 * st["decode_steps"] + st.get("spill_restores", 0)))
+    modes = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
+    modes["norm+interval"] = 2 * ne * pre + 3 * n * (pre + dec)
+    modes["interval"] = ne * pre + 3 * n * pre + (2 - k5) * n * dec
+    return want, modes
+
+
 # the route every launch of a serving or ops-level run must take
 MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
               "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split",
@@ -2198,10 +2506,10 @@ def fault_requests(cfg, n=3, seed=5):
                     max_new=8) for i, L in enumerate(rng.integers(20, 61, size=n))]
 
 
-def run_batch(eng, reqs):
-    """Serve ``reqs`` with ``engine.run``: {request index: (tokens, finish
-    reason, error)}."""
-    eng.run(reqs)
+def run_batch(eng, reqs, extras=None):
+    """Serve ``reqs`` with ``engine.run`` (and the run's prefill
+    ``extras``): {request index: (tokens, finish reason, error)}."""
+    eng.run(reqs, extras=extras)
     return {i: (list(r.generated), r.finish_reason if r.done else None, r.error)
             for i, r in enumerate(reqs)}
 
@@ -2286,12 +2594,12 @@ def phase_serve(eng, path):
     from repro_torch.kernels import ops
     reqs = (fault_requests(eng.cfg) if path == FAULT_PATH else h_requests(eng.cfg)
             if path in LONG_PATHS else make_requests(eng.cfg))
-    drive = run_http if path == "F" else run_batch
+    extras = path_extras(path, eng.cfg)
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
     with ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
-        results = drive(eng, reqs)
+        results = run_http(eng, reqs) if path == "F" else run_batch(eng, reqs, extras)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.counts()
@@ -2383,8 +2691,9 @@ def device_rows(prof, per):
     return rows
 
 
-def phase_step(eng, path, serve_step_ms):
-    """Phase 4: one decode step of the full pool at position STEP_POS (on a
+def phase_step(eng, path, serve_step_ms, pos=STEP_POS):
+    """Phase 4: one decode step of the full pool at position ``pos``
+    (STEP_POS; V's behind its patches) (on a
     paged pool every slot holding pages up to its frontier), two ways on
     the same state: ``eager`` - the engine's one-step block (the step and
     its sampling) run as ops launched from the host, as every decode ran
@@ -2404,7 +2713,7 @@ def phase_step(eng, path, serve_step_ms):
     from torch.profiler import ProfilerActivity, profile
     need(block_of(path) == 1, f"{path}: phase 4 compares one-step blocks")
     B = eng.slots
-    rows = (np.zeros(B, np.int32), np.full(B, STEP_POS, np.int32),
+    rows = (np.zeros(B, np.int32), np.full(B, pos, np.int32),
             np.arange(B, dtype=np.int32), np.zeros(B, np.int32), np.ones(B, np.int32))
     t = [torch.as_tensor(a, device=eng.device) for a in rows]
     caches = eng._logical if eng.paged else eng.caches
@@ -2556,9 +2865,10 @@ def step_split(path, eager):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(keep=()):
     """Route the kernel wrappers to their plain versions for CUDA tensors
-    (this script's reference run only; the package never does this).  K1's
+    (this script's reference run only; the package never does this), but
+    the wrappers named in ``keep``.  K1's
     one wrapper takes every mode, so its swap covers the norm and interval
     stages too: the reference run applies rms_norm and prices intervals in
     plain torch."""
@@ -2578,6 +2888,7 @@ def plain_kernels():
              (kv, "decode_attend_i8kv_fused_cuda", kv.decode_attend_i8kv_fused_plain),
              (kv, "cache_move_cuda", kv.cache_move_plain),
              (fd, "fp_dequant_fallback_cuda", fd.fp_dequant_fallback_plain)]
+    swaps = [sw for sw in swaps if sw[1] not in keep]
     saved = [getattr(m, a) for m, a, _ in swaps]
     try:
         for m, a, f in swaps:
@@ -2617,10 +2928,26 @@ def tel_agree(path, label, k_tel, p_tel):
     return dict(kernel=k, plain=p, slack=slack)
 
 
+def clone_tree(caches):
+    """A copy of a cache tree ({'head', 'tail', 'blocks'} of tuples of leaf
+    dicts) on its device."""
+    return {sec: tuple({k: v.clone() for k, v in d.items()} for d in caches[sec])
+            for sec in caches}
+
+
 def phase_parity(eng, path, n_tokens=8):
     """Phase 5 on ``eng`` (its guard, and for FF the fault, active around
     both runs; on H a prompt of H_PARITY_LEN tokens prefilled in the
-    engine's chunks).  Returns (max logit difference, the health
+    engine's chunks; on V and S the path's extras in the prefill).  On the
+    SSD paths also the ONE-STEP comparison: every decode step run again
+    from a copy of the kernel run's own caches as they stood before it, so
+    that no earlier difference carries over, once with every kernel plain
+    and once with every kernel plain but K5.  The latter is bound at every
+    step, with the argmax-margin check; the former too, but at a step
+    whose K5 gave codes one apart from plain's (the step's first such call
+    held to K5's contract, ``code_flips``), where it is reported.  The
+    teacher-forced difference is bound up to K5's first code flip and
+    reported after it.  Returns (max logit difference, the health
     comparisons)."""
     import numpy as np
     import torch
@@ -2631,22 +2958,27 @@ def phase_parity(eng, path, n_tokens=8):
     else:
         prompt = make_requests(eng.cfg, n=1, seed=7)[0].prompt
     L = len(prompt)
+    P = eng.patch_tokens
+    extras = path_extras(path, eng.cfg) or {}
     tokens = torch.as_tensor(np.asarray(prompt, np.int32), device=eng.device)[None]
     C = eng.buckets[-1] if eng.chunked_prefill else L
+    one_step = path in SSM_PATHS
 
     def i32(v):
         return torch.tensor([v], dtype=torch.int32, device=eng.device)
 
     step = [0]                # the output step the model calls feed (routing log)
 
-    def run(teacher=None):
+    def run(teacher=None, snaps=None):
+        """The kernel or plain run; ``snaps`` collects (a copy of the
+        caches, token, position) before every decode step."""
         tel = eng._tel_buffer()
         with ops.pdq_guard(is_guarded(path)), ops.pdq_telemetry(counters=tel), \
                 ops.pdq_fault() if path == FAULT_PATH else contextlib.nullcontext():
-            caches = bundle.init_caches(1, 64 + L)
+            caches = bundle.init_caches(1, 64 + P + L, eng.mem_len)
             step[0] = 0
             logits, caches = bundle.prefill_many(
-                params, {"tokens": tokens[:, :C]}, caches, i32(min(C, L)))
+                params, {"tokens": tokens[:, :C], **extras}, caches, i32(min(C, L)))
             for s0 in range(C, L, C):          # the engine's chunks of C
                 n = min(C, L - s0)
                 logits, caches = bundle.prefill_chunk(
@@ -2656,23 +2988,43 @@ def phase_parity(eng, path, n_tokens=8):
                 tok = int(out[-1].argmax()) if teacher is None else teacher[i]
                 toks.append(tok)
                 step[0] = i + 1
-                logits, caches = bundle.decode_step(
-                    params, caches,
-                    torch.tensor([[tok]], dtype=torch.int32, device=eng.device),
-                    torch.tensor([[L + i]], dtype=torch.int32, device=eng.device))
+                args = (torch.tensor([[tok]], dtype=torch.int32, device=eng.device),
+                        torch.tensor([[P + L + i]], dtype=torch.int32, device=eng.device))
+                if snaps is not None:
+                    snaps.append((clone_tree(caches),) + args)
+                logits, caches = bundle.decode_step(params, caches, *args)
                 out.append(logits[0].float())
         toks.append(int(out[-1].argmax()) if teacher is None else -1)
         return out, toks, tel
 
-    k_routes, p_routes, k_att, p_att = [], [], [], []
+    k_routes, p_routes, k_att, p_att, snaps = [], [], [], [], []
     with route_log(k_routes, step), attend_log(k_att, step):
-        k_logits, k_toks, k_tel = run()
+        k_logits, k_toks, k_tel = run(snaps=snaps if one_step else None)
     with plain_kernels(), route_log(p_routes, step), attend_log(p_att, step):
         p_logits, _, p_tel = run(teacher=k_toks)
     flips = expert_flips(path, k_routes, p_routes)
     # SSD paths: the first K5 code a tolerance apart from plain's, and the
-    # step it fed (None: the runs' K5 codes never parted)
+    # step it fed (None: the runs' K5 codes never parted); and each decode
+    # step plain from the kernel run's caches before it (the prefill's
+    # one-step logits are the teacher-forced run's own: both start empty)
     code_flip = code_flips(path, k_att, p_att) if path in SSM_PATHS else None
+    # one-step: each decode step from the kernel run's caches before it,
+    # once with every kernel plain and once with every kernel plain but K5
+    # (the prefill runs no K5: both start from the plain prefill's logits)
+    one_plain, one_k5, one_flips, a_att = None, None, [], []
+    if one_step:
+        one_plain, one_k5 = [p_logits[0]], [p_logits[0]]
+        for i, (caches, tok, pos) in enumerate(snaps):
+            step[0] = i + 1
+            with plain_kernels(), attend_log(a_att, step):
+                one_plain.append(bundle.decode_step(params, clone_tree(caches), tok,
+                                                    pos)[0][0].float())
+            with plain_kernels(keep=("decode_attend_i8kv_fused_cuda",)):
+                one_k5.append(bundle.decode_step(params, caches, tok, pos)[0][0].float())
+        del snaps
+        # every step's first K5 call whose codes part from plain's ran on
+        # equal inputs: it must hold K5's contract
+        one_flips = code_flips(path, k_att, a_att, every_step=True)
     health = [tel_agree(path, "records' alpha, beta", k_tel, p_tel)]
     # the same with outputs clipping: every record's alpha and beta scaled
     # (this engine serves nothing after its parity phase)
@@ -2688,6 +3040,16 @@ def phase_parity(eng, path, n_tokens=8):
     diffs = [float((kl - pl).abs().max()) for kl, pl in zip(k_logits, p_logits)]
     log(f"parity {path}: max |logits diff| per step {diffs} (tolerance {tol})")
     first_flip = min(flips) if flips else None
+
+    def margin_check(i, kl, pl, what):
+        if int(kl.argmax()) != int(pl.argmax()):
+            top2 = pl.topk(2).values
+            margin = float(top2[0] - top2[1])
+            need(margin < tol, f"parity {path} step {i}: argmax differs from the "
+                 f"{what} with plain top-2 margin {margin}")
+            log(f"parity {path} step {i}: argmax differs from the {what} inside the "
+                f"margin ({margin:.4g})")
+
     for i, (kl, pl) in enumerate(zip(k_logits, p_logits)):
         d = diffs[i]
         need(torch.isfinite(kl).all(), f"parity {path} step {i}: non-finite logits")
@@ -2697,26 +3059,45 @@ def phase_parity(eng, path, n_tokens=8):
             log(f"parity {path} step {i}: logits differ by {d} after the expert "
                 f"flips of step {first_flip} (tolerance {tol} not applied)")
         elif code_flip is not None and i >= code_flip:
-            log(f"parity {path} step {i}: logits differ by {d} after K5's code flip "
-                f"at step {code_flip} (tolerance {tol} not applied)")
+            # the state carries the flipped code on: the one-step
+            # difference below is the bound one
+            log(f"parity {path} step {i}: teacher-forced logits differ by {d} after "
+                f"K5's code flip at step {code_flip} (reported; the one-step "
+                f"difference is bound)")
             continue
         else:
             need(d <= tol, f"parity {path} step {i}: logits differ by {d} > {tol}")
-        if int(kl.argmax()) != int(pl.argmax()):
-            top2 = pl.topk(2).values
-            margin = float(top2[0] - top2[1])
-            need(margin < tol, f"parity {path} step {i}: argmax differs "
-                 f"with plain top-2 margin {margin}")
-            log(f"parity {path} step {i}: argmax differs inside the margin "
-                f"({margin:.4g})")
+        margin_check(i, kl, pl, "teacher-forced plain run")
+    one = one_all = None
+    if one_step:
+        one = [float((kl - ol).abs().max()) for kl, ol in zip(k_logits, one_k5)]
+        one_all = [float((kl - ol).abs().max()) for kl, ol in zip(k_logits, one_plain)]
+        log(f"parity {path}: one-step max |logits diff| per step, every kernel plain "
+            f"{one_all}, every kernel plain but K5 {one} (tolerance {tol}); K5 codes "
+            f"one apart from plain's at steps {one_flips}")
+        for i, (kl, ol) in enumerate(zip(k_logits, one_k5)):
+            need(one[i] <= tol, f"parity {path} step {i}: one-step logits (every kernel "
+                 f"plain but K5) differ by {one[i]} > {tol}")
+            margin_check(i, kl, ol, "one-step run (every kernel plain but K5)")
+            if i in one_flips:
+                # the step's own K5 code flip (within K5's contract, checked
+                # above) moves the logits of this one step
+                log(f"parity {path} step {i}: one-step logits with every kernel plain "
+                    f"differ by {one_all[i]}: K5's code flip at this step (reported)")
+            else:
+                need(one_all[i] <= tol, f"parity {path} step {i}: one-step logits "
+                     f"differ by {one_all[i]} > {tol}")
     log(f"parity {path}: {n_tokens} greedy tokens {k_toks}; max |logits diff| "
         f"per step {diffs} (tolerance {tol}); max |logit| "
         f"{float(max(kl.abs().max() for kl in k_logits)):.4g}")
     if path in MOE_PATHS:
         health.append(dict(expert_flips=flips, logit_diff_per_step=diffs))
     if path in SSM_PATHS:
-        health.append(dict(code_flip_step=code_flip, logit_diff_per_step=diffs))
-    return max(diffs), health
+        health.append(dict(code_flip_step=code_flip, logit_diff_per_step=diffs,
+                           one_step_code_flip_steps=one_flips,
+                           one_step_logit_diff_per_step=one_all,
+                           one_step_but_k5_logit_diff_per_step=one))
+    return max(diffs if one is None else one), health
 
 
 @contextlib.contextmanager
@@ -2739,19 +3120,23 @@ def attend_log(out, step):
         kv.decode_attend_i8kv_fused = orig
 
 
-def code_flips(path, k_att, p_att):
+def code_flips(path, k_att, p_att, every_step=False):
     """The output step at which the kernel run's K5 first gave wo's
     prologue other int8 codes than the plain run's, or None.  That first
     call ran on equal inputs, so it must hold K5's contract (the kernel
     phase's check): o within ATTEND_TOL, s_x within rtol 1e-5, codes one
     apart at most and only where o (rounded to bf16) or s_x differ; later
-    calls run on inputs the flip moved and are not compared."""
+    calls run on inputs the flip moved and are not compared.  With
+    ``every_step`` (a one-step run, which starts every step from the kernel
+    run's caches) the same for each step's calls: the list of steps whose
+    first parted call held the contract."""
     import torch
     need(len(k_att) == len(p_att), f"parity {path}: K5 calls {len(k_att)} (kernels) "
          f"and {len(p_att)} (plain)")
+    steps = []
     for (sk, ok, qk, xk), (sp, op, qp, xp) in zip(k_att, p_att):
         need(sk == sp, f"parity {path}: K5 calls disagree on the step")
-        if torch.equal(qk, qp):
+        if torch.equal(qk, qp) or sk in steps:
             continue
         B = qk.shape[0]
         same = ((ok.reshape(B, -1).to(torch.bfloat16) == op.reshape(B, -1).to(torch.bfloat16))
@@ -2763,9 +3148,12 @@ def code_flips(path, k_att, p_att):
              f"parity {path}: step {sk}: K5's codes part from plain's outside its "
              f"contract (max code difference {int(dq.max())})")
         log(f"parity {path}: step {sk}: K5 gave {int((dq > 0).sum())} codes one apart "
-            f"from plain's (o within {ATTEND_TOL}); later steps reported, not bound")
-        return sk
-    return None
+            f"from plain's (o within {ATTEND_TOL})"
+            + ("" if every_step else "; later steps' teacher-forced logits reported"))
+        if not every_step:
+            return sk
+        steps.append(sk)
+    return steps if every_step else None
 
 
 @contextlib.contextmanager
@@ -2959,17 +3347,21 @@ def check_streams(path, run, ref_run, ref="A"):
 
 
 def check_paged_run(path, run, ref_run, ref="A"):
-    """D1/D2/D16 against A's first run, HD against H's, ZD against Z's: the
-    same greedy streams (``check_streams``); each shares the system
-    prompt's pages, D2 preempts, spills every victim to host memory and
-    restores it, HD and ZD never preempt."""
+    """D1/D2/D16 against A's first run, HD against H's, ZD against Z's, VD
+    against V's, SD against S's: the same greedy streams
+    (``check_streams``); each shares the system prompt's pages but VD and
+    SD, whose extras turn sharing off; D2 preempts, spills every victim to
+    host memory and restores it, HD, ZD, VD and SD never preempt."""
     st = run["stats"]
     check_streams(path, run, ref_run, ref)
-    need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
+    if path in EXTRAS_PATHS:    # a run's extras turn prefix sharing off
+        need(st["prefix_hits"] == 0, f"{path}: prefix hits with extras: {st}")
+    else:
+        need(st["prefix_hits"] >= 1, f"{path}: no prefix hit: {st}")
     if path == "D2":
         need(st["preemptions"] >= 1 and st["spill_restores"] >= 1,
              f"D2: pool of {D2_POOL_PAGES} pages did not preempt and restore: {st}")
-    if path in ("HD", "ZD"):
+    if path in ("HD", "ZD", "VD", "SD"):
         need(st["preemptions"] == 0, f"{path}: the pool preempted: {st}")
     log(f"serve {path}: streams equal {ref}'s; prefix hits {st['prefix_hits']} "
         f"({st['prefix_shared_pages']} pages), preemptions {st['preemptions']}, "
@@ -3419,6 +3811,12 @@ def main(argv=None) -> int:
     counts.update(s_counts)
     serve.update(s_serve)
     parity.update(s_parity)
+    # paths V, VD, S, SD: phi-3-vision-4.2b and seamless-m4t-medium at full
+    # width and depth, served with their prefill extras
+    x_counts, x_serve, x_parity = phase_extras(detail)
+    counts.update(x_counts)
+    serve.update(x_serve)
+    parity.update(x_parity)
     # path G: the CNN track, trained, calibrated and evaluated on the card
     with timed("cnn G"):
         cnn_track = phase_cnn()
@@ -3469,7 +3867,8 @@ def main(argv=None) -> int:
                                 {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms")}
                                 for r in detail if r["name"] == name and r.get("path") == tag]
-                               for tag in ("H",) + MOE_PATHS + SSM_PATHS},
+                               for tag in ("H",) + MOE_PATHS + SSM_PATHS
+                               + EXTRAS_PATHS},
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one

@@ -39,11 +39,10 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     every leaf of a stacked block, the MoE layers' (E, ...) expert stacks
     and router and a mamba layer's nested ``ssm`` dict included, is split
     per block (a ``shared`` kind's stacked ``{}`` gives an empty dict a
-    block)."""
+    block).  An encoder-decoder's stacked ``enc_blocks`` are split per
+    encoder layer the same way, ``enc_norm`` maps one to one, and each
+    decoder layer's ``cross`` / ``cross_norm`` ride in its block dict."""
     device = resolve_device(device)
-    if tree.get("enc_blocks"):
-        raise NotImplementedError(
-            "the port runs no encoder layers (ROADMAP.md Queue 1, item 6)")
 
     def t(a):
         return _tensor(a, device)
@@ -62,6 +61,11 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
     }
     if tree.get("shared_block"):
         out["shared_block"] = _map(t, tree["shared_block"])
+    if "enc_blocks" in tree:
+        enc = tree["enc_blocks"]
+        out["enc_blocks"] = [_map(lambda a, i=i: _tensor(a[i], device), enc)
+                             for i in range(len(_first_leaf(enc)))]
+        out["enc_norm"] = t(tree["enc_norm"])
     return out
 
 

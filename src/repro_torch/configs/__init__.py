@@ -1,11 +1,12 @@
 """Architecture registry: ``get_config('<arch-id>')``.
 
-Only the families the port runs are registered: the GQA decoders with or
-without local (sliding-window) layers, the MoE decoders (deepseek-v2 with
-MLA, arctic with a dense residual), the attention-free Mamba2 SSD decoder
-(mamba2) and the hybrid of SSD layers and one shared attention block
-(zamba2).  The others join with their slice (ROADMAP.md Queue 1, item 6:
-seamless, phi-3-vision).
+Every reference config is registered: the GQA decoders with or without
+local (sliding-window) layers, the MoE decoders (deepseek-v2 with MLA,
+arctic with a dense residual), the attention-free Mamba2 SSD decoder
+(mamba2), the hybrid of SSD layers and one shared attention block (zamba2),
+the vision decoder whose stub patches are prepended to the text
+(phi-3-vision) and the encoder-decoder with cross-attention over stub
+speech frames (seamless).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ _MODULES = {
     "gemma2-2b": "gemma2_2b",
     "mamba2-2.7b": "mamba2_2p7b",
     "zamba2-7b": "zamba2_7b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ALL_ARCHS = tuple(_MODULES)
@@ -27,8 +30,7 @@ ALL_ARCHS = tuple(_MODULES)
 
 def get_config(name: str):
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)} (the "
-                       f"other families are ROADMAP.md Queue 1, item 6)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG.validate()
 

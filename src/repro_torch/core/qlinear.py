@@ -9,8 +9,8 @@ Layout is the reference's at every public boundary: NHWC inputs and
 outputs, HWIO conv kernels, (d, h) dense weights, per-channel axes last,
 tapes and moments of shape (B,) or (B, C).  Only ``F.conv2d`` sees NCHW /
 OIHW, with XLA's SAME padding made explicit (``surrogate.pad2d``).  The
-convolutions run in IEEE f32 whatever the caller's cuDNN settings
-(``fp32_convs``).
+convolutions run in IEEE f32 on cuDNN's deterministic algorithms whatever
+the caller's cuDNN settings (``fp32_convs``).
 
 Layer calibration state is a plain dict of tensors per layer name:
 
@@ -31,12 +31,17 @@ Tape = dict[str, Any]
 
 
 def fp32_convs():
-    """cuDNN without TF32, the caller's other cuDNN settings kept: the
-    reference's f32 convolutions, whatever ``torch.backends.cudnn.allow_tf32``
-    says (PyTorch's default allows TF32 for convolutions)."""
+    """cuDNN without TF32 and on its deterministic algorithms, the caller's
+    other cuDNN settings kept: the reference's f32 convolutions, whatever
+    ``torch.backends.cudnn.allow_tf32`` says (PyTorch's default allows TF32
+    for convolutions), and the same bits from run to run.  By default cuDNN
+    may pick a backward algorithm that sums in a run-dependent order: two
+    trainings in one process then part in every conv kernel's gradient
+    (~1e-8 after one step, ~0.1 in the weights after 250 steps; NVIDIA H100
+    80GB HBM3, ``tools/torch_cnn_determinism.py``)."""
     c = torch.backends.cudnn
-    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
-                   deterministic=c.deterministic, allow_tf32=False)
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=True,
+                   allow_tf32=False)
 
 
 def _example_range(y: torch.Tensor, per_channel: bool) -> tuple[torch.Tensor, torch.Tensor]:

@@ -7,8 +7,10 @@ with the PDQ-int8 path, on the card unless ``--device cpu``.
         [--decode-steps 4] [--pdq-fallback] [--no-telemetry] [--device cpu]
 
 ``--arch`` picks a registered model (stablelm-1.6b, gemma3-12b, gemma2-2b,
-yi-6b, deepseek-v2-236b, arctic-480b, mamba2-2.7b, zamba2-7b);
-``--chunked-prefill`` splits
+yi-6b, deepseek-v2-236b, arctic-480b, mamba2-2.7b, zamba2-7b,
+phi-3-vision-4.2b, seamless-m4t-medium; the last two serve the canned trace
+with seeded stub extras, ``models.frontend.stub_extras``: patches prepended
+to every prompt, or the encoder's frames); ``--chunked-prefill`` splits
 prompts longer than the largest bucket into chunks of that bucket's length
 (``--prompt-len`` sets the longest canned prompt).
 
@@ -191,6 +193,9 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_args(argv)
 
+    import torch
+
+    from repro_torch.models import frontend
     from repro_torch.serve import Request, ServeConfig, build_engine
     from repro_torch.serve.engine import not_ported
 
@@ -220,7 +225,13 @@ def main(argv=None):
     mode = ("bucketed" + (f" paged/{args.page_size}" if args.paged else "")
             + (" chunked" if args.chunked_prefill else ""))
 
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(0)
+    extras = frontend.stub_extras(cfg, gen)
     if args.http is not None:
+        if extras is not None:
+            raise SystemExit(f"--http serves text-only families; {cfg.name} needs "
+                             f"prefill extras (serve its canned trace instead)")
         return serve_http(args, eng)
 
     if args.resume:
@@ -242,7 +253,7 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, lambda *_: eng.request_drain())
     signal.signal(signal.SIGINT, lambda *_: eng.request_drain())
     t0 = time.perf_counter()
-    eng.run(reqs)
+    eng.run(reqs, extras=extras)
     dt = time.perf_counter() - t0
     if eng.drained:
         left = sum(not r.done for r in reqs)

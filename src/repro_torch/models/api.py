@@ -5,6 +5,13 @@ device.  Unlike the reference's pure functions they update the caches they
 are given IN PLACE and return them: the serving pool is landed into and
 decoded over without copies.  ``bundle.paged_cache`` builds the device half
 of the paged KV pool.
+
+The prefill extras ride in the batch dict beside ``tokens``: a vision
+config's ``patches`` (B, P, d), prepended to the text (positions run over
+P + S, and a right-padded row's valid prefix counts its patches), and an
+encoder-decoder's ``frames`` (B, Sm, d), the encoder's input, whose K/V
+every decoder layer keeps in ``cross_k`` / ``cross_v`` leaves of
+``mem_len`` rows.  Chunked prefill is text-only, as in the reference.
 """
 from __future__ import annotations
 
@@ -122,6 +129,10 @@ def _init_fill(x: torch.Tensor) -> torch.Tensor:
     return flat[0].cpu().clone()
 
 
+def _patch_count(cfg: ArchConfig) -> int:
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
 def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
     cfg = cfg.validate()
     dev = resolve_device(device)
@@ -132,36 +143,45 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         gen.manual_seed(seed)
         return lm_init(gen, cfg)
 
-    def init_caches(batch: int, max_len: int):
-        return lm_init_caches(cfg, batch, max_len, dev)
+    P = _patch_count(cfg)
+
+    def init_caches(batch: int, max_len: int, mem_len: int = 0):
+        return lm_init_caches(cfg, batch, max_len, dev, mem_len)
 
     def _positions(B, L):
         return torch.arange(L, dtype=torch.int32, device=dev)[None].expand(B, L)
+
+    def _extras(batch):
+        """The batch's prefill extras, as ``lm_apply`` keywords."""
+        return {k: batch[k] for k in ("frames", "patches") if k in batch}
 
     @torch.no_grad()
     def prefill(params, batch, caches):
         """Unpadded prefill: logits (B, vocab) of each row's last token."""
         tokens = batch["tokens"]
-        h, caches = lm_apply(params, cfg, tokens=tokens,
-                             positions=_positions(*tokens.shape),
-                             mode="prefill", caches=caches)
+        B, S = tokens.shape
+        h, caches = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + S),
+                             mode="prefill", caches=caches, **_extras(batch))
         return lm_logits(params, cfg, h[:, -1]), caches
 
     @torch.no_grad()
     def prefill_many(params, batch, caches, seq_lens):
         """Batched bucketed prefill over right-padded prompts: row b holds
         seq_lens[b] real tokens then padding to the bucket length L
-        (seq_lens == 0 marks a dummy row).  Pad entries never reach the
-        cache (attention._clamp_padded).  ``caches`` must be a fresh pool
-        (``init_caches``); returns (logits (B, vocab) of each row's LAST
-        REAL token, caches) - land the rows with ``cache_scatter``."""
+        (seq_lens == 0 marks a dummy row, whose patches are masked too).
+        Pad entries never reach the cache (attention._clamp_padded).
+        ``caches`` must be a fresh pool (``init_caches``); returns (logits
+        (B, vocab) of each row's LAST REAL token, caches) - land the rows
+        with ``cache_scatter``."""
         tokens = batch["tokens"]
         B, L = tokens.shape
-        sl = seq_lens.to(torch.int32)
-        h, caches = lm_apply(params, cfg, tokens=tokens,
-                             positions=_positions(B, L), mode="prefill",
-                             caches=caches, seq_lens=sl)
-        last = torch.clamp_min(sl - 1, 0).long()
+        sl = seq_lens.to(device=dev, dtype=torch.int32)
+        # the valid prefix in full-sequence positions, patches included
+        tot = torch.where(sl > 0, sl + P, 0).to(torch.int32)
+        h, caches = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + L),
+                             mode="prefill", caches=caches, seq_lens=tot,
+                             **_extras(batch))
+        last = torch.clamp_min(tot - 1, 0).long()
         h_last = h[torch.arange(B, device=dev), last]
         return lm_logits(params, cfg, h_last), caches
 
@@ -173,7 +193,13 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         at absolute positions and attends the whole cache buffer, so
         queries see both the landed prefix and the chunk.  Returns (logits
         (B, vocab) of each row's last real token, caches); the last
-        chunk's logits seed decoding as ``prefill_many``'s do."""
+        chunk's logits seed decoding as ``prefill_many``'s do.  Text-only
+        families: the patch prepend and the encoder pass assume one
+        whole-prompt prefill."""
+        if cfg.frontend == "vision" or cfg.family == "encdec":
+            raise NotImplementedError(
+                f"chunked prefill supports text-only families, not "
+                f"frontend={cfg.frontend!r} / family={cfg.family!r}")
         tokens = batch["tokens"]
         B, L = tokens.shape
         start = start_lens.to(device=dev, dtype=torch.int32)
@@ -205,21 +231,24 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                               "cache_scatter")
         return caches
 
-    def paged_cache(batch: int, max_len: int, page: int = 64) -> PagedCacheOps:
+    def paged_cache(batch: int, max_len: int, page: int = 64, *,
+                    mem_len: int = 0) -> PagedCacheOps:
         """Build the device ops of a paged cache pool (see PagedCacheOps).
 
         Pageable leaves are found as the reference finds them: a leaf whose
         shape differs between ``init_caches(max_len)`` and ``init_caches(2 *
         max_len)`` grows with the sequence along the differing axis (both
-        shape trees are built on the ``meta`` device, allocating nothing).
+        shape trees are built on the ``meta`` device, allocating nothing);
+        an encoder-decoder's ``cross_k`` / ``cross_v`` (``mem_len`` rows)
+        do not, and stay flat slot rows.
         The physical pool replaces (batch, seq) with one page axis: stacked
         block leaves become (n_blocks, n_pages, ..., page, ...).
         """
         if max_len % page:
             raise ValueError(f"page size {page} must divide max_len {max_len}")
         n_pp = max_len // page
-        a = lm_init_caches(cfg, batch, max_len, "meta")
-        b = lm_init_caches(cfg, batch, 2 * max_len, "meta")
+        a = lm_init_caches(cfg, batch, max_len, "meta", mem_len)
+        b = lm_init_caches(cfg, batch, 2 * max_len, "meta", mem_len)
 
         def classify(sa, sb, *, ba):
             diffs = [i for i, (x, y) in enumerate(zip(sa.shape, sb.shape)) if x != y]
@@ -241,7 +270,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         # int8 scales 1), which the gather writes into every page row it
         # does not fill from the pool, so that unallocated page regions read
         # bit-exactly like the never-written region of a slot-row cache
-        base1 = init_caches(1, max_len)
+        base1 = init_caches(1, max_len, mem_len)
         meta = _tree_map(lambda m, b1, *, ba: dataclasses.replace(m, fill=_init_fill(b1))
                          if m.kind == "seq" else m, _tree_map(classify, a, b), base1)
         del base1

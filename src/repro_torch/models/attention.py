@@ -1,5 +1,5 @@
-"""GQA attention with an fp or int8 KV cache, and DeepSeek's MLA (port of
-``repro/models/attention.py`` but its cross-attention).
+"""GQA attention with an fp or int8 KV cache, DeepSeek's MLA and the
+encoder-decoder's cross-attention (port of ``repro/models/attention.py``).
 
 The reference's fp attention is plain jnp, not Pallas, so this port is
 plain torch: a masked-softmax transcription of ``chunked_attention`` (same
@@ -12,7 +12,13 @@ With ``quant_kv='dynamic'`` the cache is int8 in KERNEL layout, ``{'k',
 'len'}`` with Sp = S rounded up to a multiple of 128; each new token is
 quantized per (token, head) as it is written, prefill still attends its
 fresh fp k/v, and decode attends the cache through the flash-decode
-kernels (``ops.decode_attend_i8kv``).
+kernels (``ops.decode_attend_i8kv``).  ``gqa_apply``'s ``mode='train'`` is
+the cache-free pass an encoder runs (bidirectional with ``causal=False``).
+
+Cross-attention (``cross_*``) attends, without RoPE and over every memory
+position, the K/V that ``cross_memory`` projects once from the encoder's
+output; a decoder layer keeps them as its ``cross_k`` / ``cross_v`` cache
+leaves, in the model dtype whatever the KV cache's.
 
 MLA keeps the compressed stream in its cache, ``{'ckv': (B, S, kv_lora),
 'krope': (B, S, qk_rope), 'pos', 'len'}`` in the model dtype; prefill
@@ -255,8 +261,9 @@ def _valid_k_pos(cache_pos):
 
 def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
               causal: bool = True, seq_lens=None, norm=None, chunked: bool = False):
-    """mode 'prefill' (S tokens, optional right-padding ``seq_lens``) or
-    'decode' (S == 1); returns (y (B, S, d), cache).  ``norm = (w, eps)``:
+    """mode 'train' (cache-free), 'prefill' (S tokens, optional
+    right-padding ``seq_lens``) or 'decode' (S == 1); returns (y (B, S, d),
+    cache).  ``norm = (w, eps)``:
     attend over rms_norm(x, w, eps).  ``chunked``: a chunked-prefill
     continuation, whose cache rows already hold the earlier chunks."""
     B, S, _ = x.shape
@@ -268,6 +275,10 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
     q = apply_rope(q.reshape(B, S, H, Dh), positions, dims.rope_theta)
     k = apply_rope(k.reshape(B, S, Hkv, Dh), positions, dims.rope_theta)
     v = v.reshape(B, S, Hkv, Dh)
+    if mode == "train":        # cache-free (an encoder's layers)
+        o = chunked_attention(q, k, v, positions, positions, causal=causal,
+                              window=dims.window, attn_softcap=dims.attn_softcap)
+        return lin(o.reshape(B, S, H * Dh), p["wo"]), None
     if cache is None:
         raise ValueError("serving attention needs a cache")
     if mode == "prefill" and chunked:
@@ -297,7 +308,7 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
                               window=dims.window, attn_softcap=dims.attn_softcap)
         return lin(o.reshape(B, S, H * Dh), p["wo"]), cache
     if mode != "decode":
-        raise ValueError(f"mode {mode!r}: the port serves 'prefill'/'decode'")
+        raise ValueError(f"mode {mode!r}: the port serves 'train'/'prefill'/'decode'")
     _cache_write(cache, k, v, positions)
     q1 = q[:, 0]
     if "k_scale" in cache and dims.attn_softcap is None and dims.window is None:
@@ -319,6 +330,41 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
         o = decode_attention(q1, kf, vf, positions[:, 0], cache["pos"],
                              window=dims.window, attn_softcap=dims.attn_softcap)
     return lin(o.reshape(B, 1, H * Dh), p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder): no RoPE, bidirectional over the memory
+# ---------------------------------------------------------------------------
+
+
+def cross_init(dims: AttnDims, dtype, gen):
+    return gqa_init(dims, dtype, gen)
+
+
+def cross_memory(p, dims: AttnDims, memory):
+    """The cross-attention K/V of the encoder's output (B, Sm, d), each
+    (B, Sm, Hkv, Dh): wk and wv read the same memory, so a grouped record
+    runs ONE prologue and ONE matmul for the pair (wq reads the decoder
+    stream: ``linops.CROSS_SIBLING_SETS``)."""
+    B, Sm, _ = memory.shape
+    k, v = lin_grouped(memory, (p["wk"], p["wv"]))
+    return (k.reshape(B, Sm, dims.n_kv_heads, dims.head_dim),
+            v.reshape(B, Sm, dims.n_kv_heads, dims.head_dim))
+
+
+def cross_apply(p, dims: AttnDims, x, memory_kv, norm=None):
+    """x (B, Sq, d) attends every position of ``memory_kv`` = (k, v), each
+    (B, Sm, Hkv, Dh); ``norm = (w, eps)``: the queries read rms_norm(x, w,
+    eps), the norm inside wq's prologue."""
+    B, Sq, _ = x.shape
+    H, Dh = dims.n_heads, dims.head_dim
+    q = lin(x, p["wq"], norm=norm).reshape(B, Sq, H, Dh)
+    k, v = memory_kv
+    Sm = k.shape[1]
+    qpos = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    kpos = torch.arange(Sm, device=x.device)[None].expand(B, Sm)
+    o = chunked_attention(q, k, v, qpos, kpos, causal=False)
+    return lin(o.reshape(B, Sq, H * Dh), p["wo"])
 
 
 # ---------------------------------------------------------------------------

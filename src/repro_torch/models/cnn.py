@@ -229,7 +229,9 @@ def train_cnn(cfg: CNNConfig, *, steps: int = 300, batch: int = 64,
     Adam (not ``torch.optim.Adam``, whose update is the same algebra in
     another float order) on fresh gratings batches (seed 1000 + t, noise
     0.45), from ``params`` (default ``cnn_init(seed, cfg, device)``).
-    Forward and backward convolutions run in IEEE f32 (``fp32_convs``)."""
+    Forward and backward convolutions run in IEEE f32 on cuDNN's
+    deterministic algorithms (``fp32_convs``): two runs give the same
+    weights."""
     device = resolve_device(device)
     if params is None:
         params = cnn_init(seed, cfg, device)

@@ -9,10 +9,10 @@ positions), ``mamba`` (a Mamba2 SSD block, ``ssm``) or ``shared`` (zamba2's
 shared block: one ``global`` layer's params reused at every occurrence,
 each occurrence with its own KV cache), with gemma's softcaps and
 embedding scale (the reference scans the stacked blocks; the port loops
-over a per-layer list).  ``family`` and ``frontend`` name the
-encoder-decoder and frontend configs, which the port refuses until their
-fields arrive with the model families that use them (ROADMAP.md Queue 1,
-item 6).
+over a per-layer list).  ``family="encdec"`` adds ``enc_layers``
+bidirectional encoder layers over stub frame embeddings and a
+cross-attention block in every decoder layer; ``frontend="vision"``
+prepends ``frontend_tokens`` stub patch embeddings to the text.
 """
 from __future__ import annotations
 
@@ -53,7 +53,9 @@ class ArchConfig:
     moe: MoEConfig | None = None
     mla: MLAConfig | None = None
     ssm: SSMConfig | None = None
-    frontend: str | None = None            # 'audio' | 'vision': refused (item 6)
+    enc_layers: int = 0
+    frontend: str | None = None            # 'audio' | 'vision' (stub embeddings)
+    frontend_tokens: int = 0
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
@@ -86,6 +88,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         d_ff=128,
         vocab=512,
         head_dim=16,
+        enc_layers=min(cfg.enc_layers, 2),
+        frontend_tokens=min(cfg.frontend_tokens, 8),
         window=min(cfg.window, 16) if cfg.window else None,
         dtype="float32",
     )

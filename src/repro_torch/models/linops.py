@@ -192,8 +192,12 @@ def lin_grouped(x: torch.Tensor, ws, norm=None) -> tuple:
 
 
 # same-input sibling sets that share one prologue: Q/K/V off the attention
-# norm, gate/up off the ffn norm, MLA's two input-side projections
+# norm, gate/up off the ffn norm, MLA's two input-side projections.  A
+# cross-attention block (a dict keyed exactly ``cross``) is the exception:
+# its wk/wv read the encoder memory while wq reads the decoder stream, so
+# only the (wk, wv) pair shares an input
 GROUP_SIBLING_SETS = (("wq", "wk", "wv"), ("w_gate", "w_up"), ("wq_a", "wkv_a"))
+CROSS_SIBLING_SETS = (("wk", "wv"),)
 
 
 def _default_pred(name: str, leaf) -> bool:
@@ -215,12 +219,14 @@ def quantize_param_tree(params, alpha: float = 6.0, beta: float = 6.0):
     zamba2's ``shared_block`` is quantized like a layer, as the reference
     quantizes its 2-D top-level leaves; a mamba layer's ``in_proj`` and
     ``out_proj`` are records, its ``conv_w`` (2-D, but not a ``w*`` /
-    ``*_proj`` name), ``A_log``, ``D``, ``dt_bias`` and norms stay fp.
+    ``*_proj`` name), ``A_log``, ``D``, ``dt_bias`` and norms stay fp.  An
+    encoder-decoder's ``enc_blocks`` are layers like ``blocks``; a decoder
+    layer's ``cross`` block groups (wk, wv) alone (``CROSS_SIBLING_SETS``).
     """
     def rec(node, name):
         if isinstance(node, dict):
             out, done = {}, set()
-            for names in GROUP_SIBLING_SETS:
+            for names in CROSS_SIBLING_SETS if name == "cross" else GROUP_SIBLING_SETS:
                 if not all(n in node and _default_pred(n, node[n]) for n in names):
                     continue
                 leaves = [node[n] for n in names]

@@ -27,13 +27,25 @@ state.  A ``shared`` entry of the pattern (zamba2) runs
 ``params["shared_block"]``, ONE ``global`` layer's params, over its own
 occurrence's ``global`` cache; ``params["blocks"]`` keeps an empty dict at
 each ``shared`` position, as the reference's stacked ``{}`` does.
+
+An encoder-decoder (``family="encdec"``, seamless) also holds
+``params["enc_blocks"]``, one ``global`` layer dict per encoder layer, and
+``params["enc_norm"]``: a prefill runs the encoder (cache-free,
+bidirectional, RoPE on) over the stub frames, and every decoder layer
+cross-attends its output after self-attention - at prefill through
+``cross_memory``, whose K/V the layer stores as its ``cross_k`` /
+``cross_v`` cache leaves, at decode from those leaves.  A vision config
+(phi-3-vision) prepends the stub patch embeddings to the embedded text.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .attention import (AttnDims, MLADims, gqa_apply, gqa_init, init_cache, mla_apply,
-                        mla_init, mla_init_cache)
+from .attention import (AttnDims, MLADims, cross_apply, cross_init, cross_memory,
+                        gqa_apply, gqa_init, init_cache, mla_apply, mla_init,
+                        mla_init_cache)
 from .config import ArchConfig
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
 from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
@@ -44,11 +56,9 @@ KINDS = ("global", "global_dense", "local", "mamba", "shared")
 
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = set(cfg.head) | set(cfg.pattern) | set(cfg.tail)
-    if cfg.family != "lm" or cfg.frontend is not None or not kinds <= set(KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders of global, global_dense, local, "
-            f"mamba and shared layers (GQA or MLA, dense or MoE FFN, Mamba2 SSD); "
-            f"encoder-decoder and frontend configs are ROADMAP.md Queue 1, item 6")
+    if not kinds <= set(KINDS):
+        raise ValueError(f"{cfg.name}: unknown layer kinds {sorted(kinds - set(KINDS))}; "
+                         f"the port runs {KINDS}")
 
 
 def attn_dims(cfg: ArchConfig, kind: str = "global") -> AttnDims:
@@ -91,8 +101,17 @@ def layer_init(cfg: ArchConfig, kind: str, dtype, gen: torch.Generator) -> dict:
     else:
         d_ff = cfg.moe.d_ff_dense if cfg.moe and kind == "global_dense" else cfg.d_ff
         ffn = mlp_init(cfg.d_model, d_ff or cfg.d_ff, dtype, gen)
-    return {"attn_norm": torch.zeros((cfg.d_model,), **zeros), "attn": attn,
-            "ffn_norm": torch.zeros((cfg.d_model,), **zeros), "ffn": ffn}
+    p = {"attn_norm": torch.zeros((cfg.d_model,), **zeros), "attn": attn,
+         "ffn_norm": torch.zeros((cfg.d_model,), **zeros), "ffn": ffn}
+    if cfg.family == "encdec":
+        p["cross_norm"] = torch.zeros((cfg.d_model,), **zeros)
+        p["cross"] = cross_init(attn_dims(cfg), dtype, gen)
+    return p
+
+
+def dataclass_enc(cfg: ArchConfig) -> ArchConfig:
+    """Encoder layers: plain bidirectional attention + dense FFN."""
+    return dataclasses.replace(cfg, family="lm", moe=None, mla=None)
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -109,29 +128,46 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
                          for _ in range(cfg.n_blocks) for kind in cfg.pattern]}
     if "shared" in cfg.head + cfg.pattern + cfg.tail:
         params["shared_block"] = layer_init(cfg, "global", dtype, gen)
+    if cfg.family == "encdec":
+        ecfg = dataclass_enc(cfg)
+        params["enc_blocks"] = [layer_init(ecfg, "global", dtype, gen)
+                                for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
     return params
 
 
-def layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device) -> dict:
-    """A layer's cache; a ``shared`` occurrence's is a ``global`` layer's."""
+def layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, device,
+                mem_len: int = 0) -> dict:
+    """A layer's cache; a ``shared`` occurrence's is a ``global`` layer's.
+    An encoder-decoder's layer adds ``cross_k`` / ``cross_v``, (batch,
+    max(mem_len, 1), Hkv, Dh) in the model dtype."""
     if kind == "mamba":
         return ssm_init_cache(cfg.ssm, batch, model_dtype(cfg), device)
     if kind == "shared":
         kind = "global"
     if _is_mla(cfg, kind):
         return mla_init_cache(mla_dims(cfg), batch, max_len, model_dtype(cfg), device)
-    return init_cache(attn_dims(cfg, kind), batch, max_len, model_dtype(cfg), device)
+    c = init_cache(attn_dims(cfg, kind), batch, max_len, model_dtype(cfg), device)
+    if cfg.family == "encdec":
+        shape = (batch, max(mem_len, 1), cfg.n_kv_heads, cfg.hd)
+        c["cross_k"] = torch.zeros(shape, dtype=model_dtype(cfg), device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=model_dtype(cfg), device=device)
+    return c
 
 
-def lm_init_caches(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+def lm_init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
+                   mem_len: int = 0) -> dict:
     """{'head': (one cache per head layer,), 'tail': (...), 'blocks': (one
     stacked cache per pattern kind,)}, block leaves (n_blocks, batch, ...):
     the reference's layout."""
+    def one(kind):
+        return layer_cache(cfg, kind, batch, max_len, device, mem_len)
+
     def stacked(kind):
-        c = layer_cache(cfg, kind, batch, max_len, device)
-        return {k: v.expand(cfg.n_blocks, *v.shape).contiguous() for k, v in c.items()}
-    return {"head": tuple(layer_cache(cfg, k, batch, max_len, device) for k in cfg.head),
-            "tail": tuple(layer_cache(cfg, k, batch, max_len, device) for k in cfg.tail),
+        return {k: v.expand(cfg.n_blocks, *v.shape).contiguous()
+                for k, v in one(kind).items()}
+    return {"head": tuple(one(k) for k in cfg.head),
+            "tail": tuple(one(k) for k in cfg.tail),
             "blocks": tuple(stacked(k) for k in cfg.pattern)}
 
 
@@ -157,8 +193,11 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
 
 
 def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache,
-                seq_lens=None, chunked: bool = False):
-    """One layer on h (B, S, d), its cache updated in place."""
+                memory=None, causal: bool = True, seq_lens=None, chunked: bool = False):
+    """One layer on h (B, S, d), its cache updated in place (``mode='train'``:
+    no cache, an encoder's layer).  An encoder-decoder's layer
+    cross-attends ``memory`` (the encoder's output) at prefill and its
+    ``cross_k`` / ``cross_v`` leaves at decode."""
     eps = cfg.norm_eps
     if kind == "mamba":
         return h + ssm_apply(p["ssm"], cfg.ssm, h, mode=mode, cache=cache,
@@ -170,9 +209,22 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
                          seq_lens=seq_lens, norm=(p["attn_norm"], eps), chunked=chunked)
     else:
         a, _ = gqa_apply(p["attn"], attn_dims(cfg, kind), h, positions, mode=mode,
-                         cache=cache, seq_lens=seq_lens, norm=(p["attn_norm"], eps),
-                         chunked=chunked)
+                         cache=cache, causal=causal, seq_lens=seq_lens,
+                         norm=(p["attn_norm"], eps), chunked=chunked)
     h = h + a
+    if cfg.family == "encdec":
+        dims = attn_dims(cfg)
+        if mode == "prefill":
+            mem_kv = cross_memory(p["cross"], dims, memory)
+            if mem_kv[0].shape != cache["cross_k"].shape:
+                raise ValueError(f"encoder memory K/V {tuple(mem_kv[0].shape)}, cache "
+                                 f"leaves {tuple(cache['cross_k'].shape)}: build the "
+                                 f"caches with mem_len = the frames' length")
+            cache["cross_k"].copy_(mem_kv[0])
+            cache["cross_v"].copy_(mem_kv[1])
+        else:
+            mem_kv = (cache["cross_k"], cache["cross_v"])
+        h = h + cross_apply(p["cross"], dims, h, mem_kv, norm=(p["cross_norm"], eps))
     return h + _apply_ffn(p["ffn"], cfg, kind, h, mode, (p["ffn_norm"], eps),
                           seq_lens if mode == "prefill" else None)
 
@@ -190,14 +242,40 @@ def embed_tokens(params, cfg: ArchConfig, tokens):
     return h
 
 
+def _encoder_apply(params, cfg: ArchConfig, frames):
+    """The bidirectional encoder over stub frame embeddings (B, Sm, d):
+    cache-free ``global`` layers at positions arange(Sm), then
+    ``enc_norm``."""
+    ecfg = dataclass_enc(cfg)
+    B, Sm, _ = frames.shape
+    positions = torch.arange(Sm, device=frames.device)[None].expand(B, Sm)
+    h = frames
+    for p in params["enc_blocks"]:
+        h = layer_apply(p, ecfg, "global", h, positions, mode="train", cache=None,
+                        causal=False)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
 def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
-             caches, seq_lens=None, chunked: bool = False):
+             caches, frames=None, patches=None, seq_lens=None, chunked: bool = False):
     """Returns (h_final, caches); ``caches`` are updated in place.
-    ``seq_lens`` (B,) marks the valid prefix of right-padded prefill rows;
-    ``chunked`` marks a chunked-prefill continuation (``positions`` are
-    absolute and attention also reads the rows the caches already hold)."""
+    ``patches`` (B, P, d): stub embeddings prepended to the embedded text
+    (a vision config); ``frames`` (B, Sm, d): the encoder's input (an
+    encoder-decoder's prefill).  ``seq_lens`` (B,) marks the valid prefix
+    of right-padded prefill rows, in full-sequence positions (patches
+    included); ``chunked`` marks a chunked-prefill continuation
+    (``positions`` are absolute and attention also reads the rows the
+    caches already hold)."""
+    dtype = model_dtype(cfg)
     h = embed_tokens(params, cfg, tokens)
-    kw = dict(mode=mode, seq_lens=seq_lens, chunked=chunked)
+    if patches is not None:
+        h = torch.cat([patches.to(dtype), h], dim=1)
+    memory = None
+    if cfg.family == "encdec" and mode != "decode":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder's prefill needs frames")
+        memory = _encoder_apply(params, cfg, frames.to(dtype))
+    kw = dict(mode=mode, memory=memory, seq_lens=seq_lens, chunked=chunked)
     for i, kind in enumerate(cfg.head):
         h = layer_apply(params["head"][i], cfg, kind, h, positions,
                         cache=caches["head"][i], **kw)

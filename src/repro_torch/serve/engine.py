@@ -29,6 +29,15 @@ window of written pages back (``writeback(..., n_steps, max_steps=N)``);
 the COW copy, spill capture and restore move pages.  Each such movement is
 one launch of the page scatter (K7) over every leaf, outside the graph.
 
+The prefill extras (``run(requests, extras=...)``): a vision config's
+``patches`` and an encoder-decoder's ``frames``, shared by every request
+of the run; each admission round broadcasts their first row to every slot
+row as device tensors in the model dtype (``_extras_batch``).  A vision
+config reserves ``frontend_tokens`` positions of every slot (the copied
+core's ``patch_tokens``, which also turns prefix sharing off); an
+encoder-decoder's pool holds ``mem_len = 8`` rows of cross-attention K/V
+a layer, flat slot rows in a paged pool.  Chunked prefill is text-only.
+
 With ``quantize_weights=True`` every layer's projections run PDQ int8
 (``models.linops.quantize_param_tree``), which is what the reference's
 engine documents; the reference itself leaves its stacked blocks in fp
@@ -60,8 +69,9 @@ import torch
 from repro_torch.distributed.fault import FaultInjector
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
-from repro_torch.models import build_model
+from repro_torch.models import build_model, frontend
 from repro_torch.models.linops import quantize_param_tree
+from repro_torch.models.transformer import model_dtype
 
 from . import telemetry as tmod
 from .core import (DEFAULT_BUCKETS, ChunkedPlan, DecodePlan, PrefillPlan, Request,
@@ -192,14 +202,17 @@ class ServeEngine(SchedulerCore):
         self.temperature = float(temperature)
         self.seed = 0 if seed is None else int(seed)
         self.pdq_fallback = bool(pdq_fallback)
+        self.mem_len = frontend.N_FRAMES if cfg.family == "encdec" else 0
         if tel is None:
             tel = tmod.Telemetry(enabled=telemetry, trace=trace)
         self._init_scheduler(
-            slots=slots, n_replicas=1, max_len=max_len, patch_tokens=0,
+            slots=slots, n_replicas=1, max_len=max_len,
+            patch_tokens=cfg.frontend_tokens if cfg.frontend == "vision" else 0,
             buckets=buckets, batch_prefill=True, chunked_prefill=chunked_prefill,
             decode_steps=decode_steps, fault=fault, tel=tel)
         if paged:
-            self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size)
+            self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size,
+                                                      mem_len=self.mem_len)
             n_pp = self._paged_ops.n_pp
             if pool_pages is None:
                 # headroom parity with the slot-row pool (+1 dump page):
@@ -217,7 +230,7 @@ class ServeEngine(SchedulerCore):
             self._logical, _ = self._paged_ops.gather_moves(
                 self.caches, no_pages, np.zeros((self.slots,), np.int32))
         else:
-            self.caches = self.bundle.init_caches(self.slots, self.max_len)
+            self.caches = self.bundle.init_caches(self.slots, self.max_len, self.mem_len)
         self._sample_fn = functools.partial(sample, temperature=self.temperature,
                                             seed=self.seed)
         self._scan = decode_scan(functools.partial(self.bundle.decode_step, self.params),
@@ -226,8 +239,8 @@ class ServeEngine(SchedulerCore):
         if _graphed(self.device):
             self._graph = DecodeGraph(
                 self._block, self._logical if self.paged else self.caches,
-                self.bundle.init_caches(self.slots, self.max_len), self.slots,
-                self.device)
+                self.bundle.init_caches(self.slots, self.max_len, self.mem_len),
+                self.slots, self.device)
             self.stats["graph_replays"] = 0
 
     def _block(self, caches, tokens, positions, uids, steps, n_steps, tel):
@@ -284,10 +297,11 @@ class ServeEngine(SchedulerCore):
         through ``prefill_chunk`` on the same pool, then the rows land in
         the serving pool.  Every launch adds its PDQ health into one device
         vector, which rides the one token copy."""
-        if extras:
-            raise not_ported("prefill extras (patches, encoder frames)", "6")
+        if extras and chunks:
+            raise NotImplementedError(
+                "chunked prefill is text-only (no vision/encdec extras)")
         dev = self.device
-        sub = self.bundle.init_caches(self.slots, self.max_len)
+        sub = self.bundle.init_caches(self.slots, self.max_len, self.mem_len)
         tel = self._tel_buffer()
 
         def t(a):
@@ -296,7 +310,8 @@ class ServeEngine(SchedulerCore):
         with ops.pdq_guard(self.pdq_fallback), \
                 ops.pdq_telemetry(self.tel.enabled, counters=tel):
             logits, sub = self.bundle.prefill_many(
-                self.params, {"tokens": t(first[0])}, sub, t(first[1]))
+                self.params, self._extras_batch({"tokens": t(first[0])}, extras), sub,
+                t(first[1]))
             for _, tokens, seq_lens, start_lens in chunks:
                 logits, sub = self.bundle.prefill_chunk(
                     self.params, {"tokens": t(tokens)}, sub, t(seq_lens), t(start_lens))
@@ -304,6 +319,16 @@ class ServeEngine(SchedulerCore):
         toks, ok, health = self._sample_rows(kind, plan, logits, tel)
         self._observe_pdq(health)       # rode the token copy
         return toks, ok
+
+    def _extras_batch(self, batch: dict, extras) -> dict:
+        """``batch`` with the run's extras: each one's first row broadcast
+        to every slot row (extras are shared by a run's requests, as in the
+        reference), on the engine's device in the model dtype."""
+        dtype = model_dtype(self.cfg)
+        for k, a in dict(extras or {}).items():
+            a = torch.as_tensor(a)[:1].to(self.device, dtype)
+            batch[k] = a.expand(self.slots, *a.shape[1:]).contiguous()
+        return batch
 
     def _land_sub(self, plan, sub) -> None:
         """Land a finished prefill batch in the pool, in place (the

@@ -55,6 +55,13 @@ two f32 sums in another order may round to neighbouring values), clearing
 it; the decode graph zeroes its counters each replay; a guarded engine
 under the fault hook falls back once a projection a launch; and
 ServeService's thread replays the graph to the batch run's streams.
+The prefill extras' families: K5 at phi-3-vision-4.2b's Hkv 32, G 1, Dh 96,
+Sp 1536 and seamless-m4t-medium's Hkv 16, Dh 64, Sp 512 with ragged lengths,
+under the attend tolerances above; a reduced seamless engine (frames in
+every prefill) whose replayed decode graph, reading each layer's cross K/V
+from the pool, serves the eager engine's streams, pool bits (the cross
+leaves included) and counts, slot rows and paged.  The CNN track's training
+repeats its bits within one process (cuDNN's deterministic algorithms).
 """
 import gc
 
@@ -689,7 +696,25 @@ def test_decode_attend_kernel_matches_plain(gen, G, Dh, Sp, lens):
 @pytest.mark.parametrize("pro_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,Dh,Sp,lens", _ATTEND_CASES)
 def test_decode_attend_fused_kernel_matches_plain(gen, G, Dh, Sp, lens, pro_dtype):
-    args = _attend_operands(gen, len(lens), 3, G, Dh, Sp, lens)
+    _fused_case(gen, 3, G, Dh, Sp, lens, pro_dtype)
+
+
+# the prefill extras' families at their full widths: phi-3-vision-4.2b (32
+# kv heads of 96, G 1) at path V's Sp 1536 (1024 patches before every
+# prompt), seamless-m4t-medium (16 kv heads of 64, G 1) at path S's Sp 512
+_EXTRAS_ATTEND = [(32, 96, 1536, [1536, 1, 1044, 1153, 1024, 1025, 1280, 1306]),
+                  (16, 64, 512, [512, 1, 250, 129, 128, 57, 300, 511])]
+
+
+@pytest.mark.parametrize("Hkv,Dh,Sp,lens", _EXTRAS_ATTEND)
+def test_decode_attend_fused_at_the_extras_families_shapes(gen, Hkv, Dh, Sp, lens):
+    _fused_case(gen, Hkv, 1, Dh, Sp, lens, torch.bfloat16)
+
+
+def _fused_case(gen, Hkv, G, Dh, Sp, lens, pro_dtype):
+    """K5 on both routes against its plain version (the module note's
+    tolerances)."""
+    args = _attend_operands(gen, len(lens), Hkv, G, Dh, Sp, lens)
     k, single = _routes_run(
         lambda **kw: kv.decode_attend_i8kv_fused_cuda(*args, pro_dtype, **kw),
         "decode_attend_i8kv_fused")
@@ -1516,3 +1541,71 @@ def test_ssd_decode_graph_replay_equals_eager(ssd_card_model, monkeypatch, n, pa
     assert got[0] == want[0]
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
     assert got[2] == want[2]
+
+
+@pytest.fixture(scope="module")
+def encdec_card_model():
+    """seamless-m4t-medium reduced (2 encoder and 2 decoder layers) at
+    d_model 256, bf16, int8 KV, with 8 stub frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card")
+    from repro_torch.models.frontend import stub_frame_embeddings
+    cfg = reduced_config("seamless-m4t-medium", d_model=256, d_ff=512, head_dim=64,
+                         vocab=1024, dtype="bfloat16", quant_kv="dynamic")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    frames = stub_frame_embeddings(g, 1, 8, cfg.d_model)
+    return cfg, build_model(cfg, "cuda").init(0), {"frames": frames}
+
+
+def _cross_leaves(tree):
+    return [v for d in tree["blocks"] for k, v in sorted(d.items()) if k.startswith("cross")]
+
+
+@pytest.mark.parametrize("n,paged", [(1, False), (4, False), (1, True), (4, True)])
+def test_encdec_decode_graph_replay_equals_eager(encdec_card_model, monkeypatch, n, paged):
+    """A decoder layer reads its cross K/V from the pool's fixed addresses:
+    a replay of the captured block serves the streams of the same engine
+    stepping eagerly, leaves the same pool bits (the cross leaves included)
+    and counts the same launches; slot rows and paged (page 16, the cross
+    leaves flat slot rows)."""
+    kw = dict(slots=4, max_len=128, buckets=(16, 32, 64), quantize_weights=True,
+              device="cuda", decode_steps=n)
+    if paged:
+        kw.update(paged=True, page_size=16)
+    cfg, params, extras = encdec_card_model
+
+    def serve(eng):
+        reqs = _graph_reqs(eng.cfg)
+        ops.reset_counts()
+        eng.run(reqs, extras=extras)
+        torch.cuda.synchronize()
+        assert all(r.done and r.error is None for r in reqs)
+        return ({r.uid: r.generated for r in reqs}, [v.clone() for v in _leaves(eng.caches)],
+                (ops.counts(), ops.route_counts(), ops.prologue_modes()))
+
+    eng = build_engine(ServeConfig(**kw), cfg=cfg, params=params)
+    if paged:
+        meta = eng._paged_ops.meta["blocks"][0]
+        assert meta["cross_k"].kind == meta["cross_v"].kind == "flat"
+    got = serve(eng)
+    assert eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0
+    assert any(bool(v.ne(0).any()) for v in _cross_leaves(eng.caches))
+    monkeypatch.setattr(engine_mod, "_graphed", lambda device: False)
+    plain = build_engine(ServeConfig(**kw), cfg=cfg, params=params)
+    assert plain._graph is None
+    want = serve(plain)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert got[2] == want[2]
+
+
+def test_cnn_training_repeats_its_bits(gen):
+    """Two trainings of the same task in one process give the same weights
+    bit for bit (cuDNN's deterministic algorithms, ``qlinear.fp32_convs``):
+    path G's cls_resnet at its widths, 20 steps."""
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(arch="mini_resnet", width=24, res=20, n_classes=16)
+    runs = [cnn._leaves(cnn.train_cnn(cfg, steps=20, batch=32, device="cuda"))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

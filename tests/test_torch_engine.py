@@ -160,18 +160,30 @@ def test_multihost_with_a_mesh_names_item_8(weights):
 
 
 def test_other_model_families_name_item_6():
-    """Model families the port does not run yet point at Queue 1 item 6,
-    from the registry and from build_model: an unregistered arch
-    (seamless), an encoder-decoder config and a config with a frontend
-    (phi-3-vision's patches)."""
-    from repro_torch.configs import get_config
+    """Item 6 is done: the port's registry holds every reference config
+    (seamless and phi-3-vision included), each family builds and prefills
+    on the CPU at its reduced size, and no refusal names item 6 any more
+    (an encoder-decoder or a frontend config builds like any other)."""
+    from repro.configs import ALL_ARCHS as J_ALL
+    from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.models import build_model
-    with pytest.raises(KeyError, match="item 6"):
-        get_config("seamless-m4t-medium")
-    for fields in (dict(family="encdec"), dict(frontend="vision")):
+    assert sorted(ALL_ARCHS) == sorted(J_ALL)
+    for arch in ALL_ARCHS:
+        assert get_config(arch).name == arch
+        cfg = t_reduced(arch)
+        b = build_model(cfg, "cpu")
+        params = b.init(0)
+        mem = 8 if cfg.family == "encdec" else 0
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, mem, cfg.d_model))
+        if cfg.frontend == "vision":
+            batch["patches"] = torch.zeros((1, cfg.frontend_tokens, cfg.d_model))
+        logits, _ = b.prefill(params, batch, b.init_caches(1, 32, mem))
+        assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()), arch
+    for fields in (dict(family="encdec", enc_layers=1), dict(frontend="vision")):
         cfg = dataclasses.replace(t_reduced("stablelm-1.6b"), **fields)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-            build_model(cfg, "cpu").init(0)
+        build_model(cfg, "cpu").init(0)
 
 
 def test_temperature_streams_depend_only_on_seed_uid_step(weights):

@@ -330,8 +330,8 @@ def test_fills_are_the_init_elements():
 def test_non_constant_init_on_a_paged_leaf_raises(monkeypatch):
     original = tapi.lm_init_caches
 
-    def uneven(cfg, batch, max_len, device):
-        tree = original(cfg, batch, max_len, device)
+    def uneven(cfg, batch, max_len, device, mem_len=0):
+        tree = original(cfg, batch, max_len, device, mem_len)
         if str(device) != "meta":
             tree["blocks"][0]["pos"][..., 0] = 7
         return tree
