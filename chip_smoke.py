@@ -133,6 +133,38 @@ ops-level calls on stablelm's weights (E):
      cls_resnet, then held against the port's plain CPU run with TF32
      allowed for cuDNN globally; last Fig. 3's estimate / conv / range
      times.  It reaches none of the ten kernels.
+  AL A through the per-request prefill baseline (batch_prefill=False): A's
+     weights, slots, max_len and requests; each request prefills alone at
+     its exact length (K1-K3 a layer as one of A's rounds) and lands with
+     one K6 launch; decode is A's.  Its streams must equal A's, or diverge
+     where the token's top-2 margin is below A's LOGIT_TOL, and its prefill
+     seconds are logged beside A's.
+  TR, TD, T, TQ  training, in a child process (``--train-child``) whose
+     environment sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before its first
+     cuBLAS handle, for the trainer's deterministic algorithms.  TR: every
+     registered config at its reduced size (f32, TF32 off), one train_loss
+     + backward and one train step (f32 moments, then int8) on the card
+     against the CPU from the same seeded weights and SyntheticLM batch
+     (stub patches / frames where needed): loss within TR_LOSS_RTOL, every
+     grad within TR_TOL, AdamW from the same grads within TR_TOL (int8
+     codes one apart at most), the train step's params bit-equal on each
+     device to AdamW of that device's grads and the two devices' within
+     adamw.first_step_bound of them; a router decision that differs is reported
+     and that config not bound; the grads twice without and twice with the
+     deterministic algorithms (the latter bit-equal).  TD: the same
+     determinism probe at stablelm-1.6b's full width (2 layers, T's batch).
+     T: stablelm-1.6b uncut (24 layers, d_model 2048, vocab 100352, bf16,
+     init(0)), the Trainer with f32 AdamW (lr 1e-3, warmup_cosine), remat
+     "full", loss_chunk 512, SyntheticLM 8 x 1024, 20 steps, one blocking
+     checkpoint at the end; a second Trainer on the same directory restores
+     it bit for bit; every loss finite, the last five steps' mean below the
+     first five's, no restart; s/step, tokens/s, model TFLOP/s, peak GiB,
+     checkpoint bytes and seconds.  TQ: T with int8 moments, a checkpoint
+     every 10 steps and one injected failure at step 13: one restart, the
+     replayed steps' losses bit-equal; its loss beside T's per step and its
+     optimizer state's bytes beside T's.  No training path reaches a hand
+     kernel (the reference trains fp params; ``lin`` of an fp leaf is a
+     plain matmul).
 
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
@@ -283,6 +315,11 @@ Phases, each of which must pass (any failure exits non-zero):
                 within G_LOGIT_RTOL of max |logit|, qstate within
                 G_QSTATE_RTOL, top-1 agreement >= G_TOP1_AGREE in every
                 quantized mode, every table entry within G_TABLE_TOL.
+
+  8. train    - after G: path AL (phase 3's gates on its census, then its
+                streams against A's), then the child process of TR, TD, T
+                and TQ, whose results land in chiprun_out/chip_smoke_train.json
+                and in chip_smoke.json's "train".
 
 The seconds of every phase are logged ("phase <name>: <s> s").
 
@@ -490,6 +527,8 @@ PATHS = {
     "VD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
     "S": (True, True, _A_KERNELS, {}),
     "SD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
+    # the per-request prefill baseline: A with every request prefilled alone
+    "AL": (True, True, _A_KERNELS, dict(batch_prefill=False)),
 }
 H_PATHS = ("H", "HD", "HB", "HBW")
 MOE_PATHS = ("DS", "DSD", "AR")
@@ -2652,7 +2691,9 @@ def phase_serve(eng, path):
         need(all(0 <= tok < eng.cfg.vocab for tok in toks),
              f"{path}: request {i}: token out of range")
     dec = [dt for dt, _ in eng.straggler.history]
-    pre = [dt for dt, _ in eng.prefill_straggler.history]
+    # the per-request path feeds no prefill watchdog: AL times its calls
+    pre = ([dt for dt, _ in eng.prefill_straggler.history] if eng.batch_prefill
+           else list(eng.legacy_prefill_s))
     decode_tps = eng.stats["decode_tokens"] / sum(dec)
     steps = sorted(dec)
     log(f"serve {path}: prefill launch sets {len(pre)} ({st['chunk_batches']} chunk "
@@ -3368,33 +3409,39 @@ def check_paged_run(path, run, ref_run, ref="A"):
         f"spills {st['spills']}, restores {st['spill_restores']}")
 
 
-def check_chunked_twin(eng, run, chunked_run):
-    """HBW (unchunked, the capacity bucket) against HB (chunked), both with
-    a bf16 KV cache: the same greedy streams, or, at a request's first
-    divergent step, HB's top-2 logit margin for that token (HBW's bundle,
-    the prompt and the tokens before it in one unpadded prefill) below H's
-    LOGIT_TOL.  Returns {uid: (step, margin)} of the divergences."""
+def check_twin(path, eng, run, ref_run, ref, reqs, tol):
+    """``path``'s greedy streams against ``ref``'s run: the same, or, at a
+    request's first divergent step, ``ref``'s top-2 logit margin for that
+    token (``path``'s bundle, the prompt and the tokens before it in one
+    unpadded prefill) below ``tol``.  Returns {uid: (step, margin)} of the
+    divergences."""
     import numpy as np
     import torch
     out = {}
-    for uid, toks in chunked_run["streams"].items():
+    for uid, toks in ref_run["streams"].items():
         got = run["streams"][uid]
         if got == toks:
             continue
         i = next(k for k, (a, b) in enumerate(zip(got, toks)) if a != b)
-        prompt = h_requests(eng.cfg)[uid].prompt
-        seq = np.concatenate([prompt, np.asarray(toks[:i], np.int32)])[None]
+        seq = np.concatenate([reqs[uid].prompt, np.asarray(toks[:i], np.int32)])[None]
         logits, _ = eng.bundle.prefill(eng.params, {"tokens": torch.as_tensor(
             seq, device=eng.device)}, eng.bundle.init_caches(1, seq.shape[1] + 1))
         top2 = logits[0].float().topk(2).values
         margin = float(top2[0] - top2[1])
-        log(f"serve HBW: request {uid} diverges from HB's at step {i}, top-2 "
+        log(f"serve {path}: request {uid} diverges from {ref}'s at step {i}, top-2 "
             f"margin {margin:.4g}")
-        need(margin < LOGIT_TOL["H"], f"HBW: request {uid} diverges from HB's at step "
-             f"{i} with a top-2 margin of {margin} >= {LOGIT_TOL['H']}")
+        need(margin < tol, f"{path}: request {uid} diverges from {ref}'s at step "
+             f"{i} with a top-2 margin of {margin} >= {tol}")
         out[uid] = (i, margin)
-    log(f"serve HBW: streams equal HB's but at {out or 'none'}")
+    log(f"serve {path}: streams equal {ref}'s but at {out or 'none'}")
     return out
+
+
+def check_chunked_twin(eng, run, chunked_run):
+    """HBW (unchunked, the capacity bucket) against HB (chunked), both with
+    a bf16 KV cache: ``check_twin`` within H's LOGIT_TOL."""
+    return check_twin("HBW", eng, run, chunked_run, "HB", h_requests(eng.cfg),
+                      LOGIT_TOL["H"])
 
 
 # ------------------------------------------------------------------ path G
@@ -3697,6 +3744,538 @@ def phase_cnn():
     return out
 
 
+# ------------------------------------------------- paths AL, TR, TD, T, TQ
+# TR: every registered config at its reduced size (float32, TF32 off), one
+# loss + backward and one train step on the card against the same on the
+# CPU; the loss within TR_LOSS_RTOL, every grad leaf within TR_TOL (rtol =
+# atol), and AdamW's new params and moments from the same grads within
+# TR_TOL, an int8 moment code within one.  The integrated step's params
+# are held to ``adamw.first_step_bound`` of the grads each device took:
+# Adam's first step normalizes each grad, g / (|g| + eps), so a grad
+# difference far inside TR_TOL where |g| is near eps (1e-8) moves a param
+# by a good part of lr (1e-3), and TR_TOL alone would not hold there.  On
+# each device the step's params are bit-equal to AdamW of that device's
+# grads (the step's wiring: batch, schedule, grads into the update)
+TR_SEQ, TR_BATCH = 32, 2
+TR_LOSS_RTOL = 1e-5
+TR_TOL = 1e-4
+# TD: the determinism probe, stablelm-1.6b at full width cut to 2 layers,
+# T's batch; grads twice with the deterministic algorithms off and twice on
+TD_LAYERS = 2
+# T / TQ: stablelm-1.6b uncut, bf16, init(0), the launcher's lr and the
+# reference's default warmup_cosine, remat "full", loss_chunk 512
+T_ARCH = "stablelm-1.6b"
+T_BATCH, T_SEQ, T_STEPS, T_LR = 8, 1024, 20, 1e-3
+TQ_CKPT_EVERY, TQ_FAIL_AT = 10, 13
+TRAIN_CHILD_TIMEOUT = 900     # seconds
+CUBLAS_CONFIG = ":4096:8"     # the deterministic cuBLAS workspace
+
+
+def phase_legacy(cfg, ref_run):
+    """Path AL: A's weights, slots, max_len and requests through the
+    per-request prefill baseline (``batch_prefill=False``): each request
+    prefills alone at its exact length and lands with one K6 launch.
+    ``phase_serve`` holds its exact census (K1-K3 per request as one of A's
+    rounds, one K6 a request, decode as A's), every dispatch a replay and
+    the wgmma route at every ragged prompt length; then its streams
+    against A's first run (``check_twin`` within A's LOGIT_TOL) and
+    prefill_padded_tokens == prefill_tokens.  Each ``_submit_one`` call is
+    timed on the host clock (it ends in the token's device-to-host copy)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, build_engine
+    params = build_model(cfg, "cuda").init(0)
+    eng = build_engine(ServeConfig(arch=T_ARCH, slots=8, max_len=512, int8_kv=True,
+                                   quantize_weights=True, device="cuda",
+                                   batch_prefill=False), cfg=cfg, params=params)
+    eng.legacy_prefill_s = []
+    submit = eng._submit_one
+
+    def timed_submit(req, extras):
+        t0 = time.perf_counter()
+        try:
+            return submit(req, extras)
+        finally:
+            eng.legacy_prefill_s.append(time.perf_counter() - t0)
+    eng._submit_one = timed_submit
+    counts, run = phase_serve(eng, "AL")
+    st = run["stats"]
+    need(st["prefill_padded_tokens"] == st["prefill_tokens"]
+         and st["prefill_batches"] == st["prefill_requests"] == 8,
+         f"AL: prefill stats {st}")
+    run["divergences"] = check_twin("AL", eng, run, ref_run, "A", make_requests(cfg),
+                                    LOGIT_TOL["A"])
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts, run
+
+
+def _tree_close(a, b, rtol, atol):
+    """(worst |a - b| / (atol + rtol |b|), its leaf) over two trees."""
+    from repro_torch import tree as ttree
+    worst, where = 0.0, None
+    for (path, x), y in zip(ttree.leaves_with_path(a), ttree.leaves(b)):
+        x, y = x.detach().double().cpu(), y.detach().double().cpu()
+        r = float(((x - y).abs() / (atol + rtol * y.abs())).max()) if x.numel() else 0.0
+        if r > worst:
+            worst, where = r, ttree.path_str(path)
+    return worst, where
+
+
+def _step_gap(new_a, new_b, bound, g_a, g_b):
+    """(worst |new_a - new_b| / bound, its leaf, the readings at that
+    element: both grads, the grad and param differences, the bound)."""
+    from repro_torch import tree as ttree
+    worst, at = 0.0, None
+    for (path, x), y, bd, ga, gb in zip(ttree.leaves_with_path(new_a), ttree.leaves(new_b),
+                                        ttree.leaves(bound), ttree.leaves(g_a),
+                                        ttree.leaves(g_b)):
+        if not x.numel():
+            continue
+        d = (x.detach().double().cpu() - y.detach().double().cpu()).abs()
+        r = d / bd
+        i = int(r.argmax())
+        if float(r.reshape(-1)[i]) > worst:
+            ga_i = float(ga.detach().double().cpu().reshape(-1)[i])
+            gb_i = float(gb.detach().double().cpu().reshape(-1)[i])
+            worst = float(r.reshape(-1)[i])
+            at = dict(leaf=ttree.path_str(path), g_a=ga_i, g_b=gb_i, dg=abs(ga_i - gb_i),
+                      dp=float(d.reshape(-1)[i]), bound=float(bd.reshape(-1)[i]))
+    return worst, at
+
+
+def _code_diff(a, b):
+    """(codes apart, of how many, largest distance) of two int8 trees."""
+    from repro_torch import tree as ttree
+    n = tot = far = 0
+    for x, y in zip(ttree.leaves(a), ttree.leaves(b)):
+        d = (x.cpu().int() - y.cpu().int()).abs()
+        n += int((d > 0).sum())
+        tot += d.numel()
+        far = max(far, int(d.max()) if d.numel() else 0)
+    return n, tot, far
+
+
+@contextlib.contextmanager
+def router_log(out):
+    """Every MoE router decision (``models.moe.route``'s ids) into ``out``."""
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def traced(x, wr, cfg, token_mask=None):
+        gates, ids, aux = orig(x, wr, cfg, token_mask)
+        out.append(ids.detach().cpu())
+        return gates, ids, aux
+    moe.route = traced
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def tr_batch(cfg):
+    """TR's numpy batch: ``SyntheticLM`` step 0, with seeded stub patches
+    or frames where the config needs them."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    d = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TR_SEQ, batch=TR_BATCH)).batch_at(0)
+    rng = np.random.default_rng(1)
+    if cfg.frontend == "vision":
+        d["patches"] = (0.02 * rng.standard_normal(
+            (TR_BATCH, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.family == "encdec":
+        d["frames"] = (0.02 * rng.standard_normal((TR_BATCH, 8, cfg.d_model))
+                       ).astype(np.float32)
+    return d
+
+
+def phase_train_parity():
+    """Path TR: for every registered config at its reduced size, one
+    ``train_loss`` + backward and one ``build_train_step`` step (f32
+    moments, then int8; lr scale 1) on the card against the CPU, from the
+    same seeded weights and batch; the step's params are held to
+    ``adamw.first_step_bound`` of the two devices' grads.  A router decision that differs between
+    the two runs is reported and that config's numbers are not bound (as
+    phase 5 does after an expert flip).  The card's grads are also taken
+    twice with the deterministic algorithms off (the leaves that differ are
+    reported) and twice under the trainer's ``deterministic()`` (bit-equal,
+    gated)."""
+    import torch
+    from repro_torch import tree as ttree
+    from repro_torch.configs import ALL_ARCHS, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.train.train_step import build_train_step, loss_and_grads, to_device
+    from repro_torch.train.trainer import deterministic
+    out = {}
+    for arch in ALL_ARCHS:
+        cfg = reduced_config(arch)
+        bc, bg = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+        batch = tr_batch(cfg)
+        pc = bc.init(0)
+        pg = ttree.tree_map(lambda t: t.to("cuda"), pc)
+        rc, rg = [], []
+        with router_log(rc):
+            lc, _, gc = loss_and_grads(bc, pc, to_device(batch, "cpu"))
+        with router_log(rg):
+            lg, _, gg = loss_and_grads(bg, pg, to_device(batch, "cuda"))
+        flips = sum(int((a != b).any()) for a, b in zip(rc, rg))
+        rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        g_worst, g_leaf = _tree_close(gg, gc, TR_TOL, TR_TOL)
+        row = dict(loss_cpu=float(lc), loss_card=float(lg), loss_rel=rel,
+                   grad_worst=g_worst, grad_leaf=g_leaf, router_calls=len(rc),
+                   expert_flips=flips)
+        # determinism: two more card runs each way
+        runs = {}
+        for det in (False, True):
+            with deterministic("cuda") if det else contextlib.nullcontext():
+                runs[det] = [loss_and_grads(bg, pg, to_device(batch, "cuda"))[2]
+                             for _ in range(2)]
+        row["nondeterministic_leaves"] = [
+            ttree.path_str(p) for (p, a), b in zip(ttree.leaves_with_path(runs[False][0]),
+                                                   ttree.leaves(runs[False][1]))
+            if not torch.equal(a, b)]
+        row["deterministic_equal"] = all(torch.equal(a, b) for a, b in zip(
+            ttree.leaves(runs[True][0]), ttree.leaves(runs[True][1])))
+        need(row["deterministic_equal"], f"TR {arch}: deterministic grads differ")
+        gg_cpu = ttree.tree_map(lambda t: t.cpu(), gg)
+        # the grads each device's step takes: under deterministic() a
+        # second run repeats them bit for bit
+        gdet = {"cuda": runs[True][0]}
+        with deterministic("cpu"):
+            gdet["cpu"] = loss_and_grads(bc, pc, to_device(batch, "cpu"))[2]
+        for quant in (False, True):
+            opt = AdamWConfig(lr=1e-3, quant_state=quant)
+            key = "int8" if quant else "f32"
+            # the integrated step on each device: bit-equal to AdamW of the
+            # device's own grads, and the two devices' params within
+            # first_step_bound of those grads
+            new, wired = {}, {}
+            for dev, b, p in (("cpu", bc, pc), ("cuda", bg, pg)):
+                step = build_train_step(b, opt, lr_schedule=schedule.constant)
+                with deterministic(dev):
+                    new[dev] = step({"params": p, "opt": adamw.init(p, opt)}, batch)
+                ref_p, _ = adamw.apply_updates(p, gdet[dev], adamw.init(p, opt), opt,
+                                               new[dev][1]["lr_scale"])
+                wired[dev] = all(torch.equal(x, y) for x, y in zip(
+                    ttree.leaves(new[dev][0]["params"]), ttree.leaves(ref_p)))
+            row[f"step_{key}_wired"] = wired
+            row[f"step_{key}_loss_rel"] = abs(float(new["cuda"][1]["loss"])
+                                              - float(new["cpu"][1]["loss"])) / abs(float(lc))
+            row[f"step_{key}_param_worst"], row[f"step_{key}_param_leaf"] = _tree_close(
+                new["cuda"][0]["params"], new["cpu"][0]["params"], TR_TOL, TR_TOL)
+            bound = adamw.first_step_bound(pc, gdet["cuda"], gdet["cpu"], opt,
+                                           new["cuda"][1]["lr_scale"])
+            row[f"step_{key}_bound_worst"], row[f"step_{key}_bound_at"] = _step_gap(
+                new["cuda"][0]["params"], new["cpu"][0]["params"], bound,
+                gdet["cuda"], gdet["cpu"])
+            need(all(wired.values()), f"TR {arch}: the {key} step's params are not AdamW "
+                 f"of its own grads: {wired}")
+            need(row[f"step_{key}_bound_worst"] <= 1.0,
+                 f"TR {arch}: the {key} step's params part past first_step_bound: "
+                 f"{row[f'step_{key}_bound_at']}")
+            # the optimizer alone, gated: AdamW on the card and on the CPU
+            # from the same (the card's) grads
+            upd = {"cuda": adamw.apply_updates(pg, gg, adamw.init(pg, opt), opt, 1.0),
+                   "cpu": adamw.apply_updates(pc, gg_cpu, adamw.init(pc, opt), opt, 1.0)}
+            (ng, og), (nc, oc) = upd["cuda"], upd["cpu"]
+            row[f"adamw_{key}_param_worst"] = _tree_close(ng, nc, TR_TOL, TR_TOL)[0]
+            if quant:
+                row["adamw_int8_codes_apart"] = [_code_diff(og.m, oc.m), _code_diff(og.v, oc.v)]
+                row["adamw_int8_scale_worst"] = max(
+                    _tree_close(og.m_scale, oc.m_scale, TR_TOL, 0.0)[0],
+                    _tree_close(og.v_scale, oc.v_scale, TR_TOL, 0.0)[0])
+            else:
+                row["adamw_f32_moment_worst"] = max(_tree_close(og.m, oc.m, TR_TOL, TR_TOL)[0],
+                                                    _tree_close(og.v, oc.v, TR_TOL, TR_TOL)[0])
+        log(f"TR {arch}: {json.dumps(row)}")
+        if flips:
+            log(f"TR {arch}: {flips} of {len(rc)} router calls took another expert on the "
+                f"card; its numbers are reported, not bound")
+        else:
+            need(rel <= TR_LOSS_RTOL, f"TR {arch}: loss {float(lg)} card, {float(lc)} CPU")
+            need(g_worst <= 1.0, f"TR {arch}: grad {g_leaf} outside rtol = atol = {TR_TOL}")
+            need(row["step_f32_loss_rel"] <= TR_LOSS_RTOL
+                 and row["step_int8_loss_rel"] <= TR_LOSS_RTOL,
+                 f"TR {arch}: the train step's loss apart: {row}")
+            need(row["adamw_f32_param_worst"] <= 1.0 and row["adamw_int8_param_worst"] <= 1.0
+                 and row["adamw_f32_moment_worst"] <= 1.0,
+                 f"TR {arch}: AdamW's params / moments outside {TR_TOL}: {row}")
+            need(all(far <= 1 for _, _, far in row["adamw_int8_codes_apart"])
+                 and row["adamw_int8_scale_worst"] <= 1.0,
+                 f"TR {arch}: int8 moment codes / scales apart: {row}")
+        out[arch] = row
+        del bc, bg, pc, pg, gc, gg, runs, new, gdet, bound
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_determinism_probe():
+    """Path TD: stablelm-1.6b at full width cut to TD_LAYERS layers, bf16,
+    T's batch: the grads of one batch twice with the deterministic
+    algorithms off (the leaves whose bits differ are where atomics
+    accumulate) and twice under ``deterministic()`` (gated bit-equal)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import loss_and_grads, to_device
+    from repro_torch.train.trainer import deterministic
+    cfg = dataclasses.replace(get_config(T_ARCH), n_layers=TD_LAYERS)
+    b = build_model(cfg, "cuda")
+    p = b.init(0)
+    batch = to_device(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=T_SEQ, batch=T_BATCH))
+                      .batch_at(0), "cuda")
+    out = {}
+    for det in (False, True):
+        with deterministic("cuda") if det else contextlib.nullcontext():
+            g = [loss_and_grads(b, p, batch)[2] for _ in range(2)]
+        diff = {}
+        for (path, x), y in zip(ttree.leaves_with_path(g[0]), ttree.leaves(g[1])):
+            if not torch.equal(x, y):
+                diff[ttree.path_str(path)] = float((x.float() - y.float()).abs().max())
+        out["deterministic" if det else "default"] = diff
+        del g
+    log(f"TD: grad leaves whose bits differ between two runs: {json.dumps(out)}")
+    need(not out["deterministic"], f"TD: deterministic grads differ: {out['deterministic']}")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _opt_bytes(opt) -> int:
+    from repro_torch import tree as ttree
+    return sum(t.numel() * t.element_size()
+               for side in (opt.m, opt.v, opt.m_scale, opt.v_scale) if side is not None
+               for t in ttree.leaves(side))
+
+
+def _timed_saves(trainer, record):
+    """Wrap ``trainer.ckpt.save`` to log each save's host seconds (a
+    blocking save includes the write; a background one the device-to-host
+    fetch)."""
+    save = trainer.ckpt.save
+
+    def timed(step, tree, extra_meta=None, block=False):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(step, tree, extra_meta, block)
+        record.append(dict(step=step, block=block, s=time.perf_counter() - t0))
+    trainer.ckpt.save = timed
+
+
+def profile_train_step(trainer, state, data, top=12):
+    """One more train step of ``trainer`` from ``state`` (batch T_STEPS,
+    discarded) under torch.profiler: wall and device busy ms, the idle
+    share, kernels launched, and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import make_source
+    from repro_torch.train.trainer import deterministic
+    batch = make_source(data).batch_at(T_STEPS)
+    with deterministic("cuda"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            new, _ = trainer.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    del new
+    rows = device_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    out = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+               kernels=sum(r[3] for r in rows),
+               top=[dict(ms=r[0], kernel=r[1][:120], launches=r[3]) for r in rows[:top]])
+    log(f"T: a profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+        f"{out['kernels']} kernels; top {json.dumps(out['top'])}")
+    return out
+
+
+def phase_train_full(root):
+    """Paths T and TQ (see the module docstring), checkpoints under
+    ``root``; T's directory is removed before TQ starts."""
+    import math
+    import shutil
+    import statistics
+    import torch
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.model_flops import model_flops
+    from repro_torch.models import build_model
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = get_config(T_ARCH)
+    need(cfg.remat == "full" and cfg.loss_chunk == 512 and cfg.dtype == "bfloat16",
+         f"T: {cfg}")
+    bundle = build_model(cfg, "cuda")
+    data = DataConfig(vocab=cfg.vocab, seq_len=T_SEQ, batch=T_BATCH, seed=0)
+    flops = model_flops(cfg, ShapeSpec("T", "train", T_SEQ, T_BATCH))["total"]
+    res = {}
+
+    def summary(path, out, saves):
+        hist = out["history"]
+        last = {}
+        for r in hist:
+            last[r["step"]] = r
+        losses = [last[s]["loss"] for s in range(1, T_STEPS + 1)]
+        need(all(math.isfinite(x) for x in losses), f"{path}: losses {losses}")
+        secs = [last[s]["sec_per_step"] for s in range(3, T_STEPS + 1)]
+        s_step = statistics.median(secs)
+        return dict(losses=losses, s_per_step_median=s_step, s_per_step=secs,
+                    tokens_per_s=T_BATCH * T_SEQ / s_step,
+                    model_tflops_per_s=flops / s_step / 1e12,
+                    model_flops_per_step=flops, share_of_989=flops / s_step / 989e12,
+                    saves=saves, restarts=out["restarts"],
+                    straggler_steps=out["straggler_steps"],
+                    lr_scale=[last[s]["lr_scale"] for s in range(1, T_STEPS + 1)],
+                    grad_norm=[last[s]["grad_norm"] for s in range(1, T_STEPS + 1)])
+
+    # ---- T: fp32 moments, one blocking save at the end
+    tdir = root / "T"
+    tr = Trainer(bundle, AdamWConfig(lr=T_LR), data,
+                 TrainerConfig(total_steps=T_STEPS, ckpt_every=10 ** 9, ckpt_dir=str(tdir),
+                               log_every=1))
+    saves = []
+    _timed_saves(tr, saves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t = summary("T", out, saves)
+    t.update(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             opt_state_bytes=_opt_bytes(out["state"]["opt"]),
+             ckpt_bytes=_dir_bytes(tdir / f"step_{T_STEPS}"))
+    need(out["restarts"] == 0, f"T: {out['restarts']} restarts")
+    first5, last5 = t["losses"][:5], t["losses"][-5:]
+    need(sum(last5) / 5 < sum(first5) / 5,
+         f"T: mean loss of the last five steps {last5} not below the first five's {first5}")
+    # a second trainer on the same directory restores the final checkpoint
+    t2 = Trainer(bundle, AdamWConfig(lr=T_LR), data,
+                 TrainerConfig(total_steps=T_STEPS, ckpt_dir=str(tdir)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state2, step2 = t2.restore_or_init()
+    torch.cuda.synchronize()
+    t["restore_s"] = time.perf_counter() - t0
+    live = ttree.leaves(out["state"])
+    back = ttree.leaves(state2)
+    need(step2 == T_STEPS and len(live) == len(back)
+         and all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(live, back)),
+         "T: the restored state differs from T's live state")
+    t["restored_bit_equal"] = True
+    del state2, back
+    t["profile"] = profile_train_step(tr, out["state"], data)
+    log(f"T: {json.dumps({k: v for k, v in t.items() if k != 's_per_step'})}")
+    res["T"] = t
+    del out, live, tr, t2
+    torch.cuda.empty_cache()
+    shutil.rmtree(tdir, ignore_errors=True)
+
+    # ---- TQ: int8 moments, a checkpoint every 10 steps, one injected failure
+    boom = {"armed": True}
+
+    def failure_hook(step):
+        if step == TQ_FAIL_AT and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError(f"injected failure at step {step}")
+
+    qdir = root / "TQ"
+    tq = Trainer(bundle, AdamWConfig(lr=T_LR, quant_state=True), data,
+                 TrainerConfig(total_steps=T_STEPS, ckpt_every=TQ_CKPT_EVERY,
+                               ckpt_dir=str(qdir), log_every=1),
+                 failure_hook=failure_hook)
+    saves = []
+    _timed_saves(tq, saves)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tq.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need(out["restarts"] == 1, f"TQ: {out['restarts']} restarts")
+    by_step = {}
+    for r in out["history"]:
+        by_step.setdefault(r["step"], []).append(r["loss"])
+    replayed = {s: v for s, v in by_step.items() if len(v) > 1}
+    need(sorted(replayed) == list(range(TQ_CKPT_EVERY + 1, TQ_FAIL_AT + 1))
+         and all(v[0] == v[1] for v in replayed.values()),
+         f"TQ: replayed steps {replayed}")
+    q = summary("TQ", out, saves)
+    q.update(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             opt_state_bytes=_opt_bytes(out["state"]["opt"]),
+             ckpt_bytes=_dir_bytes(qdir / f"step_{T_STEPS}"), replayed=replayed,
+             loss_minus_T=[a - b for a, b in zip(q["losses"], t["losses"])])
+    log(f"TQ: {json.dumps({k: v for k, v in q.items() if k != 's_per_step'})}")
+    log(f"T/TQ: optimizer state {t['opt_state_bytes'] / 1e9:.3f} GB (f32 m + v) against "
+        f"{q['opt_state_bytes'] / 1e9:.3f} GB (int8 codes + scales); checkpoints "
+        f"{t['ckpt_bytes'] / 1e9:.3f} / {q['ckpt_bytes'] / 1e9:.3f} GB")
+    res["TQ"] = q
+    del out, tq
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_child() -> int:
+    """The training paths, run by ``phase_train`` in a child process whose
+    environment sets CUBLAS_WORKSPACE_CONFIG before its first cuBLAS handle
+    (the parent made its own long before, serving): TR, TD, T and TQ, their
+    results written to chiprun_out/chip_smoke_train.json."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeError("CUDA is not available")
+    need(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_CONFIG,
+         "the training child needs CUBLAS_WORKSPACE_CONFIG from its parent")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    with timed("train TR"):
+        res["TR"] = phase_train_parity()
+    with timed("train TD"):
+        res["TD"] = phase_determinism_probe()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=ROOT / "build", prefix="train_ckpt_"))
+    try:
+        du = shutil.disk_usage(root)
+        log(f"train: checkpoints under {root}, {du.free / 1e9:.1f} GB free of "
+            f"{du.total / 1e9:.1f} GB")
+        with timed("train T, TQ"):
+            res.update(phase_train_full(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["phase_s"] = PHASE_S
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(res, indent=1, default=str))
+    return 0
+
+
+def phase_train():
+    """Run ``train_child`` in a child process (``--train-child``) with the
+    deterministic cuBLAS workspace, and read its results; the child's
+    output goes to this process's."""
+    import os
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG)
+    out = OUT_DIR / "chip_smoke_train.json"
+    out.unlink(missing_ok=True)
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-child"],
+                        env=env, timeout=TRAIN_CHILD_TIMEOUT).returncode
+    need(rc == 0 and out.exists(), f"the training child exited {rc}")
+    return json.loads(out.read_text())
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3705,7 +4284,10 @@ def smi_line():
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train-child", action="store_true", help=argparse.SUPPRESS)
+    if ap.parse_args(argv).train_child:
+        return train_child()
 
     import torch
     if not torch.cuda.is_available():
@@ -3820,6 +4402,20 @@ def main(argv=None) -> int:
     # path G: the CNN track, trained, calibrated and evaluated on the card
     with timed("cnn G"):
         cnn_track = phase_cnn()
+    # path AL: A through the per-request prefill baseline
+    with timed("serve AL"):
+        counts["AL"], al = phase_legacy(cfg, serve["A"][0])
+    serve["AL"] = [al]
+    log(f"serve AL (per-request prefill) against A (bucketed): prefill "
+        f"{al['prefill_s']:.3f} s in {al['prefill_launches']} launches against A's "
+        f"{[round(r['prefill_s'], 3) for r in serve['A']]} s in "
+        f"{[r['prefill_launches'] for r in serve['A']]}; decode dispatch median "
+        f"{al['decode_step_median_ms']:.3f} ms against "
+        f"{[round(r['decode_step_median_ms'], 3) for r in serve['A']]}")
+    torch.cuda.empty_cache()
+    # paths TR, TD, T, TQ: training, in a child process (deterministic cuBLAS)
+    with timed("train"):
+        training = phase_train()
 
     replaces = {
         "act_stats": "src/repro/kernels/act_stats.py:33",
@@ -3888,7 +4484,7 @@ def main(argv=None) -> int:
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
              parity_max_logit_diff=parity, unfused=unfused, cnn=cnn_track,
-             phase_s=PHASE_S), indent=1,
+             train=training, phase_s=PHASE_S), indent=1,
         default=str))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,13 @@ i's kind j is layer i * P + j).  Quantized records are
 not carried across: the port builds its own from the same fp weights with
 ``models.linops.quantize_param_tree``, and the tests compare the two.
 ``cnn_params_from_numpy`` does the same for the CNN track's params.
+
+``opt_state_from_numpy`` carries a reference AdamW state across (its m and
+v, f32 or int8 codes with their scales, have the params' tree, so the
+stacked block leaves split per layer in the same way), and
+``params_to_numpy`` / ``opt_state_to_numpy`` go back: the port's tensors as
+numpy in the reference's stacked layout (bfloat16 as float32), for
+comparing the two after an update.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.api import resolve_device
+from repro_torch.optim.adamw import OptState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -83,3 +91,57 @@ def cnn_params_from_numpy(tree: dict, device="cuda") -> dict:
     unless the caller asks for the CPU)."""
     device = resolve_device(device)
     return _map(lambda a: _tensor(a, device), tree)
+
+
+def opt_state_from_numpy(opt, device="cuda") -> OptState:
+    """A reference ``OptState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) -> the port's on ``device``: the step a 0-dim int32 tensor,
+    m / v (and the int8 states' scales) through ``params_from_numpy``."""
+    device = resolve_device(device)
+
+    def side(t):
+        return None if t is None else params_from_numpy(t, device)
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=device)
+    return OptState(step, side(opt.m), side(opt.v), side(opt.m_scale), side(opt.v_scale))
+
+
+def _np(t) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """The port's params (or any tree of their structure: an AdamW moment
+    or scale tree) -> numpy in the reference's layout: head and tail layers
+    as tuples, each pattern kind's layers stacked along a leading block
+    axis (a ``shared`` kind's ``{}``), ``enc_blocks`` stacked the same way;
+    bfloat16 leaves as float32."""
+    P = len(cfg.pattern)
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([d[k] for d in layers]) for k in layers[0]}
+        return np.stack([_np(t) for t in layers])
+
+    out = {
+        "embed": _map(_np, params["embed"]),
+        "final_norm": _np(params["final_norm"]),
+        "head": tuple(_map(_np, d) for d in params["head"]),
+        "tail": tuple(_map(_np, d) for d in params["tail"]),
+        "blocks": tuple(stack(params["blocks"][j::P]) for j in range(P)),
+    }
+    if "shared_block" in params:
+        out["shared_block"] = _map(_np, params["shared_block"])
+    if "enc_blocks" in params:
+        out["enc_blocks"] = stack(params["enc_blocks"])
+        out["enc_norm"] = _np(params["enc_norm"])
+    return out
+
+
+def opt_state_to_numpy(opt: OptState, cfg) -> OptState:
+    """The port's ``OptState`` with numpy leaves in the reference's layout
+    (``params_to_numpy`` for each side tree)."""
+    def side(t):
+        return None if t is None else params_to_numpy(t, cfg)
+    return OptState(np.asarray(int(opt.step), np.int32), side(opt.m), side(opt.v),
+                    side(opt.m_scale), side(opt.v_scale))

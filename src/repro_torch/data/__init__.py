@@ -1,1 +1,2 @@
-from . import corruptions
+from . import corruptions, pipeline
+from .pipeline import DataConfig, Prefetcher, make_source

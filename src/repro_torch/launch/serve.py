@@ -20,10 +20,11 @@ prompts longer than the largest bucket into chunks of that bucket's length
 free port, printed on startup).  SIGTERM/SIGINT drain, snapshot
 (``--snapshot``) and exit cleanly.
 
-Multi-GPU serving (``--mesh``, ``--num-processes``, ``--slots-per-replica``,
-``--launch-timeout``) is ROADMAP.md Queue 1 item 8 and the per-request
-prefill baseline (``--legacy-prefill``) item 9: each raises naming its
-item.
+``--legacy-prefill`` serves with the per-request prefill baseline
+(``batch_prefill=False``: every request prefills alone at its exact
+length; not with ``--paged`` or ``--chunked-prefill``).  Multi-GPU serving
+(``--mesh``, ``--num-processes``, ``--slots-per-replica``,
+``--launch-timeout``) is ROADMAP.md Queue 1 item 8 and raises naming it.
 """
 from __future__ import annotations
 
@@ -197,19 +198,22 @@ def main(argv=None):
 
     from repro_torch.models import frontend
     from repro_torch.serve import Request, ServeConfig, build_engine
-    from repro_torch.serve.engine import not_ported
+    from repro_torch.models.context import not_ported
 
     if (args.mesh or args.num_processes > 1 or args.slots_per_replica is not None
             or args.launch_timeout is not None):
         raise not_ported("multi-GPU serving (--mesh, --num-processes)", "8")
-    if args.legacy_prefill:
-        raise not_ported("the per-request prefill baseline", "9")
+    if args.paged and args.legacy_prefill:
+        raise SystemExit("--paged needs the bucketed prefill path")
+    if args.chunked_prefill and args.legacy_prefill:
+        raise SystemExit("--chunked-prefill needs the bucketed prefill path")
 
     sc = ServeConfig(
         arch=args.arch, reduced=args.reduced, int8_kv=args.int8_kv,
         slots=args.slots, max_len=args.max_len,
         quantize_weights=args.int8, temperature=args.temperature,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
+        batch_prefill=not args.legacy_prefill,
         chunked_prefill=args.chunked_prefill,
         decode_steps=args.decode_steps, pdq_fallback=args.pdq_fallback,
         snapshot_path=args.snapshot, paged=args.paged,
@@ -222,7 +226,8 @@ def main(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     cfg = eng.cfg
-    mode = ("bucketed" + (f" paged/{args.page_size}" if args.paged else "")
+    mode = (("legacy" if args.legacy_prefill else "bucketed")
+            + (f" paged/{args.page_size}" if args.paged else "")
             + (" chunked" if args.chunked_prefill else ""))
 
     gen = torch.Generator(device=eng.device)

@@ -1,10 +1,13 @@
-"""Public model API (port of the serving half of ``repro/models/api.py``).
+"""Public model API (port of ``repro/models/api.py``).
 
 ``build_model(cfg, device)`` returns a bundle of step functions on one
-device.  Unlike the reference's pure functions they update the caches they
-are given IN PLACE and return them: the serving pool is landed into and
-decoded over without copies.  ``bundle.paged_cache`` builds the device half
-of the paged KV pool.
+device.  Unlike the reference's pure functions the serving ones update the
+caches they are given IN PLACE and return them: the serving pool is landed
+into and decoded over without copies.  ``bundle.paged_cache`` builds the
+device half of the paged KV pool.  ``bundle.train_loss`` is the one
+differentiable step (every serving step runs under ``torch.no_grad``).
+``SHAPES`` are the reference's assignment shapes; its dry-run stand-ins
+(``input_specs``) are not ported (``launch/dryrun.py`` has no port).
 
 The prefill extras ride in the batch dict beside ``tokens``: a vision
 config's ``patches`` (B, P, d), prepended to the text (positions run over
@@ -25,6 +28,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.kv_cache import Move
 
 from .config import ArchConfig
+from .layers import chunked_xent_loss
 from .transformer import lm_apply, lm_init, lm_init_caches, lm_logits
 
 
@@ -41,10 +45,28 @@ def resolve_device(device) -> torch.device:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str           # 'train' | 'prefill' | 'decode'
+    seq: int
+    batch: int
+
+
+# the reference's assignment shapes (MODEL_FLOPS reads them)
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ArchConfig
     device: torch.device
     init: Callable[..., Any]
+    train_loss: Callable[..., Any]
     init_caches: Callable[..., Any]
     prefill: Callable[..., Any]
     prefill_many: Callable[..., Any]
@@ -145,6 +167,22 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
 
     P = _patch_count(cfg)
 
+    def train_loss(params, batch):
+        """(loss, {"xent", "aux"}) of one batch, differentiable: ``tokens``
+        and ``labels`` (B, S) on the device, and a vision config's
+        ``patches`` / an encoder-decoder's ``frames``.  Positions run over
+        P + S; the cross-entropy reads the text positions ``h[:, P:]``
+        (``chunked_xent_loss``: ``cfg.loss_chunk`` positions a chunk) and
+        the loss is xent + 0.01 * the MoE layers' load-balance loss."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h, _, aux = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + S),
+                             mode="train", **_extras(batch))
+        xent = chunked_xent_loss(params["embed"]["embedding"], h[:, P:], batch["labels"],
+                                 chunk=cfg.loss_chunk, logit_softcap=cfg.logit_softcap)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
+
     def init_caches(batch: int, max_len: int, mem_len: int = 0):
         return lm_init_caches(cfg, batch, max_len, dev, mem_len)
 
@@ -160,8 +198,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         """Unpadded prefill: logits (B, vocab) of each row's last token."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h, caches = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + S),
-                             mode="prefill", caches=caches, **_extras(batch))
+        h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + S),
+                                mode="prefill", caches=caches, **_extras(batch))
         return lm_logits(params, cfg, h[:, -1]), caches
 
     @torch.no_grad()
@@ -178,9 +216,9 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         sl = seq_lens.to(device=dev, dtype=torch.int32)
         # the valid prefix in full-sequence positions, patches included
         tot = torch.where(sl > 0, sl + P, 0).to(torch.int32)
-        h, caches = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + L),
-                             mode="prefill", caches=caches, seq_lens=tot,
-                             **_extras(batch))
+        h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + L),
+                                mode="prefill", caches=caches, seq_lens=tot,
+                                **_extras(batch))
         last = torch.clamp_min(tot - 1, 0).long()
         h_last = h[torch.arange(B, device=dev), last]
         return lm_logits(params, cfg, h_last), caches
@@ -205,8 +243,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         start = start_lens.to(device=dev, dtype=torch.int32)
         pos = start[:, None] + _positions(B, L)
         sl = seq_lens.to(device=dev, dtype=torch.int32)
-        h, caches = lm_apply(params, cfg, tokens=tokens, positions=pos,
-                             mode="prefill", caches=caches, seq_lens=sl, chunked=True)
+        h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=pos,
+                                mode="prefill", caches=caches, seq_lens=sl, chunked=True)
         last = torch.clamp_min(sl - 1, 0).long()
         h_last = h[torch.arange(B, device=dev), last]
         return lm_logits(params, cfg, h_last), caches
@@ -215,8 +253,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
     def decode_step(params, caches, tokens, positions):
         """tokens, positions: (B, 1) int32.  Returns (logits (B, vocab),
         caches)."""
-        h, caches = lm_apply(params, cfg, tokens=tokens, positions=positions,
-                             mode="decode", caches=caches)
+        h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=positions,
+                                mode="decode", caches=caches)
         return lm_logits(params, cfg, h[:, -1]), caches
 
     def cache_scatter(caches, sub, src_map):
@@ -476,7 +514,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                              gather_moves=gather_moves,
                              writeback_moves=writeback_moves, land_moves=land_moves)
 
-    return ModelBundle(cfg=cfg, device=dev, init=init, init_caches=init_caches,
+    return ModelBundle(cfg=cfg, device=dev, init=init, train_loss=train_loss,
+                       init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,
                        prefill_chunk=prefill_chunk, decode_step=decode_step,
                        cache_scatter=cache_scatter, paged_cache=paged_cache)

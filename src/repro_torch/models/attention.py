@@ -23,7 +23,8 @@ leaves, in the model dtype whatever the KV cache's.
 MLA keeps the compressed stream in its cache, ``{'ckv': (B, S, kv_lora),
 'krope': (B, S, qk_rope), 'pos', 'len'}`` in the model dtype; prefill
 expands per-head k/v from it (a chunk continuation re-expands the whole
-buffer) and decode attends in the compressed space (the absorbed form).
+buffer) and decode attends in the compressed space (the absorbed form);
+train mode expands as prefill does and writes no cache.
 """
 from __future__ import annotations
 
@@ -459,16 +460,20 @@ def _promoted(a, b):
 
 def mla_apply(p, m: MLADims, x, positions, *, mode: str, cache=None, seq_lens=None,
               norm=None, chunked: bool = False):
-    """mode 'prefill' (expanded; ``chunked``: a continuation against the
-    whole buffer) or 'decode' (absorbed); returns (y (B, S, d), cache),
-    the cache updated in place.  ``norm = (w, eps)``: attend over
-    rms_norm(x, w, eps)."""
+    """mode 'train' (expanded, cache-free: returns (y, None)), 'prefill'
+    (expanded; ``chunked``: a continuation against the whole buffer) or
+    'decode' (absorbed); returns (y (B, S, d), cache), the cache updated in
+    place.  ``norm = (w, eps)``: attend over rms_norm(x, w, eps)."""
     B, S, _ = x.shape
     H = m.n_heads
-    if cache is None:
+    if cache is None and mode != "train":
         raise ValueError("serving attention needs a cache")
     q_nope, q_rope, ckv, krope = _mla_qkv(p, m, x, positions, norm)
     q = torch.cat([q_nope, q_rope], -1)
+    if mode == "train":
+        k, v = _expanded(p, m, ckv, krope)
+        o = chunked_attention(q, k, v, positions, positions, causal=True)
+        return lin(o.reshape(B, S, H * m.v_head), p["wo"]), None
     if mode == "prefill" and chunked:
         # the reference's continuation: land the chunk's compressed stream,
         # then re-expand the WHOLE buffer through wk_b / wv_b - it holds the
@@ -494,7 +499,7 @@ def mla_apply(p, m: MLADims, x, positions, *, mode: str, cache=None, seq_lens=No
         _mla_write(cache, ckv, krope, pos_c)
         return y, cache
     if mode != "decode":
-        raise ValueError(f"mode {mode!r}: the port serves 'prefill'/'decode'")
+        raise ValueError(f"mode {mode!r}: MLA runs 'train'/'prefill'/'decode'")
     # decode (absorbed): attention runs in the compressed space; a
     # quantized wk_b / wv_b is read as its f32 values q * scale, as the
     # reference reads it

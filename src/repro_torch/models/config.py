@@ -9,7 +9,9 @@ positions), ``mamba`` (a Mamba2 SSD block, ``ssm``) or ``shared`` (zamba2's
 shared block: one ``global`` layer's params reused at every occurrence,
 each occurrence with its own KV cache), with gemma's softcaps and
 embedding scale (the reference scans the stacked blocks; the port loops
-over a per-layer list).  ``family="encdec"`` adds ``enc_layers``
+over a per-layer list).  ``remat`` and ``loss_chunk`` shape train mode: a
+block's activations recomputed in the backward (``"full"``) or kept, and
+the positions of each chunk of the chunked cross-entropy.  ``family="encdec"`` adds ``enc_layers``
 bidirectional encoder layers over stub frame embeddings and a
 cross-attention block in every decoder layer; ``frontend="vision"``
 prepends ``frontend_tokens`` stub patch embeddings to the text.
@@ -58,7 +60,9 @@ class ArchConfig:
     frontend_tokens: int = 0
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
+    remat: str = "full"                    # 'full' | 'none' (train mode's block remat)
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
+    loss_chunk: int = 512                  # train loss: positions a logits chunk
 
     @property
     def hd(self) -> int:
@@ -91,6 +95,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         enc_layers=min(cfg.enc_layers, 2),
         frontend_tokens=min(cfg.frontend_tokens, 8),
         window=min(cfg.window, 16) if cfg.window else None,
+        remat="none",
+        loss_chunk=16,
         dtype="float32",
     )
     if cfg.moe:

@@ -6,6 +6,7 @@ so ``bridge.params_from_numpy`` maps a JAX param tree one to one.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import rms_norm as rms_norm
@@ -13,9 +14,22 @@ from repro_torch.kernels.ref import true_div
 from .linops import _common_group, is_quantized, is_segment_view, lin, lin_grouped
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only a param tree's shapes
+    and dtypes are wanted: every init draws on the ``meta`` device and
+    allocates nothing (the reference's ``jax.eval_shape`` over its init)."""
+    device = torch.device("meta")
+
+
+def draw_kw(gen) -> dict:
+    """The keywords a random init draws with from ``gen``."""
+    return {"device": gen.device} | ({} if isinstance(gen, MetaGenerator)
+                                     else {"generator": gen})
+
+
 def uniform_init(shape, scale, dtype, gen: torch.Generator):
     """U(-scale, scale) drawn in float32, then cast (the reference's init)."""
-    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    u = torch.rand(shape, dtype=torch.float32, **draw_kw(gen))
     return ((2.0 * u - 1.0) * scale).to(dtype)
 
 
@@ -68,10 +82,38 @@ def mlp_apply(p, x, norm=None):
 
 
 def embed_init(vocab, d_model, dtype, gen):
-    e = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    e = torch.randn((vocab, d_model), dtype=torch.float32, **draw_kw(gen))
     return {"embedding": (0.02 * e).to(dtype)}
 
 
 def embed_apply(p, tokens):
     return p["embedding"][tokens]
+
+
+def _xent_chunk(hc, yc, embedding, logit_softcap):
+    """Sum over one chunk of (logsumexp - gold logit), f32."""
+    logits = softcap((hc @ embedding.T).float(), logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, yc[..., None].long(), dim=-1)[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent_loss(embedding, h, labels, *, chunk: int = 512,
+                      logit_softcap: float | None = None):
+    """Mean cross-entropy of h (B, S, d) against labels (B, S) under the
+    tied ``embedding`` (V, d), without the (B, S, V) logits: each chunk of
+    ``chunk`` positions runs under ``torch.utils.checkpoint``, so its
+    logits exist only inside it and are recomputed in the backward (the
+    reference's ``jax.checkpoint``-ed scan body).  As in the reference, S is
+    cut to ``n_chunks * chunk`` with ``chunk = min(chunk, S)``: positions
+    past the last whole chunk are not in the loss, and the sum is divided
+    by ``B * n_chunks * chunk``."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n_chunks = S // chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_xent_chunk, h[:, sl], labels[:, sl], embedding,
+                                   logit_softcap, use_reentrant=False)
+    return true_div(total, float(B * n_chunks * chunk))

@@ -53,6 +53,8 @@ def _stacked_init(E: int, d_in: int, d_out: int, dtype, gen) -> torch.Tensor:
     holds more than one expert's f32 temporaries (arctic's stack is 26.8
     GB of bf16)."""
     out = torch.empty((E, d_in, d_out), dtype=dtype, device=gen.device)
+    if out.is_meta:             # shapes only (``layers.MetaGenerator``)
+        return out
     for e in range(E):
         out[e] = dense_init(d_in, d_out, dtype, gen)
     return out

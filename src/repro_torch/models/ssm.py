@@ -19,7 +19,9 @@ intermediates stay at (B, n_chunks, H, chunk, chunk).
 
 Caches are updated IN PLACE (the port's ``lm_apply`` passes views of the
 stacked pool, and a captured decode graph replays fixed addresses): the
-conv window and the state are written with ``copy_`` / in-place ops.
+conv window and the state are written with ``copy_`` / in-place ops.  Train
+mode has no cache and writes nothing; autograd differentiates the plain
+torch ops, and a recomputed forward (``remat``) enters ``_ieee_f32`` again.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init
+from .layers import dense_init, draw_kw
 from .linops import lin
 
 
@@ -81,8 +83,8 @@ def ssm_init(cfg: SSMConfig, dtype, gen: torch.Generator) -> dict:
     dev = gen.device
     d_in_proj = 2 * cfg.d_inner + 2 * cfg.d_state + cfg.n_heads
     in_proj = dense_init(cfg.d_model, d_in_proj, dtype, gen)
-    conv_w = torch.randn((cfg.d_conv, cfg.conv_dim), generator=gen,
-                         dtype=torch.float32, device=dev)
+    conv_w = torch.randn((cfg.d_conv, cfg.conv_dim), dtype=torch.float32,
+                         **draw_kw(gen))
     f32 = dict(dtype=torch.float32, device=dev)
     return {
         "in_proj": in_proj,
@@ -196,10 +198,12 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int, init_state=None):
 def ssm_apply(p, cfg: SSMConfig, x, *, mode: str, cache, seq_lens=None, norm=None):
     """The SSD block on x (B, L, d_model), or with ``norm = (w, eps)`` on
     rms_norm(x, w, eps) (inside ``in_proj``'s prologue); returns y (B, L,
-    d_model) and writes the new conv window and state into ``cache`` in
-    place.  ``mode`` 'decode' takes L == 1; 'prefill' starts from the
+    d_model).  ``mode`` 'decode' takes L == 1; 'prefill' starts from the
     cache's conv tail and state (zeros on a fresh row; the landed ones of
-    the earlier chunks in a chunked continuation).
+    the earlier chunks in a chunked continuation) and writes the new conv
+    window and state into ``cache`` in place; 'train' takes no cache
+    (``cache=None``): a zero conv tail and a zero initial state, as the
+    reference's prefill without a cache, and nothing is written.
 
     ``seq_lens`` (B,) marks right-padded prefill rows: a pad's dt is exactly
     0 (``torch.where``), so the recurrence skips it (decay exp(0) = 1, zero
@@ -212,7 +216,13 @@ def ssm_apply(p, cfg: SSMConfig, x, *, mode: str, cache, seq_lens=None, norm=Non
     z, xBC, dt = _split_proj(cfg, lin(x, p["in_proj"], norm=norm))
     dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, L, H)
     A = -torch.exp(p["A_log"])                                 # (H,)
-    window = torch.cat([cache["conv"], xBC], dim=1)            # (B, K - 1 + L, C)
+    if mode not in ("prefill", "decode", "train"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+    if (cache is None) != (mode == "train"):
+        raise ValueError(f"mode {mode!r} {'takes no' if mode == 'train' else 'needs a'} cache")
+    prev = (cache["conv"] if cache is not None else
+            torch.zeros((B, K - 1, xBC.shape[-1]), dtype=xBC.dtype, device=x.device))
+    window = torch.cat([prev, xBC], dim=1)                     # (B, K - 1 + L, C)
 
     if mode == "decode":
         if L != 1:
@@ -230,25 +240,25 @@ def ssm_apply(p, cfg: SSMConfig, x, *, mode: str, cache, seq_lens=None, norm=Non
             y = (state @ Cm[:, None, :, None])[..., 0]         # (B, H, P)
         y = y + p["D"][None, :, None] * xc
         y = y.reshape(B, 1, di).to(x.dtype)
-    elif mode == "prefill":
-        conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"], cache["conv"])
+    else:
+        conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"], prev)
         xc = conv_out[..., :di].reshape(B, L, H, P).float()
         Bm = conv_out[..., di:di + N].float()
         Cm = conv_out[..., di + N:].float()
         if seq_lens is not None:
             valid = torch.arange(L, device=x.device)[None, :] < seq_lens[:, None]
             dt = torch.where(valid[..., None], dt, 0.0)
-        y, final = ssd_scan(xc, dt, A, Bm, Cm, cfg.chunk, cache["state"])
+        y, final = ssd_scan(xc, dt, A, Bm, Cm, cfg.chunk,
+                            cache["state"] if cache is not None else None)
         y = y + p["D"][None, None, :, None] * xc
         y = y.reshape(B, L, di).to(x.dtype)
-        if seq_lens is None:
-            tail = window[:, -(K - 1):]
-        else:
-            # the last K - 1 real inputs start at window index seq_len
-            idx = seq_lens.long()[:, None] + torch.arange(K - 1, device=x.device)[None]
-            tail = window[torch.arange(B, device=x.device)[:, None], idx]
-        cache["conv"].copy_(tail)
-        cache["state"].copy_(final)
-    else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        if cache is not None:
+            if seq_lens is None:
+                tail = window[:, -(K - 1):]
+            else:
+                # the last K - 1 real inputs start at window index seq_len
+                idx = seq_lens.long()[:, None] + torch.arange(K - 1, device=x.device)[None]
+                tail = window[torch.arange(B, device=x.device)[:, None], idx]
+            cache["conv"].copy_(tail)
+            cache["state"].copy_(final)
     return lin(y * F.silu(z), p["out_proj"], norm=(p["norm"], GATE_EPS))

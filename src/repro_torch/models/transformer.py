@@ -36,17 +36,27 @@ cross-attends its output after self-attention - at prefill through
 ``cross_memory``, whose K/V the layer stores as its ``cross_k`` /
 ``cross_v`` cache leaves, at decode from those leaves.  A vision config
 (phi-3-vision) prepends the stub patch embeddings to the embedded text.
+
+Train mode (``mode="train"``, ``caches=None``) runs the same layers
+cache-free and writes nothing: MLA expanded as at prefill, the SSD block
+from a zero conv tail and state, the MoE FFN through its capacity buckets
+with its load-balance losses summed, an encoder-decoder's cross blocks
+over the encoder's output; autograd differentiates the plain torch ops,
+and ``cfg.remat`` picks whether each pattern block is recomputed in the
+backward.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (AttnDims, MLADims, cross_apply, cross_init, cross_memory,
                         gqa_apply, gqa_init, init_cache, mla_apply, mla_init,
                         mla_init_cache)
 from .config import ArchConfig
+from .context import get_context, not_ported
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
 from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
 from .ssm import ssm_apply, ssm_init, ssm_init_cache
@@ -172,36 +182,41 @@ def lm_init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
 
 
 def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=None):
-    """The FFN of rms_norm(h, *norm).  ``seq_lens`` (B,) marks the valid
-    prefix of right-padded prefill rows: pad tokens are masked out of MoE
-    routing, so they claim no expert capacity."""
+    """(the FFN of rms_norm(h, *norm), aux): aux is the MoE router's
+    load-balance loss (f32, 0-dim), 0.0 for a dense FFN.  ``seq_lens`` (B,)
+    marks the valid prefix of right-padded prefill rows: pad tokens are
+    masked out of MoE routing, so they claim no expert capacity.  Train
+    and prefill route through the capacity buckets, decode dense-masked."""
     if not _is_moe(cfg, kind):
-        return mlp_apply(p_ffn, h, norm=norm)
+        return mlp_apply(p_ffn, h, norm=norm), 0.0
+    if get_context() is not None:
+        raise not_ported("expert parallelism under a DistContext", "8")
     xn = rms_norm(h, *norm)
     B, S, d = xn.shape
     mask = None
     if seq_lens is not None:
         mask = (torch.arange(S, device=h.device)[None] < seq_lens[:, None]).reshape(B * S)
-    fn = moe_ffn_tokens if mode == "prefill" else moe_ffn_dense_masked
-    y, _ = fn(p_ffn, xn.reshape(B * S, d), cfg.moe, token_mask=mask)
+    fn = moe_ffn_tokens if mode in ("train", "prefill") else moe_ffn_dense_masked
+    y, aux = fn(p_ffn, xn.reshape(B * S, d), cfg.moe, token_mask=mask)
     y = y.reshape(B, S, d)
     if cfg.moe.n_shared:
         y = y + mlp_apply(p_ffn["shared"], xn)
     if cfg.moe.dense_residual:
         y = y + mlp_apply(p_ffn["dense"], xn)
-    return y
+    return y, aux
 
 
 def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache,
                 memory=None, causal: bool = True, seq_lens=None, chunked: bool = False):
-    """One layer on h (B, S, d), its cache updated in place (``mode='train'``:
-    no cache, an encoder's layer).  An encoder-decoder's layer
-    cross-attends ``memory`` (the encoder's output) at prefill and its
-    ``cross_k`` / ``cross_v`` leaves at decode."""
+    """One layer on h (B, S, d): (h, aux), its cache updated in place
+    (``mode='train'``: no cache - a train step's layer, or an encoder's).
+    An encoder-decoder's layer cross-attends ``memory`` (the encoder's
+    output) in train mode and at prefill, and its ``cross_k`` / ``cross_v``
+    leaves at decode."""
     eps = cfg.norm_eps
     if kind == "mamba":
         return h + ssm_apply(p["ssm"], cfg.ssm, h, mode=mode, cache=cache,
-                             seq_lens=seq_lens, norm=(p["norm"], eps))
+                             seq_lens=seq_lens, norm=(p["norm"], eps)), 0.0
     # each norm runs inside the prologue that reads its output (one K1
     # launch) wherever that input feeds one PDQ group
     if _is_mla(cfg, kind):
@@ -214,7 +229,9 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
     h = h + a
     if cfg.family == "encdec":
         dims = attn_dims(cfg)
-        if mode == "prefill":
+        if mode == "train":
+            mem_kv = cross_memory(p["cross"], dims, memory)
+        elif mode == "prefill":
             mem_kv = cross_memory(p["cross"], dims, memory)
             if mem_kv[0].shape != cache["cross_k"].shape:
                 raise ValueError(f"encoder memory K/V {tuple(mem_kv[0].shape)}, cache "
@@ -225,8 +242,9 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
         else:
             mem_kv = (cache["cross_k"], cache["cross_v"])
         h = h + cross_apply(p["cross"], dims, h, mem_kv, norm=(p["cross_norm"], eps))
-    return h + _apply_ffn(p["ffn"], cfg, kind, h, mode, (p["ffn_norm"], eps),
-                          seq_lens if mode == "prefill" else None)
+    f, aux = _apply_ffn(p["ffn"], cfg, kind, h, mode, (p["ffn_norm"], eps),
+                        seq_lens if mode == "prefill" else None)
+    return h + f, aux
 
 
 def embed_tokens(params, cfg: ArchConfig, tokens):
@@ -251,47 +269,90 @@ def _encoder_apply(params, cfg: ArchConfig, frames):
     positions = torch.arange(Sm, device=frames.device)[None].expand(B, Sm)
     h = frames
     for p in params["enc_blocks"]:
-        h = layer_apply(p, ecfg, "global", h, positions, mode="train", cache=None,
-                        causal=False)
+        h, _ = layer_apply(p, ecfg, "global", h, positions, mode="train", cache=None,
+                           causal=False)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
+def _remat(cfg: ArchConfig, mode: str) -> bool:
+    """Whether train mode recomputes each pattern block in the backward."""
+    if mode != "train" or cfg.remat == "none":
+        return False
+    if cfg.remat == "full":
+        return True
+    raise NotImplementedError(
+        f"remat={cfg.remat!r}: only 'full' and 'none' run here ('save_heavy' is "
+        f"set by the reference's dry run, launch/dryrun.py, which has no port)")
+
+
 def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
-             caches, frames=None, patches=None, seq_lens=None, chunked: bool = False):
-    """Returns (h_final, caches); ``caches`` are updated in place.
-    ``patches`` (B, P, d): stub embeddings prepended to the embedded text
-    (a vision config); ``frames`` (B, Sm, d): the encoder's input (an
-    encoder-decoder's prefill).  ``seq_lens`` (B,) marks the valid prefix
-    of right-padded prefill rows, in full-sequence positions (patches
-    included); ``chunked`` marks a chunked-prefill continuation
-    (``positions`` are absolute and attention also reads the rows the
-    caches already hold)."""
+             caches=None, frames=None, patches=None, seq_lens=None, chunked: bool = False):
+    """Returns (h_final, caches, aux_sum); serving ``caches`` are updated in
+    place, and train mode takes and returns ``caches=None``.  ``aux_sum``
+    is the MoE layers' load-balance loss summed in train mode (a 0-dim f32
+    tensor, or 0.0 for a dense model) and 0.0 when serving, where nothing
+    reads it.  ``patches`` (B, P, d): stub embeddings prepended to the
+    embedded text (a vision config); ``frames`` (B, Sm, d): the encoder's
+    input (an encoder-decoder's train step or prefill).  ``seq_lens`` (B,)
+    marks the valid prefix of right-padded prefill rows, in full-sequence
+    positions (patches included); ``chunked`` marks a chunked-prefill
+    continuation (``positions`` are absolute and attention also reads the
+    rows the caches already hold).
+
+    With ``cfg.remat == "full"`` a train step runs each of the ``n_blocks``
+    pattern blocks under ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference checkpoints its scan body: only the blocks' inputs are kept
+    for the backward, which recomputes each block's activations."""
     dtype = model_dtype(cfg)
+    train = mode == "train"
+    if train != (caches is None):
+        raise ValueError(f"mode {mode!r} {'takes no' if train else 'needs'} caches")
     h = embed_tokens(params, cfg, tokens)
     if patches is not None:
         h = torch.cat([patches.to(dtype), h], dim=1)
     memory = None
     if cfg.family == "encdec" and mode != "decode":
         if frames is None:
-            raise ValueError(f"{cfg.name}: an encoder-decoder's prefill needs frames")
+            raise ValueError(f"{cfg.name}: an encoder-decoder's {mode} needs frames")
         memory = _encoder_apply(params, cfg, frames.to(dtype))
     kw = dict(mode=mode, memory=memory, seq_lens=seq_lens, chunked=chunked)
+    aux_total = 0.0
+
+    def layer(p, kind, h, cache):
+        nonlocal aux_total
+        h, aux = layer_apply(p, cfg, kind, h, positions, cache=cache, **kw)
+        if train:
+            aux_total = aux_total + aux
+        return h
+
     for i, kind in enumerate(cfg.head):
-        h = layer_apply(params["head"][i], cfg, kind, h, positions,
-                        cache=caches["head"][i], **kw)
+        h = layer(params["head"][i], kind, h, None if train else caches["head"][i])
     P = len(cfg.pattern)
-    for i in range(cfg.n_blocks):
+
+    def block(i, h):
+        """Pattern block i: (h, its aux)."""
+        aux = 0.0
         for j, kind in enumerate(cfg.pattern):
-            cache = {k: v[i] for k, v in caches["blocks"][j].items()}
+            cache = None if train else {k: v[i] for k, v in caches["blocks"][j].items()}
             if kind == "shared":
                 p, kind = params["shared_block"], "global"
             else:
                 p = params["blocks"][i * P + j]
-            h = layer_apply(p, cfg, kind, h, positions, cache=cache, **kw)
+            h, a = layer_apply(p, cfg, kind, h, positions, cache=cache, **kw)
+            aux = aux + a
+        return h, aux
+
+    remat = _remat(cfg, mode)
+    for i in range(cfg.n_blocks):
+        if remat:
+            h, aux = checkpoint(block, i, h, use_reentrant=False)
+        else:
+            h, aux = block(i, h)
+        if train:
+            aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail):
-        h = layer_apply(params["tail"][i], cfg, kind, h, positions,
-                        cache=caches["tail"][i], **kw)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+        h = layer(params["tail"][i], kind, h, None if train else caches["tail"][i])
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches, aux_total
 
 
 def lm_logits(params, cfg: ArchConfig, h):

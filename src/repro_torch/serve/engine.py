@@ -12,6 +12,10 @@ its plans to the port's model bundle on one device:
     largest bucket): the first chunk through ``prefill_many`` on a fresh
     pool, the later ones through ``prefill_chunk`` on the same pool, then
     one landing;
+  * ``_submit_one`` (``batch_prefill=False``, the per-request baseline the
+    bucketed scheduler was built to beat): each request prefills alone at
+    its exact length over a fresh one-row cache and lands with one
+    ``cache_scatter`` launch;
   * ``_exec_decode``: one block of ``decode_steps`` (N) model steps over the
     whole pool, in place (``decode_scan``), sampling on the device inside
     each step.  On the card the block is a CUDA graph captured once per
@@ -70,6 +74,7 @@ from repro_torch.distributed.fault import FaultInjector
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
 from repro_torch.models import build_model, frontend
+from repro_torch.models.context import not_ported
 from repro_torch.models.linops import quantize_param_tree
 from repro_torch.models.transformer import model_dtype
 
@@ -168,11 +173,6 @@ def _graphed(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item {item})")
-
-
 class ServeEngine(SchedulerCore):
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  quantize_weights: bool = False, temperature: float = 0.0,
@@ -192,8 +192,8 @@ class ServeEngine(SchedulerCore):
                  trace: bool = False,
                  tel: "tmod.Telemetry | None" = None,
                  device="cuda"):
-        if not batch_prefill:
-            raise not_ported("the per-request prefill baseline", "9")
+        if paged and not batch_prefill:
+            raise ValueError("the paged pool needs batch_prefill=True")
         self.cfg = cfg
         self.bundle = build_model(cfg, device)
         self.device = self.bundle.device
@@ -208,7 +208,7 @@ class ServeEngine(SchedulerCore):
         self._init_scheduler(
             slots=slots, n_replicas=1, max_len=max_len,
             patch_tokens=cfg.frontend_tokens if cfg.frontend == "vision" else 0,
-            buckets=buckets, batch_prefill=True, chunked_prefill=chunked_prefill,
+            buckets=buckets, batch_prefill=batch_prefill, chunked_prefill=chunked_prefill,
             decode_steps=decode_steps, fault=fault, tel=tel)
         if paged:
             self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size,
@@ -320,15 +320,58 @@ class ServeEngine(SchedulerCore):
         self._observe_pdq(health)       # rode the token copy
         return toks, ok
 
-    def _extras_batch(self, batch: dict, extras) -> dict:
+    def _extras_batch(self, batch: dict, extras, rows: int | None = None) -> dict:
         """``batch`` with the run's extras: each one's first row broadcast
-        to every slot row (extras are shared by a run's requests, as in the
-        reference), on the engine's device in the model dtype."""
+        to ``rows`` rows (every slot row by default; extras are shared by a
+        run's requests, as in the reference), on the engine's device in the
+        model dtype."""
         dtype = model_dtype(self.cfg)
         for k, a in dict(extras or {}).items():
             a = torch.as_tensor(a)[:1].to(self.device, dtype)
-            batch[k] = a.expand(self.slots, *a.shape[1:]).contiguous()
+            batch[k] = a.expand(rows or self.slots, *a.shape[1:]).contiguous()
         return batch
+
+    # ------------------------------------------------ per-request prefill
+    def _submit_one(self, req: Request, extras) -> bool:
+        """The per-request prefill baseline (``batch_prefill=False``; the
+        reference's ``_submit_one``): the request prefills alone, through
+        ``bundle.prefill`` at its exact prompt length, over a FRESH one-row
+        cache - prefill writes its cache in place, so a kept row would carry
+        the previous request's K/V, ``pos`` and ``len`` into the next one -
+        and lands in its slot with one K6 launch (a one-row map), then
+        samples its first token as the bucketed path does."""
+        if not self._free_total():
+            return False
+        S = len(req.prompt)
+        self._bucket(S)       # the bucketed path's cache-capacity guard
+        slot = self._take_slot(0)
+        dev = self.device
+        sub = self.bundle.init_caches(1, self.max_len, self.mem_len)
+        tel = self._tel_buffer()
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32)[None], device=dev)
+        with ops.pdq_guard(self.pdq_fallback), \
+                ops.pdq_telemetry(self.tel.enabled, counters=tel):
+            logits, sub = self.bundle.prefill(
+                self.params, self._extras_batch({"tokens": tokens}, extras, rows=1), sub)
+        src_map = np.full((self.slots,), -1, np.int32)
+        src_map[slot] = 0
+        self.bundle.cache_scatter(self.caches, sub, src_map)
+        toks, ok = self._sample_fn(logits, torch.full((1,), req.uid, dtype=torch.int32,
+                                                      device=dev),
+                                   torch.zeros((1,), dtype=torch.int32, device=dev))
+        out = torch.cat((toks, ok.to(torch.int32), tel.view(torch.int32))).cpu().numpy()
+        self._observe_pdq(out[2:].view(np.int64))       # rode the token copy
+        if not bool(out[1]):
+            self._release_slot(slot)
+            self._fail(req, "non-finite logits at prefill", "nonfinite")
+            return True
+        self.stats["replica_admits"][0] += 1
+        self._activate(slot, req, S, int(out[0]))
+        self.stats["prefill_batches"] += 1
+        self.stats["prefill_requests"] += 1
+        self.stats["prefill_tokens"] += S
+        self.stats["prefill_padded_tokens"] += S
+        return True
 
     def _land_sub(self, plan, sub) -> None:
         """Land a finished prefill batch in the pool, in place (the

@@ -62,6 +62,13 @@ every prefill) whose replayed decode graph, reading each layer's cross K/V
 from the pool, serves the eager engine's streams, pool bits (the cross
 leaves included) and counts, slot rows and paged.  The CNN track's training
 repeats its bits within one process (cuDNN's deterministic algorithms).
+Training: reduced stablelm's and deepseek's train step on the card against
+the CPU's (loss within 1e-5 relative, grads and AdamW from the same grads
+within rtol = atol = 1e-4); two 4-step
+``Trainer`` runs under the trainer's deterministic setting (in a child
+process with CUBLAS_WORKSPACE_CONFIG) bit-equal; the per-request prefill
+baseline's census (one K6 a request, K1-K3 a layer a request, the wgmma
+route at ragged rows).
 """
 import gc
 
@@ -1609,3 +1616,131 @@ def test_cnn_training_repeats_its_bits(gen):
     runs = [cnn._leaves(cnn.train_cnn(cfg, steps=20, batch=32, device="cuda"))
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------------
+# training and the per-request prefill baseline
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = 1e-4          # chip_smoke.py's TR: rtol = atol
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen, monkeypatch):
+    """Reduced stablelm and deepseek (f32, TF32 off) on the card against the
+    CPU from the same weights and ``SyntheticLM`` batch: one
+    ``build_train_step`` step's loss within 1e-5 relative, every grad within
+    rtol = atol = 1e-4, AdamW's new params from the same (the card's) grads
+    within the same, and the step's own params within
+    ``adamw.first_step_bound`` of the two devices' grads (chip_smoke.py's
+    TR: Adam's first step normalizes each grad, so where |g| is near eps
+    the params part by more than the grads do)."""
+    from repro_torch import tree as ttree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.train.train_step import build_train_step, loss_and_grads, to_device
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for arch in ("stablelm-1.6b", "deepseek-v2-236b"):
+        cfg = reduced_config(arch)
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, batch=2)).batch_at(0)
+        pc = build_model(cfg, "cpu").init(0)
+        opt = AdamWConfig(lr=1e-3)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = ttree.tree_map(lambda t: t.to(dev), pc)
+            bundle = build_model(cfg, dev)
+            step = build_train_step(bundle, opt, lr_schedule=schedule.constant)
+            state, metrics = step({"params": p, "opt": adamw.init(p, opt)}, batch)
+            out[dev] = (p, metrics, loss_and_grads(bundle, p, to_device(batch, dev))[2],
+                        state["params"])
+        (pc_, mc, gc, sc), (pg, mg, gg, sg) = out["cpu"], out["cuda"]
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= TRAIN_LOSS_RTOL * abs(float(mc["loss"]))
+        for a, b in zip(ttree.leaves(gg), ttree.leaves(gc)):
+            torch.testing.assert_close(a.cpu(), b, rtol=TRAIN_TOL, atol=TRAIN_TOL)
+        ng, _ = adamw.apply_updates(pg, gg, adamw.init(pg, opt), opt, 1.0)
+        nc, _ = adamw.apply_updates(pc_, ttree.tree_map(lambda t: t.cpu(), gg),
+                                    adamw.init(pc_, opt), opt, 1.0)
+        for a, b in zip(ttree.leaves(ng), ttree.leaves(nc)):
+            torch.testing.assert_close(a.cpu(), b, rtol=TRAIN_TOL, atol=TRAIN_TOL)
+        bound = adamw.first_step_bound(pc_, gg, gc, opt, float(mg["lr_scale"]))
+        for (path, a), b, bd in zip(ttree.leaves_with_path(sg), ttree.leaves(sc),
+                                    ttree.leaves(bound)):
+            gap = (a.cpu().double() - b.double()).abs()
+            assert bool((gap <= bd).all()), (arch, ttree.path_str(path),
+                                             float((gap / bd).max()))
+
+
+def test_two_trainer_runs_are_bit_equal(gen, tmp_path):
+    """Two ``Trainer`` runs of 4 steps (reduced stablelm in bf16, int8
+    moments, a checkpoint at step 2) under the trainer's deterministic
+    setting give the same losses and final state bit for bit.  They run in
+    a child process, which sets CUBLAS_WORKSPACE_CONFIG before its first
+    cuBLAS handle (this process made its own long before)."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    script = textwrap.dedent(f"""
+        import json, sys, torch
+        from repro_torch import tree as ttree
+        from repro_torch.configs import reduced_config
+        from repro_torch.data import DataConfig
+        from repro_torch.models import build_model
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.train import Trainer, TrainerConfig
+        cfg = reduced_config("stablelm-1.6b", dtype="bfloat16", remat="full")
+        runs = []
+        for k in range(2):
+            tr = Trainer(build_model(cfg, "cuda"), AdamWConfig(lr=1e-3, quant_state=True),
+                         DataConfig(vocab=cfg.vocab, seq_len=64, batch=4),
+                         TrainerConfig(total_steps=4, ckpt_every=2, log_every=1,
+                                       ckpt_dir=r"{tmp_path}/run%d" % k))
+            out = tr.train()
+            runs.append(([r["loss"] for r in out["history"]], ttree.leaves(out["state"])))
+        same = runs[0][0] == runs[1][0] and all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        print(json.dumps({{"same": same, "losses": [r[0] for r in runs]}}))
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    import json
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["same"], out
+
+
+def test_legacy_prefill_census_on_the_card(card_model):
+    """The per-request prefill baseline on the card: every request's
+    prefill enters K1-K3 once a layer as a bucketed round does and lands
+    with one K6 launch; every launch is an entry, every K2/K3 launch takes
+    the wgmma route at the prompts' ragged row counts, every decode dispatch
+    replays the graph, and every request completes (the streams against the
+    bucketed engine's: chip_smoke.py's AL, within A's logit tolerance)."""
+    cfg, _ = card_model
+    n = cfg.n_layers
+    for legacy in (False, True):
+        eng = _graph_engine(card_model, batch_prefill=not legacy)
+        reqs = _graph_reqs(cfg)
+        ops.reset_counts()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        st = eng.stats
+        c = ops.counts()
+        assert all(v["launches"] == v["entries"] for v in c.values())
+        assert st["graph_replays"] == st["decode_steps"] > 0
+        assert all(r.done and r.error is None and len(r.generated) == r.max_new
+                   for r in reqs)
+        if legacy:
+            pre, dec = len(reqs), st["decode_steps"]
+            assert st["prefill_batches"] == pre
+            assert st["prefill_padded_tokens"] == st["prefill_tokens"]
+            assert c["cache_scatter"]["launches"] == pre
+            assert c["w8a8_swiglu_matmul"]["launches"] == n * (pre + dec)
+            assert c["w8a8_matmul"]["launches"] == 3 * n * (pre + dec)
+            assert c["pdq_prologue"]["launches"] == n * (3 * pre + 2 * dec)
+            routes = ops.route_counts()
+            for k in ("w8a8_matmul", "w8a8_swiglu_matmul"):
+                assert routes[k]["wgmma"] == c[k]["launches"], routes

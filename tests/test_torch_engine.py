@@ -116,8 +116,7 @@ def test_build_engine_needs_cuda_by_default():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh", object()), ("batch_prefill", False), ("slots_per_replica", 2),
-    ("launch_timeout", 30.0)])
+    ("mesh", object()), ("slots_per_replica", 2), ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
     cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):

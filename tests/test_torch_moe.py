@@ -192,9 +192,9 @@ def test_layer_ffn_with_shared_or_dense_mlp(arch, mode, weights):
     jy, _ = jtr._apply_ffn(jffn, jcfg, "global", j_rms_norm(jnp.asarray(h), jnp.asarray(w),
                                                             jcfg.norm_eps),
                            mode, seq_lens=None if lens is None else jnp.asarray(lens))
-    ty = ttr._apply_ffn(tffn, tcfg, "global", torch.from_numpy(h), mode,
-                        (torch.from_numpy(w), tcfg.norm_eps),
-                        None if lens is None else torch.from_numpy(lens))
+    ty, _ = ttr._apply_ffn(tffn, tcfg, "global", torch.from_numpy(h), mode,
+                           (torch.from_numpy(w), tcfg.norm_eps),
+                           None if lens is None else torch.from_numpy(lens))
     jy = np.asarray(jy)
     for b in range(B):
         n = S if lens is None else lens[b]

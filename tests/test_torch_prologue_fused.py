@@ -206,7 +206,7 @@ def _unfused_lm_apply(params, cfg, *, tokens, positions, mode, caches, seq_lens=
                          positions, mode=mode, cache=cache, seq_lens=seq_lens)
         h = h + a
         h = h + mlp_apply(p["ffn"], tref.rms_norm(h, p["ffn_norm"], eps))
-    return tref.rms_norm(h, params["final_norm"], eps), caches
+    return tref.rms_norm(h, params["final_norm"], eps), caches, 0.0
 
 
 def _serve(bundle, params, steps=3):
