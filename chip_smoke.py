@@ -320,6 +320,29 @@ Phases, each of which must pass (any failure exits non-zero):
                 streams against A's), then the child process of TR, TD, T
                 and TQ, whose results land in chiprun_out/chip_smoke_train.json
                 and in chip_smoke.json's "train".
+  9. mesh     - after A's runs and before E (``phase_mesh``): A's engine on
+                a ('data', 'model') mesh whose every entry is cuda:0, 4
+                slots a replica, A's requests: X21 (2x1: data only), X22
+                (2x2: each replica's projections split over 2 column
+                shards, K2 once a shard over its columns, no K3) and X22D
+                (X22 paged, D1's pool a replica).  First the K2 rows at
+                every TP column block of A's records at 8 and 2048 rows
+                (wgmma from the shifted base, against plain and against
+                the unsplit launch's columns) and the fallback over a
+                shard's columns, taken and not (rows tagged "X").  Each
+                path: phase 3's gates with the exact census a replica
+                (``mesh_census``: 4 + 4T launches a layer and decode step
+                under TP), every decode dispatch a replay of each
+                replica's graph, streams equal to A's but at tokens whose
+                top-2 margin in A's run is below A's LOGIT_TOL (counted);
+                X22's parity (phase 5 under the replica's shards) and its
+                replayed step against A's (five alternated pairs, wall and
+                profiler busy ms); X22D's streams equal X22's.  Then MH:
+                X22's mesh served by two child processes (``--mesh-child``,
+                a gloo group on 127.0.0.1), process p hosting replica p,
+                decode_steps=4: tokens and every stat that does not depend
+                on the dispatch's N identical to X22's, both processes
+                admitting and drained, each child's census for its replica.
 
 The seconds of every phase are logged ("phase <name>: <s> s").
 
@@ -382,7 +405,11 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
              # |logit| ~4-6 over 32064 tokens).  S (seamless): A's argument
              # (int8 KV through K5) over its 12 decoder and 12 encoder
              # layers, 24 as A's; its logits (d_model 1024) stay below 4
-             "V": 0.34375, "S": 0.25}
+             "V": 0.34375, "S": 0.25,
+             # X22: A's program with each projection's columns split over
+             # two shards (bit for bit) and the unfused MLP in K3's place
+             # (within K3's 1e-4): A's argument
+             "X22": 0.25}
 # the parity phase's second health comparison: every record's alpha and
 # beta times this, so that outputs clip
 CLIP_SCALE = 0.25
@@ -401,7 +428,8 @@ CLIP_SCALE = 0.25
 TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
              "H": 1e-4,           # H: A's (K5's o and K3's sums move edges)
              "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4,    # C's and A's
-             "M": 1e-4, "Z": 1e-4, "V": 1e-4, "S": 1e-4}
+             "M": 1e-4, "Z": 1e-4, "V": 1e-4, "S": 1e-4,
+             "X22": 1e-4}         # X22: A's
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
 ATTEND_LENS = (1, 57, 128, 129, 250, 300, 511, 512)   # ragged across the tile
@@ -529,7 +557,18 @@ PATHS = {
     "SD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
     # the per-request prefill baseline: A with every request prefilled alone
     "AL": (True, True, _A_KERNELS, dict(batch_prefill=False)),
+    # the mesh paths (``phase_mesh``): A over a 2x1 mesh, a 2x2 mesh (no K3
+    # under TP), the 2x2 mesh paged, and the 2x2 mesh over two processes
+    "X21": (True, True, _A_KERNELS, {}),
+    "X22": (True, True, _F_KERNELS[:-1], {}),
+    "X22D": (True, True, _D_KERNELS[:2] + _D_KERNELS[3:], dict(paged=True, page_size=PAGE)),
+    "MH": (True, True, _F_KERNELS[:-1], dict(decode_steps=4)),
 }
+# data x model of each mesh path; its slots a replica
+X_MESH = {"X21": (2, 1), "X22": (2, 2), "X22D": (2, 2), "MH": (2, 2)}
+X_SPR = 4
+MH_TIMEOUT = 900          # seconds a mesh child may take, its startup included
+MH_LAUNCH_TIMEOUT = 600.0  # the fleet's deadline watchdog on every collective
 H_PATHS = ("H", "HD", "HB", "HBW")
 MOE_PATHS = ("DS", "DSD", "AR")
 SSM_PATHS = ("M", "Z", "ZD")
@@ -2521,11 +2560,12 @@ MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
               "act_stats": "vector", "quantize": "vector"}
 
 
-def check_routes(path, counts):
+def check_routes(path, counts, routes=None):
     """Every K2 and K3 launch of a run took the wgmma route, every K4 and
-    K5 launch the split route, every K8 and K9 launch the vector route."""
+    K5 launch the split route, every K8 and K9 launch the vector route
+    (``routes``: another process's route counts, else this one's)."""
     from repro_torch.kernels import ops
-    routes = ops.route_counts()
+    routes = ops.route_counts() if routes is None else routes
     log(f"{path}: K2-K5, K8, K9 launches per route {routes}")
     for name, r in routes.items():
         main = MAIN_ROUTE[name]
@@ -3771,6 +3811,484 @@ TRAIN_CHILD_TIMEOUT = 900     # seconds
 CUBLAS_CONFIG = ":4096:8"     # the deterministic cuBLAS workspace
 
 
+# ------------------------------------------------------------------ mesh paths
+def x_mesh(path, processes=1):
+    """``path``'s ('data', 'model') mesh, every entry cuda:0."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    D, T = X_MESH[path]
+    return make_serve_mesh(D, T, ["cuda:0"] * (D * T), processes=processes)
+
+
+def x_config(path, **kw):
+    """A's serving config over ``path``'s mesh, X_SPR slots a replica."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(arch=T_ARCH, reduced=False, slots_per_replica=X_SPR, max_len=512,
+                       int8_kv=True, quantize_weights=True, device="cuda",
+                       mesh=x_mesh(path, kw.pop("processes", 1)),
+                       **dict(PATHS[path][3], **kw))
+
+
+def tp_k2_per_layer(eng, T):
+    """K2 launches a layer and model step under T column shards: QKV, wo,
+    gate/up and w_down each launch once a shard where their columns (a
+    grouped record's 128-column blocks) divide over T, else once (A's
+    records all divide: 4 T)."""
+    p0 = eng.params["blocks"][0]
+    recs = (p0["attn"]["wq"]["group"], p0["attn"]["wo"], p0["ffn"]["w_gate"]["group"],
+            p0["ffn"]["w_down"])
+    cols = [r["q"].shape[1] // 128 if "segs" in r else r["q"].shape[1] for r in recs]
+    return sum(T if c % T == 0 else 1 for c in cols)
+
+
+def mesh_census(path, cfg, st, replicas, k2_layer):
+    """Op entries of ``replicas`` replicas in a serving run of a mesh path
+    (every replica runs every launch of the run, as the reference's SPMD
+    program does).  A replica runs A's program on its slots; under TP (T
+    > 1 column shards) each PDQ projection's K2 runs once a shard
+    (``k2_layer`` a layer, ``tp_k2_per_layer``) and the MLP is unfused:
+    per layer K1 for QKV, gate/up and w_down (and wo at prefill; at decode
+    K5 runs wo's prologue), no K3 - 4 + 4T launches a decode step with K5
+    at A's shapes.  Returns (entries, K1 launches per mode)."""
+    T = X_MESH[path][1]
+    n = cfg.n_layers
+    rounds = st["prefill_batches"]
+    pre = rounds + st["chunk_batches"]
+    dec = st["decode_steps"] * block_of(path)
+    want = dict(pdq_prologue=0, w8a8_matmul=0, w8a8_swiglu_matmul=0, decode_attend_i8kv=0,
+                decode_attend_i8kv_fused=n * dec, cache_scatter=0, cache_scatter_pages=0,
+                act_stats=0, quantize=0, dequantize=0, fp_dequant=0)
+    modes = dict.fromkeys(("prologue", "norm", "interval", "norm+interval"), 0)
+    modes["norm+interval"] = 2 * n * (pre + dec)
+    if T > 1:
+        want.update(pdq_prologue=n * (4 * pre + 3 * dec), w8a8_matmul=k2_layer * n * (pre + dec))
+        modes["interval"] = n * pre + n * (pre + dec)
+    else:
+        want.update(pdq_prologue=n * (3 * pre + 2 * dec), w8a8_matmul=3 * n * (pre + dec),
+                    w8a8_swiglu_matmul=n * (pre + dec))
+        modes["interval"] = n * pre
+    if is_paged(path):
+        want["cache_scatter_pages"] = rounds + 2 * st["decode_steps"]
+    else:
+        want["cache_scatter"] = rounds
+    return ({k: replicas * v for k, v in want.items()},
+            {k: replicas * v for k, v in modes.items()})
+
+
+def check_mesh_counts(path, cfg, st, counts, modes, replicas, k2_layer, routes=None):
+    """A mesh run's counts: launches == entries, the exact census, K1's
+    modes, every K2/K5 on its main route (``routes``: a child's), the
+    path's kernels and no other."""
+    check_routes(path, counts, routes)
+    for name, c in counts.items():
+        need(c["launches"] == c["entries"],
+             f"{path}: {name}: {c['entries']} op entries but {c['launches']} launches")
+        need((c["launches"] > 0) == (name in PATHS[path][2]),
+             f"{path}: {name} launched {c['launches']} times")
+    want, want_modes = mesh_census(path, cfg, st, replicas, k2_layer)
+    got = {k: c["entries"] for k, c in counts.items()}
+    need(got == want, f"{path}: op entries {got}, census {want}")
+    need(modes == want_modes, f"{path}: K1 launches per mode {modes}, census {want_modes}")
+
+
+def tp_kernels(eng, detail):
+    """K2 over each TP column block of A's records at 8 and 2048 rows (the
+    2x2 mesh's shards: QKV 6144 -> 2 x 3072, wo 2048 -> 2 x 1024, gate/up
+    11264 -> 2 x 5632, w_down 2048 -> 2 x 1024; per-128-column clamps cut
+    to the shard's blocks): the wgmma route from the shifted base, within
+    plain's bound and equal to the unsplit launch's columns bit for bit;
+    then the fallback over one shard's columns of QKV and w_down, taken and
+    not (``fallback_kernels``' checks).  Rows tagged "X"."""
+    import torch
+    from repro_torch.kernels import fp_dequant as fd
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import w8a8_matmul as mm
+    T = X_MESH["X22"][1]
+    gen = torch.Generator(device=eng.device)
+    gen.manual_seed(4321)
+    dev = eng.device
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    record = recorder({}, detail, path="X")
+    p0 = eng.params["blocks"][0]
+    recs = (("qkv", p0["attn"]["wq"]["group"], "d", True), ("wo", p0["attn"]["wo"], "d", False),
+            ("gate/up", p0["ffn"]["w_gate"]["group"], "d", True),
+            ("w_down", p0["ffn"]["w_down"], "ff", False))
+    kw = dict(out_dtype=torch.bfloat16)
+    for M in E_ROWS:
+        xs = {"d": torch.randn((M, eng.cfg.d_model), generator=gen, device=dev),
+              "ff": torch.randn((M, eng.cfg.d_ff), generator=gen, device=dev)}
+        for label, rec, width, per_block in recs:
+            x = rows_for(xs[width].to(torch.bfloat16), rec, gen)
+            (x_q, w_q, s_x, _, s_w, _), (lo, hi) = epi_operands(rec, x, per_block)
+            N, E = w_q.shape[1], lo.shape[1]
+            full = mm.w8a8_matmul_cuda(x_q, w_q, s_x, None, s_w, None, None, None, lo, hi, **kw)
+            n, b = N // T, (E // T if per_block else E)
+            for j in range(T):
+                c = slice(j * n, (j + 1) * n)
+                g = slice(j * b, (j + 1) * b) if per_block else slice(None)
+                args = (x_q, w_q[:, c], s_x, None, s_w[:, c].contiguous(), None, None, None,
+                        lo[:, g].contiguous(), hi[:, g].contiguous())
+                need(mm.route_for(x_q, args[1]) == "wgmma",
+                     f"K2 {label} shard {j}: the generic route")
+                yk = mm.w8a8_matmul_cuda(*args, **kw)
+                yp = mm.w8a8_matmul_plain(*args, **kw)
+                err = max_abs(yk, yp)
+                need(err <= 1e-6 * float(yp.float().abs().max()) + 1e-6,
+                     f"K2 {label} shard {j} ({M} rows) differs from plain by {err}")
+                need(torch.equal(yk, full[:, c]),
+                     f"K2 {label} shard {j} ({M} rows): not the unsplit launch's columns")
+                ea = args[8].shape[1]
+                b_ms, b_by = bound_ms(M * x_q.shape[1] + x_q.shape[1] * n + M * n * 2 + n * 4
+                                      + M * (4 + 8 * ea), 2 * M * x_q.shape[1] * n, INT8_OPS)
+                lib_ms, _, note = library_int_mm(x_q, args[1], flush)
+                record("w8a8_matmul", f"TP shard {j} of {T}, {label}: x ({M}, {x_q.shape[1]}) "
+                       f"@ w[:, {c.start}:{c.stop}] (base + {c.start * x_q.shape[1]} B), "
+                       f"epilogue ({M}, {ea}); plan "
+                       f"{mm.wgmma_plan(M, x_q.shape[1], n, False, mm._sms(dev))}"
+                       f"{'; ' + note if note else ''}", err,
+                       median_ms(lambda: mm.w8a8_matmul_cuda(*args, **kw), flush=flush),
+                       median_ms(lambda: mm.w8a8_matmul_plain(*args, **kw), flush=flush),
+                       b_ms, b_by, lib_ms, False)
+    # the fallback over shard 1's columns (a shifted K-major base), decode rows
+    flag = fd.flag_buffer(dev)
+    tel = torch.zeros(3, dtype=torch.int64, device=dev)
+    for label, rec, width, _ in (recs[0], recs[3]):
+        x = rows_for(torch.randn((8, eng.cfg.d_model if width == "d" else eng.cfg.d_ff),
+                                 generator=gen, device=dev).to(torch.bfloat16), rec, gen)
+        (M, K), N = x.shape, rec["q"].shape[1]
+        c = slice(N // T, N)
+        q, sc = rec["q"][:, c], rec["scale"][c].contiguous()
+        y0 = torch.randn((M, N - c.start), generator=gen, device=dev).to(torch.bfloat16)
+        y = y0.clone()
+        tel.zero_()
+        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+        need(torch.equal(y, y0) and not bool(flag.any()) and not bool(tel.any()),
+             f"fallback {label} shard: the untaken branch wrote y, the flag or the counters")
+        flag[0] = 1
+        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+        need(not bool(flag.any()) and tel.tolist() == [1, 0, 0],
+             f"fallback {label} shard: flag {flag.tolist()}, counters {tel.tolist()}")
+        pl = y0.clone()
+        fd.fp_dequant_fallback_plain(pl, x, q, sc, torch.ones_like(flag))
+        want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
+        err = max_abs(y, pl)
+        need(bool(((y.float() - pl.float()).abs()
+                   <= 2 ** -7 * pl.float().abs() + 1e-5 * float(want.abs().max())).all()),
+             f"fallback {label} shard: differs from plain by {err}")
+
+        def taken():
+            flag[:1].fill_(1)
+            fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)
+
+        def taken_plain():
+            flag[:1].fill_(1)
+            fd.fp_dequant_fallback_plain(y, x, q, sc, flag)
+
+        n = N - c.start
+        record("fp_dequant", f"TP shard 1 of {T}, {label}: taken, x ({M}, {K}) bf16 @ "
+               f"q[:, {c.start}:{N}] int8 -> y bf16", err, median_ms(taken, flush=flush),
+               median_ms(taken_plain, flush=flush),
+               *bound_ms(M * K * 2 + K * n + 4 * n + M * n * 2 + 8, 2 * M * n * K, F32_OPS),
+               None, False,
+               not_taken_ms=median_ms(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag),
+                                      flush=flush),
+               not_taken_bound_ms=bound_ms(8, 0, F32_OPS)[0],
+               library_note="no single PyTorch call dequantizes and multiplies")
+
+
+def mesh_serve(eng, path, ref_run):
+    """Phase 3 on a mesh path's engine: A's requests, the counts zeroed just
+    before and read just after, ``check_mesh_counts`` over every replica,
+    each replica's graph replayed once a decode dispatch, every request
+    complete; streams against A's (``check_twin`` within A's LOGIT_TOL:
+    the replicas' batches of 4 rows and, under TP, the unfused MLP may move
+    a token whose top-2 margin is inside it)."""
+    import torch
+    from repro_torch.kernels import ops
+    reqs = make_requests(eng.cfg)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    results = run_batch(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, modes, st = ops.counts(), ops.prologue_modes(), eng.stats
+    log(f"serve {path}: {len(reqs)} requests in {wall:.2f} s; counts {counts}; K1 modes "
+        f"{modes}; stats {json.dumps(st)}")
+    D, T = X_MESH[path]
+    k2_layer = tp_k2_per_layer(eng, T)
+    check_mesh_counts(path, eng.cfg, st, counts, modes, D, k2_layer)
+    need(st["replica_graph_replays"] == [st["decode_steps"]] * D,
+         f"{path}: graph replays a replica {st['replica_graph_replays']}, "
+         f"{st['decode_steps']} decode dispatches")
+    need(st["completed"] == len(reqs) and st["failed"] == 0, f"{path}: {st}")
+    need(min(st["replica_admits"]) >= 1 and st["replica_occupancy"] == [0] * D,
+         f"{path}: replica admits {st['replica_admits']}, occupancy "
+         f"{st['replica_occupancy']}")
+    for i, r in enumerate(reqs):
+        toks, fin, err = results[i]
+        need(fin == "complete" and err is None and len(toks) == r.max_new
+             and all(0 <= t < eng.cfg.vocab for t in toks),
+             f"{path}: request {i}: {len(toks)} tokens, finish {fin}, error {err}")
+    health = pdq_health(st)
+    need(st["pdq_clip_total"] > 0 and st["pdq_fallbacks"] == 0, f"{path}: health {health}")
+    dec = [dt for dt, _ in eng.straggler.history]
+    pre = [dt for dt, _ in eng.prefill_straggler.history]
+    tps = st["decode_tokens"] / sum(dec)
+    run = dict(wall_s=wall, prefill_s=sum(pre), prefill_s_per_round=pre, k2_per_layer=k2_layer,
+               prologue_modes=modes, decode_step_median_ms=sorted(dec)[len(dec) // 2] * 1e3,
+               decode_tokens_per_s=tps, decode_ms_per_token=1e3 / tps, stats=st, pdq=health,
+               graph_capture_s=[rep.graph.capture_s for rep in eng.replicas],
+               streams={i: res[0] for i, res in results.items()})
+    run["divergences"] = check_twin(path, eng, run, ref_run, "A", reqs, LOGIT_TOL["A"])
+    log(f"serve {path}: prefill {sum(pre):.3f} s in {len(pre)} rounds {pre}; decode "
+        f"dispatch median {run['decode_step_median_ms']:.2f} ms, {tps:.1f} tokens/s; pdq "
+        f"{json.dumps(health)}; {len(run['divergences'])} streams part from A's inside "
+        f"the margin")
+    return counts, run
+
+
+def mesh_step(a_eng, x_eng, pos=STEP_POS):
+    """X22's decode step against A's: one replayed step of the full pool
+    at position ``pos`` - A's graph over its 8 rows, X22's two replicas'
+    graphs over 4 rows each - in STEP_PAIRS alternated pairs of
+    STEP_RUNS-step windows (A first, then X22 first, ...): wall ms a step
+    (each replay ends in its output's copy to the host); then
+    torch.profiler over one window of each: device busy ms and kernels a
+    step, and the idle share 1 - busy / wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    B = a_eng.slots
+    rows = (np.zeros(B, np.int32), np.full(B, pos, np.int32), np.arange(B, dtype=np.int32),
+            np.zeros(B, np.int32), np.ones(B, np.int32))
+
+    def a_step():
+        a_eng._graph.packed(*rows)
+
+    def x_step():
+        for rep in x_eng.replicas:
+            rep.graph.packed(*(a[rep.rows] for a in rows))
+
+    steps = {"A": a_step, "X22": x_step}
+    walls = {k: [] for k in steps}
+    for pair in range(STEP_PAIRS):
+        order = ("A", "X22") if pair % 2 == 0 else ("X22", "A")
+        for k in order:
+            steps[k]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEP_RUNS):
+                steps[k]()
+            walls[k].append((time.perf_counter() - t0) / STEP_RUNS * 1e3)
+    out = {}
+    for k, fn in steps.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_RUNS):
+                fn()
+            torch.cuda.synchronize()
+        rows_ = device_rows(prof, STEP_RUNS)
+        busy = sum(r[0] for r in rows_) if rows_ else None
+        wall = sorted(walls[k])[len(walls[k]) // 2]
+        out[k] = dict(wall_ms=walls[k], wall_ms_median=wall, busy_ms=busy,
+                      kernels=sum(r[2] for r in rows_) if rows_ else None,
+                      idle_share=None if busy is None else 1 - busy / wall)
+        log(f"step {k} (mesh comparison, position {pos}): replayed wall ms per pair "
+            f"{[round(w, 3) for w in walls[k]]}, median {wall:.3f}; device busy "
+            f"{'null' if busy is None else f'{busy:.3f}'} ms, "
+            f"{out[k]['kernels']} kernels a step")
+    return out
+
+
+def mh_child(rank: int, coordinator: str, out: str) -> int:
+    """One process of MH (``--mesh-child``): join the gloo group, build X22's
+    engine over the 2-process mesh (this process hosts replica ``rank``),
+    and serve A's requests from process 0 (``serve_worker`` on process 1),
+    with the kernels' counts zeroed just before; write streams, stats,
+    host stats, counts and the protocol's host time to ``out``.<rank>."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeError("CUDA is not available")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models import build_model
+    from repro_torch.serve import build_engine
+    init_distributed(coordinator, 2, rank, timeout=MH_TIMEOUT)
+    cfg = get_config(T_ARCH)
+    params = build_model(cfg, "cuda").init(0)
+    t0 = time.perf_counter()
+    eng = build_engine(x_config("MH", processes=2, multihost=True,
+                                launch_timeout=MH_LAUNCH_TIMEOUT), cfg=cfg, params=params)
+    build_s = time.perf_counter() - t0
+    # the host's seconds in the protocol's collectives: the command header
+    # and payloads (_broadcast), the token gather (_collect, which also
+    # waits for the peer's launch on the shared card)
+    proto = {"_broadcast": 0.0, "_collect": 0.0}
+    for name in proto:
+        fn = getattr(eng, name)
+
+        def timed_call(*a, _fn=fn, _name=name, **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                proto[_name] += time.perf_counter() - t
+        setattr(eng, name, timed_call)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    res = dict(rank=rank, build_s=build_s)
+    t0 = time.perf_counter()
+    if rank == 0:
+        reqs = make_requests(cfg)
+        eng.run(reqs)
+        eng.stop_workers()
+        res.update(streams={i: list(r.generated) for i, r in enumerate(reqs)},
+                   done=[r.done and r.error is None for r in reqs],
+                   host_stats=eng.host_stats(), commands=eng._seq - 1,
+                   decode_s=sum(dt for dt, _ in eng.straggler.history),
+                   prefill_s_per_round=[dt for dt, _ in eng.prefill_straggler.history])
+    else:
+        eng.serve_worker()
+        res["commands"] = eng._done_seq
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t0, stats=eng.stats, counts=ops.counts(),
+               routes=ops.route_counts(), modes=ops.prologue_modes(),
+               broadcast_s=proto["_broadcast"], gather_s=proto["_collect"])
+    Path(f"{out}.{rank}").write_text(json.dumps(res, default=str))
+    dist.destroy_process_group()
+    return 0
+
+
+# stats of a serving run that do not depend on the dispatch's N (MH decodes
+# 4 steps a dispatch, X22 one): a block runs a row past its budget frozen,
+# so the dispatches, the health counters (every row counts every step) and
+# the wall-clock straggler flags are N's own
+MH_SAME_STATS = ("prefill_batches", "chunk_batches", "prefill_requests", "chunked_requests",
+                 "prefill_tokens", "prefill_padded_tokens", "decode_tokens", "completed",
+                 "failed", "cancelled", "deadline_expired", "shed", "replica_admits",
+                 "replica_occupancy")
+
+
+def phase_mh(cfg, x22_run):
+    """MH: X22's mesh served by two child processes on the card (its
+    compute mode must be Default: printed first); each child's stderr goes
+    to this process's, a child that fails or outlives MH_TIMEOUT fails the
+    phase.  Tokens identical to X22's, the N-independent stats too
+    (MH_SAME_STATS), both processes admitting and drained, each child's
+    census for its one replica, every dispatch a replay of its graph."""
+    import os
+    from repro_torch.launch.mesh import pick_coordinator
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    log(f"MH: compute mode {mode}")
+    need(mode.strip() == "Default", f"MH: two processes cannot share the card in compute "
+         f"mode {mode}")
+    out = OUT_DIR / "chip_smoke_mh.json"
+    for r in (0, 1):
+        Path(f"{out}.{r}").unlink(missing_ok=True)
+    coord = pick_coordinator(None)
+    sys.stdout.flush()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-child",
+                               str(r), coord, str(out)], env=dict(os.environ))
+             for r in (0, 1)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            need(all(p.poll() in (None, 0) for p in procs),
+                 f"MH: a child exited {[p.poll() for p in procs]}")
+            need(time.perf_counter() - t0 < MH_TIMEOUT,
+                 f"MH: the children outlived {MH_TIMEOUT} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    need([p.returncode for p in procs] == [0, 0],
+         f"MH: the children exited {[p.returncode for p in procs]}")
+    res = [json.loads(Path(f"{out}.{r}").read_text()) for r in (0, 1)]
+    c0 = res[0]
+    st = c0["stats"]
+    need(all(c0["done"]), f"MH: requests not done: {c0['done']}")
+    got = {int(k): v for k, v in c0["streams"].items()}
+    need(got == x22_run["streams"], f"MH: streams {got} differ from X22's "
+         f"{x22_run['streams']}")
+    for k in MH_SAME_STATS:
+        need(st[k] == x22_run["stats"][k], f"MH: stat {k} {st[k]}, X22's "
+             f"{x22_run['stats'][k]}")
+    hs = c0["host_stats"]
+    need(sorted(hs) == ["0", "1"] and all(h["admits"] >= 1 and h["occupied"] == 0
+                                          for h in hs.values()), f"MH: host stats {hs}")
+    for r, c in enumerate(res):
+        need(c["stats"]["replica_graph_replays"][r] == st["decode_steps"],
+             f"MH: process {r}: replays {c['stats']['replica_graph_replays']}, "
+             f"{st['decode_steps']} dispatches")
+        check_mesh_counts("MH", cfg, st, c["counts"], c["modes"], 1, x22_run["k2_per_layer"],
+                          c["routes"])
+    tps = st["decode_tokens"] / c0["decode_s"]
+    run = dict(streams=got, stats=st, host_stats=hs, wall_s=c0["wall_s"],
+               decode_tokens_per_s=tps, prefill_s_per_round=c0["prefill_s_per_round"],
+               commands=c0["commands"], broadcast_s=c0["broadcast_s"], gather_s=c0["gather_s"],
+               rendezvous_us_per_command=c0["broadcast_s"] / c0["commands"] * 1e6,
+               child_build_s=[c["build_s"] for c in res])
+    log(f"serve MH: streams and {len(MH_SAME_STATS)} stats equal X22's; host stats {hs}; "
+        f"{c0['commands']} commands: rendezvous wait in the header and payload collectives "
+        f"{c0['broadcast_s']:.4f} s ({run['rendezvous_us_per_command']:.1f} us a command; "
+        f"the header waits for the peer's previous launch, so this is not protocol cost), "
+        f"token gathers "
+        f"{c0['gather_s']:.4f} s (the peer's launch included); decode {tps:.1f} tokens/s; "
+        f"wall {c0['wall_s']:.2f} s; children built their engines in {run['child_build_s']} s")
+    return {f"MH.{r}": c["counts"] for r, c in enumerate(res)}, run
+
+
+def phase_mesh(cfg, params, a_run, detail):
+    """Paths X21, X22, X22D and MH (see the module note, phase 9).  Returns
+    (counts by path, runs by path, X22's parity, X22's step)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, build_engine
+    counts, runs = {}, {}
+    for path in ("X21", "X22", "X22D"):
+        t0 = time.perf_counter()
+        eng = build_engine(x_config(path), cfg=cfg, params=params)
+        torch.cuda.synchronize()
+        log(f"model {path}: {cfg.name} on a {X_MESH[path][0]}x{X_MESH[path][1]} mesh of "
+            f"cuda:0, {X_SPR} slots a replica, "
+            f"{'paged' if eng.paged else 'slot rows'}, built in "
+            f"{time.perf_counter() - t0:.1f} s, decode graphs captured in "
+            f"{[round(rep.graph.capture_s, 2) for rep in eng.replicas]} s")
+        if path == "X22":
+            with timed("kernels X"):
+                tp_kernels(eng, detail)
+        with timed(f"serve {path}"):
+            counts[path], runs[path] = mesh_serve(eng, path, a_run)
+        if path == "X22":
+            with timed("parity X22"), ops.tp_shard(eng.replicas[0].shards):
+                parity, runs[path]["parity_pdq"] = phase_parity(eng, "X22")
+            log(f"serve X22: PDQ health {runs[path]['pdq']} against A's {a_run['pdq']}")
+            a_eng = build_engine(ServeConfig(arch=T_ARCH, reduced=False, slots=8,
+                                             max_len=512, int8_kv=True,
+                                             quantize_weights=True, device="cuda"),
+                                 cfg=cfg, params=params)
+            with timed("step X22"):
+                runs[path]["step"] = mesh_step(a_eng, eng)
+            del a_eng
+        if path == "X22D":
+            check_streams(path, runs[path], runs["X22"], "X22")
+        del eng
+        torch.cuda.empty_cache()
+    with timed("serve MH"):
+        mh_counts, runs["MH"] = phase_mh(cfg, runs["X22"])
+    counts.update(mh_counts)
+    return counts, runs, parity
+
+
 def phase_legacy(cfg, ref_run):
     """Path AL: A's weights, slots, max_len and requests through the
     per-request prefill baseline (``batch_prefill=False``): each request
@@ -4286,8 +4804,13 @@ def smi_line():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train-child", action="store_true", help=argparse.SUPPRESS)
-    if ap.parse_args(argv).train_child:
+    ap.add_argument("--mesh-child", nargs=3, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.train_child:
         return train_child()
+    if args.mesh_child:
+        rank, coordinator, out = args.mesh_child
+        return mh_child(int(rank), coordinator, out)
 
     import torch
     if not torch.cuda.is_available():
@@ -4373,6 +4896,17 @@ def main(argv=None) -> int:
         f"F {[r['decode_step_median_ms'] for r in serve['F']]} ms; phase 4 graph step "
         f"A {serve['A'][0]['step']['graph']['wall_ms_median']:.3f} ms, "
         f"F {serve['F'][0]['step']['graph']['wall_ms_median']:.3f} ms")
+    # paths X21, X22, X22D, MH: A over a mesh of cuda:0 entries, one
+    # controller and two processes
+    x_counts, x_serve, parity["X22"] = phase_mesh(cfg, params, serve["A"][0], detail)
+    counts.update(x_counts)
+    serve.update({k: [v] for k, v in x_serve.items()})
+    log(f"serve mesh: decode tokens/s A {[round(r['decode_tokens_per_s'], 1) for r in serve['A']]}"
+        f", X21 {x_serve['X21']['decode_tokens_per_s']:.1f}, X22 "
+        f"{x_serve['X22']['decode_tokens_per_s']:.1f}, X22D "
+        f"{x_serve['X22D']['decode_tokens_per_s']:.1f}, MH "
+        f"{x_serve['MH']['decode_tokens_per_s']:.1f}; prefill s per round A "
+        f"{serve['A'][0]['prefill_s_per_round']}, X22 {x_serve['X22']['prefill_s_per_round']}")
     # path E: the unfused projection and the standalone quantization ops
     with timed("unfused E"):
         counts["E"], unfused = phase_unfused(recs)
@@ -4464,7 +4998,7 @@ def main(argv=None) -> int:
                                                    "bound_ms", "bound_by", "library_ms")}
                                 for r in detail if r["name"] == name and r.get("path") == tag]
                                for tag in ("H",) + MOE_PATHS + SSM_PATHS
-                               + EXTRAS_PATHS},
+                               + EXTRAS_PATHS + ("X",)},
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one

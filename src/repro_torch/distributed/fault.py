@@ -15,13 +15,12 @@ snapshots, and the deterministic fault-injection harness.
     straggler delay, preempt at a round, and the ingress faults of the
     service (bursts, disconnects, stalled readers).  Everything keys off
     round/sequence COUNTERS, never wall-clock, so replays are exact.  The
-    multi-process faults (kill, hang, corrupt a command header) are kept
-    with the plan's fields; only a multi-process engine calls
-    ``on_broadcast``, which waits for multi-GPU serving (ROADMAP.md Queue 1,
-    item 8).
+    multi-process faults (kill, hang, corrupt a command header) fire in
+    ``on_broadcast``, which ``serve/multihost.py`` calls on every command
+    header.
 
 The reference's ``reshard_state`` (laying a restored state out on a new
-device mesh) waits for item 8 as well.
+device mesh) waits for the sharded train step (ROADMAP.md Queue 1, item 8b).
 """
 from __future__ import annotations
 

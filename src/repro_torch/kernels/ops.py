@@ -14,8 +14,12 @@ made.  On the card the two are equal on the main path; ``chip_smoke.py``
 reads them to show that the path went through the kernels.
 
 All ops take arbitrary leading batch dims.  Ragged shapes are masked in
-the kernels, so nothing is padded here.  Tensor parallelism waits for a
-later slice (ROADMAP.md Queue 1, item 8).
+the kernels, so nothing is padded here.
+
+Tensor parallelism (``tp_shard``): the sharded serving engine runs each
+replica's program with the replica's shard count set, and the PDQ
+projections then split their columns over the shards (see the section
+below).
 
 The guarded fp fallback (``pdq_guard``) and PDQ health (``pdq_telemetry``)
 are the reference's, with the counting and the finite check moved into the
@@ -129,6 +133,61 @@ def prologue_modes() -> dict[str, int]:
 
 def _rows(x) -> int:
     return math.prod(x.shape[:-1])
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (serving): column split + gather (reference ops.py:44-82)
+# ---------------------------------------------------------------------------
+#
+# ``serve/sharded.py`` runs each data-parallel replica's program inside
+# ``tp_shard(T)``, T the width of the replica's row of the mesh, whose
+# entries are one device.  Every PDQ projection whose columns (or, grouped,
+# whose 128-column blocks) divide over the T shards then launches K2 once
+# per shard over that shard's block of columns of ``q``, ``scale`` and
+# ``colsum`` (a contiguous range of the K-major record's rows) and of the
+# per-(row, block) interval grids, and concatenates the blocks in shard
+# order: the reference's tiled all-gather.  Every output column is the same
+# full-K int8 accumulation and epilogue the unsplit launch computes, so the
+# result is the T = 1 result bit for bit.
+#
+# The prologue (K1) runs once per replica and every shard reads its x_q and
+# s_x.  The reference recomputes the prologue on every shard, because an
+# SPMD shard has no other source for it; the values are the same.  Each
+# shard counts its clip hits and columns into the active collector, so the
+# totals equal an unsplit run's (the reference psums them), and an active
+# guard checks and falls back per shard, before the gather.
+
+_TP: int | None = None     # the shard count of the replica being run
+
+
+@contextlib.contextmanager
+def tp_shard(size: int):
+    """Split projection columns over ``size`` shards for the projections
+    run inside; a size of 1 is a no-op."""
+    global _TP
+    prev = _TP
+    _TP = int(size) if int(size) > 1 else None
+    try:
+        yield
+    finally:
+        _TP = prev
+
+
+def tp_ctx() -> int | None:
+    """The active shard count, or None outside ``tp_shard``."""
+    return _TP
+
+
+def tp_columns(n_cols: int, shard_fn):
+    """The column split the TP projections share: ``shard_fn(cols)`` over
+    each shard's slice ``cols`` of ``n_cols`` columns (or 128-column
+    blocks), concatenated in shard order; None when no split applies (no
+    ``tp_shard``, or the columns do not divide over it)."""
+    T = tp_ctx()
+    if T is None or n_cols % T:
+        return None
+    n = n_cols // T
+    return torch.cat([shard_fn(slice(j * n, (j + 1) * n)) for j in range(T)], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -370,12 +429,38 @@ def _blockwise(a, segs):
 def _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype):
     """The fp-clamp W8A8 product of K1's (M, ...) outputs, shaped like x,
     counted by an active collector and checked by an active guard (whose
-    fallback reads x)."""
+    fallback reads x).  ``lo_g``/``hi_g`` are per row (M, 1) or per
+    128-column block (M, N / 128).  Under ``tp_shard`` the columns split
+    over the shards where they divide (the blocks, for per-block grids):
+    reference ``pdq_dense_from_prologue`` and ``pdq_dense_grouped``."""
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    N = wrec["q"].shape[-1]
+    nb = lo_g.shape[-1]
+    tel = _tel(x.device)
+    if nb == 1:
+        def shard(c):
+            return _fp_shard(x, x_q, s_x, _columns(wrec, c), lo_g, hi_g, out_dtype, tel)
+        y = tp_columns(N, shard)
+    else:
+        def shard(g):
+            c = slice(g.start * LANE, g.stop * LANE)
+            return _fp_shard(x, x_q, s_x, _columns(wrec, c), lo_g[:, g], hi_g[:, g],
+                             out_dtype, tel)
+        y = tp_columns(nb, shard)
+    return _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel) if y is None else y
+
+
+def _columns(wrec, c):
+    """The K2 operands of ``wrec``'s columns ``c``."""
+    return {"q": wrec["q"][:, c], "scale": wrec["scale"][c], "colsum": wrec["colsum"][:, c]}
+
+
+def _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel):
+    """One K2 launch of ``_fp_matmul`` over ``wrec``'s columns, then the
+    guard's check and fallback over them."""
     flag = _guard_flag(x.device)
     y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], colsum=wrec["colsum"],
-                    fp_range=(lo_g, hi_g),
-                    out_dtype=torch.float32 if out_dtype is None else out_dtype,
-                    tel=_tel(x.device), flag=flag)
+                    fp_range=(lo_g, hi_g), out_dtype=out_dtype, tel=tel, flag=flag)
     y = y.reshape(*x.shape[:-1], y.shape[-1])
     return _guard_pdq(y, x, wrec["q"], wrec["scale"], flag)
 
@@ -415,13 +500,12 @@ def pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec, *, out_dtype=None):
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     _, _, s_out, z_out = pdq_interval(wrec, s1, s2)
     lo_g, hi_g = _grid_extent(s_out, z_out)
-    flag = _guard_flag(x_q.device)
-    y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"],
-                    colsum=wrec["colsum"], fp_range=(lo_g, hi_g),
-                    out_dtype=out_dtype, tel=_tel(x_q.device), flag=flag)
-    if flag is None:
-        return y
-    return _guard_pdq(y, x.to(out_dtype), wrec["q"], wrec["scale"], flag)
+    M = _rows(x_q)
+    lead = x_q.shape[:-1]
+    x = (x.to(out_dtype) if _PDQ_GUARD else x).reshape(M, -1)   # the guard alone reads x
+    y = _fp_matmul(x, x_q.reshape(M, -1), s_x.reshape(M, 1), wrec,
+                   lo_g.reshape(M, 1), hi_g.reshape(M, 1), out_dtype)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
@@ -469,8 +553,9 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
     ``group_quantize_weights((w_gate, w_up))`` makes.  The reference's
     unfused composition (``pdq_dense_grouped`` + silu + ``pdq_dense``)
     agrees to float tolerance; the tests hold the two together.  Under an
-    active guard the MLP takes that composition, as the reference does (the
-    fallback needs the gate/up output), and K3 does not run.  A collector
+    active guard or ``tp_shard`` the MLP takes that composition, as the
+    reference does (the fallback needs the gate/up output; a shard owns
+    columns of both gate and up), and K3 does not run.  A collector
     counts K3's f32 gate/up values, as the reference's fused kernel's.
     """
     out_dtype = torch.float32 if out_dtype is None else out_dtype
@@ -479,7 +564,9 @@ def pdq_mlp(x, grec, down_rec, *, out_dtype=None, norm=None):
             and segs.padded[0] % LANE == 0):
         raise ValueError(f"pdq_mlp needs two equal 128-padded segments, got "
                          f"{segs.padded}")
-    if _PDQ_GUARD:
+    if _PDQ_GUARD or tp_ctx() is not None:
+        # the unfused composition: under TP each shard owns columns of both
+        # gate and up, while w_down's prologue needs the whole silu(g) * u row
         g, u = pdq_dense_grouped(x, grec, out="fp", out_dtype=out_dtype, norm=norm)
         return pdq_dense(torch.nn.functional.silu(g) * u, down_rec, out="fp",
                          out_dtype=out_dtype)

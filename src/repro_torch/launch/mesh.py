@@ -1,0 +1,136 @@
+"""Serving meshes and the multi-process bootstrap (port of
+``repro/launch/mesh.py``, its serving part).
+
+A ``Mesh`` is a small frozen record: a (data, model) array of
+``torch.device`` - row r is data-parallel replica r, its entries the
+replica's tensor-parallel shard devices - and a matching array of the
+process index that hosts each entry; its axes are always ``("data",
+"model")``.  Entries may repeat a
+device: that is how the CPU tests build a mesh (every entry ``cpu``) and how
+one card serves a whole mesh (every entry ``cuda:0``), the counterpart of
+the reference's forced virtual host devices.  A mesh is never widened or
+narrowed quietly: ``make_serve_mesh`` raises when the devices it needs are
+not there.
+
+The reference's ``make_production_mesh``, ``bootstrap_mesh_env`` and
+``strip_forced_device_count`` set up XLA devices and have no torch
+counterpart, nor do the helpers that only they or the unported dry run and
+roofline tools call, ``mesh_arg`` and ``mesh_info`` (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import ClassVar
+
+import numpy as np
+
+AXES = ("data", "model")
+_BIND_ATTEMPTS = 5       # pick_coordinator's ephemeral binds
+_INIT_ATTEMPTS = 3       # init_distributed's rendezvous attempts
+_INIT_BACKOFF_S = 1.0    # its first retry's delay, doubled at each retry
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    devices: np.ndarray          # (data, model) object array of torch.device
+    processes: np.ndarray        # (data, model) int: the hosting process
+    axis_names: ClassVar[tuple[str, ...]] = AXES
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """'4x2' -> (data=4, model=2)."""
+    try:
+        data, model = (int(p) for p in spec.lower().split("x"))
+    except ValueError as e:
+        raise ValueError(f"--mesh expects DxM (e.g. 4x2), got {spec!r}") from e
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be positive, got {spec!r}")
+    return data, model
+
+
+def pick_coordinator(addr: str | None) -> str:
+    """``addr`` if given, else 127.0.0.1 with a fresh OS-assigned port: two
+    fleets on one host must not rendezvous with each other.  The ephemeral
+    bind is retried (bounded) so a transient EADDRINUSE does not kill the
+    launcher."""
+    if addr:
+        return addr
+    import socket
+    for attempt in range(_BIND_ATTEMPTS):
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                return f"127.0.0.1:{s.getsockname()[1]}"
+        except OSError:
+            if attempt == _BIND_ATTEMPTS - 1:
+                raise
+            time.sleep(0.2 * (2 ** attempt))
+    raise AssertionError("unreachable")
+
+
+def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
+                     timeout: float = 300.0) -> None:
+    """Join this process to a gloo group of ``num_processes`` over
+    ``tcp://coordinator``: the group carries the serving fleet's host data
+    (plans, the command header, sampled tokens) as CPU tensors.  Retried
+    with exponential backoff (bounded): the coordinator's port can be
+    mid-release from a previous fleet, or process 0 can come up a beat
+    after a worker."""
+    import datetime
+
+    import torch.distributed as dist
+    for attempt in range(_INIT_ATTEMPTS):
+        try:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://{coordinator}", world_size=num_processes,
+                rank=process_id, timeout=datetime.timedelta(seconds=timeout))
+            return
+        except Exception as e:
+            if attempt == _INIT_ATTEMPTS - 1:
+                raise
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            delay = _INIT_BACKOFF_S * (2 ** attempt)
+            print(f"init_distributed: attempt {attempt + 1}/{_INIT_ATTEMPTS} failed ({e!r}); "
+                  f"retrying in {delay:.1f}s", file=sys.stderr, flush=True)
+            time.sleep(delay)
+
+
+def make_serve_mesh(data: int, model: int, devices=None, *, processes: int = 1) -> Mesh:
+    """The (data, model) serving mesh; ``processes`` split its data axis
+    into contiguous blocks, one a process (``MultiHostServeEngine``).
+
+    ``devices``: the data * model entries in row-major order, any value
+    ``torch.device`` takes; they may repeat.  Without it every process's
+    entries are its first data * model / processes CUDA devices, and too
+    few of them raise with the count."""
+    import torch
+    n = data * model
+    if data % processes:
+        raise ValueError(f"mesh {data}x{model}: the data axis ({data}) must divide "
+                         f"over {processes} processes")
+    if devices is None:
+        local = n // processes
+        have = torch.cuda.device_count()
+        if have < local:
+            per = f" in each of {processes} processes" if processes > 1 else ""
+            raise RuntimeError(f"mesh {data}x{model} needs {local} CUDA devices{per}, "
+                               f"found {have}")
+        devices = [f"cuda:{i % local}" for i in range(n)]
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"mesh {data}x{model} needs {n} device entries, got {len(devices)}")
+    devs = np.empty(n, dtype=object)
+    devs[:] = [torch.device(d) for d in devices]
+    procs = np.repeat(np.arange(processes), n // processes).reshape(data, model)
+    return Mesh(devs.reshape(data, model), procs)
+
+
+__all__ = ["AXES", "Mesh", "init_distributed", "make_serve_mesh", "parse_mesh",
+           "pick_coordinator"]

@@ -22,15 +22,30 @@ free port, printed on startup).  SIGTERM/SIGINT drain, snapshot
 
 ``--legacy-prefill`` serves with the per-request prefill baseline
 (``batch_prefill=False``: every request prefills alone at its exact
-length; not with ``--paged`` or ``--chunked-prefill``).  Multi-GPU serving
-(``--mesh``, ``--num-processes``, ``--slots-per-replica``,
-``--launch-timeout``) is ROADMAP.md Queue 1 item 8 and raises naming it.
+length; not with ``--paged`` or ``--chunked-prefill``).
+
+``--mesh DxM`` serves over a data x model mesh (``ShardedServeEngine``,
+``--slots-per-replica`` slots a replica, default ``--slots``): on the card
+it takes the first D*M CUDA devices and raises with the count when there
+are fewer; with ``--device cpu`` every entry is the CPU.  A replica's
+shards on distinct cards are refused (tensor parallelism across cards is
+ROADMAP.md item 8b), so on the card M > 1 is refused too.
+``--num-processes N`` splits the mesh's data axis over N processes
+(``MultiHostServeEngine`` over a gloo group): the launcher spawns the
+children (each with ``--process-id`` and ``--coordinator``; on the card
+each needs D*M/N devices), exits non-zero when one dies and forwards
+SIGTERM to the coordinator first.  ``--launch-timeout`` arms the fleet's
+deadline watchdog on every collective.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import os
 import signal
+import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -96,11 +111,23 @@ def build_args(argv=None):
                     help="split prompts longer than the largest bucket into chunks")
     ap.add_argument("--device", default="cuda",
                     help="the engine's device: the card unless 'cpu'")
-    # not ported yet: each raises naming its ROADMAP.md item
-    ap.add_argument("--mesh", default=None, metavar="DxM")
-    ap.add_argument("--num-processes", type=int, default=1)
-    ap.add_argument("--slots-per-replica", type=int, default=None)
-    ap.add_argument("--launch-timeout", type=float, default=None)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve over a data x model device mesh (ShardedServeEngine)")
+    ap.add_argument("--slots-per-replica", type=int, default=None,
+                    help="cache slots per data-parallel replica (default: --slots)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="split --mesh over N processes (spawns the children "
+                         "unless --process-id is set)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this child's process index (set by the --num-processes "
+                         "launcher)")
+    ap.add_argument("--coordinator", default=None,
+                    help="the process group's HOST:PORT (default: the launcher "
+                         "picks a free local port; a hand-started child needs one)")
+    ap.add_argument("--launch-timeout", type=float, default=None,
+                    help="per-launch deadline (seconds) for multi-process "
+                         "collectives; a hung rendezvous exits with the typed "
+                         "watchdog code instead of blocking forever")
     ap.add_argument("--legacy-prefill", action="store_true")
     return ap.parse_args(argv)
 
@@ -136,7 +163,126 @@ def report_telemetry(eng, args) -> None:
         print(f"  trace: {n} spans -> {args.trace_out}", flush=True)
 
 
-def serve_http(args, eng) -> None:
+def _tee_stderr(proc, ring) -> threading.Thread:
+    """Stream a child's stderr to ours while keeping its tail in ``ring``
+    (the launcher's post-mortem: what the dead process last said)."""
+
+    def pump():
+        for line in iter(proc.stderr.readline, ""):
+            ring.append(line.rstrip("\n"))
+            sys.stderr.write(line)
+            sys.stderr.flush()
+        proc.stderr.close()
+
+    t = threading.Thread(target=pump, daemon=True)
+    t.start()
+    return t
+
+
+def _exit_meaning(rc: int) -> str | None:
+    from repro_torch.distributed.fault import EXIT_DEADLINE, EXIT_KILLED
+    return {EXIT_DEADLINE: "deadline watchdog: hung collective or dead peer",
+            EXIT_KILLED: "fault injection kill"}.get(rc)
+
+
+PEER_GRACE_S = 5.0       # how long the launcher waits for a dead child's peers
+
+
+def _peer_deaths(live) -> list[tuple[int, int]]:
+    """(process, exit code) of each child in ``live`` that exits non-zero
+    within ``PEER_GRACE_S``, in the order seen; the exited leave ``live``."""
+    dead, end = [], time.monotonic() + PEER_GRACE_S
+    while live and time.monotonic() < end:
+        time.sleep(0.1)
+        for j, q in list(live.items()):
+            if q.poll() is not None:
+                del live[j]
+                if q.returncode != 0:
+                    dead.append((j, q.returncode))
+    return dead
+
+
+def spawn_processes(args, argv) -> int:
+    """Launcher mode: one child per process, fail fast and loud.
+
+    Children share this terminal's stdout; their stderr is teed through a
+    ring buffer.  The first child to exit non-zero takes the fleet down:
+    the others are terminated, and the launcher reports which process
+    died, its exit code (the typed watchdog / fault-injection codes
+    decoded) and the last lines it wrote to stderr.  A peer's collectives
+    break the moment one process leaves the group, so the first death seen
+    is not always the cause: every child that dies within
+    ``PEER_GRACE_S`` of the first is reported too, in the order seen.  A SIGTERM (or SIGINT)
+    to the launcher goes to the coordinator child first: it drains,
+    snapshots (--snapshot) and releases the workers through the command
+    protocol, so the whole fleet exits cleanly."""
+    from repro_torch.launch.mesh import parse_mesh, pick_coordinator
+    data, model = parse_mesh(args.mesh)
+    if data % args.num_processes:
+        raise SystemExit(f"--mesh data axis ({data}) must divide over "
+                         f"--num-processes ({args.num_processes})")
+    if args.device != "cpu":
+        import torch
+        have = torch.cuda.device_count()
+        if have < data * model:
+            raise SystemExit(f"--mesh {args.mesh} over {args.num_processes} processes "
+                             f"needs {data * model} CUDA devices, found {have}")
+    coordinator = pick_coordinator(args.coordinator)
+    per = data * model // args.num_processes
+    procs = []
+    for i in range(args.num_processes):
+        env = dict(os.environ)
+        if args.device != "cpu" and "CUDA_VISIBLE_DEVICES" not in env:
+            # each child sees its own block of the cards as cuda:0..per-1
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(i * per + k) for k in range(per))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+             "--coordinator", coordinator, "--process-id", str(i)], env=env,
+            stderr=subprocess.PIPE, text=True))
+    rings = [collections.deque(maxlen=20) for _ in procs]
+    tees = [_tee_stderr(p, r) for p, r in zip(procs, rings)]
+    live = dict(enumerate(procs))
+
+    def forward_term(signum, frame):
+        if 0 in live:
+            live[0].send_signal(signal.SIGTERM)     # the coordinator drains
+
+    prev = signal.signal(signal.SIGTERM, forward_term)
+    prev_int = signal.signal(signal.SIGINT, forward_term)
+    try:
+        while live:
+            time.sleep(0.2)
+            for i, p in list(live.items()):
+                rc = p.poll()
+                if rc is None:
+                    continue
+                del live[i]
+                if rc != 0:
+                    dead = [(i, rc)] + _peer_deaths(live)
+                    for t in tees:
+                        t.join(timeout=2)
+                    for j, code in dead:
+                        meaning = _exit_meaning(code)
+                        print(f"serve launcher: process {j} died with exit code {code}"
+                              f"{f' [{meaning}]' if meaning else ''}", file=sys.stderr)
+                        for line in rings[j]:
+                            print(f"  [proc {j}] {line}", file=sys.stderr)
+                    print(f"serve launcher: terminating {len(live)} remaining",
+                          file=sys.stderr, flush=True)
+                    for q in live.values():
+                        q.terminate()
+                    for q in live.values():
+                        q.wait()
+                    return rc
+        return 0
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        signal.signal(signal.SIGINT, prev_int)
+        for t in tees:
+            t.join(timeout=2)
+
+
+def serve_http(args, eng, multiproc: bool = False) -> None:
     """``--http`` mode: the streaming front door drives the scheduler
     continuously; requests arrive over HTTP instead of a canned trace.
     SIGTERM and SIGINT both route through ``request_drain()``: the loop
@@ -178,6 +324,8 @@ def serve_http(args, eng) -> None:
 
     asyncio.run(amain())
     svc.join(timeout=600)
+    if multiproc:
+        eng.stop_workers()
     if svc.error is not None:
         raise SystemExit(f"serve loop failed: {svc.error!r}")
     done = len(eng.finished)
@@ -194,19 +342,55 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_args(argv)
 
+    multiproc = args.num_processes > 1 or args.process_id is not None
+    if multiproc:
+        if not args.mesh:
+            raise SystemExit("--num-processes requires --mesh DxM")
+        if args.legacy_prefill:
+            raise SystemExit("--legacy-prefill is single-device only")
+    if args.num_processes > 1 and args.process_id is None:
+        raise SystemExit(spawn_processes(args, argv))
+    if not multiproc:
+        return serve(args)
+    # child: join the fleet's process group before building anything, and
+    # leave it before the interpreter exits (a live gloo group at exit can
+    # abort the process)
+    if not args.coordinator:
+        raise SystemExit("a hand-started --process-id child needs an explicit "
+                         "--coordinator HOST:PORT")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed(args.coordinator, args.num_processes, args.process_id)
+    try:
+        return serve(args, multiproc)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve(args, multiproc: bool = False):
+    """Build the engine ``args`` describe and serve the canned trace (or
+    the HTTP front door); a worker process follows the coordinator."""
     import torch
 
+    from repro_torch.launch.mesh import make_serve_mesh, parse_mesh
     from repro_torch.models import frontend
     from repro_torch.serve import Request, ServeConfig, build_engine
-    from repro_torch.models.context import not_ported
 
-    if (args.mesh or args.num_processes > 1 or args.slots_per_replica is not None
-            or args.launch_timeout is not None):
-        raise not_ported("multi-GPU serving (--mesh, --num-processes)", "8")
     if args.paged and args.legacy_prefill:
         raise SystemExit("--paged needs the bucketed prefill path")
     if args.chunked_prefill and args.legacy_prefill:
         raise SystemExit("--chunked-prefill needs the bucketed prefill path")
+    mesh = None
+    if args.mesh:
+        data, model = parse_mesh(args.mesh)
+        n = data * model
+        try:
+            mesh = make_serve_mesh(data, model,
+                                   ["cpu"] * n if args.device == "cpu" else None,
+                                   processes=args.num_processes)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(str(e))
 
     sc = ServeConfig(
         arch=args.arch, reduced=args.reduced, int8_kv=args.int8_kv,
@@ -220,15 +404,27 @@ def main(argv=None):
         page_size=args.page_size, pool_pages=args.pool_pages,
         prefix_sharing=not args.no_prefix_sharing, spill=args.spill,
         telemetry=not args.no_telemetry, trace=args.trace_out is not None,
-        device=args.device)
+        device=args.device, mesh=mesh, slots_per_replica=args.slots_per_replica,
+        multihost=multiproc, launch_timeout=args.launch_timeout)
     try:
         eng = build_engine(sc)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     cfg = eng.cfg
-    mode = (("legacy" if args.legacy_prefill else "bucketed")
-            + (f" paged/{args.page_size}" if args.paged else "")
-            + (" chunked" if args.chunked_prefill else ""))
+    if mesh is not None:
+        mode = f"sharded {data}x{model} ({eng.slots_per_replica} slots/replica)"
+        if multiproc:
+            mode += f" x{args.num_processes}proc"
+    else:
+        mode = "legacy" if args.legacy_prefill else "bucketed"
+    mode += ((f" paged/{args.page_size}" if args.paged else "")
+             + (" chunked" if args.chunked_prefill else ""))
+    if multiproc and not eng.is_coordinator:
+        print(f"[proc {args.process_id}] worker following the coordinator "
+              f"command stream", flush=True)
+        eng.serve_worker()
+        print(f"[proc {args.process_id}] worker done", flush=True)
+        return
 
     gen = torch.Generator(device=eng.device)
     gen.manual_seed(0)
@@ -237,7 +433,7 @@ def main(argv=None):
         if extras is not None:
             raise SystemExit(f"--http serves text-only families; {cfg.name} needs "
                              f"prefill extras (serve its canned trace instead)")
-        return serve_http(args, eng)
+        return serve_http(args, eng, multiproc)
 
     if args.resume:
         # requeue the previous run's unfinished work (progress cleared:
@@ -259,6 +455,8 @@ def main(argv=None):
     signal.signal(signal.SIGINT, lambda *_: eng.request_drain())
     t0 = time.perf_counter()
     eng.run(reqs, extras=extras)
+    if multiproc:
+        eng.stop_workers()
     dt = time.perf_counter() - t0
     if eng.drained:
         left = sum(not r.done for r in reqs)
@@ -273,6 +471,14 @@ def main(argv=None):
     print("  stats:  ", {k: v for k, v in eng.stats.items()
                          if not k.startswith("replica_")})
     report_telemetry(eng, args)
+    if mesh is not None:
+        for r, (adm, occ) in enumerate(zip(eng.stats["replica_admits"],
+                                           eng.stats["replica_occupancy"])):
+            print(f"  replica {r}: admits={adm} occupied={occ}/{eng.slots_per_replica}")
+    if multiproc:
+        for proc, hs in sorted(eng.host_stats().items()):
+            print(f"  process {proc}: replicas={hs['replicas']} admits={hs['admits']} "
+                  f"occupied={hs['occupied']}/{hs['slots']}")
     for r in reqs[:3]:
         print(f"  req {r.uid}: {r.generated}")
 

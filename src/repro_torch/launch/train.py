@@ -10,7 +10,7 @@ five history records, ``restarts``, ``final_loss``).  The loop runs under
 the trainer's deterministic setting, which needs ``CUBLAS_WORKSPACE_CONFIG``
 before torch makes its first cuBLAS handle: ``main`` sets it (unless the
 environment already has it) before any CUDA work.  ``--mesh`` other
-than ``none`` (the reference's sharded step) is ROADMAP.md Queue 1 item 8
+than ``none`` (the reference's sharded step) is ROADMAP.md Queue 1 item 8b
 and refuses.
 """
 from __future__ import annotations
@@ -45,7 +45,7 @@ def main(argv=None):
     # cuBLAS handle, which no code has made yet
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.mesh != "none":
-        raise not_ported(f"sharded training (--mesh {args.mesh})", "8")
+        raise not_ported(f"sharded training (--mesh {args.mesh})", "8b")
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     bundle = build_model(cfg, args.device)

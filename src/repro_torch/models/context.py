@@ -1,12 +1,14 @@
-"""Distribution context for model code (port of ``repro/models/context.py``,
-as far as one device needs it).
+"""Distribution context for model code (port of ``repro/models/context.py``).
 
-Model functions read an ambient ``DistContext`` set by a launcher or a
-train-step builder; with none set (one device: every run the port makes
-today) every layer runs its local path.  A set context asks for expert
-parallelism over a mesh, which is ROADMAP.md Queue 1 item 8: the MoE FFN
-refuses it with ``not_ported``.  The reference's ``shard_map``,
-``moe_param_specs`` and ``tp_shard`` re-export belong to that item.
+Two independent contexts exist, as in the reference.  Model functions read
+an ambient ``DistContext`` set by a launcher or a train-step builder; with
+none set every layer runs its local path.  A set context asks for expert
+parallelism over a mesh, which waits for ROADMAP.md Queue 1 item 8b: the
+MoE FFN refuses it with ``not_ported``.  The serving TP context is
+``kernels/ops.tp_shard``, which the sharded serve engine sets around each
+replica's launches; it runs with ``DistContext`` unset, so MoE stays
+replica-local.  The reference's ``shard_map`` and ``moe_param_specs``
+belong to item 8b.
 """
 from __future__ import annotations
 

@@ -144,9 +144,21 @@ def is_segment_view(w) -> bool:
 def lin(x: torch.Tensor, w, norm=None) -> torch.Tensor:
     """y = x @ w, fp or PDQ-int8 depending on the weight leaf; with ``norm
     = (w, eps)`` of rms_norm(x, w, eps), applied inside the prologue's
-    launch for a quantized record and in plain torch first otherwise."""
+    launch for a quantized record and in plain torch first otherwise.
+
+    Under ``ops.tp_shard`` an fp weight's columns split over the shards
+    where they divide (the reference's ``lin``, ``models/linops.py:210-224``):
+    each shard multiplies by its block of columns and the blocks are
+    concatenated in shard order.  A narrower GEMM may sum in another order
+    and move float ulps, which greedy parity absorbs; a PDQ record's split
+    (``kernels/ops.py``) is the bit-exact one."""
     if not is_quantized(w):
-        return (x if norm is None else rms_norm(x, *norm)) @ w
+        x = x if norm is None else rms_norm(x, *norm)
+        if w.dim() == 2:
+            y = ops.tp_columns(w.shape[1], lambda c: x @ w[:, c])
+            if y is not None:
+                return y
+        return x @ w
     if is_segment_view(w):
         w = segment_record(w)
     return ops.pdq_dense(x, w, out="fp", out_dtype=x.dtype, norm=norm)

@@ -3,7 +3,7 @@
 The reference dispatches tokens to experts with an all_to_all over an
 expert axis; the port runs its single-device form (``axis_name=None``):
 every expert lives here, and expert parallelism over several cards waits
-for ROADMAP.md Queue 1, item 8.
+for ROADMAP.md Queue 1, item 8b.
 
   * ``moe_ffn_tokens`` (prefill): route, pack each assignment into its
     expert's capacity bucket (E, C, d) - overflow drops - run the stacked

@@ -190,7 +190,7 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
     if not _is_moe(cfg, kind):
         return mlp_apply(p_ffn, h, norm=norm), 0.0
     if get_context() is not None:
-        raise not_ported("expert parallelism under a DistContext", "8")
+        raise not_ported("expert parallelism under a DistContext", "8b")
     xn = rms_norm(h, *norm)
     B, S, d = xn.shape
     mask = None

@@ -1,10 +1,17 @@
 """``ServeConfig`` + ``build_engine`` (port of ``repro/serve/config.py``).
 
 One declarative record of a serving deployment; ``build_engine`` resolves
-it to the single-device ``ServeEngine`` on ``device`` (the card unless the
-caller asks for the CPU).  ``ServeConfig.validate`` raises ``ValueError`` on
-the reference's inconsistent combinations; options whose engines are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+it to the right engine class, on ``device`` (the card unless the caller
+asks for the CPU):
+
+  * no ``mesh``                   -> ``ServeEngine`` (single device)
+  * ``mesh``                      -> ``ShardedServeEngine``
+  * ``mesh`` + ``multihost=True`` -> ``MultiHostServeEngine`` (the caller
+    must already have joined the ``torch.distributed`` group,
+    ``launch.mesh.init_distributed``)
+
+A mesh's entries must all be of ``device``'s type.  ``ServeConfig.validate``
+raises ``ValueError`` on the reference's inconsistent combinations.
 """
 from __future__ import annotations
 
@@ -35,10 +42,10 @@ class ServeConfig:
     decode_steps: int = 1
     fault: Any = None               # FaultInjector (tests only)
     pdq_fallback: bool = False
-    mesh: Any = None                # multi-GPU serving (Queue 1 item 8)
-    slots_per_replica: int | None = None   # mesh engines (item 8)
-    multihost: bool = False         # multi-process serving (item 8)
-    launch_timeout: float | None = None    # multihost watchdog (item 8)
+    mesh: Any = None                # a launch.mesh Mesh -> sharded
+    slots_per_replica: int | None = None   # mesh engines (default: slots)
+    multihost: bool = False         # mesh + torch.distributed -> MultiHost
+    launch_timeout: float | None = None    # multihost collective watchdog
     snapshot_path: str | None = None
 
     # ---- paged KV pool
@@ -85,30 +92,45 @@ def build_engine(config: ServeConfig, *, cfg=None, params=None):
     reference reads it only when it resolves the model itself)."""
     from repro_torch.models import resolve_device
 
-    from .engine import ServeEngine, not_ported
-
     config.validate()
-    resolve_device(config.device)
-    if (config.mesh is not None or config.slots_per_replica is not None
-            or config.multihost or config.launch_timeout is not None):
-        raise not_ported("multi-GPU serving", "8")
+    device = resolve_device(config.device)
+    if config.mesh is not None:
+        # a mesh is never moved to another device type quietly
+        kinds = {d.type for d in config.mesh.devices.flat}
+        if kinds != {device.type}:
+            raise ValueError(f"the mesh's devices are {sorted(kinds)}, the config's "
+                             f"device is {device.type!r}")
     if (cfg is None) != (params is None):
         raise ValueError("pass both cfg and params, or neither")
     if cfg is None:
         cfg, params = resolve_model(config)
     elif config.int8_kv:
         cfg = dataclasses.replace(cfg, quant_kv="dynamic")
-    eng = ServeEngine(
-        cfg, params, slots=config.slots, max_len=config.max_len,
-        quantize_weights=config.quantize_weights,
-        temperature=config.temperature, seed=config.seed,
-        buckets=config.buckets, batch_prefill=config.batch_prefill,
-        chunked_prefill=config.chunked_prefill,
-        decode_steps=config.decode_steps, fault=config.fault,
-        pdq_fallback=config.pdq_fallback, paged=config.paged,
-        page_size=config.page_size, pool_pages=config.pool_pages,
-        prefix_sharing=config.prefix_sharing, spill=config.spill,
-        telemetry=config.telemetry, trace=config.trace, device=config.device)
-    if config.snapshot_path:
+    common = dict(max_len=config.max_len, quantize_weights=config.quantize_weights,
+                  temperature=config.temperature, seed=config.seed,
+                  buckets=config.buckets, chunked_prefill=config.chunked_prefill,
+                  decode_steps=config.decode_steps, fault=config.fault,
+                  pdq_fallback=config.pdq_fallback, paged=config.paged,
+                  page_size=config.page_size, pool_pages=config.pool_pages,
+                  prefix_sharing=config.prefix_sharing, telemetry=config.telemetry,
+                  trace=config.trace)
+    if config.mesh is None:
+        from .engine import ServeEngine
+        eng = ServeEngine(cfg, params, slots=config.slots,
+                          batch_prefill=config.batch_prefill, spill=config.spill,
+                          device=config.device, **common)
+    else:
+        spr = (config.slots_per_replica if config.slots_per_replica is not None
+               else config.slots)
+        if config.multihost:
+            from .multihost import MultiHostServeEngine
+            eng = MultiHostServeEngine(cfg, params, mesh=config.mesh, slots_per_replica=spr,
+                                       launch_timeout=config.launch_timeout,
+                                       snapshot_path=config.snapshot_path, **common)
+        else:
+            from .sharded import ShardedServeEngine
+            eng = ShardedServeEngine(cfg, params, mesh=config.mesh,
+                                     slots_per_replica=spr, **common)
+    if config.snapshot_path and not config.multihost:
         eng.snapshot_path = config.snapshot_path
     return eng

@@ -120,16 +120,21 @@ class DecodeGraph:
         return (out[:n].reshape(shape), out[n:2 * n].reshape(shape).astype(bool),
                 out[2 * n:].view(np.int64))
 
-    def __call__(self, tokens, positions, uids, steps, n_steps):
-        """Replay the block on the plan's rows; returns numpy (toks (B, N)
-        int32, ok (B, N) bool, the block's PDQ health (3,) int64)."""
+    def packed(self, tokens, positions, uids, steps, n_steps):
+        """Replay the block on the plan's rows; returns ``pack``'s numpy
+        copy."""
         stage = self.staging.numpy()
         for i, a in enumerate((tokens, positions, uids, steps, n_steps)):
             stage[i] = a
         self.inputs.copy_(self.staging, non_blocking=True)
         self.graph.replay()
         ops.add_counts(self.delta)
-        return self.unpack(self.out.cpu().numpy(), self.shape)
+        return self.out.cpu().numpy()
+
+    def __call__(self, tokens, positions, uids, steps, n_steps):
+        """Replay the block on the plan's rows; returns numpy (toks (B, N)
+        int32, ok (B, N) bool, the block's PDQ health (3,) int64)."""
+        return self.unpack(self.packed(tokens, positions, uids, steps, n_steps), self.shape)
 
 
 __all__ = ["DecodeGraph", "INPUTS"]

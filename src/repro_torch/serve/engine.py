@@ -74,7 +74,6 @@ from repro_torch.distributed.fault import FaultInjector
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
 from repro_torch.models import build_model, frontend
-from repro_torch.models.context import not_ported
 from repro_torch.models.linops import quantize_param_tree
 from repro_torch.models.transformer import model_dtype
 
@@ -84,8 +83,8 @@ from .core import (DEFAULT_BUCKETS, ChunkedPlan, DecodePlan, PrefillPlan, Reques
 from .decode_graph import DecodeGraph
 from .pages import SpillRecord
 
-__all__ = ["DECODE_PAD", "DEFAULT_BUCKETS", "Request", "ServeEngine", "decode_scan",
-           "sample"]
+__all__ = ["DECODE_PAD", "DEFAULT_BUCKETS", "Request", "ServeEngine", "copy_map",
+           "decode_scan", "logical_scratch", "sample"]
 
 # token-block entry of a step a row did not consume (its budget ran out
 # before the block did, or a free slot); token ids are non-negative
@@ -167,6 +166,22 @@ def _columns(ts):
     return ts[0][:, None] if len(ts) == 1 else torch.stack(ts, 1)
 
 
+def copy_map(pool_pages: int, pairs) -> np.ndarray:
+    """One replica's COW copy map over its ``pool_pages`` pages: page dst
+    takes page src for each (src, dst) of ``pairs``, -1 keeps a page."""
+    cmap = np.full((pool_pages,), -1, np.int32)
+    for src, dst in pairs:
+        cmap[dst] = src
+    return cmap
+
+
+def logical_scratch(paged_ops, pool, rows: int):
+    """The logical scratch a paged pool's decode dispatches gather into:
+    its paged leaves (its flat leaves are the pool's own tensors)."""
+    no_pages = np.full((rows, paged_ops.n_pp), -1, np.int32)
+    return paged_ops.gather_moves(pool, no_pages, np.zeros((rows,), np.int32))[0]
+
+
 def _graphed(device: torch.device) -> bool:
     """Whether the engine decodes through a captured graph: on the card
     always, on the CPU never."""
@@ -191,7 +206,7 @@ class ServeEngine(SchedulerCore):
                  telemetry: bool = True,
                  trace: bool = False,
                  tel: "tmod.Telemetry | None" = None,
-                 device="cuda"):
+                 device="cuda", n_replicas: int = 1):
         if paged and not batch_prefill:
             raise ValueError("the paged pool needs batch_prefill=True")
         self.cfg = cfg
@@ -206,33 +221,38 @@ class ServeEngine(SchedulerCore):
         if tel is None:
             tel = tmod.Telemetry(enabled=telemetry, trace=trace)
         self._init_scheduler(
-            slots=slots, n_replicas=1, max_len=max_len,
+            slots=slots, n_replicas=n_replicas, max_len=max_len,
             patch_tokens=cfg.frontend_tokens if cfg.frontend == "vision" else 0,
             buckets=buckets, batch_prefill=batch_prefill, chunked_prefill=chunked_prefill,
             decode_steps=decode_steps, fault=fault, tel=tel)
         if paged:
-            self._paged_ops = self.bundle.paged_cache(slots, max_len, page_size,
-                                                      mem_len=self.mem_len)
+            # one replica's pool layout (the sharded engine keeps one a replica)
+            self._paged_ops = self.bundle.paged_cache(self.slots_per_replica, max_len,
+                                                      page_size, mem_len=self.mem_len)
             n_pp = self._paged_ops.n_pp
             if pool_pages is None:
                 # headroom parity with the slot-row pool (+1 dump page):
                 # every slot can hold a full sequence at once
-                pool_pages = self.slots * n_pp + 1
+                pool_pages = self.slots_per_replica * n_pp + 1
             self._init_paging(page_size=page_size, pool_pages=pool_pages,
                               n_pp=n_pp, prefix_sharing=prefix_sharing,
                               spill=spill)
+        self._sample_fn = functools.partial(sample, temperature=self.temperature,
+                                            seed=self.seed)
+        self._init_pools()
+
+    def _init_pools(self) -> None:
+        """The serving pool, the decode block and, on the card, its captured
+        graph (``serve/sharded.py`` keeps them per replica)."""
+        if self.paged:
             # physical page pool: (n_blocks, pool_pages, ..., page, ...) per
             # paged leaf, (n_blocks, slots) rows for the flat ones
             self.caches = self._paged_ops.init(self.pool_pages)
             # the logical scratch every decode dispatch gathers into (paged
             # leaves; its flat leaves are the pool's own tensors)
-            no_pages = np.full((self.slots, n_pp), -1, np.int32)
-            self._logical, _ = self._paged_ops.gather_moves(
-                self.caches, no_pages, np.zeros((self.slots,), np.int32))
+            self._logical = logical_scratch(self._paged_ops, self.caches, self.slots)
         else:
             self.caches = self.bundle.init_caches(self.slots, self.max_len, self.mem_len)
-        self._sample_fn = functools.partial(sample, temperature=self.temperature,
-                                            seed=self.seed)
         self._scan = decode_scan(functools.partial(self.bundle.decode_step, self.params),
                                  self._sample_fn, self.decode_steps)
         self._graph = None
@@ -259,9 +279,11 @@ class ServeEngine(SchedulerCore):
             leaf = next(iter(self.caches["blocks"][0].values()))
             torch.cuda.set_device(leaf.device)
 
-    def _tel_buffer(self):
-        """A zeroed int64 (3,) PDQ health vector on the engine's device."""
-        return torch.zeros((ops.PDQ_TEL_WIDTH,), dtype=torch.int64, device=self.device)
+    def _tel_buffer(self, device=None):
+        """A zeroed int64 (3,) PDQ health vector on ``device`` (the
+        engine's by default)."""
+        return torch.zeros((ops.PDQ_TEL_WIDTH,), dtype=torch.int64,
+                           device=device or self.device)
 
     # -------------------------------------------------------------- sampling
     def _sample_rows(self, kind: str, plan, logits, tel):
@@ -320,14 +342,15 @@ class ServeEngine(SchedulerCore):
         self._observe_pdq(health)       # rode the token copy
         return toks, ok
 
-    def _extras_batch(self, batch: dict, extras, rows: int | None = None) -> dict:
+    def _extras_batch(self, batch: dict, extras, rows: int | None = None,
+                      device=None) -> dict:
         """``batch`` with the run's extras: each one's first row broadcast
         to ``rows`` rows (every slot row by default; extras are shared by a
-        run's requests, as in the reference), on the engine's device in the
-        model dtype."""
+        run's requests, as in the reference), on ``device`` (the engine's by
+        default) in the model dtype."""
         dtype = model_dtype(self.cfg)
         for k, a in dict(extras or {}).items():
-            a = torch.as_tensor(a)[:1].to(self.device, dtype)
+            a = torch.as_tensor(a)[:1].to(device or self.device, dtype)
             batch[k] = a.expand(rows or self.slots, *a.shape[1:]).contiguous()
         return batch
 
@@ -412,10 +435,7 @@ class ServeEngine(SchedulerCore):
 
     # ------------------------------------------------------ paged-pool hooks
     def _exec_page_copy(self, replica: int, pairs) -> None:
-        cmap = np.full((self.pool_pages,), -1, np.int32)   # one replica
-        for src, dst in pairs:
-            cmap[dst] = src
-        self._paged_ops.copy(self.caches, cmap)
+        self._paged_ops.copy(self.caches, copy_map(self.pool_pages, pairs))
 
     def _exec_spill(self, slot: int, uid: int, page_ids) -> SpillRecord:
         return SpillRecord(uid=uid, n_pages=len(page_ids),

@@ -11,7 +11,7 @@ count, as the reference's scan does.  The step is functional: it returns
 new params and a new optimizer state and leaves the old ones as they were.
 
 A ``mesh`` - the reference's sharded step over a device mesh - is ROADMAP.md
-Queue 1 item 8, and refuses.
+Queue 1 item 8b, and refuses.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def build_train_step(bundle, opt_cfg: adamw.AdamWConfig, mesh=None, *,
     tensors) in the metrics.  The schedule defaults to the reference's
     ``warmup_cosine``."""
     if mesh is not None:
-        raise not_ported("the sharded train step (mesh=...)", "8")
+        raise not_ported("the sharded train step (mesh=...)", "8b")
     sched = lr_schedule or (lambda s: schedule.warmup_cosine(s))
 
     def step_fn(state, batch):

@@ -69,6 +69,14 @@ within rtol = atol = 1e-4); two 4-step
 process with CUBLAS_WORKSPACE_CONFIG) bit-equal; the per-request prefill
 baseline's census (one K6 a request, K1-K3 a layer a request, the wgmma
 route at ragged rows).
+Tensor parallelism (the sharded serving engine): K2 over each column block
+of a T-shard split of A-shaped records (QKV 6144, wo 2048, gate/up 11264,
+w_down 2048; per-128-column clamps cut to the shard's blocks) at 8 and 2048
+rows takes the wgmma route from the shifted K-major base and equals the
+unsplit launch's columns bit for bit (and plain's within 1e-6 of its
+largest value); the fallback over a shard's columns, taken and not; and a
+reduced f32 stablelm served on a one-card 2x2 mesh gives the single-device
+engine's streams, every decode dispatch a replay of each replica's graph.
 """
 import gc
 
@@ -1744,3 +1752,95 @@ def test_legacy_prefill_census_on_the_card(card_model):
             routes = ops.route_counts()
             for k in ("w8a8_matmul", "w8a8_swiglu_matmul"):
                 assert routes[k]["wgmma"] == c[k]["launches"], routes
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: K2 and the fallback over a shard's columns, a mesh engine
+# ---------------------------------------------------------------------------
+
+# A's records: (K, N, grouped) of QKV, wo, gate/up and w_down
+_TP_RECS = [(2048, 6144, True), (2048, 2048, False), (2048, 11264, True),
+            (5632, 2048, False)]
+
+
+@pytest.mark.parametrize("T", [2, 4])
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("K,N,grouped", _TP_RECS)
+def test_w8a8_over_tp_column_blocks(gen, T, M, K, N, grouped):
+    x_q = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=gen)
+    w_q = mm.k_major(torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda",
+                                   generator=gen))
+    s_x = 0.001 + 0.01 * torch.rand((M, 1), generator=gen, device="cuda")
+    s_w = (0.001 + 0.01 * torch.rand((1, N), generator=gen, device="cuda"))
+    E = N // 128 if grouped else 1
+    lo = -20 - 10 * torch.rand((M, E), generator=gen, device="cuda")
+    hi = 20 + 10 * torch.rand((M, E), generator=gen, device="cuda")
+    kw = dict(out_dtype=torch.bfloat16)
+    full = mm.w8a8_matmul_cuda(x_q, w_q, s_x, None, s_w, None, None, None, lo, hi, **kw)
+    n, b = N // T, E // T if grouped else E
+    for j in range(T):
+        c = slice(j * n, (j + 1) * n)
+        g = slice(j * b, (j + 1) * b) if grouped else slice(None)
+        args = (x_q, w_q[:, c], s_x, None, s_w[:, c].contiguous(), None, None, None,
+                lo[:, g].contiguous(), hi[:, g].contiguous())
+        assert mm.route_for(x_q, args[1]) == "wgmma"
+        y = mm.w8a8_matmul_cuda(*args, **kw)
+        assert torch.equal(y, full[:, c]), j
+        p = mm.w8a8_matmul_plain(*args, **kw)
+        assert float((y.float() - p.float()).abs().max()) <= 1e-6 * float(
+            p.float().abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("K,N", [(2048, 6144), (5632, 2048)])
+def test_fallback_over_a_shard_s_columns(gen, K, N):
+    from repro_torch.kernels import fp_dequant as fd
+    x = torch.randn((8, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w_q = mm.k_major(torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda",
+                                   generator=gen))
+    scale = 0.001 + 0.01 * torch.rand((N,), generator=gen, device="cuda")
+    c = slice(N // 2, N)
+    q, sc = w_q[:, c], scale[c].contiguous()
+    flag = torch.zeros(2, dtype=torch.int32, device="cuda")
+    tel = torch.zeros(3, dtype=torch.int64, device="cuda")
+    y0 = torch.randn((8, N // 2), generator=gen, device="cuda").to(torch.bfloat16)
+    y = y0.clone()
+    fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+    assert torch.equal(y, y0) and flag.tolist() == [0, 0] and tel.tolist() == [0, 0, 0]
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+    assert flag.tolist() == [0, 0] and tel.tolist() == [1, 0, 0]
+    want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
+    assert bool(((y.float() - want).abs() <= 2 ** -7 * want.abs()
+                 + 1e-5 * float(want.abs().max())).all())
+    # the shard's columns of the whole record's fallback
+    whole = torch.zeros((8, N), device="cuda", dtype=torch.bfloat16)
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(whole, x, w_q, scale, flag)
+    assert bool(((whole[:, c].float() - want).abs() <= 2 ** -7 * want.abs()
+                 + 1e-5 * float(want.abs().max())).all())
+
+
+def test_mesh_engine_on_one_card_serves_the_single_device_streams():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run this file on the card")
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg = reduced_config("stablelm-1.6b", d_model=256, d_ff=512, head_dim=64, vocab=1024,
+                         dtype="float32", quant_kv="dynamic")
+    params = build_model(cfg, "cuda").init(0)
+    kw = dict(max_len=128, buckets=(16, 32, 64), quantize_weights=True, device="cuda")
+    one = build_engine(ServeConfig(slots=4, **kw), cfg=cfg, params=params)
+    reqs = _graph_reqs(cfg)
+    one.run(reqs)
+    want = [r.generated for r in reqs]
+    eng = build_engine(ServeConfig(mesh=make_serve_mesh(2, 2, ["cuda:0"] * 4),
+                                   slots_per_replica=2, **kw), cfg=cfg, params=params)
+    reqs = _graph_reqs(cfg)
+    ops.reset_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    assert [r.generated for r in reqs] == want
+    st, c = eng.stats, ops.counts()
+    assert st["replica_graph_replays"] == [st["decode_steps"]] * 2
+    assert all(v["launches"] == v["entries"] for v in c.values())
+    assert c["w8a8_swiglu_matmul"]["launches"] == 0
+    assert ops.route_counts()["w8a8_matmul"]["wgmma"] == c["w8a8_matmul"]["launches"]

@@ -118,9 +118,25 @@ def test_build_engine_needs_cuda_by_default():
 @pytest.mark.parametrize("field,value", [
     ("mesh", object()), ("slots_per_replica", 2), ("launch_timeout", 30.0)])
 def test_unported_options_name_their_roadmap_item(weights, field, value):
-    cfg = ServeConfig(device="cpu", slots=2, max_len=32, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
-        build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+    """The multi-GPU options, which named item 8 until it was ported, now
+    reach their engines: a mesh builds a ``ShardedServeEngine``;
+    ``slots_per_replica`` sizes its replicas; ``launch_timeout`` (with
+    ``multihost``) reaches ``MultiHostServeEngine``, which without a process
+    group raises a clear error."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.sharded import ShardedServeEngine
+    mesh = make_serve_mesh(2, 2, ["cpu"] * 4)
+    kw = {"mesh": dict(mesh=mesh), "slots_per_replica": dict(mesh=mesh, slots_per_replica=value),
+          "launch_timeout": dict(mesh=mesh, multihost=True, launch_timeout=value)}[field]
+    cfg = ServeConfig(device="cpu", slots=2, max_len=32, **kw)
+    if field == "launch_timeout":
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+        return
+    eng = build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+    assert isinstance(eng, ShardedServeEngine)
+    assert (eng.n_replicas, eng.slots_per_replica, eng.slots) == (2, 2, 4)
+    assert [(r.device, r.shards) for r in eng.replicas] == [(torch.device("cpu"), 2)] * 2
 
 
 def test_chunked_prefill_builds_and_serves_on_the_cpu(weights):
@@ -151,11 +167,20 @@ def test_inconsistent_configs_raise_value_error(weights, fields, match):
 
 
 def test_multihost_with_a_mesh_names_item_8(weights):
-    """``multihost=True`` passes validate beside a mesh and then names
-    multi-GPU serving's item, as the other two multi-GPU fields do."""
-    cfg = ServeConfig(device="cpu", slots=2, max_len=32, multihost=True, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """``multihost=True`` beside a mesh builds the multi-process engine
+    (item 8's serving half, which this test's name predates): without a
+    process group it raises a clear error, and a mesh whose devices are not
+    the config's device type raises before any engine is built."""
+    from repro_torch.launch.mesh import Mesh
+    cpu_mesh = Mesh(np.full((2, 1), torch.device("cpu"), dtype=object), np.zeros((2, 1), int))
+    cfg = ServeConfig(device="cpu", slots=2, max_len=32, multihost=True, mesh=cpu_mesh)
+    with pytest.raises(RuntimeError, match="torch.distributed group"):
         build_engine(cfg, cfg=t_reduced("stablelm-1.6b"), params=weights[2])
+    cuda_mesh = Mesh(np.full((2, 1), torch.device("cuda", 0), dtype=object),
+                     np.zeros((2, 1), int))
+    with pytest.raises(ValueError, match="device is 'cpu'"):
+        build_engine(ServeConfig(device="cpu", slots=2, max_len=32, mesh=cuda_mesh),
+                     cfg=t_reduced("stablelm-1.6b"), params=weights[2])
 
 
 def test_other_model_families_name_item_6():
