@@ -165,6 +165,35 @@ ops-level calls on stablelm's weights (E):
      optimizer state's bytes beside T's.  No training path reaches a hand
      kernel (the reference trains fp params; ``lin`` of an fp leaf is a
      plain matmul).
+  TM, TMF  the sharded train step (``build_train_step(..., mesh)`` under
+     ``dist_context_for(mesh)``) over a 2x2 (data, model) mesh of four
+     child processes (``--train-mesh-child``), every entry cuda:0, one gloo
+     group (NCCL refuses ranks that share a card; gloo stages each
+     collective through host copies), CUBLAS_WORKSPACE_CONFIG set, every
+     step under ``deterministic()``.  TM: every registered config at its
+     reduced size (f32), SyntheticLM 4 x 32 (stub extras where needed), two
+     steps at a constant schedule from the same seeded weights, against the
+     one-process step on the card (rank 0): each step's loss within
+     TR_LOSS_RTOL, the params after both within TR_TOL at all but 1 in 1000
+     elements and within 2 lr a step everywhere.  deepseek-v2 and arctic
+     run expert-parallel (8 experts, 4 a model rank): each rank routes its
+     own token block with the capacity of its own tokens and the aux is the
+     mean of the blocks', as in the reference, so one process computes
+     another function; their reference is the same 2x2 step on CPU tensors
+     (the CPU tests hold that against the reference's EP), under the same
+     gates unless a router decision differs between the two (reported, as
+     TR does).  Then ``compressed_psum``
+     over the four ranks on CUDA tensors against the same call on CPU
+     tensors, and stablelm's TM state, gathered whole and checkpointed,
+     restored over 2x1 (ranks 0-1) and on one process: the next step's loss
+     and params equal the 2x2 run's within TR_LOSS_RTOL / TR_TOL.  TMF:
+     stablelm-1.6b uncut (bf16, remat "full", f32 AdamW, warmup_cosine),
+     SyntheticLM 4 x 1024 (2 rows a data rank), TMF_STEPS steps; first one
+     process (rank 0) takes the same steps alone; step 1's loss within
+     TMF_LOSS_RTOL of its, every loss finite, the later steps' gaps
+     reported; s/step, the collectives' share of it (each collective timed
+     between two synchronizations), host bytes staged a step, peak GiB a
+     rank.  Both reach no hand kernel (every count 0).
 
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
@@ -3809,6 +3838,15 @@ T_BATCH, T_SEQ, T_STEPS, T_LR = 8, 1024, 20, 1e-3
 TQ_CKPT_EVERY, TQ_FAIL_AT = 10, 13
 TRAIN_CHILD_TIMEOUT = 900     # seconds
 CUBLAS_CONFIG = ":4096:8"     # the deterministic cuBLAS workspace
+# TM / TMF: the sharded train step over a 2x2 mesh of four processes on
+# cuda:0 (``--train-mesh-child``)
+TM_MESH = (2, 2)
+TM_SEQ, TM_BATCH, TM_STEPS = 32, 4, 2
+TM_OUTLIERS = 1e-3            # share of param elements past TR_TOL
+TM_CKPT_ARCH = "stablelm-1.6b"
+TMF_SEQ, TMF_BATCH, TMF_STEPS = 1024, 4, 6
+TMF_LOSS_RTOL = 1e-3          # step 1: the same batch and params, sums in another order
+TM_TIMEOUT = 600              # seconds the four children may take, startup included
 
 
 # ------------------------------------------------------------------ mesh paths
@@ -4794,6 +4832,441 @@ def phase_train():
     return json.loads(out.read_text())
 
 
+# ----------------------------------------------------- sharded training: TM, TMF
+class _CollTimer:
+    """Times every collective of ``distributed/collectives`` between two
+    synchronizations of the card, and counts the host bytes it stages under
+    gloo (a CUDA input copied to the host, the result copied back)."""
+
+    def __init__(self):
+        self.s = 0.0
+        self.calls = 0
+        self.host_bytes = 0
+        self.on = False
+
+    def install(self):
+        import torch
+        import torch.distributed as dist
+        from repro_torch.distributed import collectives as coll
+        timer = self
+
+        def nbytes(t):
+            if isinstance(t, (list, tuple)):
+                return sum(nbytes(x) for x in t)
+            return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+        def on_card(x):
+            if isinstance(x, (list, tuple)):
+                return any(on_card(t) for t in x)
+            return torch.is_tensor(x) and x.is_cuda
+
+        for name in ("all_gather", "all_reduce", "all_to_all", "all_reduce_",
+                     "all_gather_blocks"):
+            fn = getattr(coll, name)
+
+            def wrapped(x, group, *a, _fn=fn, **k):
+                if not timer.on or coll.size(group) == 1:
+                    return _fn(x, group, *a, **k)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(x, group, *a, **k)
+                torch.cuda.synchronize()
+                timer.s += time.perf_counter() - t
+                timer.calls += 1
+                if on_card(x) and dist.get_backend(group) == "gloo":
+                    # staged: the inputs out, the result (in place: the
+                    # inputs) back
+                    timer.host_bytes += nbytes(x) + nbytes(x if out is None else out)
+                return out
+            setattr(coll, name, wrapped)
+
+
+def tm_batch(cfg, step, batch=TM_BATCH, seq=TM_SEQ):
+    """A SyntheticLM batch with seeded stub patches / frames where needed."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    d = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, batch=batch)).batch_at(step)
+    rng = np.random.default_rng(step + 1)
+    if cfg.frontend == "vision":
+        d["patches"] = (0.02 * rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.family == "encdec":
+        d["frames"] = (0.02 * rng.standard_normal((batch, 8, cfg.d_model))).astype(np.float32)
+    return d
+
+
+def _mesh_gap(whole, ref, lr):
+    """(worst |a - b| / (TR_TOL (1 + |b|)), share of elements past 1, worst
+    |a - b| / (2 lr TM_STEPS)) of the gathered state's params against the
+    one-process run's."""
+    from repro_torch import tree as ttree
+    worst = over = n = far = 0.0
+    for a, b in zip(ttree.leaves(whole), ttree.leaves(ref)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = (a - b).abs()
+        r = d / (TR_TOL * (1 + b.abs()))
+        worst = max(worst, float(r.max()))
+        over += float((r > 1).sum())
+        n += r.numel()
+        far = max(far, float(d.max()) / (2 * lr * TM_STEPS))
+    return worst, over / n, far
+
+
+def tm_phase(rank, mesh):
+    """TM on this rank (see the module docstring); rank 0 returns the rows."""
+    import torch
+    from repro_torch.configs import ALL_ARCHS, reduced_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.fault import gather_state, reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import context as mctx
+    from repro_torch.optim import AdamWConfig, adamw, schedule
+    from repro_torch.train.train_step import build_train_step, dist_context_for
+    from repro_torch.train.trainer import deterministic
+    ctx = dist_context_for(mesh)
+    world = ctx.groups.world
+    opt = AdamWConfig(lr=T_LR)
+    rows = {}
+
+    def run(m, b, st, steps, first=0):
+        step = build_train_step(b, opt, m, lr_schedule=schedule.constant)
+        ms = []
+        with deterministic("cuda"):
+            for i in range(first, first + steps):
+                st, met = step(st, tm_batch(b.cfg, i))
+                ms.append({k: float(v) for k, v in met.items()})
+        return st, ms, step
+
+    mesh_cpu = make_host_mesh(*TM_MESH, ["cpu"] * (TM_MESH[0] * TM_MESH[1]))
+    ctx_cpu = dist_context_for(mesh_cpu)
+    for arch in ALL_ARCHS:
+        cfg = reduced_config(arch)
+        ep = cfg.moe is not None
+        b = build_model(cfg, "cuda")
+        p = b.init(0)
+        t0 = time.perf_counter()
+        mctx.set_context(ctx)
+        step = build_train_step(b, opt, mesh, lr_schedule=schedule.constant)
+        st = reshard_state({"params": p, "opt": adamw.init(p, opt)}, mesh, step.specs)
+        rg, rc = [], []
+        with router_log(rg):
+            st, ms, step = run(mesh, b, st, TM_STEPS)
+        whole = gather_state(st, mesh, step.specs)
+        mesh_s = time.perf_counter() - t0
+        if ep:
+            # the same mesh step on CPU tensors: expert parallelism routes
+            # each rank's block of tokens and averages the blocks' aux, so
+            # one process is no reference
+            bc = build_model(cfg, "cpu")
+            pc = ttree_to(p, "cpu")
+            mctx.set_context(ctx_cpu)
+            sc = build_train_step(bc, opt, mesh_cpu, lr_schedule=schedule.constant)
+            with router_log(rc):
+                ref_st, rms, sc = run(mesh_cpu, bc, reshard_state(
+                    {"params": pc, "opt": adamw.init(pc, opt)}, mesh_cpu, sc.specs), TM_STEPS)
+            ref = gather_state(ref_st, mesh_cpu, sc.specs)
+        mctx.set_context(None)
+        flips = [None] * (TM_MESH[0] * TM_MESH[1])
+        import torch.distributed as dist
+        dist.all_gather_object(flips, sum(int((a != c).any()) for a, c in zip(rg, rc)),
+                               group=world)
+        if rank == 0:
+            if not ep:
+                ref, rms, _ = run(None, b, {"params": p, "opt": adamw.init(p, opt)}, TM_STEPS)
+            worst, share, far = _mesh_gap(whole["params"], ref["params"], opt.lr)
+            rows[arch] = dict(
+                reference="the 2x2 mesh on CPU tensors" if ep else "one process on the card",
+                loss_mesh=[x["loss"] for x in ms], loss_ref=[x["loss"] for x in rms],
+                loss_rel=[abs(a["loss"] - c["loss"]) / abs(c["loss"]) for a, c in zip(ms, rms)],
+                grad_norm_rel=[abs(a["grad_norm"] - c["grad_norm"]) / c["grad_norm"]
+                               for a, c in zip(ms, rms)],
+                aux=[x["aux"] for x in ms], param_worst=worst, param_share_past=share,
+                param_far=far, ep=ep, router_calls=len(rg), expert_flips=flips,
+                mesh_s=mesh_s)
+            log(f"TM {arch}: {json.dumps(rows[arch])}")
+        if arch == TM_CKPT_ARCH:
+            rows["ckpt"] = tm_checkpoint(rank, mesh, ctx, b, opt, st, whole, run)
+        del b, p, st, whole
+        torch.cuda.empty_cache()
+    # compressed_psum over the four ranks, CUDA tensors against CPU ones
+    gen = torch.Generator().manual_seed(100 + rank)
+    g = 0.01 * torch.randn(3 * 1024 + 17, generator=gen)
+    e = 0.001 * torch.randn(g.shape, generator=gen)
+    out_g, err_g = coll.compressed_psum(g.cuda(), world, e.cuda())
+    out_c, err_c = coll.compressed_psum(g, world, e)
+    codes_g = coll.quantize_grad(g.cuda() + e.cuda())[0].cpu()
+    codes_c = coll.quantize_grad(g + e)[0]
+    psum = dict(out_max_abs=float((out_g.cpu() - out_c).abs().max()),
+                err_max_abs=float((err_g.cpu() - err_c).abs().max()),
+                codes_apart=int((codes_g != codes_c).sum()), codes=codes_c.numel(),
+                want_rel=float((out_c - _psum_plain(g + e, world)).norm()
+                               / _psum_plain(g + e, world).norm()))
+    allp = [None] * 4
+    import torch.distributed as dist
+    dist.all_gather_object(allp, psum, group=world)
+    if rank == 0:
+        rows["compressed_psum"] = allp
+        log(f"TM compressed_psum: {json.dumps(allp)}")
+    return rows
+
+
+def _psum_plain(x, group):
+    from repro_torch.distributed import collectives as coll
+    return coll.all_reduce(x.float(), group)
+
+
+def tm_checkpoint(rank, mesh, ctx, b, opt, st, whole, run):
+    """stablelm's TM state checkpointed whole, restored over 2x1 (ranks
+    0-1) and on one process (rank 0); each takes step TM_STEPS + 1, as the
+    2x2 run does."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.fault import gather_state, reshard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import context as mctx
+    from repro_torch.optim import schedule
+    from repro_torch.train.train_step import abstract_state, build_train_step, dist_context_for
+    world = ctx.groups.world
+    (ROOT / "build").mkdir(exist_ok=True)
+    holder = [tempfile.mkdtemp(dir=ROOT / "build", prefix="tm_ckpt_") if rank == 0 else None]
+    import torch.distributed as dist
+    dist.broadcast_object_list(holder, src=0, group=world)
+    ck = holder[0]
+    try:
+        if rank == 0:
+            CheckpointManager(ck).save(TM_STEPS, whole, {"mesh": "2x2"}, block=True)
+        coll.barrier(world)
+        mctx.set_context(ctx)
+        st22, m22, step = run(mesh, b, st, 1, first=TM_STEPS)
+        w22 = gather_state(st22, mesh, step.specs)
+        mctx.set_context(None)
+        m21 = make_host_mesh(2, 1, ["cuda:0"] * 2)
+        c21 = dist_context_for(m21)             # collective: every rank
+        out = None
+        if rank < 2:
+            tree, meta = CheckpointManager(ck).restore(abstract_state(b, opt))
+            s21 = build_train_step(b, opt, m21, lr_schedule=schedule.constant)
+            mctx.set_context(c21)
+            st21, mm, s21 = run(m21, b, reshard_state(tree, m21, s21.specs), 1, first=TM_STEPS)
+            w21 = gather_state(st21, m21, s21.specs)
+            mctx.set_context(None)
+            if rank == 0:
+                st1, m1, _ = run(None, b, ttree_to(tree, "cuda"), 1, first=TM_STEPS)
+                out = dict(step=meta["step"], loss={"2x2": m22[0]["loss"], "2x1": mm[0]["loss"],
+                                                    "1": m1[0]["loss"]})
+                for name, w in (("2x1", w21["params"]), ("1", st1["params"])):
+                    worst, share, far = _mesh_gap(w, w22["params"], opt.lr)
+                    out[f"param_{name}"] = dict(worst=worst, share_past=share, far=far)
+                log(f"TM checkpoint: {json.dumps(out)}")
+        coll.barrier(world)
+        return out
+    finally:
+        if rank == 0:
+            shutil.rmtree(ck, ignore_errors=True)
+
+
+def ttree_to(tree, device):
+    from repro_torch import tree as ttree
+    return ttree.tree_map(lambda t: t.to(device), tree)
+
+
+def tmf_phase(rank, mesh, timer):
+    """TMF on this rank (see the module docstring); rank 0 returns the row."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models import build_model
+    from repro_torch.models import context as mctx
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.train_step import build_train_step, dist_context_for, make_state
+    from repro_torch.train.trainer import deterministic
+    cfg = get_config(T_ARCH)
+    need(cfg.remat == "full" and cfg.dtype == "bfloat16", f"TMF: {cfg}")
+    b = build_model(cfg, "cuda")
+    opt = AdamWConfig(lr=T_LR)
+    ctx = dist_context_for(mesh)
+    world = ctx.groups.world
+    batches = [tm_batch(cfg, i, TMF_BATCH, TMF_SEQ) for i in range(TMF_STEPS)]
+    one = None
+    if rank == 0:                   # the one-process run first, alone on the card
+        st = make_state(b, opt, 0)
+        step = build_train_step(b, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one = dict(loss=[], s=[])
+        with deterministic("cuda"):
+            for x in batches:
+                t0 = time.perf_counter()
+                st, m = step(st, x)
+                torch.cuda.synchronize()
+                one["s"].append(time.perf_counter() - t0)
+                one["loss"].append(float(m["loss"]))
+        one["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del st, step
+        torch.cuda.empty_cache()
+    coll.barrier(world)
+    mctx.set_context(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = make_state(b, opt, 0, mesh)
+    step = build_train_step(b, opt, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    res = dict(loss=[], s=[], coll_s=[], coll_calls=[], host_bytes=[])
+    with deterministic("cuda"):
+        for x in batches:
+            coll.barrier(world)
+            timer.s, timer.calls, timer.host_bytes, timer.on = 0.0, 0, 0, True
+            t0 = time.perf_counter()
+            st, m = step(st, x)
+            torch.cuda.synchronize()
+            res["s"].append(time.perf_counter() - t0)
+            timer.on = False
+            res["loss"].append(float(m["loss"]))
+            res["coll_s"].append(timer.s)
+            res["coll_calls"].append(timer.calls)
+            res["host_bytes"].append(timer.host_bytes)
+    mctx.set_context(None)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["init_s"] = init_s
+    import torch.distributed as dist
+    allr = [None] * 4
+    dist.all_gather_object(allr, res, group=world)
+    del st, step, b
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    losses = allr[0]["loss"]
+    need(all(math.isfinite(v) for v in losses), f"TMF: losses {losses}")
+    need(all(r["loss"] == losses for r in allr), "TMF: the ranks' losses differ")
+    gaps = [abs(a - c) / abs(c) for a, c in zip(losses, one["loss"])]
+    s_med = [statistics.median(r["s"][1:]) for r in allr]
+    c_med = [statistics.median(r["coll_s"][1:]) for r in allr]
+    row = dict(loss_mesh=losses, loss_one=one["loss"], loss_rel=gaps,
+               s_per_step=[r["s"] for r in allr], s_per_step_median=s_med,
+               coll_s_median=c_med, coll_share=[c / s for c, s in zip(c_med, s_med)],
+               coll_calls=allr[0]["coll_calls"],
+               host_bytes_per_step=[r["host_bytes"][-1] for r in allr],
+               peak_gib=[r["peak_gib"] for r in allr], init_s=[r["init_s"] for r in allr],
+               one_s_per_step=one["s"], one_peak_gib=one["peak_gib"],
+               tokens_per_s=TMF_BATCH * TMF_SEQ / max(s_med))
+    log(f"TMF: {json.dumps(row)}")
+    need(gaps[0] <= TMF_LOSS_RTOL, f"TMF: step 1's loss {losses[0]} against one process's "
+         f"{one['loss'][0]}")
+    return row
+
+
+def tm_child(rank: int, coordinator: str, out: str) -> int:
+    """One rank of TM / TMF (``--train-mesh-child``): join the gloo group of
+    four, run TM then TMF with every kernel count zeroed just before and
+    read just after; rank 0 writes the rows to ``out``."""
+    import os
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeError("CUDA is not available")
+    need(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == CUBLAS_CONFIG,
+         "the sharded training children need CUBLAS_WORKSPACE_CONFIG from their parent")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh, train_backend
+    n = TM_MESH[0] * TM_MESH[1]
+    mesh = make_host_mesh(*TM_MESH, ["cuda:0"] * n)
+    need(train_backend(mesh) == "gloo", "TM: four ranks on one card need gloo")
+    init_distributed(coordinator, n, rank, timeout=TM_TIMEOUT, backend="gloo")
+    timer = _CollTimer()
+    timer.install()
+    res = {}
+    ops.reset_counts()
+    with timed("train TM"):
+        res["TM"] = tm_phase(rank, mesh)
+    res["TM_counts"] = ops.counts()
+    ops.reset_counts()
+    with timed("train TMF"):
+        res["TMF"] = tmf_phase(rank, mesh, timer)
+    res["TMF_counts"] = ops.counts()
+    res["phase_s"] = PHASE_S
+    if rank == 0:
+        Path(out).write_text(json.dumps(res, indent=1, default=str))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_train_mesh():
+    """TM and TMF in four child processes (``--train-mesh-child``), each
+    with the deterministic cuBLAS workspace; a child that fails or
+    outlives TM_TIMEOUT fails the phase.  Gates: each path launched no
+    hand kernel, TM's losses and params against the one-process step, the
+    checkpoint restored over 2x1 and on one process, compressed_psum's
+    codes on the card equal to its CPU run's; TMF's own gates run in rank
+    0."""
+    import os
+    from repro_torch.launch.mesh import pick_coordinator
+    out = OUT_DIR / "chip_smoke_tm.json"
+    out.unlink(missing_ok=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    coord = pick_coordinator(None)
+    # four ranks share the card: segments that grow in place leave less of
+    # it reserved and unused in each rank's cache
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_CONFIG,
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    sys.stdout.flush()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--train-mesh-child", str(r), coord, str(out)], env=env)
+             for r in range(TM_MESH[0] * TM_MESH[1])]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            need(all(p.poll() in (None, 0) for p in procs),
+                 f"TM: a child exited {[p.poll() for p in procs]}")
+            need(time.perf_counter() - t0 < TM_TIMEOUT,
+                 f"TM: the children outlived {TM_TIMEOUT} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    need([p.returncode for p in procs] == [0] * len(procs),
+         f"TM: the children exited {[p.returncode for p in procs]}")
+    res = json.loads(out.read_text())
+    for path in ("TM", "TMF"):
+        c = res[f"{path}_counts"]
+        need(all(v["launches"] == 0 for v in c.values()),
+             f"{path}: hand kernels launched: {c}")
+    tm = res["TM"]
+    for arch, row in tm.items():
+        if arch in ("ckpt", "compressed_psum"):
+            continue
+        if any(row["expert_flips"]):
+            log(f"TM {arch}: router decisions differ between the card and the CPU on some "
+                f"rank ({row['expert_flips']}); its numbers are reported, not bound")
+            continue
+        need(all(r <= TR_LOSS_RTOL for r in row["loss_rel"]),
+             f"TM {arch}: losses {row['loss_mesh']} on the card, {row['loss_ref']} in "
+             f"{row['reference']}")
+        need(row["param_share_past"] <= TM_OUTLIERS and row["param_far"] <= 1.0,
+             f"TM {arch}: params apart: {row}")
+    ck = tm["ckpt"]
+    need(ck["step"] == TM_STEPS and all(
+        abs(v - ck["loss"]["2x2"]) <= TR_LOSS_RTOL * abs(ck["loss"]["2x2"])
+        for v in ck["loss"].values()), f"TM checkpoint: {ck}")
+    need(all(ck[f"param_{n}"]["share_past"] <= TM_OUTLIERS and ck[f"param_{n}"]["far"] <= 1.0
+             for n in ("2x1", "1")), f"TM checkpoint params: {ck}")
+    for r, row in enumerate(tm["compressed_psum"]):
+        need(row["codes_apart"] == 0, f"TM compressed_psum rank {r}: {row}")
+    log(f"TM/TMF: {json.dumps({k: v for k, v in res.items() if k != 'TM'})}")
+    return res
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4805,9 +5278,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", nargs=3, help=argparse.SUPPRESS)
+    ap.add_argument("--train-mesh-child", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.train_child:
         return train_child()
+    if args.train_mesh_child:
+        rank, coordinator, out = args.train_mesh_child
+        return tm_child(int(rank), coordinator, out)
     if args.mesh_child:
         rank, coordinator, out = args.mesh_child
         return mh_child(int(rank), coordinator, out)
@@ -4950,6 +5427,9 @@ def main(argv=None) -> int:
     # paths TR, TD, T, TQ: training, in a child process (deterministic cuBLAS)
     with timed("train"):
         training = phase_train()
+    # paths TM, TMF: the sharded train step over a 2x2 mesh of four processes
+    with timed("train mesh"):
+        training["mesh"] = phase_train_mesh()
 
     replaces = {
         "act_stats": "src/repro/kernels/act_stats.py:33",

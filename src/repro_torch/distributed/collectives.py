@@ -1,0 +1,284 @@
+"""Collectives over a train mesh's process groups (port of
+``repro/distributed/collectives.py``, plus the port's own plumbing).
+
+A group is a ``torch.distributed`` group or None, a group of one process,
+whose collectives return their input (``launch/mesh.mesh_groups`` gives
+None for an axis of size 1).  Under gloo a CUDA tensor is staged through a
+host copy: gloo moves CPU tensors only, and gloo is what several ranks on
+one card use (NCCL refuses them).  NCCL takes the device tensors as they
+are.
+
+The differentiable ones carry expert parallelism's tokens (the reference
+runs them under ``shard_map``):
+
+  * ``split_rows`` - this rank's block of rows; its backward all-gathers
+    the blocks' grads (every rank's dense compute read the whole);
+  * ``gather_rows`` - every rank's block, in group order; its backward
+    keeps this rank's block of the grad, because every rank of the group
+    holds the same upstream grad (summing them would count it once a rank);
+  * ``all_to_all_rows`` - equal row chunks, chunk j to rank j; its own
+    adjoint, so its backward is another all_to_all;
+  * ``mean_over`` - the mean of a scalar over a group whose backward hands
+    the grad on times ``share``.
+
+``compressed_psum`` is the reference's int8 all-reduce with predicted
+scales and error feedback.  Scheme:
+  1. residual-corrected gradient g' = g + e (error feedback carry);
+  2. per-chunk symmetric int8 codes, the scale *predicted* from the chunk's
+     second moment (4 sigma / 127) rather than a second amax pass;
+  3. codes rescaled to the group's largest scale of each chunk and summed
+     as int32 (what the wire would carry: int8 codes and one scale a
+     chunk);
+  4. e' = g' - dequant(quant(g')) kept locally for the next step.
+It rounds half to even and divides by tensors (``kernels.ref.true_div``),
+as every plain version here does.  The reference's train step does not
+call it, nor does the port's.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.ref import true_div
+
+_CHUNK = 1024
+# the one-tensor all-gather under its current name, where torch has it
+_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def index(group) -> int:
+    """This process's rank in ``group`` (groups list ranks in order)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _host(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the backend moves it: a host copy under gloo."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu()
+    return x.contiguous()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group order."""
+    n = size(group)
+    if n == 1:
+        return x
+    src = _host(x.movedim(dim, 0).contiguous(), group)
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    _GATHER(out, src, group=group)
+    return out.to(x.device).movedim(0, dim)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``x`` summed (or its max) over the group."""
+    if size(group) == 1:
+        return x
+    buf = _host(x, group)
+    if buf is x:
+        buf = x.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                    group=group)
+    return buf.to(x.device)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (n * k, ...) in n equal row chunks, chunk j to rank j; the
+    result holds the chunks received, in source order."""
+    n = size(group)
+    if n == 1:
+        return x
+    src = _host(x, group)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+def gather_to(x: torch.Tensor, group) -> list[torch.Tensor] | None:
+    """Every rank's ``x`` (one shape) on the group's first rank, as host
+    tensors in group order; None elsewhere."""
+    n = size(group)
+    if n == 1:
+        return [x.detach().cpu()]
+    x = x.detach()
+    if dist.get_backend(group) == "nccl":
+        outs = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(outs, x.contiguous(), group=group)
+        return [o.cpu() for o in outs] if index(group) == 0 else None
+    src = x.cpu().contiguous()
+    outs = [torch.empty_like(src) for _ in range(n)] if index(group) == 0 else None
+    dist.gather(src, outs, dist.get_global_rank(group, 0), group=group)
+    return outs
+
+
+def barrier(group) -> None:
+    if size(group) > 1:
+        dist.barrier(group=group)
+
+
+def _flat_buffer(tensors, group):
+    """One flat buffer holding ``tensors`` (one dtype) end to end: on the
+    host when the backend stages (gloo with CUDA tensors), so that no
+    device copy of the whole is made."""
+    x = tensors[0]
+    dev = "cpu" if x.is_cuda and dist.get_backend(group) == "gloo" else x.device
+    buf = torch.empty(sum(t.numel() for t in tensors), dtype=x.dtype, device=dev)
+    off = 0
+    for t in tensors:
+        buf[off:off + t.numel()].copy_(t.reshape(-1))
+        off += t.numel()
+    return buf
+
+
+def all_reduce_(tensors: list[torch.Tensor], group) -> None:
+    """Sum each of ``tensors`` (one dtype) over the group in place, as one
+    collective over a flat buffer."""
+    if size(group) == 1 or not tensors:
+        return
+    buf = _flat_buffer(tensors, group)
+    dist.all_reduce(buf, group=group)
+    off = 0
+    for t in tensors:
+        t.copy_(buf[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+
+
+def all_gather_blocks(tensors: list[torch.Tensor], group) -> list[list[torch.Tensor]]:
+    """Every rank's ``tensors`` (one dtype, the same shapes on every rank),
+    as one collective: [rank][i] is rank's i-th tensor, a view into the
+    gathered buffer (on the host when the backend stages)."""
+    if size(group) == 1:
+        return [list(tensors)]
+    src = _flat_buffer(tensors, group)
+    out = src.new_empty((size(group), src.numel()))
+    _GATHER(out.view(-1), src, group=group)
+    res = []
+    for r in range(size(group)):
+        off, mine = 0, []
+        for t in tensors:
+            mine.append(out[r, off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        res.append(mine)
+    return res
+
+
+# ------------------------------------------------------------- differentiable
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, i = size(group), index(group)
+        k = x.shape[0] // n
+        return x[i * k:(i + 1) * k].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = size(ctx.group), index(ctx.group)
+        k = g.shape[0] // n
+        return g[i * k:(i + 1) * k].contiguous(), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, share):
+        ctx.share = share
+        return true_div(all_reduce(x.detach().float(), group), float(size(group))).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.share, None, None
+
+
+def split_rows(x: torch.Tensor, group) -> torch.Tensor:
+    if size(group) == 1:
+        return x
+    if x.shape[0] % size(group):
+        raise ValueError(f"{x.shape[0]} rows do not split over {size(group)} ranks")
+    return _Split.apply(x, group)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    return x if size(group) == 1 else _Gather.apply(x, group)
+
+
+def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
+    return x if size(group) == 1 else _AllToAll.apply(x, group)
+
+
+def mean_over(x: torch.Tensor, group, share: float) -> torch.Tensor:
+    """The group's mean of the scalar ``x``; its backward passes the grad
+    on times ``share`` (the rank's part of the mean in the objective that
+    the train step's grad reduction assembles)."""
+    return _Mean.apply(x, group, share)
+
+
+# ------------------------------------------------------- compressed all-reduce
+def _predicted_scale(g: torch.Tensor) -> torch.Tensor:
+    """PDQ-flavoured scale: predicted from moments, not from a minmax scan.
+    For near-Gaussian gradient chunks max|g| ~ k sigma; k = 4 covers
+    ~99.994% of the mass, the rest clips (absorbed by error feedback)."""
+    sigma = torch.sqrt(torch.mean(torch.square(g), dim=-1, keepdim=True) + 1e-20)
+    return torch.clamp_min(true_div(4.0 * sigma, 127.0), 1e-12)
+
+
+def quantize_grad(g: torch.Tensor):
+    """g: any shape -> (codes int8 (n, _CHUNK), scale (n, 1), meta)."""
+    n = g.numel()
+    pad = (-n) % _CHUNK
+    flat = torch.nn.functional.pad(g.reshape(-1).float(), (0, pad))
+    chunks = flat.reshape(-1, _CHUNK)
+    scale = _predicted_scale(chunks)
+    codes = torch.clamp(torch.round(chunks / scale), -127, 127).to(torch.int8)
+    return codes, scale, (tuple(g.shape), n)
+
+
+def dequantize_grad(codes, scale, meta) -> torch.Tensor:
+    shape, n = meta
+    return (codes.float() * scale).reshape(-1)[:n].reshape(shape)
+
+
+def compressed_psum(g: torch.Tensor, group, error: torch.Tensor | None = None):
+    """int8 all-reduce of ``g`` over ``group`` with error feedback: returns
+    (g_reduced, new_error), both of g's dtype; ``error`` has g's shape (or
+    None)."""
+    g32 = g.float()
+    if error is not None:
+        g32 = g32 + error
+    codes, scale, meta = quantize_grad(g32)
+    new_error = g32 - dequantize_grad(codes, scale, meta)
+    # int32 code sum at a shared (max over the group) scale a chunk
+    shared = all_reduce(scale, group, op="max")
+    rescaled = torch.round(codes.float() * (scale / shared))
+    summed = all_reduce(rescaled.to(torch.int32), group)
+    out = dequantize_grad(summed, shared, meta)
+    return out.to(g.dtype), new_error.to(g.dtype)
+
+
+def psum_overlap_hint(x: torch.Tensor, group) -> torch.Tensor:
+    """A plain all-reduce sum, kept as the reference's named site."""
+    return all_reduce(x, group)

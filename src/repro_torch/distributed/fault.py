@@ -1,6 +1,11 @@
-"""Fault handling for serving (port of ``repro/distributed/fault.py``):
-failure bookkeeping, the straggler EMA, deadline watchdogs, scheduler
-snapshots, and the deterministic fault-injection harness.
+"""Fault handling (port of ``repro/distributed/fault.py``): elastic
+resharding, failure bookkeeping, the straggler EMA, deadline watchdogs,
+scheduler snapshots, and the deterministic fault-injection harness.
+
+  * ``reshard_state`` / ``gather_state`` - a train state's whole logical
+    arrays (a checkpoint's, any mesh's) to this rank's blocks on a mesh,
+    and the blocks of every rank back to whole arrays on one rank: so a
+    checkpoint written over one mesh restores over another.
 
   * ``DeadlineWatchdog`` - a context manager arming a timer around any
     blocking launch; on expiry it runs a callback (default: print a typed
@@ -18,9 +23,6 @@ snapshots, and the deterministic fault-injection harness.
     multi-process faults (kill, hang, corrupt a command header) fire in
     ``on_broadcast``, which ``serve/multihost.py`` calls on every command
     header.
-
-The reference's ``reshard_state`` (laying a restored state out on a new
-device mesh) waits for the sharded train step (ROADMAP.md Queue 1, item 8b).
 """
 from __future__ import annotations
 
@@ -33,10 +35,60 @@ import time
 
 import numpy as np
 
+from repro_torch import tree as tr
+
 # typed process exit codes: the launcher / test harness reads these to tell
 # an injected kill from a watchdog abort from an ordinary crash
 EXIT_DEADLINE = 87     # DeadlineWatchdog expired (hung collective / dead peer)
 EXIT_KILLED = 41       # FaultPlan kill_* injection
+
+
+def reshard_state(state, target_mesh, spec_tree):
+    """Elastic scaling: this rank's blocks of a whole ``state`` (numpy
+    arrays or tensors, e.g. a restored checkpoint) on ``target_mesh``, as
+    contiguous tensors on the rank's mesh entry.  The specs are logical
+    (axis names), so they transfer between meshes."""
+    import torch
+
+    from repro_torch.distributed.sharding import block
+    from repro_torch.launch.mesh import mesh_coords
+    coords = mesh_coords(target_mesh)
+    if coords is None:
+        raise ValueError("this process holds no entry of the target mesh")
+    dev = target_mesh.devices[coords["data"], coords["model"]]
+
+    def place(x, spec):
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        return t[block(spec, t.shape, target_mesh, coords)].to(dev).contiguous().clone()
+
+    return tr.tree_map(place, state, spec_tree)
+
+
+def gather_state(state, mesh, spec_tree):
+    """The inverse of ``reshard_state``: every rank's blocks joined into
+    whole host tensors on the mesh's first rank, a leaf at a time; None on
+    the other ranks.  Collective over the mesh."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import axis_size, block
+    from repro_torch.launch.mesh import mesh_groups
+    g = mesh_groups(mesh)
+    ranks = sorted(int(r) for r in mesh.processes.flat)
+    where = {int(mesh.processes[d, m]): {"data": d, "model": m}
+             for d in range(mesh.processes.shape[0]) for m in range(mesh.processes.shape[1])}
+    out = []
+    for (path, x), spec in zip(tr.leaves_with_path(state), tr.leaves(spec_tree)):
+        parts = coll.gather_to(x, g.world)
+        if parts is None:
+            continue
+        shape = [n * axis_size(mesh, e) for n, e in
+                 zip(x.shape, tuple(spec) + (None,) * (x.dim() - len(spec)))]
+        whole = parts[0].new_empty(shape)
+        for r, part in zip(ranks, parts):
+            whole[block(spec, shape, mesh, where[r])] = part
+        out.append(whole)
+    if coll.index(g.world) != 0:
+        return None
+    return tr.unflatten_like(state, out)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
-"""Serving meshes and the multi-process bootstrap (port of
-``repro/launch/mesh.py``, its serving part).
+"""Meshes, their process groups and the multi-process bootstrap (port of
+``repro/launch/mesh.py``).
 
 A ``Mesh`` is a small frozen record: a (data, model) array of
 ``torch.device`` - row r is data-parallel replica r, its entries the
@@ -9,8 +9,18 @@ process index that hosts each entry; its axes are always ``("data",
 device: that is how the CPU tests build a mesh (every entry ``cpu``) and how
 one card serves a whole mesh (every entry ``cuda:0``), the counterpart of
 the reference's forced virtual host devices.  A mesh is never widened or
-narrowed quietly: ``make_serve_mesh`` raises when the devices it needs are
-not there.
+narrowed quietly: ``make_serve_mesh`` and ``make_host_mesh`` raise when the
+devices they need are not there.
+
+A serve mesh splits its data axis over a few processes; a train mesh
+(``make_host_mesh``) is one process an entry, rank ``d * M + m`` at entry
+(d, m).  ``mesh_groups`` builds a train mesh's process groups - the
+mesh's world, each data-axis group (one model index, every data index) and
+each model-axis group - in the same order on every process, as
+``torch.distributed.new_group`` needs, and keeps them per mesh.  The
+backend comes from the mesh (``train_backend``): NCCL where every entry is
+its own card, gloo otherwise - every CPU mesh, and several ranks on one
+card, which NCCL refuses.
 
 The reference's ``make_production_mesh``, ``bootstrap_mesh_env`` and
 ``strip_forced_device_count`` set up XLA devices and have no torch
@@ -75,20 +85,20 @@ def pick_coordinator(addr: str | None) -> str:
 
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
-                     timeout: float = 300.0) -> None:
-    """Join this process to a gloo group of ``num_processes`` over
-    ``tcp://coordinator``: the group carries the serving fleet's host data
-    (plans, the command header, sampled tokens) as CPU tensors.  Retried
-    with exponential backoff (bounded): the coordinator's port can be
-    mid-release from a previous fleet, or process 0 can come up a beat
-    after a worker."""
+                     timeout: float = 300.0, backend: str = "gloo") -> None:
+    """Join this process to a group of ``num_processes`` over
+    ``tcp://coordinator``: gloo carries the serving fleet's host data
+    (plans, the command header, sampled tokens) as CPU tensors, and a train
+    mesh's collectives (``train_backend``).  Retried with exponential
+    backoff (bounded): the coordinator's port can be mid-release from a
+    previous fleet, or process 0 can come up a beat after a worker."""
     import datetime
 
     import torch.distributed as dist
     for attempt in range(_INIT_ATTEMPTS):
         try:
             dist.init_process_group(
-                "gloo", init_method=f"tcp://{coordinator}", world_size=num_processes,
+                backend, init_method=f"tcp://{coordinator}", world_size=num_processes,
                 rank=process_id, timeout=datetime.timedelta(seconds=timeout))
             return
         except Exception as e:
@@ -132,5 +142,97 @@ def make_serve_mesh(data: int, model: int, devices=None, *, processes: int = 1) 
     return Mesh(devs.reshape(data, model), procs)
 
 
-__all__ = ["AXES", "Mesh", "init_distributed", "make_serve_mesh", "parse_mesh",
-           "pick_coordinator"]
+def make_host_mesh(data: int, model: int, devices=None) -> Mesh:
+    """The (data, model) train mesh: one process an entry, rank d * M + m
+    at entry (d, m).  ``devices``: the data * model entries in row-major
+    order (they may repeat: four ranks on one card, or every entry the
+    CPU); without it, the first data * model CUDA devices, and too few of
+    them raise with the count."""
+    import torch
+    n = data * model
+    if devices is None:
+        have = torch.cuda.device_count()
+        if have < n:
+            raise RuntimeError(f"mesh {data}x{model} needs {n} CUDA devices, found {have}; "
+                               f"give the entries' devices to share fewer")
+        devices = [f"cuda:{i}" for i in range(n)]
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"mesh {data}x{model} needs {n} device entries, got {len(devices)}")
+    devs = np.empty(n, dtype=object)
+    devs[:] = [torch.device(d) for d in devices]
+    return Mesh(devs.reshape(data, model), np.arange(n).reshape(data, model))
+
+
+def train_backend(mesh: Mesh) -> str:
+    """NCCL where every entry is a CUDA device of its own, else gloo."""
+    devs = list(mesh.devices.flat)
+    if all(d.type == "cuda" for d in devs) and len(set(devs)) == len(devs):
+        return "nccl"
+    return "gloo"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """A train-mesh rank's view of its groups: ``world`` (every entry),
+    ``data`` (its model index, every data index, in data order) and
+    ``model`` (its data index, every model index); a group of one process
+    is None (its collectives are no-ops)."""
+    coords: dict             # {"data": d, "model": m}
+    world: object
+    data: object
+    model: object
+
+
+def mesh_coords(mesh: Mesh) -> dict | None:
+    """{"data": d, "model": m} of this process's entry (its rank in the
+    default group, 0 without one), None when it holds none; no
+    collective."""
+    import torch.distributed as dist
+    if mesh.processes.size == 1:
+        return {"data": 0, "model": 0}
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    where = np.argwhere(mesh.processes == rank)
+    if not len(where):
+        return None
+    return {"data": int(where[0][0]), "model": int(where[0][1])}
+
+
+_GROUPS: dict[int, tuple[Mesh, MeshGroups | None]] = {}
+
+
+def mesh_groups(mesh: Mesh) -> MeshGroups | None:
+    """This process's groups of ``mesh`` (None when it holds no entry).
+    The first call for a mesh is collective: every process of the default
+    group makes it, in the same order."""
+    hit = _GROUPS.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    import torch.distributed as dist
+    procs = mesh.processes
+    if procs.size == 1:
+        out = MeshGroups({"data": 0, "model": 0}, None, None, None)
+        _GROUPS[id(mesh)] = (mesh, out)
+        return out
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {procs.shape[0]}x{procs.shape[1]} mesh needs a process group: "
+                           f"init_distributed first")
+    rank = dist.get_rank()
+
+    def group(ranks):
+        g = dist.new_group([int(r) for r in ranks])
+        return g if rank in ranks and len(ranks) > 1 else None
+
+    world = group(list(procs.flat))
+    data = [group(list(procs[:, m])) for m in range(procs.shape[1])]
+    model = [group(list(procs[d])) for d in range(procs.shape[0])]
+    out, c = None, mesh_coords(mesh)
+    if c is not None:
+        out = MeshGroups(c, world, data[c["model"]], model[c["data"]])
+    _GROUPS[id(mesh)] = (mesh, out)
+    return out
+
+
+__all__ = ["AXES", "Mesh", "MeshGroups", "init_distributed", "make_host_mesh",
+           "make_serve_mesh", "mesh_coords", "mesh_groups", "parse_mesh", "pick_coordinator",
+           "train_backend"]

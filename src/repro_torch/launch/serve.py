@@ -29,7 +29,7 @@ length; not with ``--paged`` or ``--chunked-prefill``).
 it takes the first D*M CUDA devices and raises with the count when there
 are fewer; with ``--device cpu`` every entry is the CPU.  A replica's
 shards on distinct cards are refused (tensor parallelism across cards is
-ROADMAP.md item 8b), so on the card M > 1 is refused too.
+ROADMAP.md item 8c), so on the card M > 1 is refused too.
 ``--num-processes N`` splits the mesh's data axis over N processes
 (``MultiHostServeEngine`` over a gloo group): the launcher spawns the
 children (each with ``--process-id`` and ``--coordinator``; on the card
@@ -239,6 +239,13 @@ def spawn_processes(args, argv) -> int:
             [sys.executable, "-m", "repro_torch.launch.serve", *argv,
              "--coordinator", coordinator, "--process-id", str(i)], env=env,
             stderr=subprocess.PIPE, text=True))
+    return run_fleet(procs, "serve")
+
+
+def run_fleet(procs, name: str) -> int:
+    """Watch a launcher's children (started with ``stderr=PIPE``) to the
+    end, as ``spawn_processes`` describes: the exit code of the first to
+    die, else 0."""
     rings = [collections.deque(maxlen=20) for _ in procs]
     tees = [_tee_stderr(p, r) for p, r in zip(procs, rings)]
     live = dict(enumerate(procs))
@@ -263,11 +270,11 @@ def spawn_processes(args, argv) -> int:
                         t.join(timeout=2)
                     for j, code in dead:
                         meaning = _exit_meaning(code)
-                        print(f"serve launcher: process {j} died with exit code {code}"
+                        print(f"{name} launcher: process {j} died with exit code {code}"
                               f"{f' [{meaning}]' if meaning else ''}", file=sys.stderr)
                         for line in rings[j]:
                             print(f"  [proc {j}] {line}", file=sys.stderr)
-                    print(f"serve launcher: terminating {len(live)} remaining",
+                    print(f"{name} launcher: terminating {len(live)} remaining",
                           file=sys.stderr, flush=True)
                     for q in live.values():
                         q.terminate()

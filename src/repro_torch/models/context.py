@@ -1,14 +1,19 @@
 """Distribution context for model code (port of ``repro/models/context.py``).
 
 Two independent contexts exist, as in the reference.  Model functions read
-an ambient ``DistContext`` set by a launcher or a train-step builder; with
-none set every layer runs its local path.  A set context asks for expert
-parallelism over a mesh, which waits for ROADMAP.md Queue 1 item 8b: the
-MoE FFN refuses it with ``not_ported``.  The serving TP context is
-``kernels/ops.tp_shard``, which the sharded serve engine sets around each
-replica's launches; it runs with ``DistContext`` unset, so MoE stays
-replica-local.  The reference's ``shard_map`` and ``moe_param_specs``
-belong to item 8b.
+an ambient ``DistContext`` set by a launcher (``launch/train.py``, from
+``train_step.dist_context_for(mesh)``); with none set every layer runs its
+local path.  A set context runs the MoE FFN expert-parallel over the
+mesh's 'model' axis, through ``groups`` (``launch/mesh.MeshGroups``: this
+rank's coordinates and its world, data and model groups).  The serving TP
+context is ``kernels/ops.tp_shard``, which the sharded serve engine sets
+around each replica's launches; it runs with ``DistContext`` unset, so MoE
+stays replica-local.
+
+The reference's ``shard_map`` has no counterpart: it runs a body on every
+device's block of its inputs, and here every rank is one process that
+already runs the body on its own block.  ``moe_param_specs`` names the
+blocks: the routed experts' E axis over the expert axis, the router whole.
 """
 from __future__ import annotations
 
@@ -16,12 +21,7 @@ import contextlib
 import dataclasses
 from typing import Any
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a feature the port has not reached yet, naming its
-    ROADMAP.md item."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, item {item})")
+from repro_torch.distributed.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +31,7 @@ class DistContext:
     expert_axis: str                   # mesh axis experts are sharded over ('model')
     data_axes: tuple[str, ...] = ("data",)
     model_axis: str = "model"
+    groups: Any = None                 # launch/mesh.MeshGroups of this rank
 
 
 _CTX: DistContext | None = None
@@ -54,3 +55,14 @@ def use_context(ctx: DistContext | None):
         yield
     finally:
         _CTX = prev
+
+
+def moe_param_specs(p) -> Any:
+    """The routed-MoE param subtree's blocks under the context: each
+    rank's expert stacks hold its own E / M experts."""
+    return {
+        "router": P(None, None),
+        "we_gate": P(_CTX.expert_axis, None, None),
+        "we_up": P(_CTX.expert_axis, None, None),
+        "we_down": P(_CTX.expert_axis, None, None),
+    }

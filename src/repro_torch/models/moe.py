@@ -1,17 +1,23 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, one device).
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``).
 
-The reference dispatches tokens to experts with an all_to_all over an
-expert axis; the port runs its single-device form (``axis_name=None``):
-every expert lives here, and expert parallelism over several cards waits
-for ROADMAP.md Queue 1, item 8b.
-
-  * ``moe_ffn_tokens`` (prefill): route, pack each assignment into its
-    expert's capacity bucket (E, C, d) - overflow drops - run the stacked
-    SwiGLU experts over the buckets, gather each assignment's output back
-    and weight it by its gate.
+  * ``moe_ffn_tokens`` (train, prefill): route, pack each assignment into
+    its expert's capacity bucket (E, C, d) - overflow drops - run the
+    stacked SwiGLU experts over the buckets, gather each assignment's
+    output back and weight it by its gate.
   * ``moe_ffn_dense_masked`` (decode): every expert runs over every token
     and the gates mask the sum.  It holds no host read and no
     data-dependent shape, so a captured decode graph replays it.
+
+Expert parallelism (``group=``, the expert axis's process group; the
+reference's ``axis_name``): the rank's expert stacks hold its E / M
+experts, those of ids [m E/M, (m+1) E/M) on the group's rank m.
+``moe_ffn_tokens`` routes the rank's own tokens - C comes from their count
+- and one ``all_to_all`` lands the (E, C, d) buckets as (E / M, M C, d),
+each local expert's slots from every rank in source order; the local
+stack runs over them and the reverse ``all_to_all`` brings each rank its
+tokens' outputs for the combine.  ``moe_ffn_dense_masked`` runs the local
+experts over every token and sums the ranks' outputs.  Without a group
+every expert is local (one device).
 
 The expert products are plain batched matmuls (``torch.bmm``), as the
 reference's are plain einsums outside any Pallas kernel; the experts stay
@@ -31,6 +37,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as coll
 
 from .layers import dense_init, mlp_init
 
@@ -123,18 +131,30 @@ def _expert_ffn(p, h):
     return torch.bmm(F.silu(g) * u, p["we_down"])
 
 
-def moe_ffn_tokens(p, x, cfg: MoEConfig, *, token_mask=None):
+def moe_ffn_tokens(p, x, cfg: MoEConfig, *, group=None, token_mask=None):
     """The capacity-bucketed MoE over tokens x (T, d): (y (T, d), aux).
-    C = max(1, int(T k cf / E + 0.999)) comes from the launch's T, padded
-    rows included, as the reference's does."""
+    C = max(1, int(T k cf / E + 0.999)) comes from the launch's T (this
+    rank's, under a group), padded rows included, as the reference's
+    does."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    n = coll.size(group)
     gates, ids, aux = route(x, p["router"], cfg, token_mask)
     flat_ids = ids.reshape(-1)                              # (T*k,)
     xk = x.repeat_interleave(k, dim=0)                      # (T*k, d)
     C = max(1, int(T * k * cfg.capacity_factor / E + 0.999))
     buf, slot, valid = _bucket(xk, flat_ids, E, C)
-    buf_out = _expert_ffn(p, buf).reshape(E * C, d)
+    if n > 1:
+        E_loc = E // n
+        # (E, C, d) -> every rank's slots of the local experts, in source
+        # order: (E_loc, n C, d)
+        recv = coll.all_to_all_rows(buf, group).view(n, E_loc, C, d)
+        out = _expert_ffn(p, recv.transpose(0, 1).reshape(E_loc, n * C, d))
+        back = out.view(E_loc, n, C, d).transpose(0, 1).reshape(E, C, d)
+        buf = coll.all_to_all_rows(back, group)             # (E, C, d): my tokens
+        buf_out = buf.reshape(E * C, d)
+    else:
+        buf_out = _expert_ffn(p, buf).reshape(E * C, d)
     # combine: each valid assignment's expert output, weighted by its gate
     y_k = buf_out[torch.where(valid, flat_ids * C + slot, 0)]
     y_k = torch.where(valid[:, None], y_k, 0.0)
@@ -142,13 +162,18 @@ def moe_ffn_tokens(p, x, cfg: MoEConfig, *, token_mask=None):
     return y, aux
 
 
-def moe_ffn_dense_masked(p, x, cfg: MoEConfig, *, token_mask=None):
-    """Decode-path MoE: every expert over every token x (T, d), masked by
-    the gates: (y (T, d), aux)."""
+def moe_ffn_dense_masked(p, x, cfg: MoEConfig, *, group=None, token_mask=None):
+    """Decode-path MoE: every (local) expert over every token x (T, d),
+    masked by the gates, summed over the group: (y (T, d), aux)."""
     E = cfg.n_experts
+    n = coll.size(group)
+    E_loc = E // n
     gates, ids, aux = route(x, p["router"], cfg, token_mask)
-    out = _expert_ffn(p, x[None].expand(E, *x.shape))       # (E, T, d)
-    sel = ids[None] == torch.arange(E, device=x.device)[:, None, None]   # (E, T, k)
-    w = (sel * gates[None]).sum(-1)                         # (E, T)
+    out = _expert_ffn(p, x[None].expand(E_loc, *x.shape))   # (E_loc, T, d)
+    eids = coll.index(group) * E_loc + torch.arange(E_loc, device=x.device)
+    sel = ids[None] == eids[:, None, None]                  # (E_loc, T, k)
+    w = (sel * gates[None]).sum(-1)                         # (E_loc, T)
     y = torch.einsum("et,etd->td", w.to(out.dtype), out)
+    if n > 1:
+        y = coll.all_reduce(y, group)
     return y, aux

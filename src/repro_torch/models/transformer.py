@@ -40,6 +40,7 @@ cross-attends its output after self-attention - at prefill through
 Train mode (``mode="train"``, ``caches=None``) runs the same layers
 cache-free and writes nothing: MLA expanded as at prefill, the SSD block
 from a zero conv tail and state, the MoE FFN through its capacity buckets
+(expert-parallel over a train mesh's model group under a ``DistContext``)
 with its load-balance losses summed, an encoder-decoder's cross blocks
 over the encoder's output; autograd differentiates the plain torch ops,
 and ``cfg.remat`` picks whether each pattern block is recomputed in the
@@ -52,11 +53,13 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as coll
+
 from .attention import (AttnDims, MLADims, cross_apply, cross_init, cross_memory,
                         gqa_apply, gqa_init, init_cache, mla_apply, mla_init,
                         mla_init_cache)
 from .config import ArchConfig
-from .context import get_context, not_ported
+from .context import get_context
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
 from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
 from .ssm import ssm_apply, ssm_init, ssm_init_cache
@@ -186,18 +189,45 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
     load-balance loss (f32, 0-dim), 0.0 for a dense FFN.  ``seq_lens`` (B,)
     marks the valid prefix of right-padded prefill rows: pad tokens are
     masked out of MoE routing, so they claim no expert capacity.  Train
-    and prefill route through the capacity buckets, decode dense-masked."""
+    and prefill route through the capacity buckets, decode dense-masked.
+
+    Under a ``DistContext`` (one rank of a train mesh, holding its data
+    rows and its E / M experts): train and prefill split the rank's B S
+    tokens into M contiguous blocks over the model group - the reference's
+    tokens over ('data', 'model') - route block m expert-parallel, and
+    gather the outputs back; aux is the mean over every rank of its
+    block's aux, whose backward hands each rank 1 / M of the grad (the
+    train step sums the router's grads over the model group and every
+    grad's over the data group / D).  Decode runs the local experts over
+    the rank's tokens, summed over the model group, aux the data group's
+    mean."""
     if not _is_moe(cfg, kind):
         return mlp_apply(p_ffn, h, norm=norm), 0.0
-    if get_context() is not None:
-        raise not_ported("expert parallelism under a DistContext", "8b")
     xn = rms_norm(h, *norm)
     B, S, d = xn.shape
     mask = None
     if seq_lens is not None:
         mask = (torch.arange(S, device=h.device)[None] < seq_lens[:, None]).reshape(B * S)
-    fn = moe_ffn_tokens if mode in ("train", "prefill") else moe_ffn_dense_masked
-    y, aux = fn(p_ffn, xn.reshape(B * S, d), cfg.moe, token_mask=mask)
+    ctx = get_context()
+    x2 = xn.reshape(B * S, d)
+    if ctx is None:
+        fn = moe_ffn_tokens if mode in ("train", "prefill") else moe_ffn_dense_masked
+        y, aux = fn(p_ffn, x2, cfg.moe, token_mask=mask)
+    else:
+        g = ctx.groups
+        if g is None:
+            raise ValueError("a DistContext needs its mesh's groups: "
+                             "train_step.dist_context_for(mesh)")
+        M = coll.size(g.model)
+        if mode in ("train", "prefill"):
+            xt = coll.split_rows(x2, g.model)
+            mt = None if mask is None else mask.view(M, -1)[coll.index(g.model)]
+            y, aux = moe_ffn_tokens(p_ffn, xt, cfg.moe, group=g.model, token_mask=mt)
+            y = coll.gather_rows(y, g.model)
+            aux = coll.mean_over(aux, g.world, 1.0 / M)
+        else:
+            y, aux = moe_ffn_dense_masked(p_ffn, x2, cfg.moe, group=g.model, token_mask=mask)
+            aux = coll.mean_over(aux, g.data, 1.0)
     y = y.reshape(B, S, d)
     if cfg.moe.n_shared:
         y = y + mlp_apply(p_ffn["shared"], xn)

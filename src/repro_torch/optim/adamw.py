@@ -97,11 +97,17 @@ def init(params, cfg: AdamWConfig) -> OptState:
         return OptState(step=step, m=tr.tree_map(zeros32, params),
                         v=tr.tree_map(zeros32, params))
 
+    def blocked(p, width, dtype):
+        """A meta leaf's codes (width 64) or scales (width 1), shapes only."""
+        lead = tuple(p.shape[:-1]) if p.dim() else ()
+        n = p.shape[-1] if p.dim() else 1
+        return torch.empty((*lead, -(-n // _BLOCK), width), dtype=dtype, device="meta")
+
     def zq(p):
-        return _q8(zeros32(p))[0]
+        return blocked(p, _BLOCK, torch.int8) if p.is_meta else _q8(zeros32(p))[0]
 
     def zs(p):
-        return _q8(zeros32(p))[1]
+        return blocked(p, 1, torch.float32) if p.is_meta else _q8(zeros32(p))[1]
 
     return OptState(step=step, m=tr.tree_map(zq, params), v=tr.tree_map(zq, params),
                     m_scale=tr.tree_map(zs, params), v_scale=tr.tree_map(zs, params))
@@ -118,11 +124,17 @@ def decayed(path: tuple, p: torch.Tensor) -> bool:
     return p.dim() + (bool(path) and path[0] in STACKED) >= 2
 
 
-@torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state).  Gradients are f32-cast and clipped
-    by their global norm; weight decay goes to the ``decayed`` leaves."""
-    gnorm = global_norm(grads)
+class Scalars(NamedTuple):
+    """One update's step-wide values: the new step count, the global-norm
+    clip factor, the learning rate and the bias corrections."""
+    step: torch.Tensor
+    clip: torch.Tensor
+    lr: torch.Tensor
+    b1c: torch.Tensor
+    b2c: torch.Tensor
+
+
+def scalars(state: OptState, cfg: AdamWConfig, lr_scale, gnorm) -> Scalars:
     clip = torch.clamp_max(torch.full_like(gnorm, cfg.grad_clip)
                            / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = state.step + 1
@@ -130,37 +142,55 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0
     b1c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
     b2c = 1.0 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
     lr = torch.as_tensor(lr_scale, dtype=torch.float32, device=gnorm.device) * cfg.lr
+    return Scalars(step, clip, lr, b1c, b2c)
 
-    def upd(path, p, g, m, v, ms=None, vs=None):
-        g = g.float() * clip
-        if cfg.quant_state:
-            m_f, v_f = _dq8(m, ms, p.shape), _dq8(v, vs, p.shape)
-        else:
-            m_f, v_f = m, v
-        m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
-        v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
-        delta = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
-        if decayed(path, p):
-            delta = delta + cfg.weight_decay * p.float()
-        new_p = (p.float() - lr * delta).to(p.dtype)
-        if cfg.quant_state:
-            return (new_p, *_q8(m_f), *_q8(v_f))
-        return new_p, m_f, v_f
 
+@torch.no_grad()
+def update_leaf(path, p, g, m, v, ms, vs, cfg: AdamWConfig, sc: Scalars):
+    """One leaf's update: (new p, m, v) with f32 moments, (new p, m codes,
+    m scales, v codes, v scales) with int8 ones.  Elementwise but for the
+    int8 moments, whose blocks run along the last axis: p, g and the
+    moments cover one region of the leaf, and an int8 region holds whole
+    blocks."""
+    g = g.float() * sc.clip
+    if cfg.quant_state:
+        m_f, v_f = _dq8(m, ms, p.shape), _dq8(v, vs, p.shape)
+    else:
+        m_f, v_f = m, v
+    m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
+    v_f = cfg.b2 * v_f + (1 - cfg.b2) * torch.square(g)
+    delta = (m_f / sc.b1c) / (torch.sqrt(v_f / sc.b2c) + cfg.eps)
+    if decayed(path, p):
+        delta = delta + cfg.weight_decay * p.float()
+    new_p = (p.float() - sc.lr * delta).to(p.dtype)
+    if cfg.quant_state:
+        return (new_p, *_q8(m_f), *_q8(v_f))
+    return new_p, m_f, v_f
+
+
+def assemble(params, results: dict, step, quant: bool):
+    """(new params, new OptState) from ``update_leaf``'s results by path."""
+    def pick(i):
+        return tr.map_with_path(lambda path, _: results[path][i], params)
+    if quant:       # (p, m codes, m scales, v codes, v scales)
+        return pick(0), OptState(step, pick(1), pick(3), pick(2), pick(4))
+    return pick(0), OptState(step, pick(1), pick(2), None, None)
+
+
+@torch.no_grad()
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, lr_scale=1.0):
+    """Returns (new_params, new_state).  Gradients are f32-cast and clipped
+    by their global norm; weight decay goes to the ``decayed`` leaves."""
+    sc = scalars(state, cfg, lr_scale, global_norm(grads))
     results = {}
 
-    def run(path, *leaves):
-        results[path] = upd(path, *leaves)
+    def run(path, p, g, m, v, ms=None, vs=None):
+        results[path] = update_leaf(path, p, g, m, v, ms, vs, cfg, sc)
 
     trees = ((state.m, state.v, state.m_scale, state.v_scale) if cfg.quant_state
              else (state.m, state.v))
     tr.map_with_path(run, params, grads, *trees)
-
-    def pick(i):
-        return tr.map_with_path(lambda path, _: results[path][i], params)
-    if cfg.quant_state:     # upd's results: (p, m codes, m scales, v codes, v scales)
-        return pick(0), OptState(step, pick(1), pick(3), pick(2), pick(4))
-    return pick(0), OptState(step, pick(1), pick(2), None, None)
+    return assemble(params, results, sc.step, cfg.quant_state)
 
 
 def first_step_bound(params, grads_a, grads_b, cfg: AdamWConfig, lr_scale=1.0,

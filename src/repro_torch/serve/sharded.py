@@ -28,7 +28,7 @@ The engine extends the single-device ``ServeEngine`` to a ``launch.mesh``
     K3), as in the reference.  A row's entries must be one device: shards
     on distinct cards would each need their own block of every weight and
     a decode graph captured over several cards, which the port does not
-    have yet (ROADMAP.md Queue 1, item 8b), so such a mesh is refused
+    have yet (ROADMAP.md Queue 1, item 8c), so such a mesh is refused
     rather than served by copying weights between cards at every launch.
   * **decode.**  One ``DecodeGraph`` a replica, captured as the
     single-device engine's; a capture that fails raises.
@@ -150,7 +150,7 @@ class ShardedServeEngine(ServeEngine):
             if len(set(row)) > 1:
                 raise NotImplementedError(
                     f"mesh row {r} spans {sorted(map(str, set(row)))}: tensor parallelism "
-                    f"across devices is not ported yet (ROADMAP.md Queue 1, item 8b); "
+                    f"across devices is not ported yet (ROADMAP.md Queue 1, item 8c); "
                     f"give each replica's shards one device")
         if spill:
             raise ValueError("host spill is single-device only: the capture/restore "

@@ -9,6 +9,15 @@
   * straggler watchdog: a step-time EMA; a step slower than
     ``straggler_factor`` x the EMA is counted.
   * a blocking final save.
+  * a mesh (``mesh=``, one process a mesh entry, every rank running the
+    same loop): the step is the sharded one and the state this rank's
+    blocks.  Checkpoints hold whole logical arrays, as the reference's do:
+    every rank's blocks are gathered to the mesh's rank 0, which writes
+    them (``distributed/fault.gather_state``), and a restore reads the
+    whole arrays and takes this rank's blocks (``reshard_state``), so a
+    checkpoint written over one mesh restores over another or on one
+    device.  Before a restore, rank 0 finishes its pending write and every
+    rank waits for it.
 
 Determinism on the card: the backward of ``embedding`` and of the gathers
 (``take_along_dim``, the MoE's bucket scatter and its combine) accumulates
@@ -31,6 +40,8 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.fault import gather_state, reshard_state
 from repro_torch.optim import adamw
 
 from .train_step import abstract_state, build_train_step, make_state
@@ -70,14 +81,17 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, bundle, opt_cfg: adamw.AdamWConfig, data_cfg: DataConfig,
-                 tcfg: TrainerConfig, seed: int = 0,
+                 tcfg: TrainerConfig, mesh=None, seed: int = 0,
                  failure_hook: Callable[[int], None] | None = None):
         self.bundle = bundle
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.failure_hook = failure_hook
-        self.step_fn = build_train_step(bundle, opt_cfg)
+        self.step_fn = build_train_step(bundle, opt_cfg, mesh)
+        # over a mesh, the mesh's rank 0 writes the checkpoints
+        self.writer = mesh is None or coll.index(self.step_fn.g.world) == 0
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.seed = seed
         self.history: list[dict[str, Any]] = []
@@ -86,16 +100,33 @@ class Trainer:
 
     # ----------------------------------------------------------------- state
     def fresh_state(self):
-        return make_state(self.bundle, self.opt_cfg, self.seed)
+        return make_state(self.bundle, self.opt_cfg, self.seed, self.mesh)
 
     def restore_or_init(self):
-        """(state, step): the newest checkpoint's on the bundle's device,
-        else a fresh state at step 0."""
-        tree, meta = self.ckpt.restore(abstract_state(self.bundle, self.opt_cfg),
-                                       device=self.bundle.device)
+        """(state, step): the newest checkpoint's on the bundle's device
+        (this rank's blocks of it over a mesh), else a fresh state at step
+        0."""
+        if self.mesh is None:
+            tree, meta = self.ckpt.restore(abstract_state(self.bundle, self.opt_cfg),
+                                           device=self.bundle.device)
+            if tree is None:
+                return self.fresh_state(), 0
+            return tree, int(meta["step"])
+        if self.writer:
+            self.ckpt.wait()
+        coll.barrier(self.step_fn.g.world)
+        tree, meta = self.ckpt.restore(abstract_state(self.bundle, self.opt_cfg))
         if tree is None:
             return self.fresh_state(), 0
-        return tree, int(meta["step"])
+        return reshard_state(tree, self.mesh, self.step_fn.specs), int(meta["step"])
+
+    def save(self, step: int, state, block: bool = False):
+        """Checkpoint ``state`` at ``step`` (collective over a mesh: the
+        blocks are gathered whole to the writer)."""
+        if self.mesh is not None:
+            state = gather_state(state, self.mesh, self.step_fn.specs)
+        if self.writer:
+            self.ckpt.save(step, state, {"step": step}, block=block)
 
     # ------------------------------------------------------------------ loop
     def train(self) -> dict[str, Any]:
@@ -123,7 +154,7 @@ class Trainer:
                         rec.update(step=step, sec_per_step=dt)
                         self.history.append(rec)
                     if step % self.tcfg.ckpt_every == 0:
-                        self.ckpt.save(step, state, {"step": step})
+                        self.save(step, state)
                 except KeyboardInterrupt:
                     raise
                 except Exception as e:   # preemption / injected failure / OOM
@@ -133,7 +164,7 @@ class Trainer:
                             f"exceeded max_restarts={self.tcfg.max_restarts}") from e
                     state = None
                     state, step = self.restore_or_init()
-        self.ckpt.save(self.tcfg.total_steps, state, {"step": step}, block=True)
+        self.save(self.tcfg.total_steps, state, block=True)
         self.ckpt.wait()
         return {"state": state, "history": self.history, "restarts": self.restarts,
                 "straggler_steps": self.straggler_steps,

@@ -59,12 +59,12 @@ def test_parse_mesh_matches_the_reference(spec):
     ["cuda:0", "cuda:0", "cuda:0", "cuda:1"],
 ])
 def test_a_mesh_row_over_distinct_devices_is_refused(devices):
-    """Tensor parallelism across devices is item 8b: a row whose shards sit
+    """Tensor parallelism across devices is item 8c: a row whose shards sit
     on distinct devices is refused before anything is built, naming the
     row and the item."""
     m = tmesh.make_serve_mesh(len(devices) // 2, 2, devices)
     bad = next(r for r in range(m.devices.shape[0]) if len(set(m.devices[r])) > 1)
-    with pytest.raises(NotImplementedError, match=f"mesh row {bad} spans .*item 8b"):
+    with pytest.raises(NotImplementedError, match=f"mesh row {bad} spans .*item 8c"):
         ShardedServeEngine(t_reduced("stablelm-1.6b"), None, mesh=m)
 
 

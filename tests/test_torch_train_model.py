@@ -2,8 +2,11 @@
 reduced configs (tolerances in ``tests/_torch_train_common.py``):
 ``train_loss`` and every grad leaf for half of the registered configs
 (``tests/test_torch_train_families.py`` holds the other half), the chunked
-cross-entropy, remat, a microbatch-2 train step, and the refusals (a
-``DistContext``, ``remat='save_heavy'``, a mesh)."""
+cross-entropy, remat, a microbatch-2 train step, the refusals (a
+``DistContext`` without its mesh's groups, ``remat='save_heavy'``), and the
+sharded step over a one-entry mesh, which is the one-device step bit for
+bit (``tests/test_torch_train_mesh.py`` holds it against the reference's
+sharded step over 2x2 and 4x2 meshes of processes)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,12 +117,37 @@ def test_refusals_name_their_items():
     d = {k: torch.from_numpy(v) for k, v in batch_for(tc).items()}
     with tctx.use_context(tctx.DistContext(mesh=None, token_axes=("data",),
                                            expert_axis="model")):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="dist_context_for"):
             tb.train_loss(params, d)
     assert tctx.get_context() is None
     _, _, _, tbh, _ = both("stablelm-1.6b", remat="save_heavy")
     with pytest.raises(NotImplementedError, match="dryrun"):
         tbh.train_loss(make_state(tbh, tadamw.AdamWConfig())["params"],
                        {k: torch.from_numpy(v) for k, v in batch_for(tbh.cfg).items()})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_train_step(tb, tadamw.AdamWConfig(), mesh=object())
+
+
+@pytest.mark.parametrize("quant_state", [False, True])
+def test_one_entry_mesh_step_is_the_one_device_step(quant_state):
+    """``build_train_step`` over a 1x1 mesh under ``dist_context_for`` -
+    the sharded step's gathers, reductions, block updates and expert
+    parallelism over groups of one - gives the one-device step's metrics,
+    params and moments bit for bit (deepseek-v2's routed experts)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import schedule
+    from repro_torch.train.train_step import dist_context_for
+    _, tc, _, tb, p = both("deepseek-v2-236b")
+    opt = tadamw.AdamWConfig(lr=1e-3, quant_state=quant_state)
+    d = batch_for(tc, batch=4)
+    mesh = make_host_mesh(1, 1, ["cpu"])
+    state = {"params": bridge.params_from_numpy(p, "cpu"),
+             "opt": tadamw.init(bridge.params_from_numpy(p, "cpu"), opt)}
+    one = build_train_step(tb, opt, lr_schedule=schedule.constant, microbatch=2)
+    want, wm = one(state, d)
+    with tctx.use_context(dist_context_for(mesh)):
+        got, gm = build_train_step(tb, opt, mesh, lr_schedule=schedule.constant,
+                                   microbatch=2)(state, d)
+    assert tctx.get_context() is None
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k
+    for a, b in zip(ttree.leaves(got), ttree.leaves(want)):
+        assert torch.equal(a, b)

@@ -162,6 +162,29 @@ def test_launch_train_end_to_end_on_the_cpu(tmp_path):
     assert res["restarts"] == 0 and np.isfinite(res["final_loss"])
     assert [r["step"] for r in res["history"]] == [10, 12]
     assert sorted(os.listdir(tmp_path / "ck")) == ["step_10", "step_12", "step_5"]
-    bad = subprocess.run(cmd + ["--mesh", "host"], env=env, capture_output=True, text=True,
+    bad = subprocess.run(cmd + ["--mesh", "pod"], env=env, capture_output=True, text=True,
                          timeout=300, cwd=tmp_path)
-    assert bad.returncode != 0 and "item 8" in bad.stderr
+    assert bad.returncode != 0 and "no counterpart" in bad.stderr
+
+
+def test_launch_train_over_a_mesh_prints_the_one_process_losses(tmp_path):
+    """``--mesh 2x2 --num-processes 4``: four gloo processes, one a mesh
+    entry, train the sharded step; rank 0 prints the JSON, whose losses
+    are the one-process run's within 1e-5, and writes the checkpoints."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced", "--device", "cpu",
+           "--steps", "12", "--batch", "4", "--seq", "16", "--ckpt-every", "5"]
+    runs = {}
+    for name, extra in (("one", []), ("mesh", ["--mesh", "2x2", "--num-processes", "4"])):
+        out = subprocess.run(cmd + ["--ckpt-dir", str(tmp_path / name)] + extra, env=env,
+                             capture_output=True, text=True, timeout=300, cwd=tmp_path)
+        assert out.returncode == 0, out.stderr[-2000:]
+        runs[name] = json.loads(out.stdout)
+        assert sorted(os.listdir(tmp_path / name)) == ["step_10", "step_12", "step_5"]
+    got = [r["loss"] for r in runs["mesh"]["history"]]
+    want = [r["loss"] for r in runs["one"]["history"]]
+    assert [r["step"] for r in runs["mesh"]["history"]] == [10, 12]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    bad = subprocess.run(cmd + ["--mesh", "2x2", "--num-processes", "2"], env=env,
+                         capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert bad.returncode != 0 and "one process an entry" in bad.stderr
