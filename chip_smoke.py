@@ -353,8 +353,12 @@ Phases, each of which must pass (any failure exits non-zero):
                 a ('data', 'model') mesh whose every entry is cuda:0, 4
                 slots a replica, A's requests: X21 (2x1: data only), X22
                 (2x2: each replica's projections split over 2 column
-                shards, K2 once a shard over its columns, no K3) and X22D
-                (X22 paged, D1's pool a replica).  First the K2 rows at
+                shards, K2 once a shard over its own block of columns,
+                shard 1 on a stream of its own, no K3) and X22D (X22
+                paged, D1's pool a replica); each path logs its split
+                weights a device and its streams a replica (the same
+                code serves a row over four cards:
+                tools/torch_serve_mesh_cards.py).  First the K2 rows at
                 every TP column block of A's records at 8 and 2048 rows
                 (wgmma from the shifted base, against plain and against
                 the unsplit launch's columns) and the fallback over a
@@ -3866,6 +3870,22 @@ def x_config(path, **kw):
                        **dict(PATHS[path][3], **kw))
 
 
+def split_weight_bytes(eng):
+    """{device: bytes} of a mesh engine's split weight storage (replicas
+    that share a placement count it once)."""
+    seen, per = set(), {}
+    for rep in eng.replicas:
+        for d, b in rep.row.weight_bytes(seen).items():
+            per[d] = per.get(d, 0) + b
+    return per
+
+
+def mesh_layout(eng):
+    """A mesh engine's split weights a device and streams a replica."""
+    return (f"split weights a device {split_weight_bytes(eng)} bytes; streams a replica "
+            f"{[rep.row.stream_count() for rep in eng.replicas]}")
+
+
 def tp_k2_per_layer(eng, T):
     """K2 launches a layer and model step under T column shards: QKV, wo,
     gate/up and w_down each launch once a shard where their columns (a
@@ -4163,6 +4183,7 @@ def mh_child(rank: int, coordinator: str, out: str) -> int:
     eng = build_engine(x_config("MH", processes=2, multihost=True,
                                 launch_timeout=MH_LAUNCH_TIMEOUT), cfg=cfg, params=params)
     build_s = time.perf_counter() - t0
+    layout = mesh_layout(eng)
     # the host's seconds in the protocol's collectives: the command header
     # and payloads (_broadcast), the token gather (_collect, which also
     # waits for the peer's launch on the shared card)
@@ -4179,7 +4200,7 @@ def mh_child(rank: int, coordinator: str, out: str) -> int:
         setattr(eng, name, timed_call)
     torch.cuda.synchronize()
     ops.reset_counts()
-    res = dict(rank=rank, build_s=build_s)
+    res = dict(rank=rank, build_s=build_s, layout=layout)
     t0 = time.perf_counter()
     if rank == 0:
         reqs = make_requests(cfg)
@@ -4269,6 +4290,8 @@ def phase_mh(cfg, x22_run):
              f"{st['decode_steps']} dispatches")
         check_mesh_counts("MH", cfg, st, c["counts"], c["modes"], 1, x22_run["k2_per_layer"],
                           c["routes"])
+    for c in res:
+        log(f"model MH: process {c['rank']}: {c['layout']}")
     tps = st["decode_tokens"] / c0["decode_s"]
     run = dict(streams=got, stats=st, host_stats=hs, wall_s=c0["wall_s"],
                decode_tokens_per_s=tps, prefill_s_per_round=c0["prefill_s_per_round"],
@@ -4301,13 +4324,14 @@ def phase_mesh(cfg, params, a_run, detail):
             f"{'paged' if eng.paged else 'slot rows'}, built in "
             f"{time.perf_counter() - t0:.1f} s, decode graphs captured in "
             f"{[round(rep.graph.capture_s, 2) for rep in eng.replicas]} s")
+        log(f"model {path}: {mesh_layout(eng)}")
         if path == "X22":
             with timed("kernels X"):
                 tp_kernels(eng, detail)
         with timed(f"serve {path}"):
             counts[path], runs[path] = mesh_serve(eng, path, a_run)
         if path == "X22":
-            with timed("parity X22"), ops.tp_shard(eng.replicas[0].shards):
+            with timed("parity X22"), ops.tp_shard(eng.replicas[0].row):
                 parity, runs[path]["parity_pdq"] = phase_parity(eng, "X22")
             log(f"serve X22: PDQ health {runs[path]['pdq']} against A's {a_run['pdq']}")
             a_eng = build_engine(ServeConfig(arch=T_ARCH, reduced=False, slots=8,

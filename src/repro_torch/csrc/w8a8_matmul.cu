@@ -108,6 +108,7 @@
 namespace {
 
 constexpr int LANE = 128;     // per-block epilogue operands span 128 columns
+constexpr int MAX_DEVICES = 64;  // cards whose launch attributes are kept set
 
 // max / min that return NaN when either operand is NaN (PTX max.NaN /
 // min.NaN, sm_80+), as jnp.maximum / jnp.minimum and torch's do.
@@ -1310,12 +1311,17 @@ template <bool SWAP, bool SWIGLU, int T, int KIND>
 int launch(const void* x, const void* w, const Args& a, int grid, cudaStream_t st) {
   using G = Tile<SWAP, SWIGLU, T>;
   auto kernel = gemm_kernel<SWAP, SWIGLU, T, KIND>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  // the attribute is the current device's: raised once on each card, at
+  // its first launch there (outside any capture: the decode graph warms up)
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool kept = dev >= 0 && dev < MAX_DEVICES;
+  if (!kept || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
+    if (kept) attr_set[dev] = true;
   }
   CUtensorMap tmx, tmw;
   if (!make_map(&tmx, x, a.K, a.M, SWAP ? T : BM) || !make_map(&tmw, w, a.K, a.N, CT))

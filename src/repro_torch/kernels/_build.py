@@ -15,6 +15,7 @@ launch raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -118,6 +119,32 @@ def l2_bytes(device) -> int:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# Which of a device's buffer sets (split-K workspace, tickets, the guard's
+# flag) a launch uses.  Launches on one stream run in order, so one set a
+# device serves them; a tensor-parallel row whose shards share a card runs
+# each shard on its own stream there (``ops.TPRow``), and shard j's launches
+# take set j of that card (``buffer_set``), so that concurrent kernels never
+# share one.
+_SET = 0
+
+
+@contextlib.contextmanager
+def buffer_set(index: int):
+    """Launches inside take buffer set ``index`` of their device."""
+    global _SET
+    prev, _SET = _SET, int(index)
+    try:
+        yield
+    finally:
+        _SET = prev
+
+
+def buffer_key(device):
+    """The key of ``device``'s current buffer set."""
+    import torch
+    return torch.device(device), _SET
 
 
 def require_cuda(*tensors) -> None:

@@ -15,7 +15,8 @@ dequantize every weight on every step instead.
 
 The flag is one int32 (2,) buffer per device (``flag_buffer``: the flag
 and the kernel's ticket), zero at rest; launches on one stream run in
-order, so every guarded projection shares it.  The CUDA kernel is
+order, so every guarded projection shares it (a tensor-parallel shard on
+a stream of its own takes its own set's, ``_build.buffer_set``).  The CUDA kernel is
 ``csrc/fp_dequant.cu``; the plain version is
 ``ref.fp_dequant_fallback_ref`` (it reads the flag on the host, so the
 CPU path decides there).
@@ -33,25 +34,27 @@ COUNT = _build.OpCount()
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"fp_dequant_fallback": [_P, _I, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P]}
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_FLAGS: dict = {}       # device -> the guard's (2,) int32 flag, zero at rest
+_FLAGS: dict = {}       # (device, buffer set) -> the guard's (2,) int32 flag, zero at rest
 
 fp_dequant_fallback_plain = ref.fp_dequant_fallback_ref
 
 
 def flag_buffer(device) -> torch.Tensor:
-    """The guard's flag of ``device``: int32 [non-finite flag, ticket],
-    zero at rest (the fallback kernel, or its plain version, clears it)."""
-    dev = torch.device(device)
-    f = _FLAGS.get(dev)
+    """The guard's flag of ``device`` in the current buffer set: int32
+    [non-finite flag, ticket], zero at rest (the fallback kernel, or its
+    plain version, clears it)."""
+    key = _build.buffer_key(device)
+    f = _FLAGS.get(key)
     if f is None:
-        f = torch.zeros((2,), dtype=torch.int32, device=dev)
-        _FLAGS[dev] = f
+        f = torch.zeros((2,), dtype=torch.int32, device=key[0])
+        _FLAGS[key] = f
     return f
 
 
 def fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel=None):
-    """Launch the predicated fallback: y (M, N) f32/bf16 contiguous, in
-    place; x (M, K) f32/bf16 contiguous; w_q the (K, N) int8 weight,
+    """Launch the predicated fallback on the current stream of the
+    operands' card: y (M, N) f32/bf16 contiguous, in place (nothing is
+    allocated); x (M, K) f32/bf16 contiguous; w_q the (K, N) int8 weight,
     K-major; scale (N,) f32; flag the (2,) int32 buffer; tel None or the
     int64 (3,) counters."""
     from .w8a8_matmul import is_k_major

@@ -17,9 +17,9 @@ All ops take arbitrary leading batch dims.  Ragged shapes are masked in
 the kernels, so nothing is padded here.
 
 Tensor parallelism (``tp_shard``): the sharded serving engine runs each
-replica's program with the replica's shard count set, and the PDQ
-projections then split their columns over the shards (see the section
-below).
+replica's program inside its mesh row's ``TPRow``, and the projections
+whose weights the row split run each shard's columns on its device (see
+the section below).
 
 The guarded fp fallback (``pdq_guard``) and PDQ health (``pdq_telemetry``)
 are the reference's, with the counting and the finite check moved into the
@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from . import _build
 from . import act_stats as _as
 from . import fp_dequant as _fd
 from . import kv_cache as _kv
@@ -140,54 +141,210 @@ def _rows(x) -> int:
 # ---------------------------------------------------------------------------
 #
 # ``serve/sharded.py`` runs each data-parallel replica's program inside
-# ``tp_shard(T)``, T the width of the replica's row of the mesh, whose
-# entries are one device.  Every PDQ projection whose columns (or, grouped,
-# whose 128-column blocks) divide over the T shards then launches K2 once
-# per shard over that shard's block of columns of ``q``, ``scale`` and
-# ``colsum`` (a contiguous range of the K-major record's rows) and of the
-# per-(row, block) interval grids, and concatenates the blocks in shard
-# order: the reference's tiled all-gather.  Every output column is the same
-# full-K int8 accumulation and epilogue the unsplit launch computes, so the
-# result is the T = 1 result bit for bit.
+# ``tp_shard(row)``, ``row`` a ``TPRow`` over the replica's mesh row: shard
+# j on entry j's device, entry 0 the home, where the program runs.  The
+# row holds each shard's own block of columns of every weight it splits
+# (``models/linops.tp_place``, placed once when the engine is built: a
+# copy on a card other than the home, a view where the entries share one).
+# A projection whose weight has blocks then runs each shard on its device:
+# K1's outputs (x_q, s_x and the shard's slice of a per-block interval
+# grid; the fp x under a guard) are copied there, K2 runs over the shard's
+# block, the guard checks and falls back there, and the block comes back to
+# the home into its columns of the output: the reference's tiled
+# all-gather.  Every output column is the same full-K int8 accumulation and
+# epilogue the unsplit launch computes, so the result is the unsplit one
+# bit for bit.  A weight without blocks (its columns do not divide over
+# the row) runs whole on the home.
 #
-# The prologue (K1) runs once per replica and every shard reads its x_q and
-# s_x.  The reference recomputes the prologue on every shard, because an
-# SPMD shard has no other source for it; the values are the same.  Each
-# shard counts its clip hits and columns into the active collector, so the
-# totals equal an unsplit run's (the reference psums them), and an active
-# guard checks and falls back per shard, before the gather.
+# The prologue (K1) runs once a replica and every shard reads its x_q and
+# s_x (the reference recomputes it on every shard, an SPMD shard having no
+# other source; the values are the same).  A shard on the home's card
+# counts its clip hits into the active collector; one on another card into
+# counters of that card, which the collector's exit adds into the home's
+# (``TPRow.fold``), so the totals equal an unsplit run's (the reference
+# psums them).
+#
+# Streams: shard 0 runs on the home's current stream, every other shard on
+# a stream of the row's own on its card, which waits for the home's stream
+# first (the fork) and which the home's stream waits for after the shard's
+# block has come back (the join); the same fork and join hold in eager
+# launches and inside a decode graph's capture, whose graph then spans the
+# row's cards.  Shards that share a card run concurrently on their own
+# streams, each with its own set of the card's kernel buffers
+# (``_build.buffer_set``).  Nothing a shard touches on another card than the home
+# is allocated while it runs: its inputs and outputs are buffers of the row
+# kept by shape (``TPRow.buf``), made at their first use - outside any
+# capture, since a decode graph warms its block up first.
 
-_TP: int | None = None     # the shard count of the replica being run
+
+class TPRow:
+    """A replica's tensor-parallel shards: ``devices`` (shard j on entry
+    j's device; entry 0 the home) and ``blocks``, ``linops.tp_place``'s
+    {id(leaf): (leaf, [shard j's block])} of every weight the row splits.
+    ``shards`` is the row's width."""
+
+    def __init__(self, devices, blocks):
+        self.devices = [torch.device(d) for d in devices]
+        self.home = self.devices[0]
+        self.shards = len(self.devices)
+        self.blocks = blocks
+        self.buffer_sets = [self.devices[:j].count(d) for j, d in enumerate(self.devices)]
+        cuda = self.home.type == "cuda"
+        self.streams = [None] + [torch.cuda.Stream(d) if cuda else None
+                                 for d in self.devices[1:]]
+        self._bufs: dict = {}
+        self._tel: dict = {}      # a card other than the home -> its shards' counters
+        # bytes the row's copies moved between two devices, counted on the
+        # host where each copy is made (a graph's replay moves what its
+        # capture counted)
+        self.peer_bytes = 0
+
+    def split(self, leaf):
+        """Shard j's block of ``leaf`` for every j, or None (unsplit)."""
+        got = self.blocks.get(id(leaf))
+        return None if got is None else got[1]
+
+    def stream_count(self) -> int:
+        """The streams a dispatch of the replica runs on."""
+        return 1 + sum(s is not None for s in self.streams)
+
+    def weight_bytes(self, seen=None) -> dict:
+        """{device: bytes} of the split weights' storage on each of the row's
+        devices (a view counts its base once; ``seen``, a set shared over
+        several rows, counts a storage they share once)."""
+        seen = set() if seen is None else seen
+        out = {str(d): 0 for d in dict.fromkeys(self.devices)}
+        for _, blocks in self.blocks.values():
+            for b in blocks:
+                for t in (b.values() if isinstance(b, dict) else (b,)):
+                    st = t.untyped_storage()
+                    key = (str(t.device), st.data_ptr())
+                    if key not in seen:
+                        seen.add(key)
+                        out[str(t.device)] += st.nbytes()
+        return out
+
+    @contextlib.contextmanager
+    def shard(self, j: int, *, fork: bool = True, join: bool = True):
+        """Run shard j's work inside: its card and stream current (the
+        fork: the stream first waits for the home's), its set of the
+        card's kernel buffers; the home's stream waits for it after (the
+        join)."""
+        s = self.streams[j]
+        if s is None:
+            on = (torch.cuda.device(self.devices[j]) if self.devices[j].type == "cuda"
+                  else contextlib.nullcontext())
+            with on, _build.buffer_set(self.buffer_sets[j]):
+                yield
+            return
+        home = torch.cuda.current_stream(self.home)
+        if fork:
+            s.wait_stream(home)
+        with torch.cuda.device(s.device), torch.cuda.stream(s), \
+                _build.buffer_set(self.buffer_sets[j]):
+            yield
+        if join:
+            home.wait_stream(s)
+
+    def buf(self, j: int, role: str, shape, dtype) -> torch.Tensor:
+        """Shard j's kept buffer for ``role`` at ``shape`` and ``dtype``."""
+        key = (j, role, tuple(shape), dtype)
+        b = self._bufs.get(key)
+        if b is None:
+            b = self._bufs[key] = torch.empty(tuple(shape), dtype=dtype,
+                                              device=self.devices[j])
+        return b
+
+    def take(self, j: int, role: str, t):
+        """``t`` for shard j: itself where it is already a contiguous tensor
+        of the shard's device, else copied into the shard's buffer."""
+        if t.device == self.devices[j] and t.is_contiguous():
+            return t
+        return self._copy(self.buf(j, role, t.shape, t.dtype), t)
+
+    def _copy(self, dst, src):
+        if dst.device != src.device:
+            self.peer_bytes += src.numel() * src.element_size()
+        return dst.copy_(src)
+
+    def tel_of(self, j: int, tel):
+        """The counters shard j counts into: the collector's ``tel`` on the
+        home's card, the row's own on another card."""
+        d = self.devices[j]
+        if tel is None or d == self.home:
+            return tel
+        t = self._tel.get(d)
+        if t is None:
+            t = self._tel[d] = torch.zeros((PDQ_TEL_WIDTH,), dtype=torch.int64, device=d)
+        return t
+
+    def fold(self, counters) -> None:
+        """Add what the shards on other cards counted into the home's
+        ``counters`` and clear theirs."""
+        for d, t in self._tel.items():
+            j = self.devices.index(d)
+            stage = self.buf(0, f"tel {d}", t.shape, t.dtype)
+            with self.shard(j):
+                self._copy(stage, t)
+                t.zero_()
+            counters.add_(stage)
+
+    def columns(self, blocks, M: int, N: int, dtype, launch):
+        """The (M, N) output on the home whose shard-j columns are
+        ``launch(j, block_j)`` (an (M, N / T) tensor on shard j's device).
+        Shards are forked last to first, so that the copies the home's
+        stream makes for shards 1.. run before shard 0's own launch; the
+        blocks come back in shard order."""
+        T = len(blocks)
+        n = N // T
+        out = torch.empty((M, N), dtype=dtype, device=self.home)
+        ys = [None] * T
+        for j in reversed(range(T)):
+            with self.shard(j, join=False):
+                ys[j] = launch(j, blocks[j])
+        for j in range(T):
+            with self.shard(j, fork=False):
+                self._copy(out[:, j * n:(j + 1) * n], ys[j])
+        return out
+
+
+_TP: TPRow | None = None     # the row of the replica being run
 
 
 @contextlib.contextmanager
-def tp_shard(size: int):
-    """Split projection columns over ``size`` shards for the projections
-    run inside; a size of 1 is a no-op."""
+def tp_shard(row: TPRow | None):
+    """Split the columns of the projections run inside over ``row``'s
+    shards; None, or a row of one shard, is a no-op."""
     global _TP
     prev = _TP
-    _TP = int(size) if int(size) > 1 else None
+    _TP = row if row is not None and row.shards > 1 else None
     try:
         yield
     finally:
         _TP = prev
 
 
-def tp_ctx() -> int | None:
-    """The active shard count, or None outside ``tp_shard``."""
+def tp_ctx() -> TPRow | None:
+    """The active row, or None outside ``tp_shard``."""
     return _TP
 
 
-def tp_columns(n_cols: int, shard_fn):
-    """The column split the TP projections share: ``shard_fn(cols)`` over
-    each shard's slice ``cols`` of ``n_cols`` columns (or 128-column
-    blocks), concatenated in shard order; None when no split applies (no
-    ``tp_shard``, or the columns do not divide over it)."""
-    T = tp_ctx()
-    if T is None or n_cols % T:
+def tp_matmul(x, w):
+    """``x @ w`` of an fp weight with blocks in the active row, each shard's
+    columns on its device (``linops.lin``); None when w is not split.  A
+    narrower GEMM may sum in another order than the whole one."""
+    blocks = None if _TP is None else _TP.split(w)
+    if blocks is None:
         return None
-    n = n_cols // T
-    return torch.cat([shard_fn(slice(j * n, (j + 1) * n)) for j in range(T)], -1)
+    row, K = _TP, x.shape[-1]
+    x2 = x.reshape(-1, K)
+    M, N = x2.shape[0], w.shape[-1]
+
+    def launch(j, wj):
+        y = row.buf(j, "y", (M, wj.shape[-1]), x.dtype)
+        return torch.matmul(row.take(j, "x", x2), wj, out=y)
+
+    return row.columns(blocks, M, N, x.dtype, launch).reshape(*x.shape[:-1], N)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +424,8 @@ def pdq_telemetry(enable: bool = True, counters=None):
     _PDQ_TEL = col if enable else None
     try:
         yield col
+        if enable and _TP is not None and col.counters is not None:
+            _TP.fold(col.counters)      # the shards' counts on other cards
     finally:
         _PDQ_TEL = prev
 
@@ -301,11 +460,12 @@ def _guard_flag(device):
     return _fd.flag_buffer(device) if _PDQ_GUARD else None
 
 
-def _guard_pdq(y, x, w_q, scale, flag):
+def _guard_pdq(y, x, w_q, scale, flag, tel):
     """y, or - where the projection's epilogue flagged a non-finite value -
-    the fp-dequant fallback, written into y in place; a no-op without a
-    guard (``flag`` None).  Under ``pdq_fault`` y is poisoned first and the
-    flag taken from it, as the reference adds NaN before its check."""
+    the fp-dequant fallback, written into y in place and counted into
+    ``tel``; a no-op without a guard (``flag`` None).  Under ``pdq_fault``
+    y is poisoned first and the flag taken from it, as the reference adds
+    NaN before its check."""
     if flag is None:
         return y
     N = y.shape[-1]
@@ -317,7 +477,7 @@ def _guard_pdq(y, x, w_q, scale, flag):
         w_q = k_major(w_q)
     COUNTS["fp_dequant"].entries += 1
     _fd.fp_dequant_fallback(y2, x.reshape(-1, x.shape[-1]).contiguous(), w_q,
-                            scale.float().contiguous(), flag, _tel(y.device))
+                            scale.float().contiguous(), flag, tel)
     return y
 
 
@@ -344,7 +504,7 @@ def _norm_row(a, M, dtype, device):
 
 def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
                 colsum=None, fp_range=None, out_dtype=torch.float32, tel=None,
-                flag=None):
+                flag=None, out=None):
     """y = s_x*s_w*(x_q @ w_q - z_x*colsum); requantized int8 iff s_out given.
 
     x_q: (..., K) int8; w_q: (K, N) int8, K-major as the weight records
@@ -355,7 +515,8 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
     ``out_dtype``.  Epilogue operands are per row, or per (row, 128-column
     block) shaped (..., N // 128) - the grouped projections' layout.
     ``tel`` / ``flag``: the PDQ health counters and the guard's flag the
-    epilogue writes (``kernels/w8a8_matmul.py``).
+    epilogue writes (``kernels/w8a8_matmul.py``); ``out``: a contiguous (M,
+    N) tensor the kernel writes instead of a new one.
     """
     lead = x_q.shape[:-1]
     K, N = x_q.shape[-1], w_q.shape[-1]
@@ -393,7 +554,7 @@ def w8a8_matmul(x_q, w_q, s_x, z_x, s_w, s_out=None, z_out=None, *,
     y = _mm.w8a8_matmul(
         x_q.reshape(M, K).contiguous(), w_q, _norm_row(s_x, M, torch.float32, dev),
         z_x, _norm_epi(s_w, 1, N, torch.float32, dev), colsum, s_out, z_out, lo, hi,
-        out_dtype=out_dtype, tel=tel, flag=flag)
+        out_dtype=out_dtype, tel=tel, flag=flag, out=out)
     return y.reshape(*lead, N)
 
 
@@ -427,42 +588,41 @@ def _blockwise(a, segs):
 
 
 def _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype):
-    """The fp-clamp W8A8 product of K1's (M, ...) outputs, shaped like x,
+    """The fp-clamp W8A8 product (M, N) of K1's (M, ...) outputs,
     counted by an active collector and checked by an active guard (whose
     fallback reads x).  ``lo_g``/``hi_g`` are per row (M, 1) or per
-    128-column block (M, N / 128).  Under ``tp_shard`` the columns split
-    over the shards where they divide (the blocks, for per-block grids):
-    reference ``pdq_dense_from_prologue`` and ``pdq_dense_grouped``."""
+    128-column block (M, N / 128).  Under ``tp_shard`` a record with blocks
+    in the row runs each shard over its own block on its device (the
+    interval's blocks sliced to the shard's): reference
+    ``pdq_dense_from_prologue`` and ``pdq_dense_grouped``."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    N = wrec["q"].shape[-1]
-    nb = lo_g.shape[-1]
+    M, N = x_q.shape[0], wrec["q"].shape[-1]
+    x = x.reshape(M, -1)
     tel = _tel(x.device)
-    if nb == 1:
-        def shard(c):
-            return _fp_shard(x, x_q, s_x, _columns(wrec, c), lo_g, hi_g, out_dtype, tel)
-        y = tp_columns(N, shard)
-    else:
-        def shard(g):
-            c = slice(g.start * LANE, g.stop * LANE)
-            return _fp_shard(x, x_q, s_x, _columns(wrec, c), lo_g[:, g], hi_g[:, g],
-                             out_dtype, tel)
-        y = tp_columns(nb, shard)
-    return _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel) if y is None else y
+    blocks = None if _TP is None else _TP.split(wrec)
+    if blocks is None:
+        return _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel)
+    row, T, nb = _TP, len(blocks), lo_g.shape[-1]
+
+    def launch(j, b):
+        g = slice(None) if nb == 1 else slice(j * nb // T, (j + 1) * nb // T)
+        return _fp_shard(row.take(j, "x", x) if _PDQ_GUARD else None,
+                         row.take(j, "x_q", x_q), row.take(j, "s_x", s_x), b,
+                         row.take(j, "lo", lo_g[:, g]), row.take(j, "hi", hi_g[:, g]),
+                         out_dtype, row.tel_of(j, tel),
+                         out=row.buf(j, "y", (M, b["q"].shape[-1]), out_dtype))
+
+    return row.columns(blocks, M, N, out_dtype, launch)
 
 
-def _columns(wrec, c):
-    """The K2 operands of ``wrec``'s columns ``c``."""
-    return {"q": wrec["q"][:, c], "scale": wrec["scale"][c], "colsum": wrec["colsum"][:, c]}
-
-
-def _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel):
-    """One K2 launch of ``_fp_matmul`` over ``wrec``'s columns, then the
-    guard's check and fallback over them."""
-    flag = _guard_flag(x.device)
+def _fp_shard(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype, tel, out=None):
+    """One K2 launch of ``_fp_matmul`` over ``wrec``'s columns (into
+    ``out`` when given), then the guard's check and fallback over them (x
+    is read by the fallback alone)."""
+    flag = _guard_flag(x_q.device)
     y = w8a8_matmul(x_q, wrec["q"], s_x, 0, wrec["scale"], colsum=wrec["colsum"],
-                    fp_range=(lo_g, hi_g), out_dtype=out_dtype, tel=tel, flag=flag)
-    y = y.reshape(*x.shape[:-1], y.shape[-1])
-    return _guard_pdq(y, x, wrec["q"], wrec["scale"], flag)
+                    fp_range=(lo_g, hi_g), out_dtype=out_dtype, tel=tel, flag=flag, out=out)
+    return _guard_pdq(y, x, wrec["q"], wrec["scale"], flag, tel)
 
 
 def pdq_dense(x, wrec, *, out="fp", out_dtype=None, norm=None):
@@ -488,7 +648,8 @@ def pdq_dense(x, wrec, *, out="fp", out_dtype=None, norm=None):
                           colsum=wrec["colsum"], tel=_tel(x.device))
         return y_q, s_out, z_out
     x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, wrec)
-    return _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype)
+    y = _fp_matmul(x, x_q, s_x, wrec, lo_g, hi_g, out_dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def pdq_dense_from_prologue(x, x_q, s_x, s1, s2, wrec, *, out_dtype=None):
@@ -539,7 +700,7 @@ def pdq_dense_grouped(x, grec, *, out="fp", out_dtype=None, norm=None):
     if _PDQ_GUARD and norm is not None:
         x, norm = ref.rms_norm(x, *norm), None
     x_q, s_x, _, _, lo_g, hi_g = _prologue(x, norm, grec, _blocks(segs))
-    y = _fp_matmul(x, x_q, s_x, grec, lo_g, hi_g, out_dtype)
+    y = _fp_matmul(x, x_q, s_x, grec, lo_g, hi_g, out_dtype).reshape(*x.shape[:-1], -1)
     return tuple(y[..., o:o + n] for o, n in bounds)
 
 

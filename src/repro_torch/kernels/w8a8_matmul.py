@@ -66,8 +66,8 @@ _SIG = {
     "w8a8_swiglu_matmul_wgmma": [_P] * 14 + [_I] * 9 + [_P] * 5,
 }
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
-_WS: dict = {}          # device -> split-K int32 workspace, zero at rest
-_TICKETS: dict = {}     # device -> tickets and grid barrier, zero at rest
+_WS: dict = {}          # (device, buffer set) -> split-K int32 workspace, zero at rest
+_TICKETS: dict = {}     # (device, buffer set) -> tickets and grid barrier, zero at rest
 
 
 def k_major(q: torch.Tensor) -> torch.Tensor:
@@ -141,24 +141,28 @@ def _sms(device) -> int:
 
 
 def _workspace(device, numel):
-    """The zeroed split-K workspace of ``device`` (>= numel int32).  The
-    kernel leaves it zero, so it is filled once, when it grows."""
-    ws = _WS.get(device)
+    """The zeroed split-K workspace of ``device`` (>= numel int32) in the
+    current buffer set (``_build.buffer_set``).  The kernel leaves it zero, so it is
+    filled once, when it grows."""
+    key = _build.buffer_key(device)
+    ws = _WS.get(key)
     if ws is None or ws.numel() < numel:
         ws = torch.zeros((max(numel, 1 << 16),), dtype=torch.int32, device=device)
-        _WS[device] = ws
+        _WS[key] = ws
     return ws
 
 
 def _tickets(device):
-    """The zeroed ticket buffer of ``device``: per-column-tile tickets of the
-    wgmma route's splits, per-row-tile tickets of the generic K3, and the
-    grid barrier at BAR.  Every kernel returns what it draws to 0, and
-    launches on one stream never overlap."""
-    t = _TICKETS.get(device)
+    """The zeroed ticket buffer of ``device`` in the current buffer set:
+    per-column-tile tickets of the wgmma route's splits, per-row-tile
+    tickets of the generic K3, and the grid barrier at BAR.  Every kernel
+    returns what it draws to 0, and launches on one stream never overlap
+    (concurrent streams of one card take sets of their own)."""
+    key = _build.buffer_key(device)
+    t = _TICKETS.get(key)
     if t is None:
         t = torch.zeros((BAR + 2,), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        _TICKETS[key] = t
     return t
 
 
@@ -183,11 +187,17 @@ def _pick_route(route, x_q, w_q, op):
     return route or auto
 
 
+def _into(y, out):
+    """``y``, or ``out`` holding it (a caller-given output)."""
+    return y if out is None else out.copy_(y)
+
+
 def w8a8_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
-                      lo=None, hi=None, *, out_dtype=torch.float32, tel=None, flag=None):
+                      lo=None, hi=None, *, out_dtype=torch.float32, tel=None, flag=None,
+                      out=None):
     """Plain version of K2 on the kernel's operands (``colsum`` is
     recomputed from ``w_q`` by the oracle), counting into ``tel`` and
-    ``flag`` as the kernel does."""
+    ``flag`` as the kernel does; written into ``out`` when given."""
     N = w_q.shape[1]
     z_x = 0 if z_x is None else z_x
     if s_out is not None:
@@ -195,7 +205,7 @@ def w8a8_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
                                   _per_column(s_out, N), _per_column(z_out, N))
         if tel is not None:
             ref.tel_clip_q(y_q, tel)
-        return y_q
+        return _into(y_q, out)
     y = ref.w8a8_matmul_ref(x_q, w_q, s_x, z_x, s_w)
     if lo is not None:
         lo, hi = _per_column(lo, N), _per_column(hi, N)
@@ -205,7 +215,7 @@ def w8a8_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
         ref.tel_clip(y, lo, hi, tel)
     if flag is not None:
         ref.flag_non_finite(y, flag)
-    return y
+    return _into(y, out)
 
 
 def _check(x_q, w_q, s_x, z_x, s_w, colsum, epi):
@@ -242,14 +252,19 @@ def _check_health(tel, flag, counted: bool, flagged: bool):
 
 def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
                      lo=None, hi=None, *, out_dtype=torch.float32, route=None,
-                     tel=None, flag=None):
-    """Launch K2.  ``s_out``/``z_out`` select the requant epilogue (int8
-    out), ``lo``/``hi`` the clamp of an fp out; ``z_x=None`` is a zero
-    point of 0, and then ``colsum`` is not read.  Operands come as
-    ``ops.w8a8_matmul`` makes them: w_q K-major, the rest contiguous.
-    ``route`` (None: ``route_for``) forces a route, for the tests and
-    ``chip_smoke.py``.  ``tel``/``flag``: see the module note."""
-    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out, z_out, lo, hi, tel, flag)
+                     tel=None, flag=None, out=None):
+    """Launch K2 on the current stream of the operands' card.  ``s_out``/
+    ``z_out`` select the requant epilogue (int8 out), ``lo``/``hi`` the
+    clamp of an fp out; ``z_x=None`` is a zero point of 0, and then
+    ``colsum`` is not read.  Operands come as ``ops.w8a8_matmul`` makes
+    them: w_q K-major, the rest contiguous.  ``route`` (None:
+    ``route_for``) forces a route, for the tests and ``chip_smoke.py``.
+    ``tel``/``flag``: see the module note.  ``out``: a contiguous (M, N)
+    tensor of the output's dtype to write (nothing is allocated then: a
+    tensor-parallel shard on another card than a graph's capturing one
+    writes a buffer made before the capture)."""
+    _build.require_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out, z_out, lo, hi, tel, flag,
+                        out)
     if (s_out is None) != (z_out is None) or (lo is None) != (hi is None):
         raise ValueError("s_out/z_out and lo/hi come in pairs")
     if s_out is not None and lo is not None:
@@ -263,12 +278,16 @@ def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
            (lo, (M, E), torch.float32), (hi, (M, E), torch.float32)]
     M, K, N = _check(x_q, w_q, s_x, z_x, s_w, colsum, epi)
     if s_out is not None:
-        out, kind = torch.empty((M, N), dtype=torch.int8, device=x_q.device), 2
+        dtype, kind = torch.int8, 2
     elif out_dtype in _OUT_KIND:
-        out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-        kind = _OUT_KIND[out_dtype]
+        dtype, kind = out_dtype, _OUT_KIND[out_dtype]
     else:
         raise ValueError(f"w8a8_matmul emits float32/bfloat16, not {out_dtype}")
+    if out is None:
+        out = torch.empty((M, N), dtype=dtype, device=x_q.device)
+    elif tuple(out.shape) != (M, N) or out.dtype != dtype or not out.is_contiguous():
+        raise ValueError(f"w8a8 out {tuple(out.shape)} {out.dtype}, expected a "
+                         f"contiguous ({M}, {N}) {dtype}")
     dev = x_q.device
     lib = _build.library("w8a8_matmul", _SIG)
     operands = map(_ptr, (x_q, w_q, s_x, z_x, s_w, colsum, s_out, z_out, lo, hi))
@@ -291,11 +310,11 @@ def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
     return out
 
 
-def w8a8_matmul(*args, out_dtype=torch.float32, tel=None, flag=None):
+def w8a8_matmul(*args, out_dtype=torch.float32, tel=None, flag=None, out=None):
     """K2 on its normalized operands: plain version for CPU tensors, the
     CUDA kernel otherwise."""
     fn = w8a8_matmul_plain if args[0].device.type == "cpu" else w8a8_matmul_cuda
-    return fn(*args, out_dtype=out_dtype, tel=tel, flag=flag)
+    return fn(*args, out_dtype=out_dtype, tel=tel, flag=flag, out=out)
 
 
 def w8a8_swiglu_matmul_plain(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, tel=None):

@@ -26,21 +26,27 @@ length; not with ``--paged`` or ``--chunked-prefill``).
 
 ``--mesh DxM`` serves over a data x model mesh (``ShardedServeEngine``,
 ``--slots-per-replica`` slots a replica, default ``--slots``): on the card
-it takes the first D*M CUDA devices and raises with the count when there
-are fewer; with ``--device cpu`` every entry is the CPU.  A replica's
-shards on distinct cards are refused (tensor parallelism across cards is
-ROADMAP.md item 8c), so on the card M > 1 is refused too.
+it takes the first D*M CUDA devices, replica r's M shards on cards r*M ..
+r*M + M - 1 (tensor parallelism across cards: each shard holds its own
+block of every split weight and the replica's decode graph spans its
+cards), and raises with the count when there are fewer, or when a row's
+cards are not peers; with ``--device cpu`` every entry is the CPU.
 ``--num-processes N`` splits the mesh's data axis over N processes
 (``MultiHostServeEngine`` over a gloo group): the launcher spawns the
 children (each with ``--process-id`` and ``--coordinator``; on the card
-each needs D*M/N devices), exits non-zero when one dies and forwards
-SIGTERM to the coordinator first.  ``--launch-timeout`` arms the fleet's
-deadline watchdog on every collective.
+each sees its own block of D*M/N cards), exits non-zero when one dies and
+forwards SIGTERM to the coordinator first.  ``--launch-timeout`` arms the
+fleet's deadline watchdog on every collective.
+
+``--prompts FILE`` serves the prompts of a JSON list of token-id lists
+(``--max-new`` new tokens each) in place of the canned trace and prints
+every request's tokens.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import json
 import os
 import signal
 import subprocess
@@ -129,6 +135,9 @@ def build_args(argv=None):
                          "collectives; a hung rendezvous exits with the typed "
                          "watchdog code instead of blocking forever")
     ap.add_argument("--legacy-prefill", action="store_true")
+    ap.add_argument("--prompts", default=None, metavar="FILE",
+                    help="a JSON list of token-id lists to serve in place of the "
+                         "canned trace")
     return ap.parse_args(argv)
 
 
@@ -450,6 +459,10 @@ def serve(args, multiproc: bool = False):
         done, reqs = resume_requests(load_snapshot(args.resume))
         print(f"resuming {len(reqs)} unfinished requests "
               f"({len(done)} already finished) from {args.resume}", flush=True)
+    elif args.prompts:
+        with open(args.prompts) as f:
+            reqs = [Request(uid=i, prompt=np.asarray(p, np.int32), max_new=args.max_new)
+                    for i, p in enumerate(json.load(f))]
     else:
         rng = np.random.default_rng(0)
         reqs = [Request(uid=i,
@@ -486,7 +499,7 @@ def serve(args, multiproc: bool = False):
         for proc, hs in sorted(eng.host_stats().items()):
             print(f"  process {proc}: replicas={hs['replicas']} admits={hs['admits']} "
                   f"occupied={hs['occupied']}/{hs['slots']}")
-    for r in reqs[:3]:
+    for r in (reqs if args.prompts else reqs[:3]):
         print(f"  req {r.uid}: {r.generated}")
 
 

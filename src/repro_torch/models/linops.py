@@ -146,22 +146,100 @@ def lin(x: torch.Tensor, w, norm=None) -> torch.Tensor:
     = (w, eps)`` of rms_norm(x, w, eps), applied inside the prologue's
     launch for a quantized record and in plain torch first otherwise.
 
-    Under ``ops.tp_shard`` an fp weight's columns split over the shards
-    where they divide (the reference's ``lin``, ``models/linops.py:210-224``):
-    each shard multiplies by its block of columns and the blocks are
-    concatenated in shard order.  A narrower GEMM may sum in another order
-    and move float ulps, which greedy parity absorbs; a PDQ record's split
-    (``kernels/ops.py``) is the bit-exact one."""
+    Under ``ops.tp_shard`` an fp weight the row split (``tp_place``) runs
+    each shard's block of columns on its device (the reference's ``lin``,
+    ``models/linops.py:210-224``) and the blocks join in shard order.  A
+    narrower GEMM may sum in another order and move float ulps, which greedy
+    parity absorbs; a PDQ record's split (``kernels/ops.py``) is the
+    bit-exact one."""
     if not is_quantized(w):
         x = x if norm is None else rms_norm(x, *norm)
-        if w.dim() == 2:
-            y = ops.tp_columns(w.shape[1], lambda c: x @ w[:, c])
-            if y is not None:
-                return y
-        return x @ w
+        y = ops.tp_matmul(x, w)
+        return x @ w if y is None else y
     if is_segment_view(w):
         w = segment_record(w)
     return ops.pdq_dense(x, w, out="fp", out_dtype=x.dtype, norm=norm)
+
+
+# weights the model also reads whole, outside ``lin``: MLA's absorbed
+# decode (``dense_weight``).  A TP row keeps them whole on its home.
+READ_WHOLE = ("wk_b", "wv_b")
+
+
+def tp_place(params, devices, *, copies: bool | None = None):
+    """A replica's params over its mesh row ``devices`` (entry 0 the home,
+    where the replica's program runs): (home tree, blocks).
+
+    Every weight ``lin`` reads whose columns divide over the row (a grouped
+    record's 128-column blocks, a record's or an fp weight's columns; not
+    ``READ_WHOLE``) gets one block of columns a shard on the shard's device:
+    a record's ``q`` (K-major), ``scale`` and ``colsum``, an fp weight's
+    columns.  ``blocks`` maps id(the home tree's leaf) to (leaf, [block of
+    shard j]) - what ``ops.TPRow`` takes.  Every other leaf, and a record's
+    surrogate stats, go to the home.
+
+    Where every entry is the home (one card repeated, or the CPU) a block
+    is a view of the whole leaf, which the home keeps.  Otherwise
+    (``copies``, which a test may force on the CPU) each block is a copy of
+    its own and the home keeps no whole copy of a split weight: its leaf
+    holds meta tensors of the whole's shape in their place, so that
+    anything reading it whole raises.  The row's split weights then sum to
+    one copy over its devices."""
+    devs = [torch.device(d) for d in devices]
+    home, T = devs[0], len(devs)
+    if copies is None:
+        copies = any(d != home for d in devs)
+    blocks, memo = {}, {}
+
+    def splits(name, units) -> bool:
+        return T > 1 and name not in READ_WHOLE and units % T == 0
+
+    def whole(t):
+        """The home's leaf of a split weight."""
+        if copies:
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device="meta")
+        return t.to(home)
+
+    def block(t, j, k_major=False):
+        """Shard j's columns of t (N columns) on its device: a view of the
+        home's whole, or a copy of its own."""
+        n = t.shape[-1] // T
+        c = slice(j * n, (j + 1) * n)
+        src = t.t()[c] if k_major else t[..., c]
+        if copies:
+            src = src.to(devs[j], copy=True)
+        return src.t() if k_major else src
+
+    def place(node, name):
+        if id(node) in memo:
+            return memo[id(node)]
+        if isinstance(node, dict) and "q" in node:
+            N = node["q"].shape[-1]
+            if splits(name, N // LANE if "segs" in node else N):
+                out = {k: whole(v) if k in ("q", "scale", "colsum") else place(v, k)
+                       for k, v in node.items()}
+                src = node if copies else out
+                blocks[id(out)] = (out, [
+                    {"q": block(src["q"], j, k_major=True), "scale": block(src["scale"], j),
+                     "colsum": block(src["colsum"], j)} for j in range(T)])
+            else:
+                out = {k: place(v, k) for k, v in node.items()}
+        elif isinstance(node, dict):
+            out = {k: place(v, k) for k, v in node.items()}
+        elif isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
+            out = type(node)(place(v, name) for v in node)
+        elif torch.is_tensor(node) and _default_pred(name, node) and splits(name, node.shape[1]):
+            out = whole(node)
+            src = node if copies else out
+            blocks[id(out)] = (out, [block(src, j) for j in range(T)])
+        elif torch.is_tensor(node):
+            out = node.to(home)
+        else:
+            out = node
+        memo[id(node)] = out
+        return out
+
+    return place(params, ""), blocks
 
 
 def dense_weight(w) -> torch.Tensor:

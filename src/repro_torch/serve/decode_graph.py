@@ -25,6 +25,14 @@ Warm-up and capture leave them as they found them; the graph keeps what its
 capture counted and adds it on every replay, so ``ops.counts()`` still says
 what ran on the card.
 
+A tensor-parallel replica's block (``serve/sharded.py``) runs each split
+projection's shards on the row's own streams of their cards, forked from
+the home's stream and joined back to it (``ops.TPRow``): the warm-up runs
+that fork and join from its side stream of the home, and the capture from
+its capturing stream, so the one graph, captured on the home, spans the
+row's cards.  Every buffer a shard touches is the row's and made in the
+warm-up; the graph keeps the row.
+
 A capture that fails raises: there is no eager fallback.
 """
 from __future__ import annotations
@@ -41,7 +49,8 @@ INPUTS = ("tokens", "positions", "uids", "steps", "n_steps")
 
 
 def _warm_up(body, caches, device) -> None:
-    """Run ``body(caches)`` once on a side stream and wait for it."""
+    """Run ``body(caches)`` once on a side stream and wait for it (a TP
+    row's shard streams join the side stream, so this waits for them too)."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -65,7 +74,9 @@ def _capture(body, caches, device):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        # a capturing stream of ``device``'s own: ``torch.cuda.graph``'s
+        # default one is made once, on the card current at its first use
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device)):
             reserved = torch.cuda.memory_reserved(device)
             out = body(caches)
     finally:
@@ -78,9 +89,10 @@ def _capture(body, caches, device):
 
 class DecodeGraph:
     """One decode block over ``caches``, captured once; call it with the
-    plan's five (B,) numpy rows to replay it (see the module note)."""
+    plan's five (B,) numpy rows to replay it (see the module note).
+    ``row``: the ``ops.TPRow`` the block's projections run over, if any."""
 
-    def __init__(self, block, caches, warm_caches, rows: int, device):
+    def __init__(self, block, caches, warm_caches, rows: int, device, row=None):
         dev = torch.device(device)
         self.inputs = torch.zeros((len(INPUTS), rows), dtype=torch.int32, device=dev)
         self.staging = torch.zeros((len(INPUTS), rows), dtype=torch.int32,
@@ -98,11 +110,15 @@ class DecodeGraph:
         before = ops.count_state()
         _warm_up(body, warm_caches, dev)
         ops.set_counts(before)
+        peer = 0 if row is None else row.peer_bytes
         self.graph, self.out, self.capture_s, self.pool_bytes = _capture(body, caches, dev)
         self.delta = [a - b for a, b in zip(ops.count_state(), before)]
+        # bytes a replay copies between the row's devices
+        self.peer_bytes = 0 if row is None else row.peer_bytes - peer
         ops.set_counts(before)
         # the buffers the capture launched on stay alive with the graph
         self.buffers = ops.persistent_buffers()
+        self.row = row          # and the row's, which it keeps
 
     @staticmethod
     def pack(toks, ok, tel):

@@ -20,26 +20,33 @@ The engine extends the single-device ``ServeEngine`` to a ``launch.mesh``
     drops can differ from a pool-wide batch - the same caveat class as
     batch-size-dependent capacity on one device; parity is exact while
     capacity absorbs the routing, which the default factors guarantee.
-  * **model axis - tensor parallelism.**  Each replica's programs run
-    inside ``ops.tp_shard(T)``, T the row's width: every PDQ / fp
-    projection whose columns divide over the T shards splits them
-    (``kernels/ops.py``), K2 over each shard's block of columns, and
-    concatenates the blocks; the MLP takes the unfused composition (no
-    K3), as in the reference.  A row's entries must be one device: shards
-    on distinct cards would each need their own block of every weight and
-    a decode graph captured over several cards, which the port does not
-    have yet (ROADMAP.md Queue 1, item 8c), so such a mesh is refused
-    rather than served by copying weights between cards at every launch.
-  * **decode.**  One ``DecodeGraph`` a replica, captured as the
-    single-device engine's; a capture that fails raises.
+  * **model axis - tensor parallelism.**  Replica r's mesh row is shard
+    j on entry (r, j)'s device, entry (r, 0) the replica's home, which holds
+    its pool, its non-split params and its program.  ``linops.tp_place``
+    gives every shard its own block of columns of every weight the row
+    splits, on the shard's device, once, when the engine is built (a copy
+    on another card than the home; a view where the entries repeat one
+    device, as on the CPU); the home keeps no whole copy of a split weight
+    unless every shard shares its card.  The replica's programs run inside
+    ``ops.tp_shard`` over its ``ops.TPRow``: each split projection runs K2
+    on every shard's device over that shard's block and gathers the blocks
+    on the home (``kernels/ops.py``); the MLP takes the unfused composition
+    (no K3), as in the reference.  Prefill runs eagerly this way.
+  * **decode.**  One ``DecodeGraph`` a replica, captured on its home: the
+    shards' streams fork from the home's and join back inside the one
+    capture, so the graph spans the row's cards; a capture that fails
+    raises.
   * **health.**  Every launch's [fallbacks, clip_hits, clip_total] is
     summed over the replicas and their shards.
-  * **refusals** (the reference's): host spill (the capture / restore
-    hooks address one pool); the per-request prefill baseline
-    (``batch_prefill=True`` is forced, ``_submit_one = None``).
+  * **refusals**, before anything is built: a row that mixes device types,
+    and a row over cards where the home and a shard cannot reach each other
+    by peer access (nothing is staged through the host); and the
+    reference's: host spill (the capture / restore hooks address one
+    pool), the per-request prefill baseline (``batch_prefill=True`` is
+    forced, ``_submit_one = None``).
 
-Params are placed once per distinct device, so a mesh whose entries all
-repeat one card holds one copy.
+Replicas whose rows are the same devices share one placement, so a mesh
+whose entries all repeat one card holds one copy of the weights.
 
 ``serve/multihost.py`` extends this engine to several OS processes, each
 hosting a block of replicas: the per-launch bodies below (``_start``,
@@ -56,6 +63,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
+from repro_torch.models.linops import tp_place
 
 from . import engine as _engine
 from .core import DEFAULT_BUCKETS, ChunkedPlan, DecodePlan, PrefillPlan
@@ -63,31 +71,15 @@ from .decode_graph import DecodeGraph
 from .engine import ServeEngine, copy_map, decode_scan, logical_scratch
 
 
-def _place(tree, device, memo):
-    """``tree`` with every tensor on ``device``; a node reached twice (a
-    grouped record under each of its segment views) is placed once."""
-    if id(tree) in memo:
-        return memo[id(tree)]
-    if torch.is_tensor(tree):
-        out = tree.to(device)
-    elif isinstance(tree, dict):
-        out = {k: _place(v, device, memo) for k, v in tree.items()}
-    elif isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
-        out = type(tree)(_place(v, device, memo) for v in tree)
-    else:
-        out = tree
-    memo[id(tree)] = out
-    return out
-
-
 class _Replica:
-    """One data-parallel replica: its mesh row, params, pool and decode
-    block (graph on the card)."""
+    """One data-parallel replica: its mesh row (``ops.TPRow``), params,
+    pool and decode block (graph on the card)."""
 
-    def __init__(self, eng, r: int, bundle, params):
+    def __init__(self, eng, r: int, bundle, params, blocks):
         self.index = r
-        self.device = eng.mesh.devices[r, 0]
-        self.shards = eng.mesh.shape["model"]
+        self.row = ops.TPRow(list(eng.mesh.devices[r]), blocks)
+        self.device = self.row.home
+        self.shards = self.row.shards
         self.bundle = bundle
         self.params = params
         self.rows = slice(r * eng.slots_per_replica, (r + 1) * eng.slots_per_replica)
@@ -106,7 +98,7 @@ class _Replica:
         enabled, guard = eng.tel.enabled, eng.pdq_fallback
 
         def block(caches, tokens, positions, uids, steps, n_steps, tel):
-            with ops.tp_shard(self.shards), ops.pdq_guard(guard):
+            with ops.tp_shard(self.row), ops.pdq_guard(guard):
                 return scan(caches, tokens, positions, uids, steps, n_steps,
                             tel if enabled else None)
 
@@ -116,7 +108,7 @@ class _Replica:
             with self.device_ctx():
                 self.graph = DecodeGraph(block, self.logical if eng.paged else self.caches,
                                          bundle.init_caches(spr, eng.max_len, eng.mem_len),
-                                         spr, self.device)
+                                         spr, self.device, row=self.row)
         self.sub = self.logits = self.tel = None     # a prefill in flight
 
     def on(self, a):
@@ -128,6 +120,34 @@ class _Replica:
         current device's stream); nothing on the CPU."""
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
                 else contextlib.nullcontext())
+
+
+def check_rows(mesh) -> None:
+    """Refuse, before anything is built, a mesh row that mixes device types
+    or whose home and a shard card cannot reach each other by peer access;
+    a row naming CUDA devices this process lacks raises with the count."""
+    for r, row in enumerate(mesh.devices):
+        kinds = {d.type for d in row}
+        if len(kinds) > 1:
+            raise ValueError(f"mesh row {r} mixes device types {sorted(kinds)} "
+                             f"({[str(d) for d in row]}): a row's shards are all CPU "
+                             f"entries or all CUDA cards")
+        if kinds != {"cuda"} or len(set(row)) == 1:
+            continue
+        have = torch.cuda.device_count()
+        need = max(torch.device(d).index or 0 for d in row) + 1
+        if have < need:
+            raise RuntimeError(f"mesh row {r} ({[str(d) for d in row]}) needs {need} "
+                               f"CUDA devices, found {have}")
+        home = row[0]
+        for d in dict.fromkeys(row[1:]):
+            if d == home:
+                continue
+            for a, b in ((home, d), (d, home)):
+                if not torch.cuda.can_device_access_peer(a, b):
+                    raise RuntimeError(f"mesh row {r}: {a} cannot reach {b} by peer "
+                                       f"access; a row's cards must be peers (nothing is "
+                                       f"staged through the host)")
 
 
 class ShardedServeEngine(ServeEngine):
@@ -146,12 +166,7 @@ class ShardedServeEngine(ServeEngine):
                  page_size: int = 64, pool_pages: int | None = None,
                  prefix_sharing: bool = True, spill: bool = False,
                  telemetry: bool = True, trace: bool = False, tel=None):
-        for r, row in enumerate(mesh.devices):
-            if len(set(row)) > 1:
-                raise NotImplementedError(
-                    f"mesh row {r} spans {sorted(map(str, set(row)))}: tensor parallelism "
-                    f"across devices is not ported yet (ROADMAP.md Queue 1, item 8c); "
-                    f"give each replica's shards one device")
+        check_rows(mesh)
         if spill:
             raise ValueError("host spill is single-device only: the capture/restore "
                              "hooks address one pool, not the replicas' pools")
@@ -177,12 +192,17 @@ class ShardedServeEngine(ServeEngine):
         bundles, placed = {}, {}
         self.replicas = []
         for r in self._hosted():
-            dev = self.mesh.devices[r, 0]
+            row = tuple(self.mesh.devices[r])
+            dev = row[0]
             if dev not in bundles:
                 bundles[dev] = (self.bundle if dev == self.device
                                 else build_model(self.cfg, dev))
-                placed[dev] = _place(self.params, dev, {})
-            self.replicas.append(_Replica(self, r, bundles[dev], placed[dev]))
+            if row not in placed:
+                placed[row] = tp_place(self.params, row)
+            self.replicas.append(_Replica(self, r, bundles[dev], *placed[row]))
+        # the engine's whole tree goes: a split weight lives in its row's
+        # blocks (and whole on a home only where every shard shares it)
+        self.params = self.replicas[0].params
         if self.replicas[0].graph is not None:
             # per replica: every decode dispatch replays each hosted one's graph
             self.stats["replica_graph_replays"] = [0] * self.data_size
@@ -200,10 +220,11 @@ class ShardedServeEngine(ServeEngine):
         pool a replica, kept with its logits until the round lands."""
         spr = self.slots_per_replica
         for rep in self.replicas:
-            rep.sub = rep.bundle.init_caches(spr, self.max_len, self.mem_len)
-            rep.tel = self._tel_buffer(rep.device)
-            batch = self._extras_batch({"tokens": rep.on(tokens[rep.rows])}, extras,
-                                       rows=spr, device=rep.device)
+            with rep.device_ctx():
+                rep.sub = rep.bundle.init_caches(spr, self.max_len, self.mem_len)
+                rep.tel = self._tel_buffer(rep.device)
+                batch = self._extras_batch({"tokens": rep.on(tokens[rep.rows])}, extras,
+                                           rows=spr, device=rep.device)
             with self._launch(rep):
                 rep.logits, rep.sub = rep.bundle.prefill_many(
                     rep.params, batch, rep.sub, rep.on(seq_lens[rep.rows]))
@@ -222,14 +243,16 @@ class ShardedServeEngine(ServeEngine):
         them: (toks (slots,), ok (slots,), health (3,)) over all replicas."""
         parts = []
         for rep in self.replicas:
-            if self.paged:
-                rep.paged_ops.land(rep.caches, rep.sub, src_map[rep.rows],
-                                   land_rows[rep.pages], land_js[rep.pages])
-            else:
-                rep.bundle.cache_scatter(rep.caches, rep.sub, src_map[rep.rows])
-            toks, ok = self._sample_fn(rep.logits, rep.on(uids[rep.rows]),
-                                       rep.on(steps[rep.rows]))
-            parts.append(DecodeGraph.pack(toks[:, None], ok[:, None], rep.tel).cpu().numpy())
+            with rep.device_ctx():
+                if self.paged:
+                    rep.paged_ops.land(rep.caches, rep.sub, src_map[rep.rows],
+                                       land_rows[rep.pages], land_js[rep.pages])
+                else:
+                    rep.bundle.cache_scatter(rep.caches, rep.sub, src_map[rep.rows])
+                toks, ok = self._sample_fn(rep.logits, rep.on(uids[rep.rows]),
+                                           rep.on(steps[rep.rows]))
+                parts.append(DecodeGraph.pack(toks[:, None], ok[:, None],
+                                              rep.tel).cpu().numpy())
             rep.sub = rep.logits = rep.tel = None
         toks, ok, health = self._collect(parts, 1)
         return toks[:, 0], ok[:, 0], health
@@ -266,13 +289,15 @@ class ShardedServeEngine(ServeEngine):
         """A COW copy on replica ``replica``'s pool (where it is hosted)."""
         for rep in self.replicas:
             if rep.index == replica:
-                rep.paged_ops.copy(rep.caches, cmap)
+                with rep.device_ctx():
+                    rep.paged_ops.copy(rep.caches, cmap)
 
     @contextlib.contextmanager
     def _launch(self, rep):
-        """A prefill launch's context on replica ``rep``: its shards, the
-        guard, and its PDQ health counters."""
-        with ops.tp_shard(rep.shards), ops.pdq_guard(self.pdq_fallback), \
+        """A prefill launch's context on replica ``rep``: its home the
+        current device (the hand kernels launch on the current device's
+        streams), its shards, the guard, and its PDQ health counters."""
+        with rep.device_ctx(), ops.tp_shard(rep.row), ops.pdq_guard(self.pdq_fallback), \
                 ops.pdq_telemetry(self.tel.enabled, counters=rep.tel):
             yield
 

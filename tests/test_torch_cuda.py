@@ -77,6 +77,14 @@ unsplit launch's columns bit for bit (and plain's within 1e-6 of its
 largest value); the fallback over a shard's columns, taken and not; and a
 reduced f32 stablelm served on a one-card 2x2 mesh gives the single-device
 engine's streams, every decode dispatch a replay of each replica's graph.
+On two cards or more (``-k two_cards``; skipped below that): a graph
+captured from card 0 with a copy to card 1, a kernel there and a copy back
+replays 100 times equal to eager; a record split over cards 0 and 1 gives
+the unsplit launch's output bit for bit, shard 1's K2 on card 1 from card
+0's K1 outputs, with equal clip counts; a reduced f32 stablelm over a 1x2
+mesh of the two cards serves the streams of the same row stepping eagerly
+and of its one-card twin, and 20 replays of one step each equal the eager
+block's packed output.
 """
 import gc
 
@@ -1844,3 +1852,151 @@ def test_mesh_engine_on_one_card_serves_the_single_device_streams():
     assert all(v["launches"] == v["entries"] for v in c.values())
     assert c["w8a8_swiglu_matmul"]["launches"] == 0
     assert ops.route_counts()["w8a8_matmul"]["wgmma"] == c["w8a8_matmul"]["launches"]
+
+
+# ------------------------------------------------ a TP row over distinct cards
+# (they need two cards or more and skip below that)
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs or more: run this file on a host of several")
+    for a, b in (("cuda:0", "cuda:1"), ("cuda:1", "cuda:0")):
+        if not torch.cuda.can_device_access_peer(torch.device(a), torch.device(b)):
+            pytest.skip(f"{a} cannot reach {b} by peer access")
+    g = torch.Generator(device="cuda:0")
+    g.manual_seed(0)
+    return g
+
+
+def test_a_capture_spans_two_cards(two_cards):
+    """The probe the cross-card decode graph stands on: captured from card
+    0, a copy to card 1, a kernel there and a copy back, on a stream of
+    card 1 forked from the capture's and joined back; 100 replays each
+    equal the same three steps run eagerly."""
+    c0, c1 = torch.device("cuda:0"), torch.device("cuda:1")
+    x = torch.randn((4096,), generator=two_cards, device=c0)
+    x1 = torch.empty_like(x, device=c1)
+    y1 = torch.empty_like(x1)
+    s1 = torch.cuda.Stream(c1)
+
+    def body(out):
+        home = torch.cuda.current_stream(c0)
+        s1.wait_stream(home)
+        with torch.cuda.device(c1), torch.cuda.stream(s1):
+            x1.copy_(x)
+            torch.mul(x1, 3.0, out=y1).add_(1.0)
+            out.copy_(y1)
+        home.wait_stream(s1)
+        return out
+
+    with torch.cuda.device(c0):
+        want = body(torch.empty_like(x)).clone()
+        out = torch.empty_like(x)
+        side = torch.cuda.Stream(c0)
+        side.wait_stream(torch.cuda.current_stream(c0))
+        with torch.cuda.stream(side):
+            body(out)                              # warm-up, as DecodeGraph's
+        torch.cuda.current_stream(c0).wait_stream(side)
+        torch.cuda.synchronize(c0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body(out)
+        for i in range(100):
+            out.zero_()
+            x.add_(1.0)
+            graph.replay()
+            want = x * 3.0 + 1.0
+            assert torch.equal(out, want), i
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_two_cards_shard_k2_equals_the_unsplit_columns(two_cards, grouped):
+    """A record split over a row of cards 0 and 1 (``tp_place`` copies
+    shard 1's block to card 1, and card 0 keeps no whole copy): K2 of shard
+    1 runs on card 1 from card 0's K1 outputs, and the gathered output
+    equals the unsplit launch's on card 0 bit for bit, one K2 a shard,
+    every one on the wgmma route; the shards' clip counts (card 1's folded
+    into card 0's counters) equal the unsplit launch's."""
+    from repro_torch.models import linops
+    K, N, M = 2048, 6144 if grouped else 2048, 8
+    w = 0.05 * torch.randn((K, N), generator=two_cards, device="cuda:0")
+    rec = (linops.group_quantize_weights([w[:, :4096], w[:, 4096:]]) if grouped
+           else linops.quantize_weight(w))
+    x = torch.randn((M, K), generator=two_cards, device="cuda:0").to(torch.bfloat16)
+    with torch.cuda.device(0):
+        fn = ((lambda r: ops.pdq_dense_grouped(x, r, out_dtype=torch.bfloat16)) if grouped
+              else (lambda r: (ops.pdq_dense(x, r, out_dtype=torch.bfloat16),)))
+        with ops.pdq_telemetry(counters=torch.zeros(3, dtype=torch.int64,
+                                                    device="cuda:0")) as col:
+            want = fn(rec)
+        home, blocks = linops.tp_place({"w": rec}, ["cuda:0", "cuda:1"])
+        (b0, b1), = (v[1] for v in blocks.values())
+        assert home["w"]["q"].device.type == "meta"
+        assert b0["q"].device == torch.device("cuda:0") and b1["q"].device == torch.device(
+            "cuda:1")
+        row = ops.TPRow(["cuda:0", "cuda:1"], blocks)
+        ops.reset_counts()
+        with ops.tp_shard(row), ops.pdq_telemetry(
+                counters=torch.zeros(3, dtype=torch.int64, device="cuda:0")) as col2:
+            got = fn(home["w"])
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(1)
+    for g, wnt in zip(got, want):
+        assert g.device == torch.device("cuda:0") and torch.equal(g, wnt)
+    assert ops.counts()["w8a8_matmul"]["launches"] == 2
+    assert ops.route_counts()["w8a8_matmul"]["wgmma"] == 2
+    assert torch.equal(col2.counters, col.counters)
+
+
+def _two_card_engine(cfg, params, devices, graphed=True, monkeypatch=None):
+    from repro_torch.launch.mesh import make_serve_mesh
+    if not graphed:
+        monkeypatch.setattr(engine_mod, "_graphed", lambda d: False)
+    eng = build_engine(ServeConfig(mesh=make_serve_mesh(1, len(devices), devices),
+                                   slots_per_replica=4, max_len=128, buckets=(16, 32, 64),
+                                   quantize_weights=True, device="cuda"),
+                       cfg=cfg, params=params)
+    if not graphed:
+        monkeypatch.undo()
+    return eng
+
+
+def test_two_cards_row_decode_graph_replays_eager(two_cards, monkeypatch):
+    """A reduced f32 stablelm on a 1x2 mesh of cards 0 and 1: its decode
+    graph, captured on card 0 with shard 1's work on card 1, serves the
+    streams of the same row stepping eagerly and of its one-card twin
+    (cuda:0 twice), every dispatch one replay; then 20 replays of one step
+    at a fixed position each give the eager block's packed output (tokens,
+    ok and the health counters) on the same pool."""
+    cfg = reduced_config("stablelm-1.6b", d_model=256, d_ff=512, head_dim=64, vocab=1024,
+                         dtype="float32", quant_kv="dynamic")
+    params = build_model(cfg, "cuda:0").init(0)
+    devs = ["cuda:0", "cuda:1"]
+    streams = {}
+    for name, d, graphed in (("graph", devs, True), ("eager", devs, False),
+                             ("twin", ["cuda:0"] * 2, True)):
+        eng = _two_card_engine(cfg, params, d, graphed, monkeypatch)
+        reqs = _graph_reqs(cfg)
+        eng.run(reqs)
+        torch.cuda.synchronize(0)
+        streams[name] = [list(r.generated) for r in reqs]
+        if graphed:
+            assert eng.stats["replica_graph_replays"] == [eng.stats["decode_steps"]]
+        if name == "graph":
+            keep = eng
+    assert streams["graph"] == streams["eager"] == streams["twin"]
+    rep = keep.replicas[0]
+    assert rep.row.stream_count() == 2
+    assert rep.row.weight_bytes()["cuda:1"] > 0
+    B = keep.slots_per_replica
+    rows = (np.arange(B, dtype=np.int32) + 7, np.full(B, 40, np.int32),
+            np.arange(B, dtype=np.int32), np.zeros(B, np.int32), np.ones(B, np.int32))
+    with rep.device_ctx():
+        t = [rep.on(a) for a in rows]
+        tel = torch.zeros(3, dtype=torch.int64, device="cuda:0")
+        toks, ok = rep.block(rep.caches, t[0][:, None], t[1][:, None], *t[2:], tel)
+        want = dg.DecodeGraph.pack(toks, ok, tel).cpu().numpy()
+        for i in range(20):
+            np.testing.assert_array_equal(rep.graph.packed(*rows), want, err_msg=str(i))

@@ -6,7 +6,8 @@ reference's.
 strings; ``make_serve_mesh`` lays out (data, model) entries of
 ``torch.device`` (repeats allowed), with processes in contiguous blocks of
 the data axis, and raises with the count when CUDA devices are missing;
-the sharded engine refuses a mesh row whose entries are distinct devices;
+the sharded engine refuses a mesh row that mixes device types, or names
+CUDA devices the process lacks or cards that are not peers;
 ``process_replicas`` gives the reference's map for a one-process mesh and
 splits the replicas contiguously over processes; the slot axis of every
 pool leaf (``_SECTIONS``: axis 0 for head and tail leaves, 1 for the
@@ -59,13 +60,35 @@ def test_parse_mesh_matches_the_reference(spec):
     ["cuda:0", "cuda:0", "cuda:0", "cuda:1"],
 ])
 def test_a_mesh_row_over_distinct_devices_is_refused(devices):
-    """Tensor parallelism across devices is item 8c: a row whose shards sit
-    on distinct devices is refused before anything is built, naming the
-    row and the item."""
+    """A row that mixes device types is refused before anything is built,
+    naming the row and the types.  A row over distinct cards builds where
+    the process has the cards and they are peers; else it is refused
+    before anything is built, naming the CUDA devices it lacks or the pair
+    without peer access (nothing is staged through the host)."""
     m = tmesh.make_serve_mesh(len(devices) // 2, 2, devices)
+    cfg = t_reduced("stablelm-1.6b")
     bad = next(r for r in range(m.devices.shape[0]) if len(set(m.devices[r])) > 1)
-    with pytest.raises(NotImplementedError, match=f"mesh row {bad} spans .*item 8c"):
-        ShardedServeEngine(t_reduced("stablelm-1.6b"), None, mesh=m)
+    row = list(m.devices[bad])
+    if len({d.type for d in row}) > 1:
+        with pytest.raises(ValueError, match=f"mesh row {bad} mixes device types "
+                                             f"\\['cpu', 'meta'\\]"):
+            ShardedServeEngine(cfg, None, mesh=m)
+        return
+    have, need = torch.cuda.device_count(), max(d.index for d in m.devices.flat) + 1
+    if have < need:
+        with pytest.raises(RuntimeError, match=f"mesh row {bad} .* needs "
+                                               f"{max(d.index for d in row) + 1} CUDA "
+                                               f"devices, found {have}"):
+            ShardedServeEngine(cfg, None, mesh=m)
+        return
+    peers = all(torch.cuda.can_device_access_peer(a, b) for a in row for b in row if a != b)
+    if not peers:
+        with pytest.raises(RuntimeError, match=f"mesh row {bad}: .* peer access"):
+            ShardedServeEngine(cfg, None, mesh=m)
+        return
+    eng = ShardedServeEngine(cfg, build_model(cfg, "cpu").init(0), mesh=m,
+                             slots_per_replica=1, max_len=32, buckets=(8,))
+    assert [rep.row.devices for rep in eng.replicas] == [list(r) for r in m.devices]
 
 
 def test_make_serve_mesh_over_cpu_entries():

@@ -12,7 +12,12 @@ Greedy streams, and every stat that the reference also keeps (all but its
 compile counters and the wall-clock straggler flags), equal the
 reference's: the mixed trace on a 4x2 mesh with 2 slots a replica; PDQ
 weights and chunked prefill on 2x2; N = 4 decode steps a dispatch on 4x2
-(the reference's run at N = 4 too); mamba2 and deepseek-v2 on 2x2.
+(the reference's run at N = 4 too); mamba2 and deepseek-v2 on 2x2.  Each
+replica's projections run through its row's per-shard blocks
+(``linops.tp_place``): views of the home's whole weights where the
+entries repeat the CPU, and - the mixed trace and the PDQ case again -
+copies of their own with the home keeping no whole split weight, as a row
+over distinct cards places them.
 Temperature streams (the port samples by its own hash, not JAX's threefry)
 are compared with the port's single-device engine: the paged pool on 4x2
 at temperature 0.9, with a pool tight enough to preempt (its stats against
@@ -172,6 +177,34 @@ def test_sharded_engine_matches_the_reference(ref, name):
         # tokens each -> 2 dispatches a wave
         assert eng.stats["decode_tokens"] == len(lens) * 8
         assert eng.stats["decode_steps"] == 4
+
+
+@pytest.mark.parametrize("name", ["mixed", "int8"])
+def test_rows_placed_as_over_distinct_cards_match_the_reference(ref, name, monkeypatch):
+    """The placement of rows over distinct cards (``tp_place(copies=True)``:
+    each shard's block a copy of its own, the home holding meta tensors in
+    place of every split weight) serves the reference's streams and stats:
+    nothing reads a split weight whole, and each row's split weights sum to
+    one copy of the whole ones."""
+    import functools
+
+    from repro_torch.models import linops
+    from repro_torch.serve import sharded
+    monkeypatch.setattr(sharded, "tp_place", functools.partial(linops.tp_place, copies=True))
+    _, arch, mesh, spr, lens, max_len, kw = _case(name)
+    eng = _engine(arch, mesh, spr, telemetry=False, **kw)
+    got = _serve(eng, lens, max_len)
+    assert got == ref[name]["streams"]
+    assert _stats(eng.stats) == _stats(ref[name]["stats"])
+    rep = eng.replicas[0]
+    leaves = [leaf["q"] if isinstance(leaf, dict) else leaf
+              for leaf, _ in rep.row.blocks.values()]
+    assert id(rep.params["blocks"][0]["attn"]["wo"]) in rep.row.blocks
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    whole = sum(b["q"].nbytes + b["scale"].nbytes + b["colsum"].nbytes
+                if isinstance(b, dict) else b.nbytes
+                for _, blocks in rep.row.blocks.values() for b in blocks)
+    assert rep.row.weight_bytes() == {"cpu": whole} and whole > 0
 
 
 def test_paged_mesh_at_temperature_preempts_and_matches_one_device(ref):

@@ -1,5 +1,17 @@
-"""Tensor parallelism in the port's ops (``kernels/ops.tp_shard``) against
-the port at T = 1 and against the reference's TP branch under shard_map.
+"""Tensor parallelism in the port's ops (``kernels/ops.tp_shard`` over an
+``ops.TPRow`` of T CPU entries, its blocks from ``linops.tp_place``)
+against the port at T = 1 and against the reference's TP branch under
+shard_map.
+
+``tp_place`` gives each shard its own block of every split weight: for T
+2 and 4 each block's ``q`` / ``scale`` / ``colsum`` equals the reference's
+record's column block bit for bit (grouped QKV and gate/up by 128-column
+blocks, wo, w_down), and the row's split weights sum to one copy.  The
+projections run through the per-shard path twice: with the blocks views
+of the home's whole records (entries that repeat one device) and with
+``copies=True``, the placement of a row over distinct cards, where the
+home keeps meta tensors in place of a split record's ``q`` / ``scale`` /
+``colsum`` (so nothing may read them whole).
 
 Under ``tp_shard`` with T shards, ``pdq_dense_from_prologue``, grouped fp
 ``pdq_dense_grouped``, ``pdq_mlp`` (which then takes the unfused
@@ -106,11 +118,20 @@ def port():
                 mlp_d=tlin.quantize_weight(d["wd"]))
 
 
-def _run(p, T, guard=False):
+def _row(p, T, copies=None):
+    """(the home's leaves, the TPRow) of ``p``'s weights over T CPU
+    entries."""
+    home, blocks = tlin.tp_place({k: p[k] for k in ("rec", "grec", "mlp_g", "mlp_d", "w")},
+                                 ["cpu"] * T, copies=copies)
+    return dict(p, **home), ops.TPRow(["cpu"] * T, blocks)
+
+
+def _run(p, T, guard=False, copies=None):
     """Every op under tp_shard over T CPU shards: outputs, K2 entries and
     the PDQ health vector."""
+    p, row = _row(p, T, copies)
     ops.reset_counts()
-    with ops.tp_shard(T), ops.pdq_guard(guard), \
+    with ops.tp_shard(row), ops.pdq_guard(guard), \
             ops.pdq_telemetry(counters=torch.zeros(3, dtype=torch.int64)) as col:
         x_q, s_x, s1, s2 = ops.pdq_prologue(p["x"])
         y = ops.pdq_dense_from_prologue(p["x"], x_q, s_x, s1, s2, p["rec"])
@@ -133,10 +154,11 @@ def _unfused_mlp(p):
     return ops.pdq_dense(torch.nn.functional.silu(g) * u, p["mlp_d"])
 
 
+@pytest.mark.parametrize("copies", [False, True])
 @pytest.mark.parametrize("T", TS)
-def test_tp_equals_one_shard_bit_for_bit(port, T):
+def test_tp_equals_one_shard_bit_for_bit(port, T, copies):
     one, c1, tel1 = _run(port, 1)
-    got, cT, telT = _run(port, T)
+    got, cT, telT = _run(port, T, copies=copies)
     for k in ("dense", "g0", "g1", "g2"):
         assert torch.equal(got[k], one[k]), k
     # the MLP is unfused under TP: bit for bit against the unfused
@@ -190,27 +212,31 @@ def test_tp_matches_the_reference_tp_branch(port, ref, T):
 
 @pytest.mark.parametrize("T", TS)
 def test_ragged_columns_stay_unsplit(T):
-    """N = 131 divides over neither 2 nor 4 shards: one K2, T = 1's result."""
+    """N = 131 divides over neither 2 nor 4 shards: no blocks, the whole
+    record on the home, one K2, T = 1's result."""
     w = torch.from_numpy(_w((K, 131), 7))
     rec = tlin.quantize_weight(w)
     x = torch.from_numpy(np.random.default_rng(8).standard_normal((5, K)).astype(np.float32))
     want = ops.pdq_dense(x, rec)
+    home, blocks = tlin.tp_place({"rec": rec, "w": w}, ["cpu"] * T, copies=True)
+    assert blocks == {} and home["rec"]["q"].device.type == "cpu"
     ops.reset_counts()
-    with ops.tp_shard(T):
-        got = ops.pdq_dense(x, rec)
-        f = tlin.lin(x, w)
+    with ops.tp_shard(ops.TPRow(["cpu"] * T, blocks)):
+        got = ops.pdq_dense(x, home["rec"])
+        f = tlin.lin(x, home["w"])
     assert torch.equal(got, want) and torch.equal(f, x @ w)
     assert ops.counts()["w8a8_matmul"]["entries"] == 1
 
 
+@pytest.mark.parametrize("copies", [False, True])
 @pytest.mark.parametrize("T", TS)
-def test_guard_falls_back_per_shard(port, T):
+def test_guard_falls_back_per_shard(port, T, copies):
     """Under pdq_fault every shard's fast path is poisoned: each falls back
     on its own columns (one fallback a shard), and the result is the
     fp-dequant product of the whole record."""
     with ops.pdq_fault():
         one, c1, tel1 = _run(port, 1, guard=True)
-        got, cT, telT = _run(port, T, guard=True)
+        got, cT, telT = _run(port, T, guard=True, copies=copies)
     for k in ("dense", "g0", "g1", "g2", "mlp"):
         assert bool(torch.isfinite(got[k]).all()), k
         np.testing.assert_allclose(got[k].numpy(), one[k].numpy(), rtol=1e-5, atol=1e-5)
@@ -222,8 +248,73 @@ def test_guard_falls_back_per_shard(port, T):
 
 
 def test_tp_shard_of_one_device_is_a_no_op():
-    with ops.tp_shard(1):
+    with ops.tp_shard(ops.TPRow(["cpu"], {})):
         assert ops.tp_ctx() is None
-    with ops.tp_shard(2):
-        assert ops.tp_ctx() == 2
+    row = ops.TPRow(["cpu"] * 2, {})
+    with ops.tp_shard(row):
+        assert ops.tp_ctx() is row and row.shards == 2
+        with ops.tp_shard(None):
+            assert ops.tp_ctx() is None
+        assert ops.tp_ctx() is row
     assert ops.tp_ctx() is None
+    # on the CPU every shard runs where the program runs: one stream
+    assert row.stream_count() == 1 and row.buffer_sets == [0, 1]
+
+
+# a transformer layer's projections, named as the models name them: QKV
+# (GQA widths 256 + 128 + 128, four 128-column blocks), gate/up 2 x 256
+LAYER = {"attn": {"wq": (K, 256), "wk": (K, 128), "wv": (K, 128), "wo": (256, K)},
+         "ffn": {"w_gate": (K, D_FF), "w_up": (K, D_FF), "w_down": (D_FF, K)}}
+
+
+def _layer():
+    return {blk: {n: _w(shape, 20 + i) for i, (n, shape) in enumerate(ws.items())}
+            for blk, ws in LAYER.items()}
+
+
+@pytest.mark.parametrize("copies", [False, True])
+@pytest.mark.parametrize("T", TS)
+def test_per_shard_records_equal_the_reference_blocks(T, copies):
+    """Each shard's block of every split record is the reference's record's
+    column block bit for bit: the grouped QKV and gate/up by 128-column
+    blocks, wo and w_down by columns; its q K-major.  The row's split
+    weights sum to one copy of the records' q / scale / colsum, the home
+    keeps them whole only where the blocks are views, and every other leaf
+    (the surrogate stats, the segment layout) stays on the home."""
+    import jax.numpy as jnp
+    from repro.models import linops as jlin
+    layer = _layer()
+    jq = jlin.quantize_param_tree({b: {n: jnp.asarray(w) for n, w in d.items()}
+                                   for b, d in layer.items()})
+    tq = tlin.quantize_param_tree({b: {n: torch.from_numpy(w) for n, w in d.items()}
+                                   for b, d in layer.items()})
+    home, blocks = tlin.tp_place(tq, ["cpu"] * T, copies=copies)
+    row = ops.TPRow(["cpu"] * T, blocks)
+    def three(t):
+        return (t["attn"]["wq"]["group"], t["attn"]["wo"], t["ffn"]["w_gate"]["group"],
+                t["ffn"]["w_down"])
+
+    recs = dict(zip(("qkv", "wo", "gate/up", "w_down"), zip(three(home), three(jq), three(tq))))
+    assert len(blocks) == len(recs)
+    whole = 0
+    for name, (leaf, jrec, trec) in recs.items():
+        split = row.split(leaf)
+        assert split is not None and len(split) == T, name
+        N = jrec["q"].shape[-1]
+        n = N // T
+        if "segs" in leaf:
+            assert n % 128 == 0, name            # whole 128-column blocks a shard
+        for j, b in enumerate(split):
+            c = slice(j * n, (j + 1) * n)
+            assert b["q"].t().is_contiguous(), name
+            np.testing.assert_array_equal(b["q"].numpy(), np.asarray(jrec["q"])[:, c])
+            np.testing.assert_array_equal(b["scale"].numpy(), np.asarray(jrec["scale"])[c])
+            np.testing.assert_array_equal(b["colsum"].numpy(),
+                                          np.asarray(jrec["colsum"])[:, c])
+        for k in ("mu_w", "var_w", "alpha", "beta"):      # the port's own stats, kept
+            assert torch.equal(leaf[k], trec[k]), (name, k)
+        kept = leaf["q"].device.type
+        assert kept == ("meta" if copies else "cpu"), name
+        whole += sum(np.asarray(jrec[k]).nbytes for k in ("q", "scale", "colsum"))
+    assert home["attn"]["wq"]["group"]["segs"].sizes == (256, 128, 128)
+    assert row.weight_bytes() == {"cpu": whole}
