@@ -9,9 +9,11 @@ chunked prefill and the local/global decoder) and of the MoE families at
 full width, cut in depth (DS, DSD: deepseek-v2-236b; AR: arctic-480b)
 and of the SSD families at full width and full depth (M: mamba2-2.7b; Z,
 ZD: zamba2-7b) and of the prefill extras' families at full width and full
-depth (V, VD: phi-3-vision-4.2b; S, SD: seamless-m4t-medium), each built
-with build_engine(ServeConfig(..., device="cuda")), and one path of
-ops-level calls on stablelm's weights (E):
+depth (V, VD: phi-3-vision-4.2b; S, SD: seamless-m4t-medium) and of the
+last two dense families at full width and full depth (G2, G2D: gemma2-2b;
+Y, YD: yi-6b), each built with build_engine(ServeConfig(...,
+device="cuda")), and one path of ops-level calls on stablelm's weights
+(E):
 
   A  int8_kv=True, quantize_weights=True   the main path: PDQ-int8 weights
      in every layer and the int8 KV cache (kernels K1 pdq_prologue, K2
@@ -123,6 +125,27 @@ ops-level calls on stablelm's weights (E):
      cross-attention itself is plain torch, as the reference's is jnp;
   SD S on a paged pool: the cross K/V leaves flat slot rows beside the
      pages, moved in the same K7 launch; its streams must equal S's;
+  G2 gemma2-2b at full width and full depth (26 layers, local and global
+     alternating, window 4096; d_model 2304, 8 x 256 heads over 4 kv
+     heads, d_ff 9216, vocab 256000, attention softcap 50, final logit
+     softcap 30, embed_scale; seeded random bf16 weights, PDQ-int8 records
+     made by G2's engine), int8 KV, slot rows, A's serving shape and
+     requests: the softcap sends every layer, global ones too, to the
+     plain attention over its dequantized int8 cache (at max_len 512 a
+     local layer's ring holds 512 positions, so the window never binds),
+     so wo's prologue is K1's: K1 x 3, K2 x 3, K3 a layer and step (182 a
+     step), no K4/K5, and K6;
+  G2D G2 on a paged pool (page 64, prefix sharing): every layer's int8
+     K/V pages (the local rings too: max_len < window), K7 in K6's place;
+     its streams must equal G2's;
+  Y  yi-6b at full width and full depth (32 layers, d_model 4096, 32 x 128
+     heads over 4 kv heads: G 8 at Dh 128, the limit of K4/K5's (8, 128)
+     instance; d_ff 11008, vocab 64000; ~12 GB of seeded random bf16
+     weights, PDQ-int8 records made by Y's engine), int8 KV, slot rows, A's
+     serving shape and requests: A's 7 launches a layer and step (K5 at
+     G 8);
+  YD Y on a paged pool (page 64, prefix sharing): K7 in K6's place; its
+     streams must equal Y's;
   G  the paper's CNN track (repro_torch.core, models/cnn.py,
      data/corruptions.py) at the widths of the repository's paper tables
      (benchmarks/_cnn_common.py: width 24, res 20, 16 classes): cls_resnet,
@@ -162,7 +185,12 @@ ops-level calls on stablelm's weights (E):
      checkpoint bytes and seconds.  TQ: T with int8 moments, a checkpoint
      every 10 steps and one injected failure at step 13: one restart, the
      replayed steps' losses bit-equal; its loss beside T's per step and its
-     optimizer state's bytes beside T's.  No training path reaches a hand
+     optimizer state's bytes beside T's.  TH: T's steps from T's state
+     under remat "save_heavy" (each layer's attention output kept for the
+     backward beside the block's input, the rest recomputed): every
+     step's loss and the final params bit-equal to T's (else within
+     TR_LOSS_RTOL / TR_TOL, the leaves apart named); s/step, peak GiB and
+     a profiled step's busy ms beside T's.  No training path reaches a hand
      kernel (the reference trains fp params; ``lin`` of an fp leaf is a
      plain matmul).
   TM, TMF  the sharded train step (``build_train_step(..., mesh)`` under
@@ -251,13 +279,21 @@ Phases, each of which must pass (any failure exits non-zero):
                 a round's landing with every conv and state leaf, K7 ZD's
                 landing (slot rows and pages in one launch) and gather.
                 The extras paths' rows (tagged V, VD, S, SD;
-                ``extras_kernels``): K1-K3 at V's QKV (3072 -> 3 x 3072,
+                ``family_kernels``): K1-K3 at V's QKV (3072 -> 3 x 3072,
                 also at 8 x (1024 + 256) prefill rows), wo, gate/up (2 x
                 8192) and w_down, and at S's QKV, cross wq, the cross
                 (wk, wv) group over 8 x 8 memory rows, cross wo, gate/up and
                 w_down; K4/K5 at V's G 1, Dh 96, Sp 1536 and S's Hkv 16,
                 Dh 64, Sp 512; K6 a round's landing (S's with the cross
-                leaves); K7 VD's and SD's landing and gather;
+                leaves); K7 VD's and SD's landing and gather.  The
+                dense families' rows (tagged G2, G2D, Y, YD, the same
+                ``family_kernels``): K1-K3 at G2's QKV (2304 -> 2048 + 2 x
+                1024), wo's interval at 2048 (every G2 layer runs it),
+                gate/up (2 x 9216) and w_down, and at Y's QKV (4096 ->
+                4096 + 2 x 512), wo, gate/up (2 x 11008, w_down's prologue
+                over the 11008-wide row) and w_down; K4/K5 at Y's B 8,
+                Hkv 4, G 8, Dh 128, Sp 512; K6 a round's landing; K7
+                G2D's and YD's landing and gather;
   3. serve    - each path serves 8 requests (F over HTTP; FF 3 short ones;
                 H's of H_PROMPTS; otherwise prompts of 20-250 tokens, the
                 first two behind one 128-token system prompt, 32 new tokens
@@ -282,7 +318,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 streams must equal A's first run's, D1 and D16 must
                 share the system prompt's pages, D2 must preempt, spill and
                 restore; per-token decode time and tokens/s of each run;
-  4. step     - on A, B, C, D1, F, H, DS, DSD, AR, M, Z, V and S, one
+  4. step     - on A, B, C, D1, F, H, DS, DSD, AR, M, Z, V, S, G2 and Y, one
                 decode step of the full pool at position 300 (V's behind
                 its 1024 patches) two ways on the
                 same state, eager (ops
@@ -292,7 +328,7 @@ Phases, each of which must pass (any failure exits non-zero):
                 of each: device busy ms, kernels a step and idle share; on
                 A also a graph of the same block captured with telemetry
                 off, alternated with the two (the counting's cost);
-  5. parity   - on A, B, C, F, FF, H, DS, DSD, AR, M, Z, V and S (F and
+  5. parity   - on A, B, C, F, FF, H, DS, DSD, AR, M, Z, V, S, G2 and Y (F and
                 FF under the guard, FF under the fault; H's and M's prompt
                 of 1100 tokens prefilled in its 256-token chunks; V's and
                 S's with the path's extras), one request's first 8 greedy
@@ -335,9 +371,13 @@ Phases, each of which must pass (any failure exits non-zero):
                 M and Z (phase 4's ``step_split`` puts the SSD blocks
                 beside the attention and the hand kernels), ZD's phase 3
                 and its streams against Z's.  Then the extras paths V, VD,
-                S and SD (``phase_extras``): their kernel rows, phases 3-5
+                S and SD (``phase_dense``): their kernel rows, phases 3-5
                 for V and S with the paths' extras, VD's and SD's phase 3
                 and their streams against V's and S's (no prefix hit).
+                Then the dense families G2, G2D, Y and YD
+                (``phase_dense``): their kernel rows, phases 3-5 for G2
+                and Y, G2D's and YD's phase 3 and their streams against
+                G2's and Y's.
   7. cnn      - path G, last: counts zeroed before and read after (every
                 kernel 0), cls_resnet's fp32 top-1 >= G_FP32_FLOOR, every
                 accuracy in [0, 1]; parity with the CPU: unquantized logits
@@ -346,8 +386,8 @@ Phases, each of which must pass (any failure exits non-zero):
                 quantized mode, every table entry within G_TABLE_TOL.
 
   8. train    - after G: path AL (phase 3's gates on its census, then its
-                streams against A's), then the child process of TR, TD, T
-                and TQ, whose results land in chiprun_out/chip_smoke_train.json
+                streams against A's), then the child process of TR, TD, T,
+                TQ and TH, whose results land in chiprun_out/chip_smoke_train.json
                 and in chip_smoke.json's "train".
   9. mesh     - after A's runs and before E (``phase_mesh``): A's engine on
                 a ('data', 'model') mesh whose every entry is cuda:0, 4
@@ -439,6 +479,18 @@ LOGIT_TOL = {"A": 0.25, "B": 0.25, "C": 0.05, "F": 0.25, "FF": 0.25,
              # (int8 KV through K5) over its 12 decoder and 12 encoder
              # layers, 24 as A's; its logits (d_model 1024) stay below 4
              "V": 0.34375, "S": 0.25,
+             # G2 (gemma2-2b): C's argument.  Its softcaps keep K4/K5 off
+             # the path: every layer attends its int8 cache in the same
+             # plain torch code in both runs, and the cache write is the
+             # same torch code too, so the kernels that differ are K1-K3
+             # (plain's bits but for sums in another order), over 26
+             # layers in place of C's 24.  The final cap 30 tanh(x / 30)
+             # has slope at most 1: it cannot widen a difference before
+             # it.  Y (yi-6b): A's argument (K5 at G 8) over 32 layers,
+             # V's 11 bf16 ulps of 0.03125 (its random logits: final norm,
+             # then d_model 4096 x N(0, 0.02) rows, reach |logit| ~5-7
+             # over 64000 tokens, inside [4, 8))
+             "G2": 0.05, "Y": 0.34375,
              # X22: A's program with each projection's columns split over
              # two shards (bit for bit) and the unfused MLP in K3's place
              # (within K3's 1e-4): A's argument
@@ -462,6 +514,7 @@ TEL_SLACK = {"A": 1e-4, "B": 0.0, "C": 1e-4, "F": 1e-4, "FF": 1e-3,
              "H": 1e-4,           # H: A's (K5's o and K3's sums move edges)
              "DS": 1e-4, "DSD": 1e-4, "AR": 1e-4,    # C's and A's
              "M": 1e-4, "Z": 1e-4, "V": 1e-4, "S": 1e-4,
+             "G2": 1e-4, "Y": 1e-4,          # C's and A's
              "X22": 1e-4}         # X22: A's
 SUM_RTOL = 1e-5           # s1/s2: another summation order than the plain one
 ATTEND_TOL = 2e-4         # attend o, rtol = atol (tests/test_kernels.py:177)
@@ -536,6 +589,12 @@ S_ARCH, S_MAX_LEN = "seamless-m4t-medium", 512
 S_FRAMES = 8
 V_ATTEND_LENS = (1536, 1, 1044, 1153, 1024, 1025, 1280, 1306)   # K5 at V's cache
 S_ATTEND_LENS = AR_ATTEND_LENS    # K5 at S's cache (max_len 512, as AR's)
+# paths G2, G2D, Y, YD: the last two dense families at full width and full
+# depth on A's serving shape (8 slots, max_len 512, A's requests), int8 KV.
+# G2: gemma2-2b, every layer's decode attention plain torch (its softcaps);
+# Y: yi-6b, K5 at G 8, Dh 128; G2D, YD: paged (page 64, prefix sharing)
+G2_ARCH, Y_ARCH, FAMILY_MAX_LEN = "gemma2-2b", "yi-6b", 512
+Y_ATTEND_LENS = AR_ATTEND_LENS    # K4/K5 at Y's cache (max_len 512, as AR's)
 # K1-K3 and the attend kernels, by their CUDA function names
 HAND_KERNEL = r"\b(prologue_kernel|w8a8_kernel|swiglu_kernel|gemm_kernel|split_kernel|" \
               r"attend_kernel|move_pages|act_stats_kernel|quantize_kernel|" \
@@ -588,6 +647,14 @@ PATHS = {
     "VD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
     "S": (True, True, _A_KERNELS, {}),
     "SD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
+    # the dense families: G2 (gemma2-2b: no K4/K5, its softcaps keep every
+    # layer's decode attention plain) and Y (yi-6b) with int8 KV on slot
+    # rows, G2D and YD paged
+    "G2": (True, True, _C_KERNELS, {}),
+    "G2D": (True, True, _C_KERNELS[:-1] + ("cache_scatter_pages",),
+            dict(paged=True, page_size=PAGE)),
+    "Y": (True, True, _A_KERNELS, {}),
+    "YD": (True, True, _D_KERNELS, dict(paged=True, page_size=PAGE)),
     # the per-request prefill baseline: A with every request prefilled alone
     "AL": (True, True, _A_KERNELS, dict(batch_prefill=False)),
     # the mesh paths (``phase_mesh``): A over a 2x1 mesh, a 2x2 mesh (no K3
@@ -607,6 +674,7 @@ MOE_PATHS = ("DS", "DSD", "AR")
 SSM_PATHS = ("M", "Z", "ZD")
 EXTRAS_PATHS = ("V", "VD", "S", "SD")
 ENCDEC_PATHS = ("S", "SD")
+FAMILY_PATHS = ("G2", "G2D", "Y", "YD")
 LONG_PATHS = H_PATHS + ("DS", "DSD", "M")      # H's prompts, max_len 2048
 FAULT_PATH = "FF"         # built and run under ops.pdq_fault()
 GUARDED_PER_LAYER = 4     # guarded projections a layer: QKV, wo, gate/up, w_down
@@ -2052,10 +2120,11 @@ def paged_kernel_rows(eng, path, gen, flush, record, randomize, smap, frontier):
     torch.cuda.empty_cache()
 
 
-def extras_kernels(eng, path, detail):
-    """Phase 2 at the extras paths' shapes (rows tagged with ``path``), on
-    the engine's own PDQ records (decoder layer 0's) at decode rows (8
-    slots) and prefill rows.  V (phi-3-vision-4.2b): K1 on QKV (3072 -> 3 x
+def family_kernels(eng, path, detail):
+    """Phase 2 at the shapes of a dense family's path (the extras paths and
+    the last two families; rows tagged with ``path``), on the engine's own
+    PDQ records (decoder layer 0's) at decode rows (8 slots) and prefill
+    rows.  V (phi-3-vision-4.2b): K1 on QKV (3072 -> 3 x
     3072, with the norm) at decode rows and at 8 x (1024 patches + the 256
     bucket) prefill rows, and on gate/up; K2 on QKV, wo and w_down
     (8192 -> 3072) at decode, QKV at prefill; K3 on gate/up (3072 -> 2 x
@@ -2067,8 +2136,17 @@ def extras_kernels(eng, path, detail):
     decode, QKV at 8 x 256 prefill rows; K3 on gate/up (1024 -> 2 x 4096);
     K4/K5 at Hkv 16, G 1, Dh 64, Sp 512; K6 a round's landing with the
     cross leaves.  VD, SD: K7 a round's landing and a decode gather (SD's
-    cross leaves as slot rows beside the pages).  Each against its plain
-    version as A's rows are; library: ``torch._int_mm``, ``index_copy_``."""
+    cross leaves as slot rows beside the pages).  G2 (gemma2-2b): K1 on
+    QKV (2304 -> 2048 + 2 x 1024, with the norm) at decode and 8 x 256
+    prefill rows, on wo's interval alone at 2048 (every G2 layer's decode
+    runs it: no K5), and on gate/up; K2 on QKV, wo and w_down (9216 ->
+    2304); K3 on gate/up (2304 -> 2 x 9216); no K4/K5 (none runs on its
+    path); K6 a round's landing.  Y (yi-6b): the same at 4096 -> 4096 + 2 x
+    512, wo 4096, gate/up 2 x 11008 (w_down's prologue over the
+    11008-wide row), w_down 11008 -> 4096; K4/K5 at B 8, Hkv 4, G 8, Dh
+    128, Sp 512 (the (8, 128) instance at its full G).  G2D, YD: K7 a
+    round's landing and a decode gather.  Each against its plain version
+    as A's rows are; library: ``torch._int_mm``, ``index_copy_``."""
     import numpy as np
     import torch
     from repro_torch.kernels import kv_cache as kv
@@ -2107,6 +2185,8 @@ def extras_kernels(eng, path, detail):
     k1 = [(x, norm, (qkv, ops._blocks(qkv["segs"])), "QKV "),
           (x_pre, norm, (qkv, ops._blocks(qkv["segs"])), "QKV prefill "),
           (x, norm, (gu, ops._blocks(gu["segs"])), "gate/up ")]
+    if cfg.attn_softcap is not None:       # wo's prologue is K1's in every layer
+        k1.append((rows(M, wo["q"].shape[0]), None, (wo, None), "wo interval "))
     k2 = [("QKV", qkv, x, True), ("QKV prefill", qkv, x_pre, True),
           ("wo", wo, rows(M, wo["q"].shape[0]), False),
           ("w_down", down, rows(M, down["q"].shape[0]), False)]
@@ -2125,9 +2205,11 @@ def extras_kernels(eng, path, detail):
     for xin in (x, x_pre):
         k3_row(dev, gu, xin, False, flush, record, stamps, label="gate/up: ")
     del x_pre
-    Sp = eng.caches["blocks"][0]["k"].shape[3]
-    attend_rows(dev, M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
-                ((V_ATTEND_LENS if P else S_ATTEND_LENS, Sp, False),), gen, flush, record)
+    lens = {"V": V_ATTEND_LENS, "S": S_ATTEND_LENS, "Y": Y_ATTEND_LENS}.get(path)
+    if lens is not None:
+        Sp = eng.caches["blocks"][0]["k"].shape[3]
+        attend_rows(dev, M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd,
+                    ((lens, Sp, False),), gen, flush, record)
     torch.cuda.empty_cache()
     moves = landing_moves(eng.bundle, M, eng.max_len, gen, smap, eng.mem_len)
     time_movement(f"{path}: one round's landing, 4 of {M} slots", moves, kv.COUNT, flush,
@@ -2136,26 +2218,30 @@ def extras_kernels(eng, path, detail):
     torch.cuda.empty_cache()
 
 
-def phase_extras(detail):
-    """Paths V, VD (phi-3-vision-4.2b) and S, SD (seamless-m4t-medium):
-    full width and full depth on seeded random bf16 weights, served with
-    their stub extras (``path_extras``); the first engine of a model
-    quantizes them (PDQ-int8 in every 2-D projection, the encoder's and
-    the cross blocks' included) and the bf16 tree is dropped; VD and SD
-    serve V's and S's records.  Each path: its kernel rows
-    (``extras_kernels``) and phase 3 (serve, census); V and S also phase 4
-    (step, every row at the position of a 300-token prompt behind the
-    patches) and phase 5 (parity); VD's and SD's streams must equal V's and
-    S's, with no prefix hit (extras turn sharing off).  Returns (counts,
-    serve runs, parity)."""
+EXTRAS_MODELS = ((V_ARCH, V_MAX_LEN, ("V", "VD")), (S_ARCH, S_MAX_LEN, ("S", "SD")))
+FAMILY_MODELS = ((G2_ARCH, FAMILY_MAX_LEN, ("G2", "G2D")), (Y_ARCH, FAMILY_MAX_LEN, ("Y", "YD")))
+
+
+def phase_dense(detail, models):
+    """Each (arch, max_len, (path, paged path)) of ``models`` at full width
+    and full depth on seeded random bf16 weights: V, VD (phi-3-vision-4.2b)
+    and S, SD (seamless-m4t-medium) served with their stub extras
+    (``path_extras``), or G2, G2D (gemma2-2b) and Y, YD (yi-6b).  The first
+    engine of a model quantizes them (PDQ-int8 in every 2-D projection,
+    the encoder's and the cross blocks' included) and the bf16 tree is
+    dropped; the paged path serves its records.  Each path: its kernel rows
+    (``family_kernels``) and phase 3 (serve, census); the slot-row path
+    also phase 4 (step, every row at the position of a 300-token prompt,
+    behind V's patches) and phase 5 (parity); the paged path's streams must
+    equal the slot-row path's (with no prefix hit where extras turn sharing
+    off).  Returns (counts, serve runs, parity)."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServeConfig, build_engine
     counts, serve, parity = {}, {}, {}
-    for arch, max_len, paths in ((V_ARCH, V_MAX_LEN, ("V", "VD")),
-                                 (S_ARCH, S_MAX_LEN, ("S", "SD"))):
+    for arch, max_len, paths in models:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2166,8 +2252,9 @@ def phase_extras(detail):
         log(f"model {arch}: {cfg.n_layers} decoder layers"
             f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}, d_model "
             f"{cfg.d_model}, {cfg.n_heads} x {cfg.hd} heads over {cfg.n_kv_heads} kv heads, "
-            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, frontend {cfg.frontend} "
-            f"({cfg.frontend_tokens or S_FRAMES} stub embeddings): random bf16 weights, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, pattern {cfg.pattern}, window "
+            f"{cfg.window}, softcaps {cfg.attn_softcap} / {cfg.logit_softcap}, frontend "
+            f"{cfg.frontend}: random bf16 weights, "
             f"{param_bytes(weights['bf16']) / 1e9:.2f} GB, in "
             f"{time.perf_counter() - t0:.1f} s")
         for path in paths:
@@ -2178,7 +2265,7 @@ def phase_extras(detail):
                                            int8_kv=int8_kv, quantize_weights=quantize,
                                            device="cuda", **extra),
                                cfg=cfg, params=weights["bf16" if quantize else "pdq"])
-            if quantize:                   # VD and SD serve V's and S's records
+            if quantize:                   # the paged path serves these records
                 weights = {"pdq": eng.params}
                 torch.cuda.empty_cache()
             torch.cuda.synchronize()
@@ -2193,7 +2280,7 @@ def phase_extras(detail):
                 f"card memory allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
                 f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
             with timed(f"kernels {path}"):
-                extras_kernels(eng, path, detail)
+                family_kernels(eng, path, detail)
             with timed(f"serve {path}"):
                 counts[path], run = phase_serve(eng, path)
             if not eng.paged:
@@ -2203,7 +2290,7 @@ def phase_extras(detail):
                 with timed(f"parity {path}"):
                     parity[path], run["parity_pdq"] = phase_parity(eng, path)
             else:
-                check_paged_run(path, run, serve[path[0]][0], ref=path[0])
+                check_paged_run(path, run, serve[path[:-1]][0], ref=path[:-1])
             run["memory_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"model {path}: peak card memory {run['memory_peak_gib']:.2f} GiB")
             serve[path] = [run]
@@ -2383,8 +2470,11 @@ def h_requests(cfg, seed=0):
 
 
 def layer_counts(cfg):
-    """(layers, local layers) of a config: a local layer attends over its
-    ring in plain torch at decode (no K4/K5), so wo's prologue is K1's."""
+    """(layers, layers that attend in plain torch at decode) of a config: a
+    local layer over its ring, and every layer of a config with an
+    attention softcap (gemma2), skip K4/K5, so wo's prologue is K1's."""
+    if cfg.attn_softcap is not None:
+        return cfg.n_layers, cfg.n_layers
     return cfg.n_layers, cfg.n_blocks * cfg.pattern.count("local")
 
 
@@ -2397,8 +2487,9 @@ def census(path, cfg, st):
     SwiGLU once with PDQ weights; a decode step the same, except that with
     int8 KV and PDQ a global layer's fused attend (once) takes the place of
     wo's prologue (7 launches: tools/check_census.py's decode_int8kv); a
-    local layer (gemma3) attends in plain torch and keeps the prologue (7
-    launches: K1 x 3, K2 x 3, K3).  Every pool movement is one launch over
+    local layer (gemma3), and every layer of a softcapped config (gemma2),
+    attends in plain torch and keeps the prologue (7 launches: K1 x 3, K2 x
+    3, K3).  Every pool movement is one launch over
     all its leaves: a slot-row pool lands a round with one K6; a paged pool
     lands a round, gathers and writes back a dispatch's block, and
     restores with one K7 each (its flat leaves ride in the landing's and
@@ -4650,10 +4741,11 @@ def _timed_saves(trainer, record):
     trainer.ckpt.save = timed
 
 
-def profile_train_step(trainer, state, data, top=12):
-    """One more train step of ``trainer`` from ``state`` (batch T_STEPS,
-    discarded) under torch.profiler: wall and device busy ms, the idle
-    share, kernels launched, and the ``top`` kernels by device time."""
+def profile_train_step(trainer, state, data, top=12, path="T"):
+    """One more train step of ``trainer`` (anything with T's ``step_fn``)
+    from ``state`` (batch T_STEPS, discarded) under torch.profiler: wall
+    and device busy ms, the idle share, kernels launched, and the ``top``
+    kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import make_source
@@ -4672,13 +4764,76 @@ def profile_train_step(trainer, state, data, top=12):
     out = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                kernels=sum(r[3] for r in rows),
                top=[dict(ms=r[0], kernel=r[1][:120], launches=r[3]) for r in rows[:top]])
-    log(f"T: a profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"{path}: a profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
         f"{out['kernels']} kernels; top {json.dumps(out['top'])}")
     return out
 
 
+def train_heavy(cfg, data, t, t_params):
+    """Path TH: T's T_STEPS steps (its state from init(0), its batches, its
+    f32 AdamW, the same step function under the deterministic algorithms)
+    with remat "save_heavy", each step timed as the Trainer times T's.
+    Every loss and the final params must equal T's (``t``, ``t_params`` on
+    the host) bit for bit - the same ops recomputed in another grouping -
+    or, if not, within TR_LOSS_RTOL / TR_TOL with the leaves apart named."""
+    import dataclasses
+    import statistics
+    from types import SimpleNamespace
+    import torch
+    from repro_torch import tree as ttree
+    from repro_torch.data import make_source
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.train_step import build_train_step, make_state
+    from repro_torch.train.trainer import deterministic
+    bundle = build_model(dataclasses.replace(cfg, remat="save_heavy"), "cuda")
+    step_fn = build_train_step(bundle, AdamWConfig(lr=T_LR))
+    source = make_source(data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    losses, secs = [], []
+    with deterministic("cuda"):
+        state = make_state(bundle, AdamWConfig(lr=T_LR))
+        for step in range(T_STEPS):
+            batch = source.batch_at(step)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s_step = statistics.median(secs[2:])
+    got = ttree.leaves(state["params"])
+    equal = len(got) == len(t_params) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(got, t_params))
+    out = dict(losses=losses, s_per_step_median=s_step, s_per_step=secs[2:],
+               tokens_per_s=T_BATCH * T_SEQ / s_step, peak_gib=peak,
+               allocated_before_gib=before, losses_equal_T=losses == t["losses"],
+               params_equal_T=equal, T_s_per_step_median=t["s_per_step_median"],
+               T_peak_gib=t["peak_gib"])
+    if not (equal and out["losses_equal_T"]):
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, t["losses"])]
+        apart = [ttree.path_str(p) for (p, a), b in
+                 zip(ttree.leaves_with_path(state["params"]), t_params)
+                 if not torch.equal(a.cpu(), b)]
+        worst, where = _tree_close(state["params"], ttree.unflatten_like(
+            state["params"], t_params), TR_TOL, TR_TOL)
+        out.update(loss_rel_gaps=gaps, leaves_apart=apart, worst=worst, worst_leaf=where)
+        log(f"TH: not bit-equal to T: loss gaps {gaps}, {len(apart)} leaves apart "
+            f"({apart[:8]}), worst {worst:.3g} of TR_TOL at {where}")
+        need(max(gaps) <= TR_LOSS_RTOL and worst <= 1.0,
+             f"TH: losses or params outside TR's tolerances of T's")
+    out["profile"] = profile_train_step(SimpleNamespace(step_fn=step_fn), state, data,
+                                        path="TH")
+    log(f"TH: {json.dumps({k: v for k, v in out.items() if k != 's_per_step'})}")
+    del state, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_full(root):
-    """Paths T and TQ (see the module docstring), checkpoints under
+    """Paths T, TH and TQ (see the module docstring), checkpoints under
     ``root``; T's directory is removed before TQ starts."""
     import math
     import shutil
@@ -4757,9 +4912,14 @@ def phase_train_full(root):
     t["profile"] = profile_train_step(tr, out["state"], data)
     log(f"T: {json.dumps({k: v for k, v in t.items() if k != 's_per_step'})}")
     res["T"] = t
+    t_params = [p.cpu() for p in ttree.leaves(out["state"]["params"])]
     del out, live, tr, t2
     torch.cuda.empty_cache()
     shutil.rmtree(tdir, ignore_errors=True)
+
+    # ---- TH: T under remat="save_heavy"
+    res["TH"] = train_heavy(cfg, data, t, t_params)
+    del t_params
 
     # ---- TQ: int8 moments, a checkpoint every 10 steps, one injected failure
     boom = {"armed": True}
@@ -4807,7 +4967,7 @@ def phase_train_full(root):
 def train_child() -> int:
     """The training paths, run by ``phase_train`` in a child process whose
     environment sets CUBLAS_WORKSPACE_CONFIG before its first cuBLAS handle
-    (the parent made its own long before, serving): TR, TD, T and TQ, their
+    (the parent made its own long before, serving): TR, TD, T, TH and TQ, their
     results written to chiprun_out/chip_smoke_train.json."""
     import os
     import shutil
@@ -4831,7 +4991,7 @@ def train_child() -> int:
         du = shutil.disk_usage(root)
         log(f"train: checkpoints under {root}, {du.free / 1e9:.1f} GB free of "
             f"{du.total / 1e9:.1f} GB")
-        with timed("train T, TQ"):
+        with timed("train T, TH, TQ"):
             res.update(phase_train_full(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5429,11 +5589,13 @@ def main(argv=None) -> int:
     serve.update(s_serve)
     parity.update(s_parity)
     # paths V, VD, S, SD: phi-3-vision-4.2b and seamless-m4t-medium at full
-    # width and depth, served with their prefill extras
-    x_counts, x_serve, x_parity = phase_extras(detail)
-    counts.update(x_counts)
-    serve.update(x_serve)
-    parity.update(x_parity)
+    # width and depth, served with their prefill extras; then G2, G2D, Y,
+    # YD: gemma2-2b and yi-6b at full width and depth
+    for models in (EXTRAS_MODELS, FAMILY_MODELS):
+        x_counts, x_serve, x_parity = phase_dense(detail, models)
+        counts.update(x_counts)
+        serve.update(x_serve)
+        parity.update(x_parity)
     # path G: the CNN track, trained, calibrated and evaluated on the card
     with timed("cnn G"):
         cnn_track = phase_cnn()
@@ -5502,7 +5664,7 @@ def main(argv=None) -> int:
                                                    "bound_ms", "bound_by", "library_ms")}
                                 for r in detail if r["name"] == name and r.get("path") == tag]
                                for tag in ("H",) + MOE_PATHS + SSM_PATHS
-                               + EXTRAS_PATHS + ("X",)},
+                               + EXTRAS_PATHS + FAMILY_PATHS + ("X",)},
                             **{k: v for k, v in row.items() if k in EXTRA_KEYS}))
         if name == "fp_dequant":
             # F never takes it; FF takes every one

@@ -90,9 +90,9 @@ constexpr int THREADS = 128;            // one position of a tile per thread
 constexpr int TILE = THREADS;
 constexpr int WARPS = THREADS / 32;
 // The two register and shared-memory plans, both routes: up to GMAX query
-// heads per kv head at a head dim up to DMAX, or up to GWIDE heads at a
-// head dim up to DWIDE (G * Dh <= 512 either way: gemma3-12b's G 2, Dh
-// 256).  Dh is a multiple of 16.  Each instance's shared memory is
+// heads per kv head at a head dim up to DMAX (G * Dh up to 1024: yi-6b's
+// G 8, Dh 128 fills it), or up to GWIDE heads at a head dim up to DWIDE
+// (G * Dh up to 512: gemma3-12b's G 2, Dh 256).  Dh is a multiple of 16.  Each instance's shared memory is
 // dynamic (the wide one needs ~70 KB, past the 48 KB of a static array),
 // its limit raised once per device, at the first launch there (set_smem).
 constexpr int GMAX = 8, DMAX = 128;

@@ -60,7 +60,7 @@ class ArchConfig:
     frontend_tokens: int = 0
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
-    remat: str = "full"                    # 'full' | 'none' (train mode's block remat)
+    remat: str = "full"                    # 'full' | 'save_heavy' | 'none' (train mode's block remat)
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
     loss_chunk: int = 512                  # train loss: positions a logits chunk
 

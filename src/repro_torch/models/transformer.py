@@ -43,8 +43,9 @@ from a zero conv tail and state, the MoE FFN through its capacity buckets
 (expert-parallel over a train mesh's model group under a ``DistContext``)
 with its load-balance losses summed, an encoder-decoder's cross blocks
 over the encoder's output; autograd differentiates the plain torch ops,
-and ``cfg.remat`` picks whether each pattern block is recomputed in the
-backward.
+and ``cfg.remat`` picks what the backward recomputes of each pattern
+block: nothing (``none``), all of it (``full``), or all but the outputs the
+reference names ``attn_out`` and ``moe_out`` (``save_heavy``).
 """
 from __future__ import annotations
 
@@ -184,7 +185,8 @@ def lm_init_caches(cfg: ArchConfig, batch: int, max_len: int, device,
             "blocks": tuple(stacked(k) for k in cfg.pattern)}
 
 
-def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=None):
+def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=None,
+               named=None):
     """(the FFN of rms_norm(h, *norm), aux): aux is the MoE router's
     load-balance loss (f32, 0-dim), 0.0 for a dense FFN.  ``seq_lens`` (B,)
     marks the valid prefix of right-padded prefill rows: pad tokens are
@@ -200,20 +202,24 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
     train step sums the router's grads over the model group and every
     grad's over the data group / D).  Decode runs the local experts over
     the rank's tokens, summed over the model group, aux the data group's
-    mean."""
+    mean.
+
+    ``named`` (a save_heavy segment's ``_Named``) takes the routed experts'
+    output, the reference's ``moe_out``."""
     if not _is_moe(cfg, kind):
         return mlp_apply(p_ffn, h, norm=norm), 0.0
     xn = rms_norm(h, *norm)
     B, S, d = xn.shape
-    mask = None
-    if seq_lens is not None:
-        mask = (torch.arange(S, device=h.device)[None] < seq_lens[:, None]).reshape(B * S)
-    ctx = get_context()
-    x2 = xn.reshape(B * S, d)
-    if ctx is None:
-        fn = moe_ffn_tokens if mode in ("train", "prefill") else moe_ffn_dense_masked
-        y, aux = fn(p_ffn, x2, cfg.moe, token_mask=mask)
-    else:
+
+    def routed():
+        mask = None
+        if seq_lens is not None:
+            mask = (torch.arange(S, device=h.device)[None] < seq_lens[:, None]).reshape(B * S)
+        ctx = get_context()
+        x2 = xn.reshape(B * S, d)
+        if ctx is None:
+            fn = moe_ffn_tokens if mode in ("train", "prefill") else moe_ffn_dense_masked
+            return fn(p_ffn, x2, cfg.moe, token_mask=mask)
         g = ctx.groups
         if g is None:
             raise ValueError("a DistContext needs its mesh's groups: "
@@ -223,11 +229,11 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
             xt = coll.split_rows(x2, g.model)
             mt = None if mask is None else mask.view(M, -1)[coll.index(g.model)]
             y, aux = moe_ffn_tokens(p_ffn, xt, cfg.moe, group=g.model, token_mask=mt)
-            y = coll.gather_rows(y, g.model)
-            aux = coll.mean_over(aux, g.world, 1.0 / M)
-        else:
-            y, aux = moe_ffn_dense_masked(p_ffn, x2, cfg.moe, group=g.model, token_mask=mask)
-            aux = coll.mean_over(aux, g.data, 1.0)
+            return coll.gather_rows(y, g.model), coll.mean_over(aux, g.world, 1.0 / M)
+        y, aux = moe_ffn_dense_masked(p_ffn, x2, cfg.moe, group=g.model, token_mask=mask)
+        return y, coll.mean_over(aux, g.data, 1.0)
+
+    y, aux = routed() if named is None else named(routed)
     y = y.reshape(B, S, d)
     if cfg.moe.n_shared:
         y = y + mlp_apply(p_ffn["shared"], xn)
@@ -237,25 +243,31 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
 
 
 def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache,
-                memory=None, causal: bool = True, seq_lens=None, chunked: bool = False):
+                memory=None, causal: bool = True, seq_lens=None, chunked: bool = False,
+                named=None):
     """One layer on h (B, S, d): (h, aux), its cache updated in place
     (``mode='train'``: no cache - a train step's layer, or an encoder's).
     An encoder-decoder's layer cross-attends ``memory`` (the encoder's
     output) in train mode and at prefill, and its ``cross_k`` / ``cross_v``
-    leaves at decode."""
+    leaves at decode.  ``named`` (train mode's save_heavy, ``_Named``)
+    takes the attention output, the reference's ``attn_out``, and the MoE
+    FFN's ``moe_out``."""
     eps = cfg.norm_eps
     if kind == "mamba":
         return h + ssm_apply(p["ssm"], cfg.ssm, h, mode=mode, cache=cache,
                              seq_lens=seq_lens, norm=(p["norm"], eps)), 0.0
     # each norm runs inside the prologue that reads its output (one K1
     # launch) wherever that input feeds one PDQ group
-    if _is_mla(cfg, kind):
-        a, _ = mla_apply(p["attn"], mla_dims(cfg), h, positions, mode=mode, cache=cache,
-                         seq_lens=seq_lens, norm=(p["attn_norm"], eps), chunked=chunked)
-    else:
-        a, _ = gqa_apply(p["attn"], attn_dims(cfg, kind), h, positions, mode=mode,
+    def attend():
+        if _is_mla(cfg, kind):
+            return mla_apply(p["attn"], mla_dims(cfg), h, positions, mode=mode, cache=cache,
+                             seq_lens=seq_lens, norm=(p["attn_norm"], eps),
+                             chunked=chunked)[0]
+        return gqa_apply(p["attn"], attn_dims(cfg, kind), h, positions, mode=mode,
                          cache=cache, causal=causal, seq_lens=seq_lens,
-                         norm=(p["attn_norm"], eps), chunked=chunked)
+                         norm=(p["attn_norm"], eps), chunked=chunked)[0]
+
+    a = attend() if named is None else named(attend)
     h = h + a
     if cfg.family == "encdec":
         dims = attn_dims(cfg)
@@ -273,7 +285,7 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
             mem_kv = (cache["cross_k"], cache["cross_v"])
         h = h + cross_apply(p["cross"], dims, h, mem_kv, norm=(p["cross_norm"], eps))
     f, aux = _apply_ffn(p["ffn"], cfg, kind, h, mode, (p["ffn_norm"], eps),
-                        seq_lens if mode == "prefill" else None)
+                        seq_lens if mode == "prefill" else None, named)
     return h + f, aux
 
 
@@ -304,15 +316,74 @@ def _encoder_apply(params, cfg: ArchConfig, frames):
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def _remat(cfg: ArchConfig, mode: str) -> bool:
-    """Whether train mode recomputes each pattern block in the backward."""
-    if mode != "train" or cfg.remat == "none":
-        return False
-    if cfg.remat == "full":
-        return True
-    raise NotImplementedError(
-        f"remat={cfg.remat!r}: only 'full' and 'none' run here ('save_heavy' is "
-        f"set by the reference's dry run, launch/dryrun.py, which has no port)")
+REMATS = ("none", "full", "save_heavy")
+
+
+def _remat(cfg: ArchConfig, mode: str) -> str:
+    """What train mode recomputes of each pattern block in the backward."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r}: one of {REMATS}")
+    return cfg.remat if mode == "train" else "none"
+
+
+class _Stop(Exception):
+    """A save_heavy segment's end: ``value`` is its named output."""
+
+    def __init__(self, value):
+        super().__init__("save_heavy segment end")
+        self.value = value
+
+
+class _Named:
+    """The named points (``attn_out``, ``moe_out``) of one save_heavy
+    segment of a pattern block, in layer order: the first ``len(given)``
+    take the values earlier segments computed, the next one is computed
+    and ends the segment (``_Stop``).  A ``moe_out`` point computes
+    (y, aux) and takes (y, 0.0): its aux is summed from the segment that
+    computed it."""
+
+    def __init__(self, given):
+        self.given, self.k = given, 0
+
+    def __call__(self, compute):
+        if self.k == len(self.given):
+            raise _Stop(compute())
+        self.k += 1
+        return self.given[self.k - 1]
+
+
+def _segment(block, i, h, moe, *values):
+    """One checkpointed segment of pattern block i from its input ``h`` and
+    the named values before it (``moe[k]`` marks a ``moe_out``): the next
+    named value, as ("attn", a) or ("moe", y, aux), or ("end", h, aux)."""
+    given = [(v, 0.0) if m else v for v, m in zip(values, moe)]
+    try:
+        return ("end", *block(i, h, _Named(given)))
+    except _Stop as stop:
+        v = stop.value
+        return ("moe", *v) if isinstance(v, tuple) else ("attn", v)
+
+
+def _save_heavy(block, i, h):
+    """Pattern block i under the reference's save_heavy policy
+    (``jax.checkpoint`` with ``save_only_these_names("moe_out",
+    "attn_out")``): the backward keeps the block's input and each named
+    output, and recomputes everything else.  The block runs as a chain of
+    non-reentrant checkpoints, one a named point and one to the end; each
+    takes the block input and the named values before it as its inputs,
+    so those are what autograd keeps, and each recomputes only its own
+    stretch.  A block of several layers recomputes, in each segment, the
+    unnamed ops of its earlier layers from those inputs, in the forward
+    too: the carry between layers is never kept.  Returns (h, aux)."""
+    values, moe, aux = [], [], 0.0
+    while True:
+        out = checkpoint(_segment, block, i, h, moe, *values, use_reentrant=False)
+        if out[0] == "end":
+            return out[1], aux + out[2]
+        values.append(out[1])
+        moe = [*moe, out[0] == "moe"]
+        if out[0] == "moe":
+            aux = aux + out[2]
 
 
 def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
@@ -332,7 +403,9 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
     With ``cfg.remat == "full"`` a train step runs each of the ``n_blocks``
     pattern blocks under ``torch.utils.checkpoint`` (non-reentrant), as the
     reference checkpoints its scan body: only the blocks' inputs are kept
-    for the backward, which recomputes each block's activations."""
+    for the backward, which recomputes each block's activations.  With
+    ``"save_heavy"`` the backward also keeps each layer's attention output
+    and routed experts' output (``_save_heavy``)."""
     dtype = model_dtype(cfg)
     train = mode == "train"
     if train != (caches is None):
@@ -359,7 +432,7 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
         h = layer(params["head"][i], kind, h, None if train else caches["head"][i])
     P = len(cfg.pattern)
 
-    def block(i, h):
+    def block(i, h, named=None):
         """Pattern block i: (h, its aux)."""
         aux = 0.0
         for j, kind in enumerate(cfg.pattern):
@@ -368,14 +441,16 @@ def lm_apply(params, cfg: ArchConfig, *, tokens, positions, mode: str,
                 p, kind = params["shared_block"], "global"
             else:
                 p = params["blocks"][i * P + j]
-            h, a = layer_apply(p, cfg, kind, h, positions, cache=cache, **kw)
+            h, a = layer_apply(p, cfg, kind, h, positions, cache=cache, named=named, **kw)
             aux = aux + a
         return h, aux
 
     remat = _remat(cfg, mode)
     for i in range(cfg.n_blocks):
-        if remat:
+        if remat == "full":
             h, aux = checkpoint(block, i, h, use_reentrant=False)
+        elif remat == "save_heavy":
+            h, aux = _save_heavy(block, i, h)
         else:
             h, aux = block(i, h)
         if train:

@@ -1,6 +1,6 @@
 """The port stands alone: no module of src/repro_torch/ (and not
-chip_smoke.py) imports JAX or the reference package, so the port runs on a
-machine without JAX.  Checked twice: by importing every module in a fresh
+chip_smoke.py, nor an example of examples/torch_*.py) imports JAX or the
+reference package, so the port runs on a machine without JAX.  Checked twice: by importing every module in a fresh
 interpreter and reading sys.modules, and by scanning the sources."""
 import os
 import re
@@ -40,7 +40,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 
 
 def test_no_port_source_imports_jax_or_the_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     for f in files:
         text = f.read_text()

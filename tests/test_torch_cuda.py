@@ -57,7 +57,8 @@ under the fault hook falls back once a projection a launch; and
 ServeService's thread replays the graph to the batch run's streams.
 The prefill extras' families: K5 at phi-3-vision-4.2b's Hkv 32, G 1, Dh 96,
 Sp 1536 and seamless-m4t-medium's Hkv 16, Dh 64, Sp 512 with ragged lengths,
-under the attend tolerances above; a reduced seamless engine (frames in
+under the attend tolerances above; K4 and K5 at yi-6b's Hkv 4, G 8, Dh 128,
+B 8, Sp 512 (path Y's shape); a reduced seamless engine (frames in
 every prefill) whose replayed decode graph, reading each layer's cross K/V
 from the pool, serves the eager engine's streams, pool bits (the cross
 leaves included) and counts, slot rows and paged.  The CNN track's training
@@ -732,6 +733,28 @@ _EXTRAS_ATTEND = [(32, 96, 1536, [1536, 1, 1044, 1153, 1024, 1025, 1280, 1306]),
 @pytest.mark.parametrize("Hkv,Dh,Sp,lens", _EXTRAS_ATTEND)
 def test_decode_attend_fused_at_the_extras_families_shapes(gen, Hkv, Dh, Sp, lens):
     _fused_case(gen, Hkv, 1, Dh, Sp, lens, torch.bfloat16)
+
+
+# yi-6b at path Y's serving shape: 32 heads over 4 kv heads of 128 (G 8,
+# the (8, 128) instance at its full G), B 8, Sp 512, lengths 1-512
+_YI_ATTEND = (4, 8, 128, 512, [512, 1, 250, 129, 128, 57, 300, 511])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_decode_attend_at_yi_6b_serving_shape(gen, fused):
+    """K4, and K5 with wo's prologue in bf16 as path Y runs it, on both
+    routes against the plain version at yi-6b's decode shape."""
+    Hkv, G, Dh, Sp, lens = _YI_ATTEND
+    if fused:
+        _fused_case(gen, Hkv, G, Dh, Sp, lens, torch.bfloat16)
+        return
+    args = _attend_operands(gen, len(lens), Hkv, G, Dh, Sp, lens)
+    k, single = _routes_run(lambda **kw: kv.decode_attend_i8kv_cuda(*args, **kw),
+                            "decode_attend_i8kv")
+    _tickets_at_rest(args[0].device)
+    p = kv.decode_attend_i8kv_plain(*args)
+    for got in (k, single):
+        assert bool(torch.isclose(got, p, rtol=2e-4, atol=2e-4).all())
 
 
 def _fused_case(gen, Hkv, G, Dh, Sp, lens, pro_dtype):

@@ -236,13 +236,38 @@ def test_corrupt_header_is_a_typed_protocol_error(tmp_path):
     assert rc0 not in (0, None), err0[-2000:]
 
 
+LAUNCH = ["--reduced", "--device", "cpu", "--int8", "--requests", "6", "--max-new", "5",
+          "--buckets", "8,16", "--max-len", "64", "--prompt-len", "12", "--mesh", "2x2",
+          "--slots-per-replica", "2"]
+
+
 def _launch(args, timeout=TIMEOUT):
-    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-                           "--device", "cpu", "--int8", "--requests", "6", "--max-new", "5",
-                           "--buckets", "8,16", "--max-len", "64", "--prompt-len", "12",
-                           "--mesh", "2x2", "--slots-per-replica", "2", *args],
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH, *args],
                           capture_output=True, text=True, env=_env(), cwd=REPO,
                           timeout=timeout)
+
+
+def _launch_here(args):
+    """The launcher's single-process run in this process: its standard
+    output.  The same ``main`` a child runs, without a new interpreter and
+    its torch import, which are most of a launch's CPU seconds (~3.5 of
+    ~4): on a host loaded ~8x over its cores a launch took 67-83 s, and
+    each subprocess launch here has TIMEOUT.  Its signal handlers are put
+    back after it."""
+    import contextlib
+    import io
+    import signal
+
+    from repro_torch.launch import serve as launcher
+    out = io.StringIO()
+    prev = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        with contextlib.redirect_stdout(out):
+            launcher.main([*LAUNCH, *args])
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    return out.getvalue()
 
 
 def _lines(out, *prefixes):
@@ -250,15 +275,19 @@ def _lines(out, *prefixes):
 
 
 def test_launcher_num_processes_prints_what_the_mesh_prints(tmp_path):
-    one = _launch([])
-    assert one.returncode == 0, one.stderr[-3000:]
+    """Two processes print the single-process launch's request, replica
+    and stats lines (less ``remote_ingress`` and the straggler counts,
+    which time the launches), one ``process`` line each, and with
+    ``--trace-out`` one trace holding both processes' spans.  The
+    single-process launch runs in this process (``_launch_here``)."""
+    one = _launch_here([])
     trace = tmp_path / "trace.json"
     two = _launch(["--num-processes", "2", "--trace-out", str(trace)])
     assert two.returncode == 0, two.stderr[-3000:]
-    assert _lines(two.stdout, "req ", "replica ") == _lines(one.stdout, "req ", "replica ")
-    assert len(_lines(one.stdout, "req ")) == 3
+    assert _lines(two.stdout, "req ", "replica ") == _lines(one, "req ", "replica ")
+    assert len(_lines(one, "req ")) == 3
     stats = [json.loads(ln.split("stats:", 1)[1].strip().replace("'", '"'))
-             for ln in (_lines(one.stdout, "stats:")[0], _lines(two.stdout, "stats:")[0])]
+             for ln in (_lines(one, "stats:")[0], _lines(two.stdout, "stats:")[0])]
     stats[1].pop("remote_ingress")
     timing = ("straggler_flags", "prefill_straggler_flags")
     assert {k: v for k, v in stats[1].items() if k not in timing} == {

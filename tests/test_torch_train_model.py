@@ -2,8 +2,9 @@
 reduced configs (tolerances in ``tests/_torch_train_common.py``):
 ``train_loss`` and every grad leaf for half of the registered configs
 (``tests/test_torch_train_families.py`` holds the other half), the chunked
-cross-entropy, remat, a microbatch-2 train step, the refusals (a
-``DistContext`` without its mesh's groups, ``remat='save_heavy'``), and the
+cross-entropy, remat ``full`` and ``save_heavy`` (its saved set counted),
+a microbatch-2 train step, the refusal of a ``DistContext`` without its
+mesh's groups, and the
 sharded step over a one-entry mesh, which is the one-device step bit for
 bit (``tests/test_torch_train_mesh.py`` holds it against the reference's
 sharded step over 2x2 and 4x2 meshes of processes)."""
@@ -23,7 +24,7 @@ from repro_torch import tree as ttree
 from repro_torch.models import context as tctx
 from repro_torch.models.layers import chunked_xent_loss as t_xent
 from repro_torch.optim import adamw as tadamw
-from repro_torch.train.train_step import build_train_step, loss_and_grads, make_state
+from repro_torch.train.train_step import build_train_step, loss_and_grads
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "stablelm-1.6b", "yi-6b",
@@ -77,6 +78,61 @@ def test_remat_full_matches_jax(arch):
     check_loss_and_grads(arch, remat="full")
 
 
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-236b"])
+def test_remat_save_heavy_matches_jax(arch):
+    """``remat='save_heavy'`` on both sides, dense and MoE: the port's
+    chain of checkpointed segments against the reference's
+    ``jax.checkpoint`` with ``save_only_these_names("moe_out",
+    "attn_out")``, loss and every grad within the tolerances of
+    ``tests/_torch_train_common.py``."""
+    check_loss_and_grads(arch, remat="save_heavy")
+
+
+def test_save_heavy_keeps_the_block_inputs_and_the_attention_outputs():
+    """The bytes the autograd graph keeps for the backward (distinct
+    storages packed by ``saved_tensors_hooks``) on reduced stablelm-1.6b:
+    ``full`` keeps the least, ``none`` the most, and ``save_heavy`` keeps
+    exactly ``full``'s plus every layer's attention output (the
+    reference's ``attn_out``), which ``full`` does not keep."""
+    from repro_torch.models import transformer
+    _, tc, _, tb, p = both("stablelm-1.6b")
+    d = {k: torch.from_numpy(v) for k, v in batch_for(tc).items()}
+
+    def saved(remat):
+        bundle = tb if remat == "none" else both("stablelm-1.6b", remat=remat)[3]
+        params = ttree.tree_map(lambda t: t.detach().requires_grad_(True),
+                                bridge.params_from_numpy(p, "cpu"))
+        kept, outs = {}, []
+        real = transformer.gqa_apply
+
+        def spy(*a, **k):
+            out = real(*a, **k)
+            outs.append(out[0])
+            return out
+
+        def pack(t):
+            kept[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        transformer.gqa_apply = spy
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                bundle.train_loss(params, d)
+        finally:
+            transformer.gqa_apply = real
+        attn = {a.untyped_storage().data_ptr(): a.untyped_storage().nbytes() for a in outs}
+        assert len(attn) == tc.n_layers
+        return kept, attn
+
+    none, _ = saved("none")
+    full, attn_full = saved("full")
+    heavy, attn_heavy = saved("save_heavy")
+    assert sum(full.values()) < sum(heavy.values()) < sum(none.values())
+    assert not set(attn_full) & set(full)
+    assert set(attn_heavy) <= set(heavy)
+    assert sum(heavy.values()) == sum(full.values()) + sum(attn_heavy.values())
+
+
 @pytest.mark.parametrize("quant_state", [False, True])
 def test_microbatch_step_matches_jax(quant_state):
     """One ``build_train_step(microbatch=2)`` step from the same params and
@@ -120,10 +176,6 @@ def test_refusals_name_their_items():
         with pytest.raises(ValueError, match="dist_context_for"):
             tb.train_loss(params, d)
     assert tctx.get_context() is None
-    _, _, _, tbh, _ = both("stablelm-1.6b", remat="save_heavy")
-    with pytest.raises(NotImplementedError, match="dryrun"):
-        tbh.train_loss(make_state(tbh, tadamw.AdamWConfig())["params"],
-                       {k: torch.from_numpy(v) for k, v in batch_for(tbh.cfg).items()})
 
 
 @pytest.mark.parametrize("quant_state", [False, True])
