@@ -257,8 +257,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 and K10 at path E's rows and at 16384 rows (past the L2),
                 beside a PyTorch kernel that moves the same bytes; K2 and
                 K3 also with the health counters (tel_ms), their counts
-                equal to plain's on both routes; the fallback at QKV's and
-                w_down's shapes, taken (flag set) and not taken; before the
+                equal to plain's on both routes; the fallback at the four
+                guarded projections' decode shapes and QKV's prefill rows,
+                taken (flag set) and not taken, on the wgmma route; before the
                 H paths, rows at gemma3-12b's shapes (tagged "H"): K4 and K5
                 at B 8, Hkv 8, G 2, Dh 256, Sp 2048 with lengths 1-2048
                 (the wide instance), K6 landing one of H's rounds (36
@@ -307,8 +308,9 @@ Phases, each of which must pass (any failure exits non-zero):
                 launches per mode too:
                 QKV and gate/up with norm and interval, wo with the interval
                 where K5 does not run its prologue), every K2/K3 launch must have
-                taken the wgmma route, every K4/K5 launch the split route
-                and every K8/K9 launch the vector route (MAIN_ROUTE), and
+                taken the wgmma route, every K4/K5 launch the split route,
+                every K8/K9/K10 launch the vector route and every fallback
+                launch the wgmma route (MAIN_ROUTE), and
                 the other paths' kernels must not have run (F and FF: no
                 K3, one fallback launch a guarded projection, 4 a layer and
                 model step; FF's pdq_fallbacks exactly that many, F's 0);
@@ -440,6 +442,7 @@ OUT_DIR = ROOT / "chiprun_out"
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and int8 / f32 ops/s
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
+BF16_OPS = 989e12
 F32_OPS = 67e12
 
 # |kernel - plain| logits bound in the parity phase.  With the fp KV cache
@@ -598,7 +601,7 @@ Y_ATTEND_LENS = AR_ATTEND_LENS    # K4/K5 at Y's cache (max_len 512, as AR's)
 # K1-K3 and the attend kernels, by their CUDA function names
 HAND_KERNEL = r"\b(prologue_kernel|w8a8_kernel|swiglu_kernel|gemm_kernel|split_kernel|" \
               r"attend_kernel|move_pages|act_stats_kernel|quantize_kernel|" \
-              r"dequantize_kernel|fallback_kernel)\b"
+              r"dequantize_kernel|fma_kernel)\b"
 
 # path: (int8_kv, quantize_weights, the kernels it must launch, the other
 # ServeConfig fields: paging, decode_steps, the guard)
@@ -698,7 +701,8 @@ def is_guarded(path) -> bool:
 # rows the single route's time and error
 EXTRA_KEYS = ("generic_ms", "library_rowmajor_ms", "host_us", "generic_host_us",
               "tail_ms", "single_ms", "single_err", "mode", "same_bytes_ms", "tel_ms",
-              "not_taken_ms", "not_taken_plain_ms", "not_taken_bound_ms", "library_note")
+              "not_taken_ms", "not_taken_plain_ms", "not_taken_bound_ms", "library_note",
+              "kernel_route", "ops_peak")
 
 
 class SmokeError(RuntimeError):
@@ -1178,69 +1182,90 @@ def matmul_kernels(eng, t, gen, flush, record, x_pre):
 
 
 def fallback_kernels(eng, t, gen, flush, record, x_pre):
-    """The predicated fp-dequant fallback at the guarded path's shapes: QKV
-    (8, 2048) -> 6144 and w_down (8, 5632) -> 2048 at decode, QKV at
-    prefill rows, bf16 in and out as path F runs it.  Taken (the flag set
-    before each call, its one-element fill inside the timed call) against
-    the plain version: within one bf16 rounding of the f32 product, summed
-    in another order (one bf16 ulp, 2^-7 relative, apart where the two
-    sums round to neighbours); the flag cleared and one fallback counted.  Not
-    taken: y and the counters untouched.  Bound when taken: x, the int8
-    weight and the scales read once, y written once, against 2 M N K f32
-    operations; not taken: the flag's word read and written.  No single
-    PyTorch call dequantizes an int8 weight and multiplies: library null."""
+    """The predicated fp-dequant fallback at the guarded path's shapes: its
+    four guarded projections at decode (QKV, wo, gate/up, w_down, x (8, K))
+    and QKV at the prefill rows, bf16 in and out as path F runs it
+    (``fallback_row``)."""
+    import torch
+    from repro_torch.kernels import fp_dequant as fd
+    h_in = torch.randn((t["M"], eng.cfg.d_ff), generator=gen,
+                       device=eng.device).to(torch.bfloat16)
+    cases = (("qkv", t["qkv"], t["x"], True), ("wo", t["wo"], t["xo"], False),
+             ("gate/up", t["gu"], t["x"], False), ("w_down", t["down"], h_in, False),
+             ("qkv prefill", t["qkv"], x_pre, False))
+    flag = fd.flag_buffer(eng.device)
+    for label, rec, x, primary in cases:
+        fallback_row(record, flush, gen, label, x, rec["q"], rec["scale"], flag, primary)
+
+
+def fallback_row(record, flush, gen, label, x, q, sc, flag, primary, shape=None):
+    """The fallback over x @ q on the route its operands take
+    (``fd.route_for``: wgmma for bf16 x, fma for f32 x).  Not taken: y, the
+    flag and the counters untouched.  Taken (the flag set before each
+    call, its one-element fill inside the timed call): the flag cleared and
+    one fallback counted, two calls equal bit for bit, and y against the
+    plain version within one bf16 rounding of the f32 product, summed in
+    another order (one bf16 ulp, 2^-7 relative, apart where the two sums
+    round to neighbours).  Bound when taken: x, the int8 weight and the
+    scales read once, y written once, against 2 M N K operations at the
+    bf16 tensor cores' peak for bf16 x, the f32 units' for f32 x; not
+    taken: the flag's word read and written.  No single PyTorch call
+    dequantizes an int8 weight and multiplies: library null."""
     import torch
     from repro_torch.kernels import fp_dequant as fd
     from repro_torch.kernels import ref
-    h_in = torch.randn((t["M"], eng.cfg.d_ff), generator=gen,
-                       device=eng.device).to(torch.bfloat16)
-    cases = (("qkv", t["qkv"], t["x"], True), ("w_down", t["down"], h_in, False),
-             ("qkv prefill", t["qkv"], x_pre, False))
-    flag = fd.flag_buffer(eng.device)
-    tel = torch.zeros(3, dtype=torch.int64, device=eng.device)
-    for label, rec, x, primary in cases:
-        (M, K), N = x.shape, rec["q"].shape[1]
-        q, sc = rec["q"], rec["scale"]
-        y0 = torch.randn((M, N), generator=gen, device=eng.device).to(torch.bfloat16)
-        y = y0.clone()
-        tel.zero_()
-        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
-        need(torch.equal(y, y0) and not bool(flag.any()) and not bool(tel.any()),
-             f"fallback {label}: the untaken branch wrote y, the flag or the counters")
-        flag[0] = 1
-        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
-        need(not bool(flag.any()) and tel.tolist() == [1, 0, 0],
-             f"fallback {label}: flag {flag.tolist()}, counters {tel.tolist()} after a "
-             f"taken call")
-        p = y0.clone()
-        fd.fp_dequant_fallback_plain(p, x, q, sc, torch.ones_like(flag))
-        want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
-        err = max_abs(y, p)
-        need(bool(((y.float() - p.float()).abs()
-                   <= 2 ** -7 * p.float().abs() + 1e-5 * float(want.abs().max())).all()),
-             f"fallback {label}: differs from plain by {err}")
+    dev = x.device
+    (M, K), N = x.shape, q.shape[1]
+    route = fd.route_for(x, q)
+    tel = torch.zeros(3, dtype=torch.int64, device=dev)
+    y0 = torch.randn((M, N), generator=gen, device=dev).to(x.dtype)
+    y = y0.clone()
+    fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+    need(torch.equal(y, y0) and not bool(flag.any()) and not bool(tel.any()),
+         f"fallback {label}: the untaken branch wrote y, the flag or the counters")
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
+    need(not bool(flag.any()) and tel.tolist() == [1, 0, 0],
+         f"fallback {label}: flag {flag.tolist()}, counters {tel.tolist()} after a "
+         f"taken call")
+    again = y0.clone()
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(again, x, q, sc, flag)
+    need(torch.equal(again.view(torch.uint8), y.view(torch.uint8)),
+         f"fallback {label}: two taken calls differ")
+    p = y0.clone()
+    fd.fp_dequant_fallback_plain(p, x, q, sc, torch.ones_like(flag))
+    want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
+    err = max_abs(y, p)
+    tol = 2 ** -7 if y.dtype == torch.bfloat16 else 1e-5
+    need(bool(((y.float() - p.float()).abs()
+               <= tol * p.float().abs() + 1e-5 * float(want.abs().max())).all()),
+         f"fallback {label}: differs from plain by {err}")
 
-        def taken():
-            flag[:1].fill_(1)
-            fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)
+    def taken():
+        flag[:1].fill_(1)
+        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)
 
-        def taken_plain():
-            flag[:1].fill_(1)
-            fd.fp_dequant_fallback_plain(y, x, q, sc, flag)
+    def taken_plain():
+        flag[:1].fill_(1)
+        fd.fp_dequant_fallback_plain(y, x, q, sc, flag)
 
-        b_ms, b_by = bound_ms(M * K * 2 + K * N + 4 * N + M * N * 2 + 8, 2 * M * N * K,
-                              F32_OPS)
-        nt_ms = median_ms(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag),
-                          flush=flush)
-        record("fp_dequant", f"{label}: taken, x ({M}, {K}) bf16 @ q ({K}, {N}) int8 "
-               f"-> y bf16", err, median_ms(taken, flush=flush),
-               median_ms(taken_plain, flush=flush), b_ms, b_by, None, primary,
-               not_taken_ms=nt_ms,
-               not_taken_plain_ms=median_ms(
-                   lambda: fd.fp_dequant_fallback_plain(y, x, q, sc, flag), flush=flush),
-               not_taken_bound_ms=bound_ms(8, 0, F32_OPS)[0],
-               library_note="no single PyTorch call dequantizes and multiplies",
-               host_us=host_us(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)))
+    rate = BF16_OPS if x.dtype == torch.bfloat16 else F32_OPS
+    b_ms, b_by = bound_ms(M * K * x.element_size() + K * N + 4 * N + M * N * y.element_size()
+                          + 8, 2 * M * N * K, rate)
+    dt = str(x.dtype)[6:]
+    record("fp_dequant", f"{label}: taken, {shape or f'x ({M}, {K}) {dt} @ q ({K}, {N}) int8'}"
+           f" -> y {dt}; route {route}, plan {fd.plan(route, M, K, N, fd._sms(dev))}", err,
+           median_ms(taken, flush=flush), median_ms(taken_plain, flush=flush), b_ms, b_by,
+           None, primary, kernel_route=route,
+           ops_peak="bf16 tensor cores" if rate == BF16_OPS else "f32",
+           not_taken_ms=median_ms(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag),
+                                  flush=flush),
+           not_taken_plain_ms=median_ms(
+               lambda: fd.fp_dequant_fallback_plain(y, x, q, sc, flag), flush=flush),
+           not_taken_bound_ms=bound_ms(8, 0, rate)[0],
+           library_note="no single PyTorch call dequantizes and multiplies",
+           host_us=host_us(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)))
 
 
 def attend_kernels(eng, gen, flush, record):
@@ -2430,11 +2455,12 @@ def quant_kernels(eng, gen, flush, record):
         lib_note = ("" if lib_y is None else
                     f"; library values differ in {int((lib_y != ky).sum())}")
         b_ms, b_by = bound_ms(M * N * (1 + ky.element_size()) + 8 * n, 2 * M * N, F32_OPS)
+        route = qz.dequantize_plan(M, N, ky.element_size(), True).route
         record("dequantize", f"q ({M}, {N}) per {'channel' if pc else 'row'} -> "
-               f"{str(out_dtype)[6:]}{lib_note}", max_abs(ky, py),
+               f"{str(out_dtype)[6:]}{lib_note}; route {route}", max_abs(ky, py),
                median_ms(lambda: qz.dequantize_cuda(q, s, z, out_dtype), flush=flush),
                median_ms(lambda: qz.dequantize_plain(q, s, z, out_dtype), flush=flush),
-               b_ms, b_by, lib_ms, primary,
+               b_ms, b_by, lib_ms, primary, kernel_route=route,
                same_bytes_ms=median_ms(lambda: q.to(out_dtype), flush=flush))
 
 
@@ -2681,16 +2707,18 @@ def encdec_census(path, cfg, st):
 # the route every launch of a serving or ops-level run must take
 MAIN_ROUTE = {"w8a8_matmul": "wgmma", "w8a8_swiglu_matmul": "wgmma",
               "decode_attend_i8kv": "split", "decode_attend_i8kv_fused": "split",
-              "act_stats": "vector", "quantize": "vector"}
+              "act_stats": "vector", "quantize": "vector", "dequantize": "vector",
+              "fp_dequant": "wgmma"}
 
 
 def check_routes(path, counts, routes=None):
     """Every K2 and K3 launch of a run took the wgmma route, every K4 and
-    K5 launch the split route, every K8 and K9 launch the vector route
-    (``routes``: another process's route counts, else this one's)."""
+    K5 launch the split route, every K8, K9 and K10 launch the vector
+    route, every fallback launch the wgmma route (``routes``: another
+    process's route counts, else this one's)."""
     from repro_torch.kernels import ops
     routes = ops.route_counts() if routes is None else routes
-    log(f"{path}: K2-K5, K8, K9 launches per route {routes}")
+    log(f"{path}: K2-K5, K8-K10, fallback launches per route {routes}")
     for name, r in routes.items():
         main = MAIN_ROUTE[name]
         need(r[main] == counts[name]["launches"]
@@ -4046,10 +4074,9 @@ def tp_kernels(eng, detail):
     to the shard's blocks): the wgmma route from the shifted base, within
     plain's bound and equal to the unsplit launch's columns bit for bit;
     then the fallback over one shard's columns of QKV and w_down, taken and
-    not (``fallback_kernels``' checks).  Rows tagged "X"."""
+    not (``fallback_row``'s checks).  Rows tagged "X"."""
     import torch
     from repro_torch.kernels import fp_dequant as fd
-    from repro_torch.kernels import ref
     from repro_torch.kernels import w8a8_matmul as mm
     T = X_MESH["X22"][1]
     gen = torch.Generator(device=eng.device)
@@ -4099,49 +4126,14 @@ def tp_kernels(eng, detail):
                        b_ms, b_by, lib_ms, False)
     # the fallback over shard 1's columns (a shifted K-major base), decode rows
     flag = fd.flag_buffer(dev)
-    tel = torch.zeros(3, dtype=torch.int64, device=dev)
     for label, rec, width, _ in (recs[0], recs[3]):
         x = rows_for(torch.randn((8, eng.cfg.d_model if width == "d" else eng.cfg.d_ff),
                                  generator=gen, device=dev).to(torch.bfloat16), rec, gen)
         (M, K), N = x.shape, rec["q"].shape[1]
         c = slice(N // T, N)
-        q, sc = rec["q"][:, c], rec["scale"][c].contiguous()
-        y0 = torch.randn((M, N - c.start), generator=gen, device=dev).to(torch.bfloat16)
-        y = y0.clone()
-        tel.zero_()
-        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
-        need(torch.equal(y, y0) and not bool(flag.any()) and not bool(tel.any()),
-             f"fallback {label} shard: the untaken branch wrote y, the flag or the counters")
-        flag[0] = 1
-        fd.fp_dequant_fallback_cuda(y, x, q, sc, flag, tel)
-        need(not bool(flag.any()) and tel.tolist() == [1, 0, 0],
-             f"fallback {label} shard: flag {flag.tolist()}, counters {tel.tolist()}")
-        pl = y0.clone()
-        fd.fp_dequant_fallback_plain(pl, x, q, sc, torch.ones_like(flag))
-        want = ref.fp_dequant_matmul(x, q, sc, torch.float32)
-        err = max_abs(y, pl)
-        need(bool(((y.float() - pl.float()).abs()
-                   <= 2 ** -7 * pl.float().abs() + 1e-5 * float(want.abs().max())).all()),
-             f"fallback {label} shard: differs from plain by {err}")
-
-        def taken():
-            flag[:1].fill_(1)
-            fd.fp_dequant_fallback_cuda(y, x, q, sc, flag)
-
-        def taken_plain():
-            flag[:1].fill_(1)
-            fd.fp_dequant_fallback_plain(y, x, q, sc, flag)
-
-        n = N - c.start
-        record("fp_dequant", f"TP shard 1 of {T}, {label}: taken, x ({M}, {K}) bf16 @ "
-               f"q[:, {c.start}:{N}] int8 -> y bf16", err, median_ms(taken, flush=flush),
-               median_ms(taken_plain, flush=flush),
-               *bound_ms(M * K * 2 + K * n + 4 * n + M * n * 2 + 8, 2 * M * n * K, F32_OPS),
-               None, False,
-               not_taken_ms=median_ms(lambda: fd.fp_dequant_fallback_cuda(y, x, q, sc, flag),
-                                      flush=flush),
-               not_taken_bound_ms=bound_ms(8, 0, F32_OPS)[0],
-               library_note="no single PyTorch call dequantizes and multiplies")
+        fallback_row(record, flush, gen, f"TP shard 1 of {T}, {label}", x, rec["q"][:, c],
+                     rec["scale"][c].contiguous(), flag, False,
+                     shape=f"x ({M}, {K}) bf16 @ q[:, {c.start}:{N}] int8")
 
 
 def mesh_serve(eng, path, ref_run):

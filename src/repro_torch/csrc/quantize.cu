@@ -43,20 +43,28 @@
 // route, a persistent grid, and warp-coalesced 512-element chunks with the
 // codes exchanged through shared memory.
 //
-// K10's design: elementwise.  Grid x covers a row's columns, THREADS * 4 a
-// block, grid y the rows (a loop when M exceeds the grid).  Each thread
-// takes 4 consecutive columns: one vector load and one vector store when
-// N, the bases and the element sizes allow it, else element by element.
-// The ragged end of each row is masked; nothing is padded.
+// K10's design follows K9's: 16 codes a thread on a 1-D grid (the file's
+// Divisor: no limit on M, no row loop), a plan from the wrapper
+// (kernels/quantize.py `dequantize_plan`).  Its bytes are mostly the
+// output's (four of f32 a code), so the stores set its time: on the
+// vector route a thread's 16 codes are 16 / G groups of G codes, one
+// 16-byte store of f32 (G = 4) or bf16 (G = 8) each, spread so that the
+// lanes of a warp store one contiguous span an instruction (a thread's 16
+// consecutive codes, one 16-byte load and four 16-byte stores 16 bytes
+// apart from its neighbours', wrote half sectors a store and measured
+// slower than the first K10 at f32, PERF.md).  Per channel a group's scales
+// and zero points come as 16-byte loads; per row, once a group.  Stores are
+// plain: evict-first ones past the L2 measured slower.  N % 16 or a base
+// off 16 bytes takes the element route: one (row, 16 columns) pair a
+// thread, element by element, the ragged end of a row masked.  Nothing is
+// padded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int THREADS = 256;
-constexpr int V = 4;                   // columns a thread
-constexpr unsigned MAX_GRID_Y = 65535;
+namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -76,13 +84,8 @@ __device__ __forceinline__ void dequant(int8_t q, float s, int z, __nv_bfloat16*
   *out = __float2bfloat16_rn(__fmul_rn(d, sb));
 }
 
-// V elements as one aligned vector of their type
-template <typename T>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-constexpr int Q_THREADS = 256;         // K9: threads a block at most
+constexpr int Q_THREADS = 256;         // K9, K10: threads a block at most
+constexpr int DQ = 16;                 // K10: codes a unit
 constexpr float MAGIC = 12582912.f;    // 1.5 * 2^23
 constexpr int BIAS = 0x4B400000;       // its bits
 
@@ -229,29 +232,77 @@ quantize_kernel(const T* __restrict__ x, const float* __restrict__ s,
   }
 }
 
-template <typename T, bool PER_CHANNEL, bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
-dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                  const int* __restrict__ z, T* __restrict__ y, long long M, int N) {
-  const int c0 = (blockIdx.x * THREADS + threadIdx.x) * V;
-  if (c0 >= N) return;
-  for (long long row = blockIdx.y; row < M; row += gridDim.y) {
-    const int8_t* qr = q + row * N;
-    T* yr = y + row * N;
-    if (VECTOR) {
-      const Pack<int8_t> in = *reinterpret_cast<const Pack<int8_t>*>(qr + c0);
-      Pack<T> out;
+// K10's vector and stream routes.  The rows are contiguous and N % 16 == 0,
+// so the codes are read as one flat array: a block owns 256 x 16
+// consecutive codes, as 16 / G groups a thread of G = 16 / sizeof(T) codes
+// (one 16-byte store of output each), group j of thread t at the block's
+// base + (j * 256 + t) * G: each load and each store instruction of a
+// warp covers one contiguous span.  A group lies in one row (G divides N):
+// its row is e / N (`cols`), its column e % N.
+template <typename T, bool PER_CHANNEL>
+__global__ void __launch_bounds__(Q_THREADS)
+dequantize_vector_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                         const int* __restrict__ z, T* __restrict__ y, long long total,
+                         Divisor cols) {
+  constexpr int G = 16 / sizeof(T), NG = DQ / G;
+  using Codes = typename std::conditional<G == 4, int, int2>::type;
+  const long long base = static_cast<long long>(blockIdx.x) * blockDim.x * DQ;
+  Codes codes[NG];
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const long long j = PER_CHANNEL ? c0 + i : row;
-        dequant(in.v[i], s[j], z[j], &out.v[i]);
+  for (int j = 0; j < NG; ++j) {
+    const long long e = base + (static_cast<long long>(j) * blockDim.x + threadIdx.x) * G;
+    if (e < total) {
+      const Codes* p = reinterpret_cast<const Codes*>(q + e);
+      codes[j] = __ldg(p);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const long long e = base + (static_cast<long long>(j) * blockDim.x + threadIdx.x) * G;
+    if (e >= total) break;
+    const long long row = divide(e, cols);
+    const int c0 = static_cast<int>(e - row * cols.d);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&codes[j]);
+    float sc[G];
+    int zc[G];
+    if (PER_CHANNEL) {
+#pragma unroll
+      for (int k = 0; k < G; k += 4) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(s + c0 + k));
+        const int4 b = __ldg(reinterpret_cast<const int4*>(z + c0 + k));
+        sc[k] = a.x, sc[k + 1] = a.y, sc[k + 2] = a.z, sc[k + 3] = a.w;
+        zc[k] = b.x, zc[k + 1] = b.y, zc[k + 2] = b.z, zc[k + 3] = b.w;
       }
-      *reinterpret_cast<Pack<T>*>(yr + c0) = out;
     } else {
-      for (int c = c0; c < min(c0 + V, N); ++c) {
-        const long long j = PER_CHANNEL ? c : row;
-        dequant(qr[c], s[j], z[j], &yr[c]);
-      }
+      const float sr = __ldg(s + row);
+      const int zr = __ldg(z + row);
+#pragma unroll
+      for (int i = 0; i < G; ++i) sc[i] = sr, zc[i] = zr;
+    }
+    alignas(16) T out[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) dequant(c[i], sc[i], zc[i], &out[i]);
+    *reinterpret_cast<uint4*>(y + e) = *reinterpret_cast<const uint4*>(out);
+  }
+}
+
+// K10's element route: one (row, 16 columns) pair a thread, units =
+// ceil(N / 16) pairs a row, element by element, the ragged end masked.
+template <typename T, bool PER_CHANNEL>
+__global__ void __launch_bounds__(Q_THREADS)
+dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                  const int* __restrict__ z, T* __restrict__ y, long long M, int N,
+                  Divisor units) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long row = divide(g, units);
+  if (row >= M) return;
+  const int c0 = static_cast<int>(g - row * units.d) * DQ;
+  const long long at = row * N + c0;
+#pragma unroll
+  for (int i = 0; i < DQ; ++i) {
+    if (c0 + i < N) {
+      const long long j = PER_CHANNEL ? c0 + i : row;
+      dequant(q[at + i], s[j], z[j], &y[at + i]);
     }
   }
 }
@@ -259,21 +310,6 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
-
-dim3 grid_of(long long M, int N) {
-  const unsigned gx = static_cast<unsigned>((N + THREADS * V - 1) / (THREADS * V));
-  const unsigned gy = static_cast<unsigned>(M < MAX_GRID_Y ? M : MAX_GRID_Y);
-  return dim3(gx, gy);
-}
-
-// One of the four (per channel, vector) instances of KERNEL<T, ...>.
-#define DISPATCH(KERNEL, T, PC, VEC, ...)                              \
-  do {                                                                          \
-    if (PC && VEC) KERNEL<T, true, true><<<grid, THREADS, 0, st>>>(__VA_ARGS__); \
-    else if (PC) KERNEL<T, true, false><<<grid, THREADS, 0, st>>>(__VA_ARGS__);  \
-    else if (VEC) KERNEL<T, false, true><<<grid, THREADS, 0, st>>>(__VA_ARGS__); \
-    else KERNEL<T, false, false><<<grid, THREADS, 0, st>>>(__VA_ARGS__);         \
-  } while (0)
 
 // route: 0 element, 1 vector, 2 wide (f32 per row only)
 template <typename T>
@@ -311,13 +347,34 @@ int launch_quantize(const void* x, const float* s, const int* z, int8_t* q, long
   return static_cast<int>(cudaGetLastError());
 }
 
+// route: 0 element, 1 vector
 template <typename T>
-void launch_dequantize(const int8_t* q, const float* s, const int* z, void* y,
-                       long long M, int N, bool per_channel, cudaStream_t st) {
-  const bool vec = N % V == 0 && aligned(q, V) && aligned(y, sizeof(T) * V);
-  const dim3 grid = grid_of(M, N);
+int launch_dequantize(const int8_t* q, const float* s, const int* z, void* y, long long M,
+                      int N, bool per_channel, int route, int threads, int grid,
+                      cudaStream_t st) {
+  if (route != 0 && (N % DQ != 0 || !aligned(q, 16) || !aligned(y, 16) ||
+                     (per_channel && (!aligned(s, 16) || !aligned(z, 16))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int units = (N + DQ - 1) / DQ;
+  if (static_cast<long long>(grid) * threads < M * units) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   T* yt = static_cast<T*>(y);
-  DISPATCH(dequantize_kernel, T, per_channel, vec, q, s, z, yt, M, N);
+  if (route == 1) {
+    const Divisor cols = make_divisor(N);
+    if (per_channel)
+      dequantize_vector_kernel<T, true><<<grid, threads, 0, st>>>(q, s, z, yt, M * N, cols);
+    else
+      dequantize_vector_kernel<T, false><<<grid, threads, 0, st>>>(q, s, z, yt, M * N, cols);
+  } else {
+    const Divisor div = make_divisor(units);
+    if (per_channel)
+      dequantize_kernel<T, true><<<grid, threads, 0, st>>>(q, s, z, yt, M, N, div);
+    else
+      dequantize_kernel<T, false><<<grid, threads, 0, st>>>(q, s, z, yt, M, N, div);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -348,19 +405,26 @@ extern "C" int quantize(const void* x, int dtype, const void* s, const void* z, 
                                         grid, st);
 }
 
-// out_dtype of y: 0 = float32, 1 = bfloat16; s/z as for quantize.
+// out_dtype of y: 0 = float32, 1 = bfloat16; s/z as for quantize.  The
+// route is the caller's: 0 element by element, 1 vector (16-byte stores);
+// 16 codes a thread, `threads` a block (32 to 256) and `grid` blocks
+// covering every code.
 extern "C" int dequantize(const void* q, const void* s, const void* z, void* y,
-                          int out_dtype, long long M, int N, int per_channel,
-                          void* stream) {
+                          int out_dtype, long long M, int N, int per_channel, int route,
+                          int threads, int grid, void* stream) {
   if (M <= 0 || N <= 0) return 0;
+  if (route < 0 || route > 1 || threads < 32 || threads > Q_THREADS || threads % 32 != 0 ||
+      grid <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sf = static_cast<const float*>(s);
   const int* zi = static_cast<const int*>(z);
   if (out_dtype == 0) {
-    launch_dequantize<float>(qi, sf, zi, y, M, N, per_channel != 0, st);
-  } else {
-    launch_dequantize<__nv_bfloat16>(qi, sf, zi, y, M, N, per_channel != 0, st);
+    return launch_dequantize<float>(qi, sf, zi, y, M, N, per_channel != 0, route, threads,
+                                    grid, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dequantize<__nv_bfloat16>(qi, sf, zi, y, M, N, per_channel != 0, route,
+                                          threads, grid, st);
 }

@@ -72,7 +72,7 @@ def _count_cells():
         yield c.__dict__, "entries"
         yield c.__dict__, "launches"
     for r in (*_mm.ROUTES.values(), *_kv.ROUTES.values(), *_as.ROUTES.values(),
-              *_qz.ROUTES.values(), _pro.MODES):
+              *_qz.ROUTES.values(), *_fd.ROUTES.values(), _pro.MODES):
         yield from ((r, k) for k in r)
 
 
@@ -103,14 +103,15 @@ def add_counts(delta) -> None:
 
 def persistent_buffers() -> list:
     """The kernels' device buffers that outlive a call (K2/K3's split-K
-    workspace, tickets and grid barrier; K4/K5's split workspace and
-    tickets).  A module replaces one when a later call needs it larger and
+    workspace, tickets and grid barrier; K4/K5's and the fallback's split
+    workspace and tickets).  A module replaces one when a later call needs it larger and
     drops the old one; a captured graph keeps this list, so the buffers it
     launches on are never freed under it (each is zero at rest, so the
     graph and eager calls may use different ones).  The guard's flag
     (``fp_dequant.flag_buffer``) is one of them."""
     return [*_mm._WS.values(), *_mm._TICKETS.values(), *_kv._WS.values(),
-            *_kv._TICKETS.values(), *_fd._FLAGS.values()]
+            *_kv._TICKETS.values(), *_fd._FLAGS.values(), *_fd._WS.values(),
+            *_fd._TICKETS.values()]
 
 
 def counts() -> dict[str, dict[str, int]]:
@@ -120,10 +121,13 @@ def counts() -> dict[str, dict[str, int]]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches per route of K2 and K3 (``wgmma``, ``generic``), of K4
-    and K5 (``split``, ``single``), of K8 (``vector``, ``element``) and of
-    K9 (``vector``, ``wide``, ``element``)."""
+    and K5 (``split``, ``single``), of K8 (``vector``, ``element``), of K9
+    (``vector``, ``wide``, ``element``), of K10 (``vector``, ``stream``,
+    ``element``) and of the guard's fallback (``wgmma``, ``fma``,
+    ``generic``)."""
     return {k: dict(r) for k, r in (*_mm.ROUTES.items(), *_kv.ROUTES.items(),
-                                    *_as.ROUTES.items(), *_qz.ROUTES.items())}
+                                    *_as.ROUTES.items(), *_qz.ROUTES.items(),
+                                    *_fd.ROUTES.items())}
 
 
 def prologue_modes() -> dict[str, int]:

@@ -5,9 +5,9 @@ K9 writes int8 codes ``clamp(round(x / s) + z, -128, 127)`` from f32/bf16
 values with a per-row or per-channel scale and zero point; K10 maps codes
 back, ``(q - z) * s`` in f32 or bf16.  Both are in ``csrc/quantize.cu``,
 whose note says what bounds them and which bf16 arithmetic K10 follows;
-``plan`` picks K9's route and grid from the shape, alignment and the
-card's L2.  The plain versions are ``ref.quantize_ref`` and
-``ref.dequantize_ref``.
+``plan`` and ``dequantize_plan`` pick K9's and K10's route and grid from
+the shape, alignment and the card's L2.  The plain versions are
+``ref.quantize_ref`` and ``ref.dequantize_ref``.
 """
 from __future__ import annotations
 
@@ -21,14 +21,16 @@ from . import _build, ref
 
 QUANTIZE_COUNT = _build.OpCount()      # K9
 DEQUANTIZE_COUNT = _build.OpCount()    # K10
-# K9's launches per route (``plan``)
-ROUTES = {"quantize": {"vector": 0, "wide": 0, "element": 0}}
+# K9's and K10's launches per route (``plan``, ``dequantize_plan``)
+ROUTES = {"quantize": {"vector": 0, "wide": 0, "element": 0},
+          "dequantize": {"vector": 0, "element": 0}}
 _ROUTE_CODE = {"element": 0, "vector": 1, "wide": 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-        "dequantize": [_P, _P, _P, _P, _I, _L, _I, _I, _P]}
+        "dequantize": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GRID = 2 ** 31 - 1                 # K9's blocks (a 1-D grid)
+MAX_GRID = 2 ** 31 - 1                 # K9's and K10's blocks (a 1-D grid)
+DQ_COLUMNS = 16                        # K10: codes a thread (one 16-byte load)
 
 quantize_plain = ref.quantize_ref
 dequantize_plain = ref.dequantize_ref
@@ -36,9 +38,10 @@ dequantize_plain = ref.dequantize_ref
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A K9 launch: ``route`` ("vector": one 16-byte load a thread,
+    """A K9 or K10 launch: ``route`` ("vector": one 16-byte load a thread,
     ``columns`` = 4 f32 or 8 bf16; "wide": 16 f32 columns a thread, four
-    16-byte loads; "element": element by element), ``units`` = ceil(N /
+    16-byte loads; "element": element by element; K10's routes in
+    ``dequantize_plan``), ``units`` = ceil(N /
     columns) pairs (row, columns) a row, one a thread, ``threads`` a block
     and ``grid`` blocks."""
     route: str
@@ -68,6 +71,21 @@ def plan(M: int, N: int, elem: int, per_channel: bool, aligned: bool,
     units = -(-N // cols)
     threads = 128 if per_channel and route == "vector" else 256
     return Plan(route, cols, units, threads, -(-M * units // threads))
+
+
+@functools.lru_cache(maxsize=1024)
+def dequantize_plan(M: int, N: int, out_elem: int, aligned: bool) -> Plan:
+    """K10's launch for q (M, N) into ``out_elem``-byte values; ``aligned``:
+    q, y and (per channel) s and z all start 16-byte aligned.  16 codes a
+    thread on a 1-D grid of 256-thread blocks (``units`` = N / 16 a row,
+    rounded up).  The vector route where the bases are aligned and N is a
+    multiple of 16, so that every row starts aligned: a block takes 4096
+    consecutive codes, a thread groups of 16 / ``out_elem`` codes 256
+    groups apart, one 16-byte store each; "element" takes the rest, one
+    (row, 16 columns) pair a thread, element by element."""
+    route = "vector" if aligned and N % DQ_COLUMNS == 0 else "element"
+    units = -(-N // DQ_COLUMNS)
+    return Plan(route, DQ_COLUMNS, units, 256, -(-M * units // 256))
 
 
 def _layout(a, s, z, what):
@@ -119,10 +137,16 @@ def dequantize_cuda(q, s, z, out_dtype=torch.float32):
                          f"to {out_dtype}")
     M, N, per_channel = _layout(q, s, z, "dequantize")
     y = torch.empty((M, N), dtype=out_dtype, device=q.device)
+    bases = (q, y, s, z) if per_channel else (q, y)
+    p = dequantize_plan(M, N, y.element_size(), all(t.data_ptr() % 16 == 0 for t in bases))
+    if p.grid > MAX_GRID:
+        raise ValueError(f"dequantize: {M} x {N} needs {p.grid} blocks (> {MAX_GRID})")
     lib = _build.library("quantize", _SIG)
     DEQUANTIZE_COUNT.launches += 1
+    ROUTES["dequantize"][p.route] += 1
     _build.check(lib.dequantize(q.data_ptr(), s.data_ptr(), z.data_ptr(), y.data_ptr(),
                                 _DTYPES[out_dtype], M, N, int(per_channel),
+                                _ROUTE_CODE[p.route], p.threads, p.grid,
                                 _build.stream_ptr(q.device)), "dequantize")
     return y
 

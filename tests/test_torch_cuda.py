@@ -911,14 +911,35 @@ def test_quantize_kernel_matches_plain(gen, M, N, per_channel, dtype, ties):
     assert torch.equal(qz.quantize_cuda(x, s, z), qz.quantize_plain(x, s, z))
 
 
+def _offset(t, by):
+    """``t``'s values in a contiguous tensor whose base lies ``by``
+    elements past a fresh allocation's (16-byte aligned) base."""
+    buf = torch.empty((t.numel() + by,), dtype=t.dtype, device=t.device)
+    out = buf[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_channel", [False, True])
-@pytest.mark.parametrize("M,N", _AFFINE_SHAPES)
-def test_dequantize_kernel_matches_plain(gen, M, N, per_channel, out_dtype):
+@pytest.mark.parametrize("M,N", _AFFINE_SHAPES + [(16, 2048), (65537, 48), (16384, 2048)])
+def test_dequantize_kernel_matches_plain(gen, M, N, per_channel, out_dtype, offset):
+    """Both routes (vector at N % 16 == 0 on aligned bases, element at
+    ragged N or an offset base of q or, per channel, of s and z; past the
+    old 65535-row grid and past the L2) equal to plain bit for bit, one
+    launch on the route the plan names."""
     _, s, z = _affine(gen, M, N, per_channel, False)
     q = torch.randint(-128, 128, (M, N), generator=gen, device="cuda", dtype=torch.int8)
+    if offset:
+        q = _offset(q, 1)
+        if per_channel:
+            s, z = _offset(s, 1), _offset(z, 2)
+    ops.reset_counts()
     assert _same_bits(qz.dequantize_cuda(q, s, z, out_dtype),
                       qz.dequantize_plain(q, s, z, out_dtype))
+    route = "element" if offset or N % 16 else "vector"
+    assert ops.route_counts()["dequantize"][route] == 1
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
@@ -1342,27 +1363,70 @@ def test_swiglu_counts_equal_plain(gen, M, K, N, route):
 # the predicated fp-dequant fallback
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(8, 2048, 6144), (5, 100, 70), (130, 5632, 2048),
-                                   (17, 33, 129)])
-def test_fp_dequant_fallback_taken_and_not(gen, M, K, N, dtype):
+# (M, K, N, x and y dtype, TP shard): bf16 decode rows 1-64 (swap-AB, n 8
+# to 64), 2048 prefill rows, stablelm-1.6b's four guarded projections (QKV,
+# wo, gate/up, w_down) at decode, a TP shard's shifted K-major base, the
+# generic route's ragged shapes and f32 x (the fma route)
+_FALLBACK_CASES = [
+    *[(M, K, N, dt, False) for dt in (torch.float32, torch.bfloat16)
+      for M, K, N in ((8, 2048, 6144), (5, 100, 70), (130, 5632, 2048), (17, 33, 129))],
+    *[(M, 2048, 6144, torch.bfloat16, False) for M in (1, 4, 16, 64)],
+    (2048, 2048, 6144, torch.bfloat16, False), (2048, 2048, 6144, torch.float32, False),
+    (8, 2048, 2048, torch.bfloat16, False), (8, 2048, 11264, torch.bfloat16, False),
+    (8, 5632, 2048, torch.bfloat16, False), (8, 5632, 2048, torch.float32, False),
+    (8, 2048, 6144, torch.bfloat16, True), (8, 5632, 2048, torch.bfloat16, True),
+    (2048, 2048, 6144, torch.bfloat16, True)]
+
+
+def _fallback_route(x, dtype, K):
+    if K % 16 or x.data_ptr() % 16:
+        return "generic"
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+@pytest.mark.parametrize("M,K,N,dtype,shard", _FALLBACK_CASES)
+def test_fp_dequant_fallback_taken_and_not(gen, M, K, N, dtype, shard):
+    """Not taken: y, the flag and the split-K workspace and tickets stay as
+    they were (zero at rest).  Taken: the route the operands call for, the
+    flag cleared and one fallback counted, the workspace and tickets back
+    at zero, two calls equal bit for bit, and y within the f32 sum's
+    rounding (f32) or one bf16 ulp (bf16) of the f32 product.  A shard is
+    the second half of a K-major weight's columns (a shifted base)."""
     from repro_torch.kernels import fp_dequant as fd
     x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-    w_q = mm.k_major(torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda",
-                                   generator=gen))
+    w_q = mm.k_major(torch.randint(-127, 128, (K, 2 * N if shard else N),
+                                   dtype=torch.int8, device="cuda", generator=gen))
+    if shard:
+        w_q = w_q[:, N:]
+        assert mm.is_k_major(w_q) and w_q.data_ptr() % 16 == 0
     scale = 0.001 + 0.01 * torch.rand((N,), generator=gen, device="cuda")
     y0 = torch.randn((M, N), generator=gen, device="cuda").to(dtype)
     flag = torch.zeros(2, dtype=torch.int32, device="cuda")
     tel = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+    def at_rest():
+        key = (torch.device("cuda", torch.cuda.current_device()), 0)
+        return (flag.tolist() == [0, 0]
+                and all(not bool(b[key].any()) for b in (fd._WS, fd._TICKETS) if key in b))
+
     y = y0.clone()
+    ops.reset_counts()
     fd.fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel)
-    assert torch.equal(y, y0) and flag.tolist() == [0, 0] and tel.tolist() == [0, 0, 0]
+    assert torch.equal(y, y0) and at_rest() and tel.tolist() == [0, 0, 0]
     flag[0] = 1
     fd.fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel)
-    assert flag.tolist() == [0, 0] and tel.tolist() == [1, 0, 0]
+    assert at_rest() and tel.tolist() == [1, 0, 0]
+    route = _fallback_route(x, dtype, K)
+    assert ops.route_counts()["fp_dequant"][route] == 2
+    again = y0.clone()
+    flag[0] = 1
+    fd.fp_dequant_fallback_cuda(again, x, w_q, scale, flag)
+    assert _same_bits(again, y) and at_rest()
     want = ref.fp_dequant_matmul(x, w_q, scale, torch.float32)
-    # f32 products summed in another order; bf16 out: the two f32 sums may
-    # round to neighbouring bf16 values, one ulp (2^-7 relative) apart
+    # f32 products summed in another order (bf16 x: each product exact on
+    # the tensor cores, the scale applied once to the sum); bf16 out: the
+    # two f32 sums may round to neighbouring bf16 values, one ulp (2^-7
+    # relative) apart
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     assert bool(((y.float() - want).abs() <= tol * want.abs() + 1e-5 * float(
         want.abs().max())).all())

@@ -1,14 +1,15 @@
-"""The launch plans of K8 (``act_stats.plan``) and K9 (``quantize.plan``),
-which run on the CPU: pure functions of shape, strides, alignment and the
-card's L2.  Each test walks the plan the way the kernel's loops do
-(csrc/act_stats.cu ``act_stats_kernel``: one block a row, thread t loading
-units t + i * threads, C of them at a time; csrc/quantize.cu
-``quantize_kernel``: thread g taking pair g of the row-major (row, columns)
-pairs) and checks that every row, and every unit or column of it, is
-visited exactly once, at ragged K and N, on gamma views and past the old
-65535-row grid; and that each route is taken only where the base, the row
-length, the strides and the size allow it.  On the CPU the wrappers take
-the plain versions and count no route.
+"""The launch plans of K8 (``act_stats.plan``), K9 (``quantize.plan``)
+and K10 (``quantize.dequantize_plan``), which run on the CPU: pure
+functions of shape, strides, alignment and the card's L2.  Each test walks
+the plan the way the kernel's loops do (csrc/act_stats.cu
+``act_stats_kernel``: one block a row, thread t loading units t + i *
+threads, C of them at a time; csrc/quantize.cu ``quantize_kernel`` and
+``dequantize_kernel``: thread g taking pair g of the row-major (row,
+columns) pairs) and checks that every row, and every unit or column of it,
+is visited exactly once, at ragged K and N, on gamma views and past the
+old 65535-row grid; and that each route is taken only where the base, the
+row length, the strides and the size allow it.  On the CPU the wrappers
+take the plain versions and count no route.
 """
 import numpy as np
 import pytest
@@ -175,6 +176,53 @@ def test_quantize_routes_only_where_every_row_allows_them():
     assert qz.plan(16384, 2048, 4, False, False, L2).route == "element"
 
 
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("M,N,elem", [(1, 1, 4), (8, 2048, 4), (2048, 2048, 2), (300, 290, 4),
+                                      (2048, 2049, 2), (70000, 32, 4), (65537, 33, 2),
+                                      (16384, 2048, 4)])
+def test_dequantize_plan_visits_every_element_once(M, N, elem, per_channel):
+    """K10's 16 codes a thread, one (row, 16 columns) pair a thread on a
+    1-D grid: past the old 65535-row grid and at ragged N, every (row,
+    column) exactly once, wasting less than one block."""
+    p = qz.dequantize_plan(M, N, elem, True)
+    assert p.columns == 16 and p.threads == 256 and p.grid <= qz.MAX_GRID
+    assert p.units * p.columns >= N > (p.units - 1) * p.columns
+    assert (p.grid - 1) * p.threads < M * p.units <= p.grid * p.threads
+    if M * N <= 2 ** 22:
+        assert (_k10_visits(p, M, N, elem) == 1).all()
+
+
+def _k10_visits(p, M, N, elem):
+    """How often K10's threads write each (row, column).  Vector route:
+    block b's group j of thread t starts at flat code b * 4096 +
+    (j * 256 + t) * G, G = 16 / elem codes, and lies in one row; element
+    route: K9's (row, 16 columns) pairs."""
+    if p.route == "element":
+        return _k9_visits(p, M, N)
+    G = 16 // elem
+    assert N % G == 0
+    b = np.arange(p.grid)[:, None, None]
+    j = np.arange(16 // G)[None, :, None]
+    t = np.arange(p.threads)[None, None, :]
+    e = (b * p.threads * 16 + (j * p.threads + t) * G).ravel()
+    e = e[e < M * N]
+    assert ((e % N) + G <= N).all()
+    seen = np.zeros(M * N, np.int64)
+    np.add.at(seen, (e[:, None] + np.arange(G)[None, :]).ravel(), 1)
+    return seen.reshape(M, N)
+
+
+def test_dequantize_routes_only_where_every_row_allows_them():
+    """The vector route needs aligned bases and N % 16 == 0 (each row then
+    starts aligned), at any size; the element route takes the rest."""
+    assert qz.dequantize_plan(2048, 2048, 4, True) == qz.Plan("vector", 16, 128, 256, 1024)
+    for M, elem in ((2048, 2), (16384, 4), (16384, 2), (70000, 4)):
+        assert qz.dequantize_plan(M, 2048, elem, True).route == "vector"
+    for N in (8, 290, 2049, 2056):
+        assert qz.dequantize_plan(64, N, 4, True).route == "element"
+    assert qz.dequantize_plan(2048, 2048, 4, False).route == "element"
+
+
 def _multiply_shift(d):
     """csrc/act_stats.cu make_rows and csrc/quantize.cu make_divisor."""
     shift = 31
@@ -208,4 +256,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_route():
     rc = ops.route_counts()
     assert rc["act_stats"] == {"vector": 0, "element": 0}
     assert rc["quantize"] == {"vector": 0, "wide": 0, "element": 0}
+    assert torch.equal(qz.dequantize(qz.quantize(x, s, z), s, z),
+                       qz.dequantize_plain(qz.quantize_plain(x, s, z), s, z))
+    assert ops.route_counts()["dequantize"] == {"vector": 0, "element": 0}
     assert ops.counts()["act_stats"]["launches"] == ops.counts()["quantize"]["launches"] == 0

@@ -2,10 +2,11 @@
 """How K8 (act_stats, csrc/act_stats.cu), K9 (quantize) and K10
 (dequantize, both csrc/quantize.cu) spend their time at stablelm-1.6b's
 width, at path E's rows (8 and 2048; K8 also at w_down's 5632 columns)
-and at a streaming size (16384 rows: 128 MiB of f32, past the 50 MB L2),
-with K10 as a control.  Beside each, a PyTorch kernel that moves the same
-bytes and does next to nothing else: ``x.sum(-1)`` for K8 (the same reads),
-``x.to(int8)`` for K9 (the same reads and writes), ``q.to(dtype)`` for K10.
+and at a streaming size (16384 rows: 128 MiB of f32, past the 50 MB L2);
+K10 at 2048 and 16384 rows, per row and per channel, to f32 and bf16.
+Beside each, a PyTorch kernel that moves the same bytes and does next to
+nothing else: ``x.sum(-1)`` for K8 (the same reads), ``x.to(int8)`` for
+K9 (the same reads and writes), ``q.to(dtype)`` for K10.
 
 Four times each, in µs:
   flush        the CUDA-event median of 30 launches, each after a 64 MB
@@ -127,7 +128,7 @@ def main(argv=None) -> int:
         del x
     del stats
 
-    # K9 per row and per channel, f32 and bf16; K10 f32 per row as the control
+    # K9 per row and per channel, f32 and bf16; K10 of K9's codes back to x's type
     for M in ROWS:
         for dt in (torch.float32, torch.bfloat16):
             for pc in (False, True):
@@ -141,11 +142,15 @@ def main(argv=None) -> int:
                 nbytes = M * K * (x.element_size() + 1)
                 line(f"K9 quantize {label}", lambda: qz.quantize_cuda(x, s, z), nbytes + 8 * n)
                 line(f"   x.to(int8) {label}", lambda: x.to(torch.int8), nbytes)
-                if dt == torch.float32 and not pc and M > 8:
+                if M > 8:
+                    # K10 back to the type K9 was given, on the route its plan takes
                     q = qz.quantize_cuda(x, s, z)
-                    line(f"K10 dequantize {label}", lambda: qz.dequantize_cuda(q, s, z),
-                         nbytes + 8 * n)
-                    line(f"   q.to(float32) {label}", lambda: q.to(torch.float32), nbytes)
+                    plan = getattr(qz, "dequantize_plan", None)   # None: a checkout before it
+                    route = "one route" if plan is None else plan(
+                        M, K, x.element_size(), True).route
+                    line(f"K10 dequantize {label} ({route})",
+                         lambda: qz.dequantize_cuda(q, s, z, dt), nbytes + 8 * n)
+                    line(f"   q.to({str(dt)[6:]}) {label}", lambda: q.to(dt), nbytes)
                     del q
                 del x
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
