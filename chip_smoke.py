@@ -222,6 +222,23 @@ device="cuda")), and one path of ops-level calls on stablelm's weights
      reported; s/step, the collectives' share of it (each collective timed
      between two synchronizations), host bytes staged a step, peak GiB a
      rank.  Both reach no hand kernel (every count 0).
+  DR the dry run (``repro_torch.launch.dryrun``: rank 0's program traced
+     under FakeTensorMode over fake cards, allocating nothing) in
+     DR_GROUPS child processes (``--dryrun-child``, niced, no card visible)
+     started after the build, so that their CPU time runs beside the card's
+     phases: T's cell (stablelm-1.6b, 8 x 1024, remat "full", one card),
+     A's decode step (PDQ-int8, int8 KV, 8 slots, max_len 512), TMF's cell
+     (2x2), and one full-size cell of each kind on the 16x16 production
+     mesh: yi-6b's train_4k and decode_32k, and mamba2-2.7b's prefill_32k
+     (an attention layer's prefill_32k traces 2048 score tiles, ~50 s a
+     layer of CPU time: yi-6b's would take ~half an hour, past this run's
+     limit).  Gates, after TMF: every cell ``ok``; A's ``kernels``
+     census equal to the entries of one eager step of A's engine; TMF's
+     collective bytes by kind and by group equal, exactly, to what
+     ``hlo_analysis.collective_counter`` reads around each of rank 0's real
+     TMF steps (the host bytes gloo stages beside them).  T's predicted
+     ``peak_bytes`` is printed beside T's measured
+     ``torch.cuda.max_memory_allocated`` and their ratio.
 
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
@@ -2986,6 +3003,15 @@ def phase_step(eng, path, serve_step_ms, pos=STEP_POS):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / STEP_RUNS
 
+    eager_entries = None
+    if path == "A":             # DR's census: one eager step's entries
+        from repro_torch.kernels import ops
+        before, c0 = ops.count_state(), ops.counts()
+        variants["eager"]()
+        c1 = ops.counts()
+        ops.set_counts(before)
+        eager_entries = {k: c1[k]["entries"] - c0[k]["entries"] for k in c1
+                         if c1[k]["entries"] != c0[k]["entries"]}
     for fn in variants.values():
         fn()
     walls = {k: [] for k in variants}
@@ -2994,6 +3020,8 @@ def phase_step(eng, path, serve_step_ms, pos=STEP_POS):
         for name in (order if i % 2 == 0 else order[::-1]):
             walls[name].append(window(variants[name]))
     out = dict(serve_step_ms=serve_step_ms)
+    if eager_entries is not None:
+        out["eager_entries"] = eager_entries
     for name, fn in variants.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3967,9 +3995,23 @@ TM_MESH = (2, 2)
 TM_SEQ, TM_BATCH, TM_STEPS = 32, 4, 2
 TM_OUTLIERS = 1e-3            # share of param elements past TR_TOL
 TM_CKPT_ARCH = "stablelm-1.6b"
-TMF_SEQ, TMF_BATCH, TMF_STEPS = 1024, 4, 6
+TMF_SEQ, TMF_BATCH, TMF_STEPS = 1024, 4, 4   # ~12.5 s a step: the run's time limit
 TMF_LOSS_RTOL = 1e-3          # step 1: the same batch and params, sums in another order
 TM_TIMEOUT = 600              # seconds the four children may take, startup included
+# DR: each cell (arch, shape - a SHAPES name or ShapeSpec fields -, variant,
+# mesh or None for the 16x16 production mesh), and the child processes that
+# trace them, the longest alone
+DR_CELLS = {
+    "T": (T_ARCH, ("T", "train", T_SEQ, T_BATCH), "baseline", (1, 1)),
+    "A": ("stablelm-1.6b", ("A", "decode", 512, 8), "opt", (1, 1)),
+    "TMF": (T_ARCH, ("TMF", "train", TMF_SEQ, TMF_BATCH), "baseline", TM_MESH),
+    "yi-6b train_4k": ("yi-6b", "train_4k", "baseline", None),
+    "mamba2-2.7b prefill_32k": ("mamba2-2.7b", "prefill_32k", "baseline", None),
+    "yi-6b decode_32k": ("yi-6b", "decode_32k", "baseline", None),
+}
+DR_GROUPS = (("yi-6b train_4k",), ("mamba2-2.7b prefill_32k", "yi-6b decode_32k"),
+             ("T", "A", "TMF"))
+DR_TIMEOUT = 1000             # seconds the children may take from their start
 
 
 # ------------------------------------------------------------------ mesh paths
@@ -5256,6 +5298,7 @@ def tmf_phase(rank, mesh, timer):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import hlo_analysis
     from repro_torch.models import build_model
     from repro_torch.models import context as mctx
     from repro_torch.optim import AdamWConfig
@@ -5293,15 +5336,19 @@ def tmf_phase(rank, mesh, timer):
     step = build_train_step(b, opt, mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    res = dict(loss=[], s=[], coll_s=[], coll_calls=[], host_bytes=[])
+    res = dict(loss=[], s=[], coll_s=[], coll_calls=[], host_bytes=[], coll_bytes=[],
+               coll_groups=[])
     with deterministic("cuda"):
         for x in batches:
             coll.barrier(world)
             timer.s, timer.calls, timer.host_bytes, timer.on = 0.0, 0, 0, True
             t0 = time.perf_counter()
-            st, m = step(st, x)
-            torch.cuda.synchronize()
+            with hlo_analysis.collective_counter(ctx.groups) as moved:
+                st, m = step(st, x)
+                torch.cuda.synchronize()
             res["s"].append(time.perf_counter() - t0)
+            res["coll_bytes"].append(moved.collective_bytes)
+            res["coll_groups"].append(moved.group_bytes)
             timer.on = False
             res["loss"].append(float(m["loss"]))
             res["coll_s"].append(timer.s)
@@ -5328,6 +5375,8 @@ def tmf_phase(rank, mesh, timer):
                coll_s_median=c_med, coll_share=[c / s for c, s in zip(c_med, s_med)],
                coll_calls=allr[0]["coll_calls"],
                host_bytes_per_step=[r["host_bytes"][-1] for r in allr],
+               coll_bytes_per_step=allr[0]["coll_bytes"],
+               coll_groups_per_step=allr[0]["coll_groups"],
                peak_gib=[r["peak_gib"] for r in allr], init_s=[r["init_s"] for r in allr],
                one_s_per_step=one["s"], one_peak_gib=one["peak_gib"],
                tokens_per_s=TMF_BATCH * TMF_SEQ / max(s_med))
@@ -5443,6 +5492,105 @@ def phase_train_mesh():
     return res
 
 
+# ------------------------------------------------------------------ path DR
+def dr_child(out: str, names) -> int:
+    """Trace the DR cells ``names`` (``--dryrun-child``) and write their
+    records to ``out``; no card is visible to it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import ShapeSpec
+    res = {}
+    for name in names:
+        arch, shape, variant, mesh = DR_CELLS[name]
+        sp = ShapeSpec(*shape) if isinstance(shape, tuple) else shape
+        res[name] = dryrun.run_cell(arch, sp, variant=variant, mesh=mesh)
+    Path(out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def start_dryrun():
+    """Start DR's children, niced and with no card visible; each writes
+    chiprun_out/chip_smoke_dr<i>.json and its log beside it."""
+    import atexit
+    import os
+    OUT_DIR.mkdir(exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, names in enumerate(DR_GROUPS):
+        out = OUT_DIR / f"chip_smoke_dr{i}.json"
+        out.unlink(missing_ok=True)
+        logf = open(OUT_DIR / f"chip_smoke_dr{i}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-child", str(out), *names],
+            env=env, stdout=logf, stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10)),
+            out, logf))
+
+    def stop():                 # a run that fails first leaves none behind
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return time.perf_counter(), procs
+
+
+def phase_dryrun(started, serve, training):
+    """DR's gates (see the module docstring) on its children's records."""
+    import torch
+    t0, procs = started
+    try:
+        for p, _, _ in procs:
+            left = DR_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeError(f"DR: the children outlived {DR_TIMEOUT} s") from None
+    finally:
+        for p, _, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    recs = {}
+    for p, out, _ in procs:
+        need(p.returncode == 0 and out.exists(), f"DR: a child exited {p.returncode}: "
+             f"{out.with_suffix('.log').read_text()[-3000:]}")
+        recs.update(json.loads(out.read_text()))
+    need(sorted(recs) == sorted(DR_CELLS) and all(r["status"] == "ok" for r in recs.values()),
+         f"DR: {[(k, r['status'], r.get('error')) for k, r in recs.items()]}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    # A: the traced step's census against one eager step of A's engine
+    want = serve["A"][0]["step"]["eager_entries"]
+    need(recs["A"]["kernels"] == want,
+         f"DR: A's traced census {recs['A']['kernels']} against its eager step's {want}")
+    # TMF: the traced bytes against every real step's on rank 0
+    tmf = training["mesh"]["TMF"]
+    for k, (by_kind, by_group) in enumerate(zip(tmf["coll_bytes_per_step"],
+                                                tmf["coll_groups_per_step"])):
+        need(recs["TMF"]["scaled_collectives"] == {n: float(v) for n, v in by_kind.items()}
+             and recs["TMF"]["collectives_by_group"] == by_group,
+             f"DR: TMF's traced collective bytes {recs['TMF']['collectives_by_group']} "
+             f"against rank 0's step {k + 1}: {by_group}")
+    t_measured = training["T"]["peak_gib"] * 2**30
+    row = dict(
+        T=dict(predicted_peak_bytes=recs["T"]["peak_bytes"],
+               measured_peak_bytes=t_measured,
+               predicted_over_measured=recs["T"]["peak_bytes"] / t_measured,
+               argument_bytes=recs["T"]["memory"]["argument_bytes"],
+               measured_opt_state_bytes=training["T"]["opt_state_bytes"]),
+        A=dict(census=recs["A"]["kernels"], eager_entries=want),
+        TMF=dict(collectives=recs["TMF"]["collectives"],
+                 by_group=recs["TMF"]["collectives_by_group"],
+                 host_bytes_per_step=tmf["host_bytes_per_step"]),
+        cells={k: dict(trace_s=r["trace_s"], flops=r["flops"], peak_bytes=r["peak_bytes"],
+                       fits=r["peak_bytes"] <= card, card_bytes=card,
+                       collectives=r["collectives"], memory=r["memory"], kernels=r["kernels"])
+               for k, r in recs.items()},
+        wall_s=time.perf_counter() - t0)
+    log(f"DR: {json.dumps(row)}")
+    return row
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5455,7 +5603,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", nargs=3, help=argparse.SUPPRESS)
     ap.add_argument("--train-mesh-child", nargs=3, help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", nargs="+", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dryrun_child:
+        return dr_child(args.dryrun_child[0], args.dryrun_child[1:])
     if args.train_child:
         return train_child()
     if args.train_mesh_child:
@@ -5480,6 +5631,8 @@ def main(argv=None) -> int:
 
     with timed("build"):
         phase_build()
+    # path DR: CPU work in child processes, beside every later phase
+    dr_started = start_dryrun()
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -5608,6 +5761,9 @@ def main(argv=None) -> int:
     # paths TM, TMF: the sharded train step over a 2x2 mesh of four processes
     with timed("train mesh"):
         training["mesh"] = phase_train_mesh()
+    # path DR: the dry run's cells against T's, A's and TMF's measurements
+    with timed("dryrun"):
+        dryrun = phase_dryrun(dr_started, serve, training)
 
     replaces = {
         "act_stats": "src/repro/kernels/act_stats.py:33",
@@ -5676,7 +5832,7 @@ def main(argv=None) -> int:
         dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
              kernels=kernels, kernel_shapes=detail, serve=serve,
              parity_max_logit_diff=parity, unfused=unfused, cnn=cnn_track,
-             train=training, phase_s=PHASE_S), indent=1,
+             train=training, dryrun=dryrun, phase_s=PHASE_S), indent=1,
         default=str))
     log(json.dumps({"kernel_shapes": detail}))
     print(json.dumps({"kernels": kernels}))

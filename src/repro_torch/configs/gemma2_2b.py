@@ -12,4 +12,5 @@ CONFIG = ArchConfig(
     d_ff=9216, vocab=256000, head_dim=256,
     pattern=("local", "global"), window=4096,
     attn_softcap=50.0, logit_softcap=30.0, embed_scale=True,
+    long_context=True,
 )

@@ -12,4 +12,5 @@ CONFIG = ArchConfig(
     d_ff=15360, vocab=262144, head_dim=256,
     pattern=("local", "local", "local", "local", "local", "global"),
     window=1024, embed_scale=True, rope_theta=1_000_000.0,
+    long_context=True,
 )

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     pattern=("mamba",),
     ssm=SSMConfig(d_model=2560, d_state=128, head_dim=64, expand=2, d_conv=4,
                   chunk=256),
+    long_context=True,
 )

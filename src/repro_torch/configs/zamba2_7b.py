@@ -17,4 +17,5 @@ CONFIG = ArchConfig(
     tail=("mamba", "mamba", "mamba"),
     ssm=SSMConfig(d_model=3584, d_state=64, head_dim=64, expand=2, d_conv=4,
                   chunk=256),
+    long_context=True,
 )

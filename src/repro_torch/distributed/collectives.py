@@ -21,6 +21,14 @@ runs them under ``shard_map``):
   * ``mean_over`` - the mean of a scalar over a group whose backward hands
     the grad on times ``share``.
 
+Each entry point that moves data (``all_gather``, ``all_reduce``,
+``all_to_all``, ``gather_to``, ``all_reduce_``, ``all_gather_blocks``)
+hands its kind, group and bytes to every registered tap (``TAPS``;
+``launch/hlo_analysis.collective_counter``), by the reference's byte model
+(``repro/launch/dryrun.collective_bytes``): an all-reduce counts twice its
+shape, an all-gather (and ``gather_to``, a gather) its whole result, an
+all-to-all its result.  A group of one moves nothing and counts nothing.
+
 ``compressed_psum`` is the reference's int8 all-reduce with predicted
 scales and error feedback.  Scheme:
   1. residual-corrected gradient g' = g + e (error feedback carry);
@@ -46,6 +54,19 @@ _CHUNK = 1024
 _GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+# the registered byte taps: each is called (kind, group, bytes)
+TAPS: list = []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(kind: str, group, nbytes: int) -> None:
+    for tap in TAPS:
+        tap(kind, group, nbytes)
+
+
 def size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
@@ -67,6 +88,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = size(group)
     if n == 1:
         return x
+    _count("all-gather", group, n * _nbytes(x))
     src = _host(x.movedim(dim, 0).contiguous(), group)
     out = src.new_empty((n * src.shape[0], *src.shape[1:]))
     _GATHER(out, src, group=group)
@@ -77,6 +99,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``x`` summed (or its max) over the group."""
     if size(group) == 1:
         return x
+    _count("all-reduce", group, 2 * _nbytes(x))
     buf = _host(x, group)
     if buf is x:
         buf = x.clone()
@@ -91,6 +114,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     n = size(group)
     if n == 1:
         return x
+    _count("all-to-all", group, _nbytes(x))
     src = _host(x, group)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
@@ -103,6 +127,7 @@ def gather_to(x: torch.Tensor, group) -> list[torch.Tensor] | None:
     n = size(group)
     if n == 1:
         return [x.detach().cpu()]
+    _count("gather", group, n * _nbytes(x))
     x = x.detach()
     if dist.get_backend(group) == "nccl":
         outs = [torch.empty_like(x) for _ in range(n)]
@@ -138,6 +163,7 @@ def all_reduce_(tensors: list[torch.Tensor], group) -> None:
     collective over a flat buffer."""
     if size(group) == 1 or not tensors:
         return
+    _count("all-reduce", group, 2 * sum(_nbytes(t) for t in tensors))
     buf = _flat_buffer(tensors, group)
     dist.all_reduce(buf, group=group)
     off = 0
@@ -146,22 +172,21 @@ def all_reduce_(tensors: list[torch.Tensor], group) -> None:
         off += t.numel()
 
 
-def all_gather_blocks(tensors: list[torch.Tensor], group) -> list[list[torch.Tensor]]:
+def all_gather_blocks(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     """Every rank's ``tensors`` (one dtype, the same shapes on every rank),
-    as one collective: [rank][i] is rank's i-th tensor, a view into the
-    gathered buffer (on the host when the backend stages)."""
+    as one collective: [i] is every rank's i-th tensor, (group size,
+    *shape) in group order, a view into the gathered buffer (on the host
+    when the backend stages)."""
     if size(group) == 1:
-        return [list(tensors)]
+        return [t[None] for t in tensors]
+    _count("all-gather", group, size(group) * sum(_nbytes(t) for t in tensors))
     src = _flat_buffer(tensors, group)
     out = src.new_empty((size(group), src.numel()))
     _GATHER(out.view(-1), src, group=group)
-    res = []
-    for r in range(size(group)):
-        off, mine = 0, []
-        for t in tensors:
-            mine.append(out[r, off:off + t.numel()].view(t.shape))
-            off += t.numel()
-        res.append(mine)
+    res, off = [], 0
+    for t in tensors:
+        res.append(out[:, off:off + t.numel()].unflatten(1, t.shape))
+        off += t.numel()
     return res
 
 

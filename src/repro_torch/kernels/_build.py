@@ -147,6 +147,18 @@ def buffer_key(device):
     return torch.device(device), _SET
 
 
+def plain_here(t) -> bool:
+    """Whether a kernel's selector takes its plain version for ``t``: a
+    CPU tensor, or a fake one (``torch._subclasses.fake_tensor``, the dry
+    run's stand-in for a tensor on a card: shape, dtype and device, no
+    data), which the plain version only carries through shapes and
+    dtypes.  A real CUDA tensor never takes it."""
+    if t.device.type == "cpu":
+        return True
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def require_cuda(*tensors) -> None:
     """A kernel wrapper's device check: the tensors it launches on are
     CUDA tensors on one device (``None`` stands for an operand the kernel

@@ -107,8 +107,8 @@ def act_stats_cuda(x: torch.Tensor):
 
 
 def act_stats(x: torch.Tensor):
-    """(s1, s2) of x's rows: the plain version for a CPU tensor, the CUDA
-    kernel otherwise."""
-    if x.device.type == "cpu":
+    """(s1, s2) of x's rows: the plain version for a CPU or a fake tensor
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(x):
         return act_stats_plain(x)
     return act_stats_cuda(x)

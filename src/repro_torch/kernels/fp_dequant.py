@@ -222,8 +222,13 @@ def fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel=None):
 
 
 def fp_dequant_fallback(y, x, w_q, scale, flag, tel=None):
-    """The fallback on its operands: plain version for CPU tensors, the
-    CUDA kernel otherwise."""
+    """The fallback on its operands: plain version for CPU or fake tensors
+    (``_build.plain_here``), the CUDA kernel otherwise.  A dry run's fake
+    flag has no value to read: its trace takes the plain version's branch
+    not taken (y kept, the flag cleared), a clean run's."""
     if x.device.type == "cpu":
         return fp_dequant_fallback_plain(y, x, w_q, scale, flag, tel)
+    if _build.plain_here(x):
+        flag[0] = 0
+        return y
     return fp_dequant_fallback_cuda(y, x, w_q, scale, flag, tel)

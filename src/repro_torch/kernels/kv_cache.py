@@ -333,9 +333,9 @@ def cache_move_plain(moves, count=None) -> None:
 
 
 def cache_move(moves, count: _build.OpCount = PAGES_COUNT) -> None:
-    """One movement: the plain version when the leaves lie on the CPU, the
-    CUDA kernel otherwise."""
-    if moves[0].dst.device.type == "cpu":
+    """One movement: the plain version when the leaves lie on the CPU or
+    are fake (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(moves[0].dst):
         return cache_move_plain(moves, count)
     return cache_move_cuda(moves, count)
 
@@ -357,9 +357,9 @@ def cache_scatter_cuda(dst: torch.Tensor, src: torch.Tensor,
 
 
 def cache_scatter(dst, src, src_map):
-    """Row scatter into ``dst`` in place: the plain version for CPU
-    tensors, the CUDA kernel otherwise."""
-    if dst.device.type == "cpu":
+    """Row scatter into ``dst`` in place: the plain version for CPU or
+    fake tensors (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(dst):
         return cache_scatter_plain(dst, src, src_map)
     return cache_scatter_cuda(dst, src, src_map)
 
@@ -376,9 +376,9 @@ def cache_scatter_pages_cuda(dst, src, page_map, seq_axis=None, page=None,
 
 def cache_scatter_pages(dst, src, page_map, seq_axis=None, page=None,
                         batch_axis: int = 0, host_map=None):
-    """K7 on one leaf: the plain version for CPU tensors, the CUDA kernel
-    otherwise."""
-    if dst.device.type == "cpu":
+    """K7 on one leaf: the plain version for CPU or fake tensors
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(dst):
         return cache_scatter_pages_plain(dst, src, page_map, seq_axis, page, batch_axis)
     return cache_scatter_pages_cuda(dst, src, page_map, seq_axis, page, batch_axis,
                                     host_map)
@@ -574,14 +574,16 @@ def decode_attend_i8kv_fused_cuda(q, k_q, v_q, k_scale, v_scale, length,
 
 
 def decode_attend_i8kv(q, k_q, v_q, k_scale, v_scale, length):
-    """K4: the plain version for CPU tensors, the CUDA kernel otherwise."""
-    if q.device.type == "cpu":
+    """K4: the plain version for CPU or fake tensors
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(q):
         return decode_attend_i8kv_plain(q, k_q, v_q, k_scale, v_scale, length)
     return decode_attend_i8kv_cuda(q, k_q, v_q, k_scale, v_scale, length)
 
 
 def decode_attend_i8kv_fused(q, k_q, v_q, k_scale, v_scale, length, pro_dtype=None):
-    """K5: the plain version for CPU tensors, the CUDA kernel otherwise."""
-    fn = (decode_attend_i8kv_fused_plain if q.device.type == "cpu"
+    """K5: the plain version for CPU or fake tensors
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    fn = (decode_attend_i8kv_fused_plain if _build.plain_here(q)
           else decode_attend_i8kv_fused_cuda)
     return fn(q, k_q, v_q, k_scale, v_scale, length, pro_dtype)

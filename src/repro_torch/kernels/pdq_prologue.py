@@ -130,8 +130,8 @@ def pdq_prologue_cuda(x: torch.Tensor, norm=None, interval=None, *,
 
 def pdq_prologue(x: torch.Tensor, norm=None, interval=None, *,
                  return_normed: bool = False):
-    """K1 on x (M, K): the plain version for a CPU tensor, the CUDA kernel
-    otherwise."""
-    if x.device.type == "cpu":
+    """K1 on x (M, K): the plain version for a CPU or a fake tensor
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(x):
         return pdq_prologue_plain(x, norm, interval, return_normed)
     return pdq_prologue_cuda(x, norm, interval, return_normed=return_normed)

@@ -152,14 +152,16 @@ def dequantize_cuda(q, s, z, out_dtype=torch.float32):
 
 
 def quantize(x, s, z):
-    """K9: the plain version for a CPU tensor, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
+    """K9: the plain version for a CPU or a fake tensor
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(x):
         return quantize_plain(x, s, z)
     return quantize_cuda(x, s, z)
 
 
 def dequantize(q, s, z, out_dtype=torch.float32):
-    """K10: the plain version for a CPU tensor, the CUDA kernel otherwise."""
-    if q.device.type == "cpu":
+    """K10: the plain version for a CPU or a fake tensor
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    if _build.plain_here(q):
         return dequantize_plain(q, s, z, out_dtype)
     return dequantize_cuda(q, s, z, out_dtype)

@@ -311,9 +311,9 @@ def w8a8_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, s_out=None, z_out=None,
 
 
 def w8a8_matmul(*args, out_dtype=torch.float32, tel=None, flag=None, out=None):
-    """K2 on its normalized operands: plain version for CPU tensors, the
-    CUDA kernel otherwise."""
-    fn = w8a8_matmul_plain if args[0].device.type == "cpu" else w8a8_matmul_cuda
+    """K2 on its normalized operands: plain version for CPU or fake tensors
+    (``_build.plain_here``), the CUDA kernel otherwise."""
+    fn = w8a8_matmul_plain if _build.plain_here(args[0]) else w8a8_matmul_cuda
     return fn(*args, out_dtype=out_dtype, tel=tel, flag=flag, out=out)
 
 
@@ -392,7 +392,8 @@ def w8a8_swiglu_matmul_cuda(x_q, w_q, s_x, z_x, s_w, colsum, lo, hi, *, route=No
 
 
 def w8a8_swiglu_matmul(*args, tel=None):
-    """K3: plain version for CPU tensors, the CUDA kernel otherwise."""
-    if args[0].device.type == "cpu":
+    """K3: plain version for CPU or fake tensors (``_build.plain_here``),
+    the CUDA kernel otherwise."""
+    if _build.plain_here(args[0]):
         return w8a8_swiglu_matmul_plain(*args, tel=tel)
     return w8a8_swiglu_matmul_cuda(*args, tel=tel)

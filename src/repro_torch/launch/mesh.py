@@ -22,10 +22,13 @@ backend comes from the mesh (``train_backend``): NCCL where every entry is
 its own card, gloo otherwise - every CPU mesh, and several ranks on one
 card, which NCCL refuses.
 
-The reference's ``make_production_mesh``, ``bootstrap_mesh_env`` and
-``strip_forced_device_count`` set up XLA devices and have no torch
-counterpart, nor do the helpers that only they or the unported dry run and
-roofline tools call, ``mesh_arg`` and ``mesh_info`` (ROADMAP.md).
+``make_production_mesh`` is the reference's production mesh for the dry
+run (``launch/dryrun.py``): 16 x 16 = 256 cards, or two such pods (512),
+whose ``pod`` axis folds into ``data`` here; its entries are fake cards
+(``fake_mesh``), which only the dry run's ``FakeTensorMode`` holds tensors
+on, and ``mesh_info`` reports the reference's axes.  The reference's
+``bootstrap_mesh_env``, ``strip_forced_device_count`` and ``mesh_arg``
+size XLA's forced host devices and have no torch counterpart.
 """
 from __future__ import annotations
 
@@ -51,6 +54,13 @@ class Mesh:
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FakeMesh(Mesh):
+    """The dry run's mesh (``fake_mesh``): ``pods`` pods folded into its
+    data axis."""
+    pods: int = 1
 
 
 def parse_mesh(spec: str) -> tuple[int, int]:
@@ -164,6 +174,48 @@ def make_host_mesh(data: int, model: int, devices=None) -> Mesh:
     return Mesh(devs.reshape(data, model), np.arange(n).reshape(data, model))
 
 
+POD = (16, 16)      # the reference's production pod: data x model cards
+
+
+def fake_mesh(data: int, model: int, pods: int = 1) -> FakeMesh:
+    """A (data, model) mesh of one process an entry, rank ``d * model +
+    m``, for the dry run (``launch/dryrun.py``, whose ``FakeTensorMode`` and
+    fake process group stand in for the cards and processes; no other code
+    runs on it).  Entry (d, m) is fake card ``meta:<m>``: a ``meta`` device
+    of its own index, which fake tensors keep apart from the others and
+    which, unlike a fake ``cuda`` device, takes autograd and indexing (they
+    need a device guard that a process without the card, or without CUDA,
+    cannot take).  A row's cards are distinct; the rows reuse them (a device
+    index is at most 127), as a trace runs one entry's or one row's program.
+    ``pods``: how many pods the data axis folds in."""
+    import torch
+    devs = np.empty(data * model, dtype=object)
+    devs[:] = [torch.device("meta", i % model) for i in range(data * model)]
+    return FakeMesh(devs.reshape(data, model), np.arange(data * model).reshape(data, model),
+                    pods)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> FakeMesh:
+    """The reference's production mesh as a ``fake_mesh``: one pod of 16 x
+    16 = 256 cards, or with ``multi_pod`` two pods (512) whose ``pod`` axis
+    folds into ``data`` (32 x 16)."""
+    pods = 2 if multi_pod else 1
+    return fake_mesh(POD[0] * pods, POD[1], pods)
+
+
+def mesh_info(mesh: Mesh) -> dict:
+    """The reference's record of a mesh: its axes, their sizes and its
+    entries; a multi-pod mesh reports its ``pod`` axis apart from
+    ``data``."""
+    data, model = mesh.devices.shape
+    pods = getattr(mesh, "pods", 1)
+    if pods > 1:
+        names, shape = ["pod", "data", "model"], [pods, data // pods, model]
+    else:
+        names, shape = ["data", "model"], [data, model]
+    return {"axis_names": names, "shape": shape, "n_devices": int(data * model)}
+
+
 def train_backend(mesh: Mesh) -> str:
     """NCCL where every entry is a CUDA device of its own, else gloo."""
     devs = list(mesh.devices.flat)
@@ -233,6 +285,6 @@ def mesh_groups(mesh: Mesh) -> MeshGroups | None:
     return out
 
 
-__all__ = ["AXES", "Mesh", "MeshGroups", "init_distributed", "make_host_mesh",
-           "make_serve_mesh", "mesh_coords", "mesh_groups", "parse_mesh", "pick_coordinator",
-           "train_backend"]
+__all__ = ["AXES", "FakeMesh", "Mesh", "MeshGroups", "fake_mesh", "init_distributed",
+           "make_host_mesh", "make_production_mesh", "make_serve_mesh", "mesh_coords",
+           "mesh_groups", "mesh_info", "parse_mesh", "pick_coordinator", "train_backend"]

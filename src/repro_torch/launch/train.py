@@ -22,8 +22,8 @@ On the card the entries are the first D*M cards (NCCL) unless
 four ranks on one card, over gloo); with ``--device cpu`` every entry is
 the CPU (gloo).  ``--mesh host`` is every local card on the data axis (one
 CPU entry with ``--device cpu``).  The reference's ``pod`` and
-``multipod`` build its XLA production meshes of TPU chips, which have no
-counterpart here, and are refused.
+``multipod`` production meshes (256 and 512 cards) exist here only as the
+dry run's fake cards (``launch/dryrun.py``), and are refused.
 """
 from __future__ import annotations
 
@@ -63,8 +63,9 @@ def mesh_shape(args) -> tuple[int, int] | None:
     if args.mesh == "none":
         return None
     if args.mesh in ("pod", "multipod"):
-        raise SystemExit(f"--mesh {args.mesh} builds the reference's XLA production mesh of "
-                         f"TPU chips, which has no counterpart here: give --mesh DxM")
+        raise SystemExit(f"--mesh {args.mesh} is the reference's production mesh of 256 or 512 "
+                         f"cards, which has no counterpart here but the dry run's fake cards "
+                         f"(launch/dryrun.py): give --mesh DxM")
     if args.mesh == "host":
         if args.device == "cpu":
             return 1, 1

@@ -6,8 +6,9 @@ caches they are given IN PLACE and return them: the serving pool is landed
 into and decoded over without copies.  ``bundle.paged_cache`` builds the
 device half of the paged KV pool.  ``bundle.train_loss`` is the one
 differentiable step (every serving step runs under ``torch.no_grad``).
-``SHAPES`` are the reference's assignment shapes; its dry-run stand-ins
-(``input_specs``) are not ported (``launch/dryrun.py`` has no port).
+``SHAPES`` are the reference's assignment shapes, and ``bundle.input_specs``
+gives the dry run's stand-ins for a step's inputs at one of them (tensors
+on the ``meta`` device, allocating nothing; ``launch/dryrun.py``).
 
 The prefill extras ride in the batch dict beside ``tokens``: a vision
 config's ``patches`` (B, P, d), prepended to the text (positions run over
@@ -29,13 +30,18 @@ from repro_torch.kernels.kv_cache import Move
 
 from .config import ArchConfig
 from .layers import chunked_xent_loss
-from .transformer import lm_apply, lm_init, lm_init_caches, lm_logits
+from .transformer import lm_apply, lm_init, lm_init_caches, lm_logits, model_dtype
 
 
 def resolve_device(device) -> torch.device:
     """The entry points' device policy: CUDA unless the caller asks for the
-    CPU, and an error - not a silent CPU run - when CUDA is absent."""
+    CPU, and an error - not a silent CPU run - when CUDA is absent.  While
+    a ``FakeTensorMode`` is active (the dry run's trace) a ``meta`` device
+    is a fake card (``launch/mesh.fake_mesh``)."""
     dev = torch.device(device)
+    if (dev.type == "meta" and torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None):
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the port's plain versions on the CPU")
@@ -74,6 +80,7 @@ class ModelBundle:
     decode_step: Callable[..., Any]
     cache_scatter: Callable[..., Any]
     paged_cache: Callable[..., Any]
+    input_specs: Callable[..., Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +160,12 @@ def _init_fill(x: torch.Tensor) -> torch.Tensor:
 
 def _patch_count(cfg: ArchConfig) -> int:
     return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def _src_len(cfg: ArchConfig, seq: int) -> int:
+    """An encoder-decoder's encoder-side length at a dry-run shape (audio
+    frames downsample ~4x), as the reference's."""
+    return max(seq // 4, 8)
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
@@ -514,8 +527,38 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
                              gather_moves=gather_moves,
                              writeback_moves=writeback_moves, land_moves=land_moves)
 
+    def input_specs(shape) -> dict[str, Any]:
+        """Stand-ins for every input of the step at ``shape`` (a ``SHAPES``
+        name or a ``ShapeSpec``), on the ``meta`` device: the reference's
+        shapes and dtypes, allocating nothing.  Train and prefill: the
+        batch (``tokens``, train's ``labels``, a vision config's
+        ``patches``, an encoder-decoder's ``frames``), the text ``seq``
+        less the patches; decode: one token and its position a row against
+        a ``seq``-long cache tree (``caches``, from ``init_caches``, with
+        ``mem_len`` encoder rows for an encoder-decoder)."""
+        sp = SHAPES[shape] if isinstance(shape, str) else shape
+        i32, dt = torch.int32, model_dtype(cfg)
+
+        def meta(*dims, dtype=i32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if sp.kind in ("train", "prefill"):
+            S_text = sp.seq - P
+            specs = {"tokens": meta(sp.batch, S_text)}
+            if sp.kind == "train":
+                specs["labels"] = meta(sp.batch, S_text)
+            if cfg.frontend == "vision":
+                specs["patches"] = meta(sp.batch, P, cfg.d_model, dtype=dt)
+            if cfg.family == "encdec":
+                specs["frames"] = meta(sp.batch, _src_len(cfg, sp.seq), cfg.d_model, dtype=dt)
+            return specs
+        mem_len = _src_len(cfg, sp.seq) if cfg.family == "encdec" else 0
+        return {"tokens": meta(sp.batch, 1), "positions": meta(sp.batch, 1),
+                "caches": lm_init_caches(cfg, sp.batch, sp.seq, "meta", mem_len)}
+
     return ModelBundle(cfg=cfg, device=dev, init=init, train_loss=train_loss,
                        init_caches=init_caches,
                        prefill=prefill, prefill_many=prefill_many,
                        prefill_chunk=prefill_chunk, decode_step=decode_step,
-                       cache_scatter=cache_scatter, paged_cache=paged_cache)
+                       cache_scatter=cache_scatter, paged_cache=paged_cache,
+                       input_specs=input_specs)

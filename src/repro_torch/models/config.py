@@ -61,6 +61,7 @@ class ArchConfig:
     embed_scale: bool = False              # gemma: embeddings * sqrt(d_model)
     dtype: str = "bfloat16"
     remat: str = "full"                    # 'full' | 'save_heavy' | 'none' (train mode's block remat)
+    long_context: bool = False             # may run the long_500k shape (launch/dryrun.py)
     quant_kv: str = "none"                 # 'none' | 'dynamic' (int8 KV cache)
     loss_chunk: int = 512                  # train loss: positions a logits chunk
 
