@@ -178,12 +178,13 @@ device="cuda")), and one path of ops-level calls on stablelm's weights
      determinism probe at stablelm-1.6b's full width (2 layers, T's batch).
      T: stablelm-1.6b uncut (24 layers, d_model 2048, vocab 100352, bf16,
      init(0)), the Trainer with f32 AdamW (lr 1e-3, warmup_cosine), remat
-     "full", loss_chunk 512, SyntheticLM 8 x 1024, 20 steps, one blocking
+     "full", loss_chunk 512, SyntheticLM 8 x 1024, T_STEPS steps, one blocking
      checkpoint at the end; a second Trainer on the same directory restores
      it bit for bit; every loss finite, the last five steps' mean below the
      first five's, no restart; s/step, tokens/s, model TFLOP/s, peak GiB,
      checkpoint bytes and seconds.  TQ: T with int8 moments, a checkpoint
-     every 10 steps and one injected failure at step 13: one restart, the
+     every TQ_CKPT_EVERY steps and one injected failure at step TQ_FAIL_AT:
+     one restart, the
      replayed steps' losses bit-equal; its loss beside T's per step and its
      optimizer state's bytes beside T's.  TH: T's steps from T's state
      under remat "save_heavy" (each layer's attention output kept for the
@@ -222,6 +223,24 @@ device="cuda")), and one path of ops-level calls on stablelm's weights
      reported; s/step, the collectives' share of it (each collective timed
      between two synchronizations), host bytes staged a step, peak GiB a
      rank.  Both reach no hand kernel (every count 0).
+  SP the sequence-parallel prefill (``serve/seq_parallel.SeqPrefill``, the
+     reference's opt prefill) in the same four children after TMF, over a
+     1x4 mesh of them on cuda:0 (gloo): stablelm-1.6b uncut with A's
+     PDQ-int8 weights (``quantize_param_tree`` of init(0)) and the int8 KV
+     cache, SP_ROWS rows of SP_SEQ seeded tokens, SP_SEQ / 4 positions a
+     rank; each rank gathers each layer's weights whole over the four
+     (int8 codes K-major), its layer's fp K/V over the model group, and
+     lands its 1024 slots of every cache leaf.  First one process (rank 0)
+     prefills the same rows alone with ``bundle.prefill``.  Gates: every
+     layer's int8 K/V codes, scales and ``pos``, joined from the ranks'
+     blocks, equal to the one-process cache's; every rank's logits equal
+     and within LOGIT_TOL["A"] of one process's (the largest difference
+     printed), the greedy next token equal wherever one process's top-2
+     margin is at least that; each rank's K1/K2/K3 launches equal to the
+     one-process prefill's (each rank runs every layer's projections over
+     its rows), each > 0.  Printed: the seconds (one process and the
+     mesh), the collectives' seconds, calls and bytes, the bytes staged
+     through the host, each rank's peak.
   DR the dry run (``repro_torch.launch.dryrun``: rank 0's program traced
      under FakeTensorMode over fake cards, allocating nothing) in
      DR_GROUPS child processes (``--dryrun-child``, niced, no card visible)
@@ -232,13 +251,16 @@ device="cuda")), and one path of ops-level calls on stablelm's weights
      mesh: yi-6b's train_4k and decode_32k, and mamba2-2.7b's prefill_32k
      (an attention layer's prefill_32k traces 2048 score tiles, ~50 s a
      layer of CPU time: yi-6b's would take ~half an hour, past this run's
-     limit).  Gates, after TMF: every cell ``ok``; A's ``kernels``
-     census equal to the entries of one eager step of A's engine; TMF's
-     collective bytes by kind and by group equal, exactly, to what
-     ``hlo_analysis.collective_counter`` reads around each of rank 0's real
-     TMF steps (the host bytes gloo stages beside them).  T's predicted
-     ``peak_bytes`` is printed beside T's measured
-     ``torch.cuda.max_memory_allocated`` and their ratio.
+     limit), and SP's cell (the opt prefill over a 1x4 fake mesh, on
+     PDQ-int8 weights and the int8 KV cache, as SP runs it).  Gates, after
+     SP: every cell ``ok``; A's ``kernels`` census equal to the entries of
+     one eager step of A's engine; TMF's collective bytes by kind and by
+     group equal, exactly, to what ``hlo_analysis.collective_counter``
+     reads around each of rank 0's real TMF steps (the host bytes gloo
+     stages beside them); SP's likewise to rank 0's SP prefill, and its
+     census to that run's entries.  T's and SP's predicted ``peak_bytes``
+     are printed beside their measured ``torch.cuda.max_memory_allocated``
+     and their ratio.
 
 On every path each decode dispatch is one replay of the engine's CUDA
 graph of its N-step block, captured once per engine (serve/decode_graph.py):
@@ -3985,8 +4007,9 @@ TD_LAYERS = 2
 # T / TQ: stablelm-1.6b uncut, bf16, init(0), the launcher's lr and the
 # reference's default warmup_cosine, remat "full", loss_chunk 512
 T_ARCH = "stablelm-1.6b"
-T_BATCH, T_SEQ, T_STEPS, T_LR = 8, 1024, 20, 1e-3
-TQ_CKPT_EVERY, TQ_FAIL_AT = 10, 13
+# (12 steps since the sequence-parallel prefill's SP joined the run: 20 before)
+T_BATCH, T_SEQ, T_STEPS, T_LR = 8, 1024, 12, 1e-3
+TQ_CKPT_EVERY, TQ_FAIL_AT = 6, 9
 TRAIN_CHILD_TIMEOUT = 900     # seconds
 CUBLAS_CONFIG = ":4096:8"     # the deterministic cuBLAS workspace
 # TM / TMF: the sharded train step over a 2x2 mesh of four processes on
@@ -3995,9 +4018,12 @@ TM_MESH = (2, 2)
 TM_SEQ, TM_BATCH, TM_STEPS = 32, 4, 2
 TM_OUTLIERS = 1e-3            # share of param elements past TR_TOL
 TM_CKPT_ARCH = "stablelm-1.6b"
-TMF_SEQ, TMF_BATCH, TMF_STEPS = 1024, 4, 4   # ~12.5 s a step: the run's time limit
+TMF_SEQ, TMF_BATCH, TMF_STEPS = 1024, 4, 3   # ~12.5 s a step: the run's time limit
 TMF_LOSS_RTOL = 1e-3          # step 1: the same batch and params, sums in another order
-TM_TIMEOUT = 600              # seconds the four children may take, startup included
+TM_TIMEOUT = 700              # seconds the four children may take, startup included
+# SP: the sequence-parallel prefill over a 1x4 mesh of the same four children
+SP_MESH = (1, 4)
+SP_ROWS, SP_SEQ, SP_SEED = 2, 4096, 7
 # DR: each cell (arch, shape - a SHAPES name or ShapeSpec fields -, variant,
 # mesh or None for the 16x16 production mesh), and the child processes that
 # trace them, the longest alone
@@ -4008,9 +4034,12 @@ DR_CELLS = {
     "yi-6b train_4k": ("yi-6b", "train_4k", "baseline", None),
     "mamba2-2.7b prefill_32k": ("mamba2-2.7b", "prefill_32k", "baseline", None),
     "yi-6b decode_32k": ("yi-6b", "decode_32k", "baseline", None),
+    # SP's cell as SP runs it: PDQ-int8 weights, the int8 KV cache
+    "SP": (T_ARCH, ("SP", "prefill", SP_SEQ, SP_ROWS), "opt", SP_MESH,
+           dict(pdq=True, quant_kv="dynamic")),
 }
 DR_GROUPS = (("yi-6b train_4k",), ("mamba2-2.7b prefill_32k", "yi-6b decode_32k"),
-             ("T", "A", "TMF"))
+             ("T", "A", "TMF", "SP"))
 DR_TIMEOUT = 1000             # seconds the children may take from their start
 
 
@@ -5386,10 +5415,121 @@ def tmf_phase(rank, mesh, timer):
     return row
 
 
+def sp_phase(rank, timer):
+    """SP on this rank (see the module docstring); rank 0 returns the row,
+    the SP run's full counts under ``counts_full``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as ttree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.linops import quantize_param_tree
+    from repro_torch.serve.seq_parallel import SeqPrefill
+    cfg = dataclasses.replace(get_config(T_ARCH), quant_kv="dynamic")
+    b = build_model(cfg, "cuda")
+    n = SP_MESH[0] * SP_MESH[1]
+    mesh = make_host_mesh(*SP_MESH, ["cuda:0"] * n)
+    prog = SeqPrefill(b, mesh, SP_ROWS, SP_SEQ)          # collective: the mesh's groups
+    world = prog.groups.world
+    rng = np.random.default_rng(SP_SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (SP_ROWS, SP_SEQ), dtype=np.int32))
+    one = None
+    if rank == 0:                   # the one-process prefill first, alone on the card
+        whole = quantize_param_tree(b.init(0))
+        caches = b.init_caches(SP_ROWS, SP_SEQ)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        logits, caches = b.prefill(whole, {"tokens": tokens.cuda()}, caches)
+        torch.cuda.synchronize()
+        one = dict(s=time.perf_counter() - t0, logits=logits.float().cpu(),
+                   counts={k: v["launches"] for k, v in ops.counts().items()},
+                   caches=dict(ttree.leaves_with_path(ttree.tree_map(lambda t: t.cpu(),
+                                                                     caches))))
+        del caches, logits
+    coll.barrier(world)
+    if rank != 0:
+        whole = quantize_param_tree(b.init(0))
+    params = prog.place_params(whole)
+    del whole
+    batch = prog.place_batch({"tokens": tokens})
+    caches = prog.init_caches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    coll.barrier(world)
+    torch.cuda.reset_peak_memory_stats()
+    timer.s, timer.calls, timer.host_bytes, timer.on = 0.0, 0, 0, True
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with hlo_analysis.collective_counter(prog.groups) as moved:
+        logits = prog(params, batch, caches)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    timer.on = False
+    full = ops.counts()
+    mine = dict(s=secs, coll_s=timer.s, coll_calls=timer.calls, host_bytes=timer.host_bytes,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                counts={k: v["launches"] for k, v in full.items()},
+                coll_bytes=moved.collective_bytes, coll_groups=moved.group_bytes,
+                logits=logits.float().cpu())
+    every = [None] * n
+    dist.all_gather_object(every, mine, group=world)
+    # every cache block to rank 0, leaf by leaf, against the one process's
+    apart = []
+    for (path, blk), spec, leaf in zip(ttree.leaves_with_path(caches),
+                                       ttree.leaves(prog.cache_specs),
+                                       ttree.leaves(prog.template)):
+        parts = coll.gather_to(blk, world)
+        if rank == 0:
+            want = one["caches"][path]
+            for r, part in enumerate(parts):
+                coords = {"data": r // SP_MESH[1], "model": r % SP_MESH[1]}
+                if not torch.equal(part, want[shd.block(spec, leaf.shape, mesh, coords)]):
+                    apart.append((ttree.path_str(path), r))
+    del params, batch, caches, b
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    ref = one["logits"]
+    diff = max(float((e["logits"] - ref).abs().max()) for e in every)
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) >= LOGIT_TOL["A"]
+    same = (every[0]["logits"].argmax(-1) == ref.argmax(-1)) | ~sure
+    row = dict(mesh=f"{SP_MESH[0]}x{SP_MESH[1]}", rows=SP_ROWS, seq=SP_SEQ,
+               one_s=one["s"], s=[e["s"] for e in every], coll_s=[e["coll_s"] for e in every],
+               coll_calls=[e["coll_calls"] for e in every],
+               host_bytes=[e["host_bytes"] for e in every],
+               peak_bytes=[e["peak_bytes"] for e in every],
+               coll_bytes=every[0]["coll_bytes"], coll_groups=every[0]["coll_groups"],
+               logits_max_abs_diff=diff, greedy_sure=int(sure.sum()),
+               greedy_equal=bool(same.all()), caches_apart=apart,
+               census_one={k: v for k, v in one["counts"].items() if v},
+               census=[{k: v for k, v in e["counts"].items() if v} for e in every],
+               ranks_alike=all(torch.equal(e["logits"], every[0]["logits"]) for e in every),
+               counts_full=full)
+    log(f"SP: {json.dumps({k: v for k, v in row.items() if k != 'counts_full'})}")
+    need(not apart, f"SP: cache blocks apart from one process's: {apart[:8]}")
+    need(row["ranks_alike"], "SP: the ranks' logits differ")
+    need(diff <= LOGIT_TOL["A"], f"SP: logits {diff} from one process's")
+    need(row["greedy_equal"], "SP: a greedy next token differs where the margin is sure")
+    for k in ("pdq_prologue", "w8a8_matmul", "w8a8_swiglu_matmul"):
+        need(one["counts"][k] > 0, f"SP: one process launched no {k}")
+    need(all(e["counts"] == one["counts"] for e in every),
+         f"SP: census {row['census']} against one process's {row['census_one']}")
+    return row
+
+
 def tm_child(rank: int, coordinator: str, out: str) -> int:
-    """One rank of TM / TMF (``--train-mesh-child``): join the gloo group of
-    four, run TM then TMF with every kernel count zeroed just before and
-    read just after; rank 0 writes the rows to ``out``."""
+    """One rank of TM / TMF / SP (``--train-mesh-child``): join the gloo
+    group of four, run TM, TMF then SP with every kernel count zeroed just
+    before and read just after; rank 0 writes the rows to ``out``."""
     import os
     import torch
     if not torch.cuda.is_available():
@@ -5418,6 +5558,9 @@ def tm_child(rank: int, coordinator: str, out: str) -> int:
     with timed("train TMF"):
         res["TMF"] = tmf_phase(rank, mesh, timer)
     res["TMF_counts"] = ops.counts()
+    with timed("prefill SP"):
+        res["SP"] = sp_phase(rank, timer)
+    res["SP_counts"] = res["SP"].pop("counts_full") if res["SP"] else None
     res["phase_s"] = PHASE_S
     if rank == 0:
         Path(out).write_text(json.dumps(res, indent=1, default=str))
@@ -5463,6 +5606,7 @@ def phase_train_mesh():
     need([p.returncode for p in procs] == [0] * len(procs),
          f"TM: the children exited {[p.returncode for p in procs]}")
     res = json.loads(out.read_text())
+    need(res["SP"] is not None and res["SP_counts"], "SP: no row from rank 0")
     for path in ("TM", "TMF"):
         c = res[f"{path}_counts"]
         need(all(v["launches"] == 0 for v in c.values()),
@@ -5488,7 +5632,7 @@ def phase_train_mesh():
              for n in ("2x1", "1")), f"TM checkpoint params: {ck}")
     for r, row in enumerate(tm["compressed_psum"]):
         need(row["codes_apart"] == 0, f"TM compressed_psum rank {r}: {row}")
-    log(f"TM/TMF: {json.dumps({k: v for k, v in res.items() if k != 'TM'})}")
+    log(f"TM/TMF/SP: {json.dumps({k: v for k, v in res.items() if k != 'TM'})}")
     return res
 
 
@@ -5500,10 +5644,15 @@ def dr_child(out: str, names) -> int:
     from repro_torch.launch import dryrun
     from repro_torch.models.api import ShapeSpec
     res = {}
+    import dataclasses
+    from repro_torch.configs import get_config
     for name in names:
-        arch, shape, variant, mesh = DR_CELLS[name]
+        arch, shape, variant, mesh, *extra = DR_CELLS[name]
+        extra = dict(extra[0]) if extra else {}
+        pdq = extra.pop("pdq", False)
+        cfg = dataclasses.replace(get_config(arch), **extra)
         sp = ShapeSpec(*shape) if isinstance(shape, tuple) else shape
-        res[name] = dryrun.run_cell(arch, sp, variant=variant, mesh=mesh)
+        res[name] = dryrun.run_cell(arch, sp, variant=variant, mesh=mesh, cfg=cfg, pdq=pdq)
     Path(out).write_text(json.dumps(res, indent=1))
     return 0
 
@@ -5571,6 +5720,16 @@ def phase_dryrun(started, serve, training):
              and recs["TMF"]["collectives_by_group"] == by_group,
              f"DR: TMF's traced collective bytes {recs['TMF']['collectives_by_group']} "
              f"against rank 0's step {k + 1}: {by_group}")
+    # SP: the traced bytes and census against rank 0's real prefill
+    sp = training["mesh"]["SP"]
+    sp_entries = {k: v["entries"] for k, v in training["mesh"]["SP_counts"].items()
+                  if v["entries"]}
+    need(recs["SP"]["scaled_collectives"] == {n: float(v) for n, v in sp["coll_bytes"].items()}
+         and recs["SP"]["collectives_by_group"] == sp["coll_groups"],
+         f"DR: SP's traced collective bytes {recs['SP']['collectives_by_group']} against "
+         f"rank 0's prefill: {sp['coll_groups']}")
+    need(recs["SP"]["kernels"] == sp_entries,
+         f"DR: SP's traced census {recs['SP']['kernels']} against rank 0's {sp_entries}")
     t_measured = training["T"]["peak_gib"] * 2**30
     row = dict(
         T=dict(predicted_peak_bytes=recs["T"]["peak_bytes"],
@@ -5582,6 +5741,12 @@ def phase_dryrun(started, serve, training):
         TMF=dict(collectives=recs["TMF"]["collectives"],
                  by_group=recs["TMF"]["collectives_by_group"],
                  host_bytes_per_step=tmf["host_bytes_per_step"]),
+        SP=dict(collectives=recs["SP"]["collectives"],
+                by_group=recs["SP"]["collectives_by_group"], census=recs["SP"]["kernels"],
+                predicted_peak_bytes=recs["SP"]["peak_bytes"],
+                measured_peak_bytes=sp["peak_bytes"][0],
+                predicted_over_measured=recs["SP"]["peak_bytes"] / sp["peak_bytes"][0],
+                measured_peak_bytes_by_rank=sp["peak_bytes"]),
         cells={k: dict(trace_s=r["trace_s"], flops=r["flops"], peak_bytes=r["peak_bytes"],
                        fits=r["peak_bytes"] <= card, card_bytes=card,
                        collectives=r["collectives"], memory=r["memory"], kernels=r["kernels"])
@@ -5761,7 +5926,8 @@ def main(argv=None) -> int:
     # paths TM, TMF: the sharded train step over a 2x2 mesh of four processes
     with timed("train mesh"):
         training["mesh"] = phase_train_mesh()
-    # path DR: the dry run's cells against T's, A's and TMF's measurements
+    counts["SP"] = training["mesh"]["SP_counts"]
+    # path DR: the dry run's cells against T's, A's, TMF's and SP's measurements
     with timed("dryrun"):
         dryrun = phase_dryrun(dr_started, serve, training)
 

@@ -22,7 +22,8 @@ runs them under ``shard_map``):
     the grad on times ``share``.
 
 Each entry point that moves data (``all_gather``, ``all_reduce``,
-``all_to_all``, ``gather_to``, ``all_reduce_``, ``all_gather_blocks``)
+``all_to_all``, ``all_to_all_split``, ``gather_to``, ``all_reduce_``,
+``all_gather_blocks``)
 hands its kind, group and bytes to every registered tap (``TAPS``;
 ``launch/hlo_analysis.collective_counter``), by the reference's byte model
 (``repro/launch/dryrun.collective_bytes``): an all-reduce counts twice its
@@ -118,6 +119,21 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     src = _host(x, group)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+def all_to_all_split(x: torch.Tensor, send: list[int], recv: list[int], group) -> torch.Tensor:
+    """``x``'s rows in consecutive chunks of ``send[j]`` rows, chunk j to
+    rank j; the result holds the ``recv[j]`` rows from each rank j, in
+    source order (an all-to-all of unequal chunks)."""
+    if size(group) == 1:
+        return x
+    rows = sum(recv)
+    _count("all-to-all", group, rows * _nbytes(x[:1]))
+    src = _host(x, group)
+    out = src.new_empty((rows, *src.shape[1:]))
+    dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group)
     return out.to(x.device)
 
 

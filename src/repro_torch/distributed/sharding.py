@@ -22,6 +22,10 @@ index range of a rank's block of a leaf: the entries of a dim's axes split
 it evenly, the first axis of a tuple outermost, as jax's ``NamedSharding``
 does for a device at those mesh coordinates.
 
+``gather_whole`` joins a rank's blocks back into whole leaves, one
+all-gather over the world a dtype: the sharded train step's params, and a
+sequence-parallel prefill's weights a pattern block at a time.
+
 Serving: ``process_replicas`` says which process hosts which replica.  The
 sharded engine keeps one whole pool tree per replica rather than a view
 into one global pool - K4-K7 and the decode graph need whole, fixed leaves
@@ -35,8 +39,10 @@ import re
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch import tree as tr
+from repro_torch.distributed import collectives as coll
 
 
 class P:
@@ -235,6 +241,89 @@ def block(spec, shape, mesh, coords: dict[str, int]) -> tuple[slice, ...]:
     return tuple(out)
 
 
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _is_k_major(t) -> bool:
+    """A 2-D view whose storage runs down its columns (``ops.k_major``)."""
+    return (t.dim() == 2 and min(t.shape) > 1 and t.stride(0) == 1
+            and t.stride(1) == t.shape[0])
+
+
+def _assemble(x, spec, keep, mesh, coords, device):
+    """A leaf's work tensor on ``device`` from every entry's block ``x``
+    ((D * M, *block), entry (d, m) at d * M + m): each dim's blocks joined
+    in its axes' order (the first outermost, as ``block`` lays them out),
+    an axis the leaf does not split at its first entry, and an axis that
+    ``keep`` holds local (an expert stack's E under expert parallelism) at
+    this rank's own entry.  Blocks staged on the host go to the device
+    whole, and the device arranges them."""
+    D, M = int(mesh.shape["data"]), int(mesh.shape["model"])
+    x = x.view(D, M, *x.shape[1:])
+    split = [_axes(e) for e in spec]
+    kept = set()
+    for k, e in enumerate(keep):
+        if _axes(e) and _axes(e) != split[k]:
+            raise ValueError(f"work spec {keep} keeps part of {spec}'s dim {k}")
+        kept.update(_axes(e))
+    mesh_axes = ["data", "model"]
+    for a in ("model", "data"):          # drop an axis: the last index first
+        if a in kept or not any(a in s for s in split):
+            x = x.select(mesh_axes.index(a), coords[a] if a in kept else 0)
+            mesh_axes.remove(a)
+    split = [tuple(a for a in s if a in mesh_axes) for s in split]
+    nm = len(mesh_axes)
+    order = [i for k, s in enumerate(split) for i in [*map(mesh_axes.index, s), nm + k]]
+    shape = [x.shape[nm + k] * int(np.prod([mesh.shape[a] for a in s]))
+             for k, s in enumerate(split)]
+    x = x.to(device).permute(order)
+    out = torch.empty(shape, dtype=x.dtype, device=device)
+    out.view(x.shape).copy_(x)
+    return out
+
+
+def world_order(mesh) -> list[int] | None:
+    """The world group's index of entry (d, m), listed at d * M + m (a
+    group lists its ranks in order); None where that is the mesh's own
+    order."""
+    ranks = sorted(int(r) for r in mesh.processes.flat)
+    D, M = mesh.processes.shape
+    order = [ranks.index(int(mesh.processes[d, m])) for d in range(D) for m in range(M)]
+    return None if order == sorted(order) else order
+
+
+def gather_whole(blocks, specs, keeps, mesh, groups) -> list:
+    """Every tensor of ``blocks`` - this rank's block of a leaf laid out by
+    the matching ``specs`` entry - joined from the mesh's blocks on its
+    device, whole but for the axes its ``keeps`` entry holds local (this
+    rank's own block of them): one all-gather over ``groups.world`` a
+    dtype.  A K-major block (a quantized record's ``q``) is gathered as
+    its (N, K) storage and comes back K-major."""
+    order = world_order(mesh)
+    items = []
+    for t, spec, keep in zip(blocks, specs, keeps):
+        if _is_k_major(t):
+            t, spec, keep = t.t(), P(*reversed(tuple(spec))), P(*reversed(tuple(keep)))
+            items.append((t, spec, keep, True))
+        else:
+            items.append((t, spec, keep, False))
+    out: list = [None] * len(items)
+    for dtype in sorted({t.dtype for t, *_ in items}, key=str):
+        idx = [i for i, it in enumerate(items) if it[0].dtype == dtype]
+        parts = coll.all_gather_blocks([items[i][0] for i in idx], groups.world)
+        for x, i in zip(parts, idx):
+            t, spec, keep, kmajor = items[i]
+            if order is not None:
+                x = x[order]
+            w = _assemble(x, spec, keep, mesh, groups.coords, t.device)
+            out[i] = w.t() if kmajor else w
+        del parts
+    return out
+
+
 def process_replicas(mesh) -> dict[int, list[int]]:
     """{process index: [replica, ...]} in replica order: replica r is mesh
     row r, hosted by the process of its first entry."""
@@ -244,5 +333,5 @@ def process_replicas(mesh) -> dict[int, list[int]]:
     return out
 
 
-__all__ = ["P", "axis_size", "batch_spec", "block", "cache_spec", "dp_axes", "param_specs",
-           "process_replicas", "spec_for_param"]
+__all__ = ["P", "axis_size", "batch_spec", "block", "cache_spec", "dp_axes", "gather_whole",
+           "param_specs", "process_replicas", "spec_for_param", "world_order"]

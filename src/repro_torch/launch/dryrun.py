@@ -22,10 +22,13 @@ the CLI run in worker processes, one a core.
     cards by ``models/linops.tp_place`` and run inside ``ops.tp_shard``, as
     ``serve/sharded.ShardedServeEngine`` runs a replica.
   * ``--variant opt``: as in the reference, the train step under remat
-    ``save_heavy``, and decode on PDQ-int8 weights (``quantize_param_tree``)
-    with the int8 KV cache (an attention config's).  The reference's opt
-    prefill shards the sequence over ``model``, a program the port lacks:
-    that cell is recorded ``skipped`` with the reason.
+    ``save_heavy``, decode on PDQ-int8 weights (``quantize_param_tree``)
+    with the int8 KV cache (an attention config's), and prefill sequence-
+    parallel (``serve/seq_parallel.SeqPrefill``): mesh entry (0, 0)'s
+    program over a fake process group of the mesh's world, on its
+    ``param_specs`` blocks of the weights, its ``batch_spec(...,
+    seq_over_model=True)`` block of the batch and its ``cache_spec(...,
+    seq_over_model=True)`` blocks of a fresh pool.
 
 Each cell writes one record, ``build/dryrun/<arch>__<shape>__<mesh>[__opt]
 .json`` at the repository's root, with the reference's keys where they
@@ -108,15 +111,6 @@ def skip_reason(cfg, shape_name: str) -> str | None:
     if shape_name == "long_500k" and not cfg.long_context:
         return ("pure full-attention arch: long_500k needs sub-quadratic "
                 "attention (DESIGN.md Arch-applicability)")
-    return None
-
-
-def missing_program(shape: ShapeSpec, variant: str) -> str | None:
-    """The reason a cell's variant has no program in the port, or None."""
-    if variant == "opt" and shape.kind == "prefill":
-        return ("the reference's opt prefill shards the sequence over 'model' "
-                "(sequence-parallel prefill, tokens and KV cache over the model axis); "
-                "the port has no sequence-parallel prefill program")
     return None
 
 
@@ -276,6 +270,31 @@ def _train(cfg, sp, mesh, variant, arch) -> Trace:
                  sp.batch // D)
 
 
+def _seq_prefill(cfg, sp, mesh, pdq: bool = False) -> Trace:
+    """The opt prefill: entry (0, 0)'s part of the sequence-parallel
+    prefill of the shape's batch over the whole mesh; ``pdq``: on PDQ-int8
+    weights (a card run's, ``chip_smoke.py``'s SP) where the reference's
+    cell has fp ones."""
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.serve.seq_parallel import SeqPrefill
+    dev = mesh.devices[0, 0]
+    bundle = build_model(cfg, dev)
+    specs = bundle.input_specs(sp)
+    mem_len = specs["frames"].shape[1] if "frames" in specs else 0
+    prog = SeqPrefill(bundle, mesh, sp.batch, sp.seq, mem_len=mem_len)
+    params = lm_init(_FakeGen("cpu"), cfg)
+    params = prog.place_params(quantize_param_tree(params) if pdq else params)
+    batch = prog.place_batch({k: _fake_like(v, "cpu") for k, v in specs.items()})
+    caches = prog.init_caches()
+    args_tree = (params.tree, batch, caches)
+    out, costs, peak, entries = _trace(lambda: prog(params, batch, caches), args_tree, dev,
+                                       mesh_groups(mesh))
+    args = _storages(args_tree, dev)
+    outs = {k: v for k, v in _storages(out, dev).items() if k not in args}
+    return Trace(costs, sum(args.values()), sum(outs.values()), peak, entries,
+                 prog.local_rows)
+
+
 def _serve(cfg, sp, mesh, variant) -> Trace:
     if variant == "opt" and sp.kind == "decode" and cfg.ssm is None:
         cfg = dataclasses.replace(cfg, quant_kv="dynamic")
@@ -315,18 +334,22 @@ def _serve(cfg, sp, mesh, variant) -> Trace:
     return Trace(costs, sum(args.values()), sum(outs.values()), peak, entries, B)
 
 
-def lower_cell(arch: str, shape, mesh, variant: str = "baseline", cfg=None) -> Trace:
+def lower_cell(arch: str, shape, mesh, variant: str = "baseline", cfg=None,
+               pdq: bool = False) -> Trace:
     """Trace one cell's step (the port's counterpart of lowering it): rank
     0's program on ``mesh`` (a ``launch/mesh.fake_mesh``) at ``shape`` (a
     ``SHAPES`` name or a ``ShapeSpec``), under ``FakeTensorMode`` and a fake
     process group of the mesh's world.  ``cfg``: the arch's config unless
-    given (a test's reduced one)."""
+    given (a test's reduced one); ``pdq``: the opt prefill on PDQ-int8
+    weights."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg = get_config(arch) if cfg is None else cfg
     sp = SHAPES[shape] if isinstance(shape, str) else shape
     with fake_world(mesh.devices.size), FakeTensorMode(), _OnCard():
         if sp.kind == "train":
             return _train(cfg, sp, mesh, variant, arch)
+        if sp.kind == "prefill" and variant == "opt":
+            return _seq_prefill(cfg, sp, mesh, pdq)
         return _serve(cfg, sp, mesh, variant)
 
 
@@ -337,21 +360,21 @@ def mesh_name(multi_pod: bool, mesh=None) -> str:
 
 
 def run_cell(arch: str, shape, multi_pod: bool = False, variant: str = "baseline", *,
-             mesh: tuple[int, int] | None = None, cfg=None) -> dict:
+             mesh: tuple[int, int] | None = None, cfg=None, pdq: bool = False) -> dict:
     """One cell's record.  ``shape``: a ``SHAPES`` name or a ``ShapeSpec``;
     ``mesh``: (data, model) of a fake mesh in place of the production one;
-    ``cfg``: in place of the arch's own config."""
+    ``cfg``: in place of the arch's own config; ``pdq``: see ``lower_cell``."""
     sp = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = get_config(arch) if cfg is None else cfg
     rec: dict = {"arch": arch, "shape": sp.name, "mesh": mesh_name(multi_pod, mesh),
                  "variant": variant}
-    reason = skip_reason(cfg, sp.name) or missing_program(sp, variant)
+    reason = skip_reason(cfg, sp.name)
     if reason:
         rec.update(status="skipped", reason=reason)
         return rec
     t0 = time.perf_counter()
     m = fake_mesh(*mesh) if mesh is not None else make_production_mesh(multi_pod=multi_pod)
-    t = lower_cell(arch, sp, m, variant, cfg)
+    t = lower_cell(arch, sp, m, variant, cfg, pdq)
     trace_s = time.perf_counter() - t0
     coll = {k: float(v) for k, v in t.costs.collective_bytes.items()}
     card = card_bytes()

@@ -16,6 +16,10 @@ P + S, and a right-padded row's valid prefix counts its patches), and an
 encoder-decoder's ``frames`` (B, Sm, d), the encoder's input, whose K/V
 every decoder layer keeps in ``cross_k`` / ``cross_v`` leaves of
 ``mem_len`` rows.  Chunked prefill is text-only, as in the reference.
+
+``bundle.prefill_split`` is one rank's part of a sequence-parallel
+prefill (``serve/seq_parallel.py``, which sets the ``DistContext`` whose
+``seq`` it reads and hands it its block of the sequence).
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.kv_cache import Move
 
 from .config import ArchConfig
+from .context import seq_split
 from .layers import chunked_xent_loss
 from .transformer import lm_apply, lm_init, lm_init_caches, lm_logits, model_dtype
 
@@ -75,6 +81,7 @@ class ModelBundle:
     train_loss: Callable[..., Any]
     init_caches: Callable[..., Any]
     prefill: Callable[..., Any]
+    prefill_split: Callable[..., Any]
     prefill_many: Callable[..., Any]
     prefill_chunk: Callable[..., Any]
     decode_step: Callable[..., Any]
@@ -214,6 +221,29 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
         h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=_positions(B, P + S),
                                 mode="prefill", caches=caches, **_extras(batch))
         return lm_logits(params, cfg, h[:, -1]), caches
+
+    @torch.no_grad()
+    def prefill_split(params, batch, caches):
+        """One rank's block of a sequence-parallel prefill, under a
+        ``DistContext`` whose ``seq`` (``context.SeqSplit``) says which:
+        ``batch`` holds the block's ``tokens`` (B, t) and, for a vision
+        config, its ``patches`` (B, size - t, d) (patches come first in the
+        sequence), and an encoder-decoder's whole ``frames``; ``caches``
+        are the rank's blocks of the pool.  Returns (logits (B, vocab) of
+        each row's last token of the whole sequence - the last block's,
+        every rank of the model group alike -, caches)."""
+        split = seq_split()
+        if split is None:
+            raise ValueError("prefill_split runs under a DistContext with a SeqSplit")
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        pos = (split.start + _positions(B, split.size)).to(torch.int32)
+        h, caches, _ = lm_apply(params, cfg, tokens=tokens, positions=pos, mode="prefill",
+                                caches=caches, **_extras(batch))
+        if h.shape[1] != split.size:
+            raise ValueError(f"a block of {h.shape[1]} positions, the split's is {split.size}")
+        last = coll.all_gather(h[:, -1], split.group).view(split.parts, B, -1)[-1]
+        return lm_logits(params, cfg, last), caches
 
     @torch.no_grad()
     def prefill_many(params, batch, caches, seq_lens):
@@ -558,7 +588,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelBundle:
 
     return ModelBundle(cfg=cfg, device=dev, init=init, train_loss=train_loss,
                        init_caches=init_caches,
-                       prefill=prefill, prefill_many=prefill_many,
+                       prefill=prefill, prefill_split=prefill_split,
+                       prefill_many=prefill_many,
                        prefill_chunk=prefill_chunk, decode_step=decode_step,
                        cache_scatter=cache_scatter, paged_cache=paged_cache,
                        input_specs=input_specs)

@@ -20,6 +20,18 @@ position, the K/V that ``cross_memory`` projects once from the encoder's
 output; a decoder layer keeps them as its ``cross_k`` / ``cross_v`` cache
 leaves, in the model dtype whatever the KV cache's.
 
+Under a sequence-parallel prefill (``context.SeqSplit``: each rank of the
+model group holds one block of the sequence, ``serve/seq_parallel.py``)
+a prefill all-gathers the layer's fp K/V - MLA its latents ``ckv`` /
+``krope``, which every rank expands - over the model group, attends its
+own q block against every key, causal over absolute positions, and lands
+its region of each cache leaf from the gathered entries
+(``_land_split``): the rows it holds of a global layer, its slots of a
+ring under the one-process prefill's winner rule, or its head block.
+``chunked_attention`` takes each q row over the kv chunks in the one-
+process order whichever q rows share its tile, so the reference's
+``parallel_q`` (q blocks as a batched dim) needs no second code path.
+
 MLA keeps the compressed stream in its cache, ``{'ckv': (B, S, kv_lora),
 'krope': (B, S, qk_rope), 'pos', 'len'}`` in the model dtype; prefill
 expands per-head k/v from it (a chunk continuation re-expands the whole
@@ -32,9 +44,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import true_div
 
+from .context import seq_split
 from .layers import apply_rope, dense_init, rms_norm, softcap
 from .linops import dense_weight, is_quantized, is_segment_view, lin, lin_grouped
 
@@ -165,13 +179,17 @@ def _quant_kv_token(k_new, v_new):
     (B, S, Hkv, Dh): scale = max(amax, 1e-6) / 127, codes rounded half to
     even and clipped to +-127.  Returns (kq, ks, vq, vs), scales (B, S,
     Hkv)."""
-    def q(t):
-        scale = true_div(torch.clamp_min(t.abs().amax(-1), 1e-6), 127.0)
-        tq = torch.round(t / scale[..., None]).clamp(-127, 127).to(torch.int8)
-        return tq, scale
-    kq, ks = q(k_new.float())
-    vq, vs = q(v_new.float())
+    kq, ks = _quant_token(k_new)
+    vq, vs = _quant_token(v_new)
     return kq, ks, vq, vs
+
+
+def _quant_token(t):
+    """(codes int8, scales (..., Hkv) f32) of one of ``_quant_kv_token``'s
+    operands."""
+    t = t.float()
+    scale = true_div(torch.clamp_min(t.abs().amax(-1), 1e-6), 127.0)
+    return torch.round(t / scale[..., None]).clamp(-127, 127).to(torch.int8), scale
 
 
 def _cache_write(cache, k_new, v_new, positions):
@@ -240,6 +258,73 @@ def _prefill_write(cache, k, v, positions, seq_lens):
     return _cache_write(cache, kc, vc, pos_c)
 
 
+def _gather_seq(split, *xs):
+    """Each of ``xs`` (B, size, ...) - this rank's block of the sequence -
+    joined over the split's group into (B, length, ...), in block order:
+    one all-gather a dtype."""
+    out: list = [None] * len(xs)
+    for dtype in sorted({x.dtype for x in xs}, key=str):
+        idx = [i for i, x in enumerate(xs) if x.dtype == dtype]
+        parts = coll.all_gather_blocks([xs[i].contiguous() for i in idx], split.group)
+        for i, g in zip(idx, parts):
+            x = xs[i]
+            g = g.to(x.device).transpose(0, 1)          # (B, parts, size, ...)
+            out[i] = g.reshape(x.shape[0], split.length, *x.shape[2:])
+    return out
+
+
+def _whole_positions(split, positions):
+    """The positions of every block of an unpadded prefill, (B, length)."""
+    B = positions.shape[0]
+    return torch.arange(split.length, dtype=torch.int32,
+                        device=positions.device)[None].expand(B, split.length)
+
+
+def _split_runs(sl: slice, S: int, W: int) -> list[tuple[int, int, int]]:
+    """Where the entries of a prefill of positions [0, S) land in the slots
+    ``sl`` of a W-slot cache - a ring when W < S, whose slot s keeps the
+    last position p = s (mod W), as ``_prefill_write`` rules: runs (offset
+    in the slots, first position, count) of consecutive positions."""
+    a, b = sl.start, min(sl.stop, W)
+    base = max(0, S - W)
+    out, s = [], a
+    while s < b:
+        p = base + (s - base) % W
+        if p >= S:                  # a slot past a short prefill's end
+            break
+        n = min(b - s, S - p)
+        out.append((s - a, p, n))
+        s += n
+    return out
+
+
+def _land_split(cache, split, k_all, v_all, pos_all):
+    """This rank's region of each leaf of a GQA cache from a sequence-
+    parallel prefill's gathered entries (k_all / v_all (B, S, Hkv, Dh),
+    pos_all (B, S)): the slots of its region that the prefill writes, in
+    its head block, quantized per (token, head) for an int8 cache; and
+    ``len``."""
+    S = pos_all.shape[1]
+    sl, whole = split.region(cache["pos"])
+    W = whole[-1]                                    # the whole leaf's slots
+    for o, p, n in _split_runs(sl[1], S, W):
+        cache["pos"][:, o:o + n] = pos_all[:, p:p + n]
+    for name, src in (("k", k_all), ("v", v_all)):
+        t = cache[name]
+        sl, _ = split.region(t)
+        if "k_scale" in cache:      # kernel layout (B, Hkv, Sp, Dh)
+            scale, h = cache[f"{name}_scale"], sl[1]
+            for o, p, n in _split_runs(sl[2], S, W):
+                q, sc = _quant_token(src[:, p:p + n])
+                t[:, :, o:o + n] = q[:, :, h].transpose(1, 2)
+                scale[:, :, o:o + n] = sc[:, :, h].transpose(1, 2)
+        else:                       # logical (B, S, Hkv, Dh)
+            for o, p, n in _split_runs(sl[1], S, W):
+                t[:, o:o + n] = src[:, p:p + n, sl[2]].to(t.dtype)
+    torch.maximum(cache["len"], (pos_all[:, -1] + 1).to(torch.int32), out=cache["len"])
+    return cache
+
+
 def _cache_kv_float(cache, dtype):
     """The cache's k/v in the logical (B, S, Hkv, Dh) layout, dequantized
     to ``dtype`` when the cache is int8."""
@@ -302,6 +387,18 @@ def gqa_apply(p, dims: AttnDims, x, positions, *, mode: str, cache=None,
                               window=dims.window, attn_softcap=dims.attn_softcap,
                               q_chunk=S, kv_chunk=k_all.shape[1])
         _prefill_write(cache, k, v, positions, seq_lens)
+        return lin(o.reshape(B, S, H * Dh), p["wo"]), cache
+    split = seq_split() if mode == "prefill" else None
+    if split is not None:
+        # one rank's block of a sequence-parallel prefill: its q block
+        # against every block's fp K/V, gathered before any quantization
+        if seq_lens is not None:
+            raise ValueError("a sequence-parallel prefill takes unpadded rows")
+        k_all, v_all = _gather_seq(split, k, v)
+        pos_all = _whole_positions(split, positions)
+        o = chunked_attention(q, k_all, v_all, positions, pos_all, causal=causal,
+                              window=dims.window, attn_softcap=dims.attn_softcap)
+        _land_split(cache, split, k_all, v_all, pos_all)
         return lin(o.reshape(B, S, H * Dh), p["wo"]), cache
     if mode == "prefill":
         _prefill_write(cache, k, v, positions, seq_lens)
@@ -488,6 +585,23 @@ def mla_apply(p, m: MLADims, x, positions, *, mode: str, cache=None, seq_lens=No
         k, v = _expanded(p, m, cache["ckv"], cache["krope"])
         o = chunked_attention(q, k, v, positions, _valid_k_pos(cache["pos"]),
                               causal=True, q_chunk=S, kv_chunk=Sb)
+        return lin(o.reshape(B, S, H * m.v_head), p["wo"]), cache
+    split = seq_split() if mode == "prefill" else None
+    if split is not None:
+        # a sequence-parallel prefill: the latents gathered (what the cache
+        # holds), every rank expanding every block's keys and values
+        if seq_lens is not None:
+            raise ValueError("a sequence-parallel prefill takes unpadded rows")
+        ckv_all, krope_all = _gather_seq(split, ckv, krope)
+        pos_all = _whole_positions(split, positions)
+        k, v = _expanded(p, m, ckv_all, krope_all)
+        o = chunked_attention(q, k, v, positions, pos_all, causal=True)
+        S_all, L = pos_all.shape[1], split.region(cache["pos"])[1][-1]
+        for name, src in (("ckv", ckv_all), ("krope", krope_all), ("pos", pos_all)):
+            t = cache[name]
+            for o_, p_, n in _split_runs(split.region(t)[0][1], S_all, L):
+                t[:, o_:o_ + n] = src[:, p_:p_ + n].to(t.dtype)
+        torch.maximum(cache["len"], (pos_all[:, -1] + 1).to(torch.int32), out=cache["len"])
         return lin(o.reshape(B, S, H * m.v_head), p["wo"]), cache
     if mode == "prefill":
         k, v = _expanded(p, m, ckv, krope)

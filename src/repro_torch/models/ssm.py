@@ -17,6 +17,16 @@ torch, as the reference's are plain ``jnp``; their contractions are
 batched matmuls in IEEE f32 (``_ieee_f32``), in an order whose
 intermediates stay at (B, n_chunks, H, chunk, chunk).
 
+Under a sequence-parallel prefill (``context.SeqSplit``) each rank scans
+its block of the sequence from a zero state; the ranks all-gather each
+block's final state and total decay ((B, H, P, N) and (B, H) f32, one
+collective) and the last d_conv - 1 conv inputs (the next block's left
+context); rank r folds the earlier blocks into its initial state h0 and
+adds h0's term, C_t exp(cumsum dt A) h0, to its y - the SSD's own
+inter-chunk step, a block a step.  Every rank folds every block, so each
+lands its head block of the whole sequence's final state and its channel
+block of the last block's conv tail.
+
 Caches are updated IN PLACE (the port's ``lm_apply`` passes views of the
 stacked pool, and a captured decode graph replays fixed addresses): the
 conv window and the state are written with ``copy_`` / in-place ops.  Train
@@ -32,6 +42,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
+
+from .context import seq_split
 from .layers import dense_init, draw_kw
 from .linops import lin
 
@@ -220,6 +233,12 @@ def ssm_apply(p, cfg: SSMConfig, x, *, mode: str, cache, seq_lens=None, norm=Non
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
     if (cache is None) != (mode == "train"):
         raise ValueError(f"mode {mode!r} {'takes no' if mode == 'train' else 'needs a'} cache")
+    split = seq_split() if mode == "prefill" else None
+    if split is not None:
+        if seq_lens is not None:
+            raise ValueError("a sequence-parallel prefill takes unpadded rows")
+        y = _split_scan(p, cfg, xBC, dt, A, cache, split)
+        return lin(y * F.silu(z), p["out_proj"], norm=(p["norm"], GATE_EPS))
     prev = (cache["conv"] if cache is not None else
             torch.zeros((B, K - 1, xBC.shape[-1]), dtype=xBC.dtype, device=x.device))
     window = torch.cat([prev, xBC], dim=1)                     # (B, K - 1 + L, C)
@@ -262,3 +281,41 @@ def ssm_apply(p, cfg: SSMConfig, x, *, mode: str, cache, seq_lens=None, norm=Non
             cache["conv"].copy_(tail)
             cache["state"].copy_(final)
     return lin(y * F.silu(z), p["out_proj"], norm=(p["norm"], GATE_EPS))
+
+
+def _split_scan(p, cfg: SSMConfig, xBC, dt, A, cache, split):
+    """One rank's SSD over its block (B, L, .) of a sequence-parallel
+    prefill (see the module docstring); lands its region of ``state`` and
+    ``conv``.  Returns y (B, L, d_inner) in xBC's dtype."""
+    B, L, _ = xBC.shape
+    H, P, N, K = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.d_conv
+    di, r = cfg.d_inner, split.index
+    if L < K - 1:
+        raise ValueError(f"a block of {L} tokens is shorter than the conv's context {K - 1}")
+    dA = dt * A                                                # (B, L, H)
+    tails = coll.all_gather_blocks([xBC[:, L - (K - 1):].contiguous()], split.group)[0]
+    tails = tails.to(xBC.device)                               # (parts, B, K - 1, C)
+    prev = tails[r - 1] if r else torch.zeros_like(tails[0])
+    conv_out = _causal_conv(xBC, p["conv_w"], p["conv_b"], prev)
+    xc = conv_out[..., :di].reshape(B, L, H, P).float()
+    Bm = conv_out[..., di:di + N].float()
+    Cm = conv_out[..., di + N:].float()
+    y, final = ssd_scan(xc, dt, A, Bm, Cm, cfg.chunk)
+    with _ieee_f32():
+        finals, decays = coll.all_gather_blocks(
+            [final, torch.exp(dA.sum(1))], split.group)        # (parts, B, H, P, N), (parts, B, H)
+        finals, decays = finals.to(xBC.device), decays.to(xBC.device)
+        state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xBC.device)
+        for j in range(split.parts):
+            if j == r:
+                # h0's term: C_t . h0, decayed by exp(cumsum dt A) to t
+                decay_in = torch.exp(torch.cumsum(dA, dim=1)).permute(0, 2, 1)[..., None]
+                y0 = (Cm[:, None] @ state.transpose(-1, -2)) * decay_in   # (B, H, L, P)
+                y = y + y0.permute(0, 2, 1, 3).to(y.dtype)
+            state = state * decays[j][..., None, None] + finals[j]
+    y = y + p["D"][None, None, :, None] * xc
+    st, _ = split.region(cache["state"])
+    cv, _ = split.region(cache["conv"])
+    cache["state"].copy_(state[st])
+    cache["conv"].copy_(tails[-1][cv].to(cache["conv"].dtype))
+    return y.reshape(B, L, di).to(xBC.dtype)

@@ -60,7 +60,7 @@ from .attention import (AttnDims, MLADims, cross_apply, cross_init, cross_memory
                         gqa_apply, gqa_init, init_cache, mla_apply, mla_init,
                         mla_init_cache)
 from .config import ArchConfig
-from .context import get_context
+from .context import get_context, seq_split
 from .layers import embed_apply, embed_init, mlp_apply, mlp_init, rms_norm, softcap
 from .moe import moe_ffn_dense_masked, moe_ffn_tokens, moe_init
 from .ssm import ssm_apply, ssm_init, ssm_init_cache
@@ -193,8 +193,11 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
     masked out of MoE routing, so they claim no expert capacity.  Train
     and prefill route through the capacity buckets, decode dense-masked.
 
-    Under a ``DistContext`` (one rank of a train mesh, holding its data
-    rows and its E / M experts): train and prefill split the rank's B S
+    Under a ``DistContext`` whose ``seq`` is set (one rank of a sequence-
+    parallel prefill, its rows' block of the sequence): the routed FFN runs
+    expert-parallel over the reference's token groups (``_routed_split``).
+    Under another ``DistContext`` (one rank of a train mesh, holding its
+    data rows and its E / M experts): train and prefill split the rank's B S
     tokens into M contiguous blocks over the model group - the reference's
     tokens over ('data', 'model') - route block m expert-parallel, and
     gather the outputs back; aux is the mean over every rank of its
@@ -225,6 +228,10 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
             raise ValueError("a DistContext needs its mesh's groups: "
                              "train_step.dist_context_for(mesh)")
         M = coll.size(g.model)
+        if ctx.seq is not None and mode == "prefill":
+            if mask is not None:
+                raise ValueError("a sequence-parallel prefill takes unpadded rows")
+            return _routed_split(p_ffn, cfg, xn, ctx.seq, g.model), 0.0
         if mode in ("train", "prefill"):
             xt = coll.split_rows(x2, g.model)
             mt = None if mask is None else mask.view(M, -1)[coll.index(g.model)]
@@ -240,6 +247,49 @@ def _apply_ffn(p_ffn, cfg: ArchConfig, kind: str, h, mode: str, norm, seq_lens=N
     if cfg.moe.dense_residual:
         y = y + mlp_apply(p_ffn["dense"], xn)
     return y, aux
+
+
+def _routed_split(p_ffn, cfg: ArchConfig, xn, split, group):
+    """The routed FFN of a sequence-parallel prefill's rank, on its block
+    xn (Bl, s, d) of Bl rows.  The reference routes the flattened (B S)
+    tokens under ``P(token_axes)``: its capacity groups are the M
+    contiguous pieces of a replica's flattened rows, so in units of s
+    tokens ("flat block" b M + m is row b's block m) group j holds flat
+    blocks [j Bl, (j + 1) Bl) - the rank's own blocks only when Bl is 1.
+    So the rank sends each of its blocks to its group's rank and receives
+    its group's, in flat order (one all-to-all of unequal chunks), runs the
+    expert-parallel FFN over them, and sends the outputs back; with one row
+    a replica nothing moves."""
+    Bl, s, d = xn.shape
+    M, m = split.parts, split.index
+    x2 = xn.reshape(Bl * s, d)
+    if Bl == 1 or M == 1:
+        return moe_ffn_tokens(p_ffn, x2, cfg.moe, group=group)[0].reshape(Bl, s, d)
+    dest = [(b * M + m) // Bl for b in range(Bl)]            # nondecreasing in b
+    mine = range(m * Bl, (m + 1) * Bl)                        # this rank's group
+    got = sorted(mine, key=lambda f: (f % M, f))              # received: by source
+    send = [dest.count(j) * s for j in range(M)]
+    recv = [sum(f % M == j for f in mine) * s for j in range(M)]
+    xr = coll.all_to_all_split(x2, send, recv, group).view(Bl, s, d)
+    xg = xr[[got.index(f) for f in mine]].reshape(Bl * s, d)
+    y = moe_ffn_tokens(p_ffn, xg, cfg.moe, group=group)[0].view(Bl, s, d)
+    back = y[[f - m * Bl for f in got]].reshape(Bl * s, d)
+    return coll.all_to_all_split(back, recv, send, group).view(Bl, s, d)
+
+
+def _land_cross(cache, mem_kv):
+    """A decoder layer's ``cross_k`` / ``cross_v`` from the encoder memory's
+    K/V: whole, or under a sequence-parallel prefill this rank's region of
+    each (its head block)."""
+    split = seq_split()
+    for name, kv in zip(("cross_k", "cross_v"), mem_kv):
+        dst = cache[name]
+        src = kv if split is None else kv[split.region(dst)[0]]
+        if src.shape != dst.shape:
+            raise ValueError(f"encoder memory K/V {tuple(src.shape)}, cache leaf "
+                             f"{tuple(dst.shape)}: build the caches with mem_len = the "
+                             f"frames' length")
+        dst.copy_(src)
 
 
 def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache,
@@ -275,12 +325,7 @@ def layer_apply(p, cfg: ArchConfig, kind: str, h, positions, *, mode: str, cache
             mem_kv = cross_memory(p["cross"], dims, memory)
         elif mode == "prefill":
             mem_kv = cross_memory(p["cross"], dims, memory)
-            if mem_kv[0].shape != cache["cross_k"].shape:
-                raise ValueError(f"encoder memory K/V {tuple(mem_kv[0].shape)}, cache "
-                                 f"leaves {tuple(cache['cross_k'].shape)}: build the "
-                                 f"caches with mem_len = the frames' length")
-            cache["cross_k"].copy_(mem_kv[0])
-            cache["cross_v"].copy_(mem_kv[1])
+            _land_cross(cache, mem_kv)
         else:
             mem_kv = (cache["cross_k"], cache["cross_v"])
         h = h + cross_apply(p["cross"], dims, h, mem_kv, norm=(p["cross_norm"], eps))

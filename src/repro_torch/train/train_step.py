@@ -214,12 +214,6 @@ class _MeshStep:
         if opt_cfg.quant_state:         # an int8 moment's codes, by its param's path
             self.qshapes = {p: tuple(x.shape) for p, x in tr.leaves_with_path(abstract["opt"].m)}
         self.pspec = dict(tr.leaves_with_path(self.specs["params"]))
-        # the world group's index of entry (d, m), at d * M + m (its ranks in
-        # order); None where that is every mesh's own order
-        ranks = sorted(int(r) for r in mesh.processes.flat)
-        order = [ranks.index(int(mesh.processes[d, m]))
-                 for d in range(self.D) for m in range(self.M)]
-        self.world_order = None if order == sorted(order) else order
         self.moe = bundle.cfg.moe is not None
 
     # ---------------------------------------------------------------- layout
@@ -248,58 +242,12 @@ class _MeshStep:
 
     def _gather_params(self, blocks, ep):
         """The work tensors: every leaf joined from the ranks' blocks (one
-        all-gather over the mesh a dtype)."""
+        all-gather over the mesh a dtype, ``shd.gather_whole``)."""
         paths = [p for p, _ in tr.leaves_with_path(blocks)]
         local = dict(tr.leaves_with_path(blocks))
-        work = {}
-        for dtype in sorted({x.dtype for x in local.values()}, key=str):
-            group = [p for p in paths if local[p].dtype == dtype]
-            parts = coll.all_gather_blocks([local[p] for p in group], self.g.world)
-            for x, p in zip(parts, group):
-                if self.world_order is not None:
-                    x = x[self.world_order]
-                work[p] = self._assemble(x, p, ep, local[p].device)
-            del parts
-        return tr.unflatten_like(blocks, [work[p] for p in paths])
-
-    def _assemble(self, x, path, ep, device):
-        """A leaf's work tensor on ``device`` from every entry's block ``x``
-        ((D * M, *block), entry (d, m) at d * M + m): each dim's blocks
-        joined in its axes' order (the first outermost, as ``shd.block``
-        lays them out), an axis the leaf does not split at its first
-        entry, and an axis the work spec keeps local (an expert stack's E
-        under EP) at this rank's own entry.  Blocks staged on the host go
-        to the device whole, and the device arranges them."""
-        def axes(entry) -> tuple:
-            if entry is None:
-                return ()
-            return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
-
-        spec, keep = self.pspec[path], self._work_spec(path, ep)
-        size = {"data": self.D, "model": self.M}
-        x = x.view(self.D, self.M, *x.shape[1:])
-        split = [axes(e) for e in spec]
-        kept = set()
-        for k, e in enumerate(keep):
-            if axes(e) and axes(e) != split[k]:
-                raise ValueError(f"{tr.path_str(path)}: work spec {keep} keeps part of "
-                                 f"{spec}'s dim {k}")
-            kept.update(axes(e))
-        mesh_axes = ["data", "model"]
-        for a in ("model", "data"):          # drop an axis: the last index first
-            if a in kept or not any(a in s for s in split):
-                x = x.select(mesh_axes.index(a),
-                             self.g.coords[a] if a in kept else 0)
-                mesh_axes.remove(a)
-        split = [tuple(a for a in s if a in mesh_axes) for s in split]
-        nm = len(mesh_axes)
-        order = [i for k, s in enumerate(split) for i in [*map(mesh_axes.index, s), nm + k]]
-        shape = [x.shape[nm + k] * int(np.prod([size[a] for a in s]))
-                 for k, s in enumerate(split)]
-        x = x.to(device).permute(order)
-        out = torch.empty(shape, dtype=x.dtype, device=device)
-        out.view(x.shape).copy_(x)
-        return out
+        work = shd.gather_whole([local[p] for p in paths], [self.pspec[p] for p in paths],
+                                [self._work_spec(p, ep) for p in paths], self.mesh, self.g)
+        return tr.unflatten_like(blocks, work)
 
     def _reduce_grads(self, grads, ep):
         """Sum over the data group (the router's over the model group

@@ -25,6 +25,13 @@ against the port's own real steps, on the CPU.
       around the real step over a 2x2 mesh of four gloo processes (reduced
       stablelm-1.6b, and reduced deepseek-v2 with its experts over
       ``model`` and, as the dry run gives it, int8 moments);
+      The opt prefill's cell on the same 2x2 fake mesh (reduced
+      stablelm-1.6b and deepseek-v2, 4 rows of 64 positions: 2 rows a
+      replica, 16 positions a rank) records ``ok``, and its collective
+      bytes by kind and by group, its ``scaled_dot_flops`` and its
+      argument bytes equal exactly what rank 0 counts around the real
+      sequence-parallel prefill (``serve/seq_parallel.SeqPrefill``) of the
+      same cell over the same four gloo processes;
   (g) one full-size cell, yi-6b ``decode_32k`` on the 16x16 production
       mesh, traces ``ok`` without allocating its inputs (the process's peak
       resident memory stays far below them);
@@ -56,6 +63,7 @@ B, S = 2, 64
 FWD_RTOL, TRAIN_RTOL = 0.01, 0.03
 TM_ARCHS = ("stablelm-1.6b", "deepseek-v2-236b")
 TM_BATCH, TM_SEQ = 4, 32
+SP_BATCH, SP_SEQ = 4, 64
 CELLS = [(a, s) for a in ALL_ARCHS for s in SHAPES]
 
 
@@ -221,10 +229,12 @@ from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.models import build_model
 from repro_torch.models import context as mctx
 from repro_torch.optim import AdamWConfig
+from repro_torch.serve.seq_parallel import SeqPrefill
 from repro_torch.train.train_step import build_train_step, dist_context_for, make_state
 rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 archs, B, S = json.loads(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6])
 quant = json.loads(sys.argv[7])
+SB, SS = int(sys.argv[8]), int(sys.argv[9])
 init_distributed(f"127.0.0.1:{port}", 4, rank, timeout=120)
 res = {}
 for arch in archs:
@@ -244,6 +254,18 @@ for arch in archs:
     seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tr.leaves(st)}
     res[arch] = dict(bytes=c.collective_bytes, groups=c.group_bytes,
                      state_bytes=sum(seen.values()))
+    # the opt prefill's cell: the sequence-parallel prefill of SB x SS
+    prog = SeqPrefill(b, mesh, SB, SS)
+    params = prog.place_params(b.init(0))
+    batch = prog.place_batch({"tokens": torch.as_tensor(
+        rng.integers(0, b.cfg.vocab, (SB, SS), dtype=np.int32))})
+    caches = prog.init_caches()
+    with hlo_analysis.collective_counter(prog.groups) as c, hlo_analysis.DotCounter() as dots:
+        prog(params, batch, caches)
+    args = (params.tree, batch, caches)
+    seen = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tr.leaves(args)}
+    res[arch + " prefill"] = dict(bytes=c.collective_bytes, groups=c.group_bytes,
+                                  flops=dots.costs.dot_flops, arg_bytes=sum(seen.values()))
 if rank == 0:
     json.dump(res, open(out, "w"))
 dist.destroy_process_group()
@@ -262,7 +284,8 @@ def real_mesh_step(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = [subprocess.Popen([sys.executable, "-c", RANK, str(r), port, str(out),
                                json.dumps(TM_ARCHS), str(TM_BATCH), str(TM_SEQ),
-                               json.dumps(sorted(dryrun.QUANT_OPT_STATE))],
+                               json.dumps(sorted(dryrun.QUANT_OPT_STATE)), str(SP_BATCH),
+                               str(SP_SEQ)],
                               env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(4)]
     try:
@@ -286,6 +309,21 @@ def test_mesh_collective_bytes_are_the_real_steps(real_mesh_step, arch):
     assert rec["collectives"]["total"] == sum(real["bytes"].values()) > 0
     assert rec["memory"]["argument_bytes"] == real["state_bytes"]
     if arch == "deepseek-v2-236b":          # its experts' tokens over 'model'
+        assert real["groups"]["model"]["all-to-all"] > 0
+
+
+@pytest.mark.parametrize("arch", TM_ARCHS)
+def test_opt_prefill_cell_is_the_real_seq_parallel_prefill(real_mesh_step, arch):
+    rec = dryrun.run_cell(arch, ShapeSpec("p", "prefill", SP_SEQ, SP_BATCH), variant="opt",
+                          mesh=(2, 2), cfg=reduced_config(arch))
+    real = real_mesh_step[arch + " prefill"]
+    assert rec["status"] == "ok" and rec["rows"] == SP_BATCH // 2
+    assert rec["scaled_collectives"] == {k: float(v) for k, v in real["bytes"].items()}
+    assert rec["collectives_by_group"] == real["groups"]
+    assert rec["scaled_dot_flops"] == real["flops"] > 0
+    assert rec["memory"]["argument_bytes"] == real["arg_bytes"]
+    assert real["groups"]["model"]["all-gather"] > 0       # the layers' K/V
+    if arch == "deepseek-v2-236b":      # the routed FFN's token groups and experts
         assert real["groups"]["model"]["all-to-all"] > 0
 
 
